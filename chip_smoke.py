@@ -8,9 +8,15 @@ Phases, each of which must pass (any failure raises and exits nonzero):
   1. environment: the card's name and power limit, torch/CUDA versions, the
      sm_90 check, and the build of every CUDA kernel from the sources in
      this checkout (one nvcc per source, in parallel);
-  2. every kernel against its plain PyTorch version on the card, at the
-     serving path's shapes in bf16 and at the JAX tests' small shapes in
-     f32, with kernel / plain / library times and the roofline bound;
+  2. every kernel against its plain PyTorch version on the card, with
+     kernel / plain / library times and the roofline bound: the serving
+     kernels at the serving path's shapes in bf16 and at the JAX tests'
+     small shapes in f32, the GEMM also at ResNet-18's fc (M=1, f32, bias);
+     the conv kernel at ResNet-18's 11 conv groups
+     (f32; bf16 at two), the JAX tests' sweep at every (bn, row_block) it
+     takes, each activation and VALID padding; the elementwise kernel at
+     ResNet-18's four residual shapes and on chains of every op in f32 and
+     bf16;
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
      role-tagged matmuls through the kernels: 16 requests, chunked and
@@ -18,9 +24,19 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      pool must drain, every kernel must have launched on this path, and the
      first tokens must match the same engine on the torch lanes wherever the
      reference's top-2 margin exceeds the stated tolerance;
-  4. one JSON line `{"kernels": [...]}` with each kernel's launches, error
+  4. the paper's pipeline on ResNet-18 (batch 1, 224 x 224, f32):
+     `optimize_graph`, `select` on wall-clock fitness with and without the
+     vendor lane (the §3.4 ablation), the per-operator race, both plans
+     held to the vendor lane by `Engine.verify_against_reference`, one
+     WPK-only forward that must launch the conv kernel 20 times and the
+     GEMM once, then, outside the engine (which runs its 8 residual chains
+     on ref_ops, as the JAX engine does), the elementwise kernel replaying
+     those chains on the engine's inputs, and the ms per image of three
+     lanes;
+  5. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+     path (the forward and the replayed chains are separate paths), error
      and times;
-  5. the last line `{"ok": true, "device": {...}}`.
+  6. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -39,12 +55,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and dense bf16
-# tensor-core rate; the bound of a call is the larger of bytes / HBM_BPS
-# and flops / BF16_FLOPS, with each input read once and each output
-# written once.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, dense bf16
+# tensor-core rate and FP32 CUDA-core rate; the bound of a call is the
+# larger of bytes / HBM_BPS and flops / the peak of the work's type
+# (BF16_FLOPS for bf16, F32_FLOPS for f32), with each input read once and
+# each output written once.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 L2_BYTES = 50 * 2**20
 DEVICE = "cuda"
 PREFILL_BLOCK_Q = 16     # rows per prefill CTA: 16 rows x G=2 heads fill a tile
@@ -77,8 +95,8 @@ def copies_for(nbytes):
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(1, nbytes))))
 
 
-def bound(nbytes, flops):
-    t_bytes, t_flops = nbytes / HBM_BPS, flops / BF16_FLOPS
+def bound(nbytes, flops, peak=BF16_FLOPS):
+    t_bytes, t_flops = nbytes / HBM_BPS, flops / peak
     return (1e3 * max(t_bytes, t_flops),
             "bytes" if t_bytes >= t_flops else "operations")
 
@@ -106,29 +124,35 @@ class Check:
             raise AssertionError(f"{self.name} {label}: non-finite output")
         return err
 
-    def timed(self, label, kernel_fns, plain_fns, library_fns, nbytes, flops):
+    def timed(self, label, kernel_fns, plain_fns, library_fns, nbytes, flops,
+              peak=BF16_FLOPS, weight=1):
+        """Time one shape; `weight` is how many times the main path runs
+        it (the record sums weight x each time)."""
         torch = sys.modules["torch"]
         k = time_ms(torch, kernel_fns)
         p = time_ms(torch, plain_fns)
         lib = time_ms(torch, library_fns) if library_fns else None
-        b, by = bound(nbytes, flops)
-        self.ms += k
-        self.plain_ms += p
+        b, by = bound(nbytes, flops, peak)
+        self.ms += weight * k
+        self.plain_ms += weight * p
         self.library_ms = None if lib is None or self.library_ms is None \
-            else self.library_ms + lib
-        self.bound_parts[0] += nbytes / HBM_BPS * 1e3
-        self.bound_parts[1] += flops / BF16_FLOPS * 1e3
-        self.bound_ms += b
+            else self.library_ms + weight * lib
+        self.bound_parts[0] += weight * nbytes / HBM_BPS * 1e3
+        self.bound_parts[1] += weight * flops / peak * 1e3
+        self.bound_ms += weight * b
         self.shapes.append(label)
-        log(f"  {self.name} {label}: kernel_ms {k:.4f} plain_ms {p:.4f} "
+        log(f"  {self.name} {label}{f' (x{weight} per pass)' if weight != 1 else ''}: "
+            f"kernel_ms {k:.4f} plain_ms {p:.4f} "
             f"library_ms {'n/a' if lib is None else f'{lib:.4f}'} "
             f"bound_ms {b:.4f} ({by}; {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP)")
 
-    def record(self, launches):
+    def record(self, paths):
+        """`paths`: {path name: launches of this kernel on that path}."""
         return {
             "name": self.name, "route": "cuda", "source": self.source,
-            "replaces": self.replaces, "launches": launches,
+            "replaces": self.replaces, "launches": sum(paths.values()),
+            "paths": paths,
             "max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
             "bound_ms": self.bound_ms,
             "bound_by": ("bytes" if self.bound_parts[0] >= self.bound_parts[1]
@@ -420,6 +444,23 @@ def check_matmul(torch, chk, cfg):
             tol = MM_RTOL_F32 * max(1.0, want.abs().max().item())
             chk.compare(f"f32 M={m} K={k} N={n} act={act} bias vs plain",
                         out, want, tol, "f32 summation order")
+    # ResNet-18's fc, the GEMM's launch on the WPK-only plan: M=1 f32 + bias
+    m, k, n = 1, 512, 1000
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
+    b = torch.randn((n,), generator=g, device=dev) * 0.1
+    want = R.matmul_ref(x, w, b, None)
+    chk.err = max(chk.err, chk.compare(
+        f"resnet18 fc M={m} K={k} N={n} act=None f32 bias vs plain",
+        KM.matmul_fused(x, w, b, None), want,
+        MM_RTOL_F32 * max(1.0, want.abs().max().item()), "f32 summation order"))
+    ws = [w] + [w.clone() for _ in range(copies_for(w.numel() * 4) - 1)]
+    chk.timed(f"resnet18 fc M={m} K={k} N={n} act=None f32 bias "
+              "(library: torch.addmm)",
+              [lambda wq=wq: KM.matmul_fused(x, wq, b, None) for wq in ws],
+              [lambda wq=wq: R.matmul_ref(x, wq, b, None) for wq in ws],
+              [lambda wq=wq: torch.addmm(b, x, wq) for wq in ws],
+              4 * (m * k + k * n + n + m * n), 2 * m * n * k, F32_FLOPS)
     # bf16 edges the serving shapes never reach: K and N not multiples of 8
     # (element-wise tile loads), bias, and M between the two tile heights
     for (m, k, n) in ((37, 70, 53), (20, 2048, 1000)):
@@ -432,6 +473,199 @@ def check_matmul(torch, chk, cfg):
         chk.compare(f"bf16 M={m} K={k} N={n} act=gelu bias vs plain",
                     KM.matmul_fused(x, w, b, "gelu"), want, tol,
                     "f32 summation order, one bf16 rounding")
+
+
+# Conv and elementwise tolerances.  The conv's plain version has the
+# kernel's arithmetic (f32 products of the same inputs, f32 sums, bias and
+# activation in f32, one rounding), computed by cuDNN with TF32 off: in f32
+# the two differ by summation order over K = Kh·Kw·Cin <= 4608 terms,
+# bounded by 5e-5 x max(1, max |ref|); in bf16 by one rounding of the
+# output, 1e-2 x max(1, max |ref|) (2^-7 relative).  The elementwise chain
+# computes each stage in f32 and rounds after it, as the plain version
+# does: f32 results differ only where libm differs (expf / tanhf, a few
+# ulps), 1e-5 x max(1, max |ref|); bf16 results by at most a bf16 ulp
+# flipped at one stage and carried through the rest of the chain,
+# 2e-2 x max(1, max |ref|).
+CONV_RTOL_F32 = 5e-5
+CONV_RTOL_BF16 = 1e-2
+ELT_RTOL_F32 = 1e-5
+ELT_RTOL_BF16 = 2e-2
+# the sweep of tests/test_kernels.py::test_conv2d_kernel_sweep:
+# (k, stride, cin, cout) on a (2, 16, 16, cin) input
+CONV_SWEEP = [(1, 1, 8, 16), (3, 1, 16, 32), (3, 2, 16, 32), (5, 2, 4, 8),
+              (7, 2, 3, 16)]
+
+
+def _conv_inputs(torch, g, n, h, w, cin, cout, k, dtype):
+    x = torch.randn((n, h, w, cin), generator=g, device=DEVICE).to(dtype)
+    wt = (torch.randn((k, k, cin, cout), generator=g, device=DEVICE)
+          / math.sqrt(k * k * cin)).to(dtype)
+    b = torch.randn((cout,), generator=g, device=DEVICE) * 0.1
+    return x, wt, b
+
+
+def _rel_tol(rtol, want):
+    return rtol * max(1.0, want.float().abs().max().item())
+
+
+def resnet_conv_shapes(batch=1, image=224):
+    """[(group name, OpDesc in f32, occurrences in one forward)] of
+    ResNet-18's 11 conv groups."""
+    from repro_torch.core import optimize_graph, op_desc_of
+    from repro_torch.core.schedules import OpDesc
+    from repro_torch.models.resnet import conv_groups, resnet18_graph
+
+    gopt = optimize_graph(resnet18_graph(batch=batch, image=image))
+    dims = [op_desc_of(gopt, n).dims for n in gopt.nodes if n.op == "fused_conv2d"]
+    return [(name, OpDesc.make("conv2d", op.d, "float32"), dims.count(op.dims))
+            for name, op in conv_groups(batch, image)]
+
+
+def _fastest_conv_config(torch, KC, x, w, b, d):
+    best = None
+    for bn in KC.BN_CHOICES:
+        for rb in KC.ROW_BLOCKS:
+            if KC.geometry(d["n"], d["h"], d["w"], d["cin"], d["cout"], d["kh"],
+                           d["kw"], d["stride"], "SAME", bn, rb) is None:
+                continue
+            ms = time_ms(torch, [lambda bn=bn, rb=rb: KC.conv2d_direct(
+                x, w, b, stride=d["stride"], padding="SAME", bn=bn, row_block=rb,
+                activation="relu")], iters=10)
+            if best is None or ms < best[0]:
+                best = (ms, {"bn": bn, "row_block": rb})
+    return best[1]
+
+
+def check_conv2d(torch, chk):
+    from repro_torch.kernels import conv2d as KC
+    from repro_torch.kernels import ref as R
+
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    # ResNet-18's 11 conv groups at batch 1, f32, bias + relu, each at the
+    # (bn, row_block) of least device time among all the kernel takes
+    # (back-to-back launches; the plan's search in phase 4 times single
+    # calls, host included); timed per group and summed over the 20 convs
+    # of a forward
+    for name, op, count in resnet_conv_shapes():
+        d = op.d
+        x, w, b = _conv_inputs(torch, g, d["n"], d["h"], d["w"], d["cin"],
+                               d["cout"], d["kh"], torch.float32)
+        cfg = _fastest_conv_config(torch, KC, x, w, b, d)
+
+        def kern(x=x, w=w, d=d, cfg=cfg, b=b):
+            return KC.conv2d_direct(x, w, b, stride=d["stride"], padding="SAME",
+                                    activation="relu", **cfg)
+
+        out, want = kern(), R.conv2d_ref(x, w, b, d["stride"], "SAME", "relu")
+        label = (f"{name} {d['h']}x{d['w']}x{d['cin']} -> {d['cout']} "
+                 f"k{d['kh']}/s{d['stride']} bn={cfg['bn']} row_block={cfg['row_block']}")
+        chk.err = max(chk.err, chk.compare(
+            f"{label} f32 vs plain", out, want, _rel_tol(CONV_RTOL_F32, want),
+            "f32 summation order"))
+        copies = copies_for((x.numel() + w.numel()) * 4)
+        ins = [(x, w)] + [(x.clone(), w.clone()) for _ in range(copies - 1)]
+        kfns = [lambda x=xi, w=wi, d=d, cfg=cfg: KC.conv2d_direct(
+            x, w, b, stride=d["stride"], padding="SAME", activation="relu", **cfg)
+            for xi, wi in ins]
+        pfns = [lambda x=xi, w=wi, d=d: R.conv2d_ref(x, w, b, d["stride"], "SAME", "relu")
+                for xi, wi in ins]
+        # library: cuDNN on the same input pre-padded at the TF offsets,
+        # channels-last (no layout copy), bias in the call, then relu
+        (pt, pb), (pl, pr) = (R.same_pads(d["h"], d["kh"], d["stride"]),
+                              R.same_pads(d["w"], d["kw"], d["stride"]))
+        lins = [(F.pad(xi.permute(0, 3, 1, 2), (pl, pr, pt, pb)).contiguous(
+                    memory_format=torch.channels_last),
+                 wi.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2))
+                for xi, wi in ins]
+        lfns = [lambda x=xi, w=wi, d=d: torch.relu(F.conv2d(x, w, b, stride=d["stride"]))
+                for xi, wi in lins]
+        nbytes = 4 * (x.numel() + w.numel() + b.numel() + out.numel())
+        chk.timed(f"{label} f32 bias+relu (library: F.conv2d via cuDNN, "
+                  "pre-padded channels-last input, + relu)",
+                  kfns, pfns, lfns, nbytes, op.flops(), F32_FLOPS, weight=count)
+        if name in ("c1", "c3"):      # the stem and a 3x3/s2 group in bf16
+            xb, wb = x.bfloat16(), w.bfloat16()
+            out = KC.conv2d_direct(xb, wb, b, stride=d["stride"], padding="SAME",
+                                   activation="relu", **cfg)
+            want = R.conv2d_ref(xb, wb, b, d["stride"], "SAME", "relu")
+            chk.err = max(chk.err, chk.compare(
+                f"{label} bf16 vs plain", out, want,
+                _rel_tol(CONV_RTOL_BF16, want), "one bf16 rounding"))
+
+    # the JAX kernel tests' sweep at every (bn, row_block) the kernel
+    # takes, then each activation, VALID padding and a ragged Cout
+    for k, stride, cin, cout in CONV_SWEEP:
+        x, w, b = _conv_inputs(torch, g, 2, 16, 16, cin, cout, k, torch.float32)
+        want = R.conv2d_ref(x, w, b, stride, "SAME", "relu")
+        tol = _rel_tol(CONV_RTOL_F32, want)
+        n_cfg = 0
+        for bn in KC.BN_CHOICES:
+            for rb in KC.ROW_BLOCKS:
+                if KC.geometry(2, 16, 16, cin, cout, k, k, stride, "SAME", bn, rb) is None:
+                    continue
+                got = KC.conv2d_direct(x, w, b, stride=stride, padding="SAME",
+                                       bn=bn, row_block=rb, activation="relu")
+                err = (got - want).abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(f"conv2d sweep k{k}/s{stride} {cin}->{cout} "
+                                         f"bn={bn} rb={rb}: error {err} > {tol}")
+                n_cfg += 1
+        log(f"  {chk.name} sweep k{k}/s{stride} {cin}->{cout} (2,16,16): "
+            f"{n_cfg} (bn, row_block) configs within {tol:.1e} (f32 summation order)")
+    x, w, b = _conv_inputs(torch, g, 2, 15, 13, 24, 40, 3, torch.float32)
+    for act in ("none", "gelu", "silu", "tanh", "sigmoid"):
+        for padding, stride in (("SAME", 1), ("VALID", 2)):
+            want = R.conv2d_ref(x, w, b, stride, padding, act)
+            chk.compare(f"f32 (2,15,13,24)->40 k3/s{stride} {padding} act={act} bn=32 rb=2",
+                        KC.conv2d_direct(x, w, b, stride=stride, padding=padding,
+                                         bn=32, row_block=2, activation=act),
+                        want, _rel_tol(CONV_RTOL_F32, want), "f32 summation order")
+    want = R.conv2d_ref(x, w, None)
+    chk.compare("f32 no bias, bn=64 over Cout 40",
+                KC.conv2d_direct(x, w, None, bn=64, row_block=1), want,
+                _rel_tol(CONV_RTOL_F32, want), "f32 summation order")
+
+
+RESIDUAL_SHAPES = [(1, 64, 56, 56), (1, 128, 28, 28), (1, 256, 14, 14),
+                   (1, 512, 7, 7)]
+ALL_OP_CHAINS = [["add", "gelu", "mul", "silu", "sub", "tanh", "div", "sigmoid"],
+                 ["identity", "relu", "add", "tanh"]]
+
+
+def check_fused(torch, chk):
+    from repro_torch.kernels import fused as KF
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    chain = [{"op": "add"}, {"op": "relu"}]
+    for shape in RESIDUAL_SHAPES:
+        x = torch.randn(shape, generator=g, device=DEVICE)
+        e = torch.randn(shape, generator=g, device=DEVICE)
+        out, want = KF.fused_elementwise(x, chain, [e]), R.fused_elementwise_ref(x, chain, [e])
+        chk.err = max(chk.err, chk.compare(
+            f"residual add+relu {shape} f32 vs plain", out, want,
+            _rel_tol(ELT_RTOL_F32, want), "same f32 ops"))
+        ins = [(x, e)] + [(x.clone(), e.clone()) for _ in range(copies_for(8 * x.numel()) - 1)]
+        kfns = [lambda x=xi, e=ei: KF.fused_elementwise(x, chain, [e]) for xi, ei in ins]
+        pfns = [lambda x=xi, e=ei: R.fused_elementwise_ref(x, chain, [e]) for xi, ei in ins]
+        chk.timed(f"residual add+relu {shape} f32 (no single library call)",
+                  kfns, pfns, None, 3 * 4 * x.numel(), 2 * x.numel(), F32_FLOPS,
+                  weight=2)
+    # every op, and a length that is not a multiple of 128 (3 x 50 x 33)
+    for dtype, rtol in ((torch.float32, ELT_RTOL_F32), (torch.bfloat16, ELT_RTOL_BF16)):
+        for ops in ALL_OP_CHAINS:
+            n_extra = sum(op in KF.BINARY_CODES for op in ops)
+            x = torch.randn((3, 50, 33), generator=g, device=DEVICE).to(dtype)
+            extras = [(torch.rand((3, 50, 33), generator=g, device=DEVICE) + 0.5).to(dtype)
+                      for _ in range(n_extra)]
+            chain = [{"op": op} for op in ops]
+            want = R.fused_elementwise_ref(x, chain, extras)
+            chk.err = max(chk.err, chk.compare(
+                f"{'+'.join(ops)} (3,50,33) {str(dtype)[6:]} vs plain",
+                KF.fused_elementwise(x, chain, extras), want,
+                _rel_tol(rtol, want),
+                "libm ulps" if dtype == torch.float32 else "a bf16 ulp carried"))
 
 
 # -------------------------------------------------------------- phase 3
@@ -580,8 +814,179 @@ def phase_serve(torch, cfg, block_q, profile=False):
     return launches, summary
 
 
+# -------------------------------------------------------------- phase 4
+# The paper's pipeline on ResNet-18 (batch 1, 3x224x224, f32, random
+# weights from seed 0): optimize_graph, select twice on wall-clock fitness
+# (the full race against cuDNN / cuBLAS, and the WPK-only ablation), then
+# the Engine under each plan.  Both plans are held to the vendor lane of
+# the same graph (TF32 off) at WPK_TOL: f32 with the summation order of
+# every conv changed, ~1e-5 relative over 20 layers expected; 1e-3 is far
+# above that and far below what a padding or layout fault gives.
+WPK_TOL = 1e-3
+FORWARD_REPEATS = 50
+
+
+def _forward_ms(torch, engines, x, repeats=FORWARD_REPEATS, warmup=3):
+    """{label: median ms of one forward}, CUDA events around each forward;
+    the engines take turns forward by forward, so drift in clocks or host
+    load falls on all of them alike."""
+    for _ in range(warmup):
+        for eng in engines.values():
+            eng(x)
+    torch.cuda.synchronize()
+    pairs = {label: [] for label in engines}
+    for _ in range(repeats):
+        for label, eng in engines.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eng(x)
+            end.record()
+            pairs[label].append((start, end))
+    torch.cuda.synchronize()
+    out = {}
+    for label, ps in pairs.items():
+        times = sorted(s.elapsed_time(e) for s, e in ps)
+        out[label] = times[len(times) // 2]
+    return out
+
+
+def phase_wpk(torch, profile=False):
+    from repro_torch.core import (Engine, Tuner, WallClockFitness, default_registry,
+                                  op_desc_of, optimize_graph, ref_ops, roofline_bound,
+                                  select)
+    from repro_torch.kernels import conv2d as KC
+    from repro_torch.kernels import fused as KF
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.resnet import resnet18_graph
+
+    g = resnet18_graph(batch=1, image=224, seed=0)
+    t0 = time.perf_counter()
+    gopt = optimize_graph(g)
+    log(f"optimize_graph: {time.perf_counter() - t0:.2f} s; {gopt.op_histogram()}")
+    fitness = WallClockFitness(device=DEVICE)
+    tuner = Tuner(fitness=fitness, methods=("genetic",))
+    plans = {}
+    for label, third_party in (("race", True), ("wpk_only", False)):
+        t0 = time.perf_counter()
+        plans[label] = select(gopt, tuner=tuner, dtype="float32", third_party=third_party)
+        log(f"select third_party={third_party}: {time.perf_counter() - t0:.2f} s wall; "
+            f"backends {plans[label].backend_histogram()}; fitness calls "
+            f"{fitness.evals}, distinct measurements {fitness.measured} so far")
+
+    # the per-group race (paper Figure 2b): one row per distinct operator
+    groups = {op.dims: name for name, op, _ in resnet_conv_shapes()}
+    rows = {}
+    for node in gopt.nodes:
+        op = op_desc_of(gopt, node, "float32")
+        if op is None:
+            continue
+        key = op.signature()
+        if key not in rows:
+            c = plans["race"].choices[node.name]
+            rows[key] = [groups.get(op.dims, op.kind), op, c, 0]
+        rows[key][3] += 1
+    log("per operator: group, shape, act, nodes, vendor ms, kernel ms (config), "
+        "winner, bound ms (f32 peak)")
+    for name, op, c, count in rows.values():
+        d = op.d
+        shape = (f"{d['h']}x{d['w']}x{d['cin']}->{d['cout']} k{d['kh']}/s{d['stride']}"
+                 if op.kind == "conv2d" else f"{d['m']}x{d['k']}->{d['n']}")
+        kname = "pallas_conv2d" if op.kind == "conv2d" else "pallas_matmul"
+        cfg = plans["wpk_only"].choices[op.label].config
+        log(f"  {name:4s} {shape:26s} act={op.activation} x{count}: vendor "
+            f"{1e3 * c.candidates['xla']:.4f} kernel {1e3 * c.candidates[kname]:.4f} "
+            f"({cfg}) winner {c.backend} bound {1e3 * roofline_bound(op):.4f}")
+    # what laying the vendor lane's conv weights out once saves: each
+    # operator's vendor lane re-timed now, with the laid-out weight and with
+    # the graph's HWIO weight that PyTorch copies to channels_last per call
+    vendor_sum = [0.0, 0.0]
+    for name, op, c, count in rows.values():
+        if op.kind != "conv2d":
+            continue
+        x, w, b = fitness.inputs(op)
+        attrs = {"stride": op.d["stride"], "layout": "NHWC", "activation": op.activation,
+                 "padding": "SAME" if op.d["pad"] else "VALID"}
+        laid = fitness.time(fitness.vendor_runner(op))
+        hwio = fitness.time(lambda: ref_ops.run_op("fused_conv2d", [x, w, b], attrs))
+        vendor_sum[0] += count * laid
+        vendor_sum[1] += count * hwio
+    log(f"vendor lane, 20 convs of a forward, one call each: weights laid out once "
+        f"{1e3 * vendor_sum[0]:.4f} ms, HWIO weights converted per call "
+        f"{1e3 * vendor_sum[1]:.4f} ms")
+
+    x = torch.randn((1, 3, 224, 224), generator=torch.Generator(device=DEVICE).manual_seed(6),
+                    device=DEVICE)
+    reg = default_registry()
+    engines = {"torch lanes (no plan)": Engine(gopt, None, None, device=DEVICE),
+               "race plan": Engine(gopt, plans["race"], reg, device=DEVICE),
+               "WPK-only plan": Engine(gopt, plans["wpk_only"], reg, device=DEVICE)}
+    for label in ("race plan", "WPK-only plan"):
+        err = engines[label].verify_against_reference(x, rtol=WPK_TOL, atol=WPK_TOL)
+        log(f"[{label}] verify_against_reference: max |err| {err:.3e} "
+            f"(rtol = atol = {WPK_TOL:.0e}) ok")
+    ref_unopt = Engine(g, None, None, device=DEVICE)(x)[0]
+
+    # the main path: one forward under the WPK-only plan (the engine runs
+    # the convs and the fc on the kernels, its 8 fused_elementwise nodes on
+    # ref_ops as the JAX engine does); then, outside the engine, the fused
+    # kernel replays those 8 chains on the inputs the engine fed them
+    counters = (KC.conv2d_direct, KM.matmul_fused, KF.fused_elementwise)
+    for fn in counters:
+        fn.launches = 0
+    env = engines["WPK-only plan"].run_env(x)
+    torch.cuda.synchronize()
+    forward = {fn.__name__: fn.launches for fn in counters}
+    KF.fused_elementwise.launches = 0
+    logits = env[gopt.outputs[0]]
+    fused_nodes = [n for n in gopt.nodes if n.op == "fused_elementwise"]
+    fused_err = 0.0
+    for node in fused_nodes:
+        ins = [env[t] for t in node.inputs]
+        got = kops.fused_elementwise(ins[0], node.attrs["chain"], ins[1:])
+        want = env[node.outputs[0]]
+        fused_err = max(fused_err, (got - want).abs().max().item())
+    torch.cuda.synchronize()
+    replay = {"fused_elementwise": KF.fused_elementwise.launches}
+    log(f"launches on the WPK-only forward: {forward}; replaying its "
+        f"{len(fused_nodes)} fused chains outside the engine: {replay}")
+    if forward != {"conv2d_direct": 20, "matmul_fused": 1, "fused_elementwise": 0} \
+            or replay != {"fused_elementwise": 8} or len(fused_nodes) != 8:
+        raise AssertionError(f"launches {forward} / {replay}: want conv 20, "
+                             "GEMM 1 on the forward, 8 replayed chains")
+    if fused_err > 0.0:
+        raise AssertionError(f"fused kernel vs the engine's chains: {fused_err}")
+    log(f"fused kernel reproduces the engine's {len(fused_nodes)} residual chains "
+        "exactly (f32 add + relu)")
+    if logits.shape != (1, 1000) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    d_unopt = (logits - ref_unopt).abs().max().item()
+    if not d_unopt <= WPK_TOL * max(1.0, ref_unopt.abs().max().item()):
+        raise AssertionError(f"optimized graph vs unoptimized: {d_unopt}")
+    log(f"logits (1, 1000) finite; WPK-only vs the unoptimized graph on the "
+        f"torch lanes: max |diff| {d_unopt:.3e} (max |logit| "
+        f"{ref_unopt.abs().max().item():.3f})")
+
+    for label, ms in _forward_ms(torch, engines, x).items():
+        log(f"[{label}] one forward: {ms:.4f} ms/image (median of {FORWARD_REPEATS}, "
+            "CUDA events, lanes in turn)")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        for label, eng in engines.items():
+            with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(FORWARD_REPEATS):
+                    eng(x)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            _log_device_profile(prof, wall, f"{label}, {FORWARD_REPEATS} forwards")
+    del forward["fused_elementwise"]
+    return {"wpk_resnet18_forward": forward, "wpk_resnet18_chains_replayed": replay}
+
+
 def _log_device_profile(prof, wall_s, label):
-    """Device time by kernel over a serving run (torch.profiler, CUDA
+    """Device time by kernel over a traced run (torch.profiler, CUDA
     activity only), and the device's busy share of the run's wall time."""
     rows = []
     for e in prof.key_averages():
@@ -608,10 +1013,11 @@ def _leaves(tree):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace both serving runs with torch.profiler and "
-                         "print device time by kernel")
+                    help="trace both serving runs and the ResNet-18 forwards "
+                         "with torch.profiler and print device time by kernel")
     ap.add_argument("--skip-serve", action="store_true",
-                    help="stop after the kernel checks (no result line)")
+                    help="stop after the kernel checks (no result line); "
+                         "skips phases 3 and 4")
     args = ap.parse_args()
 
     import torch
@@ -622,6 +1028,8 @@ def main() -> int:
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import attention as KA
+        from repro_torch.kernels import conv2d as KC
+        from repro_torch.kernels import fused as KF
         from repro_torch.kernels import matmul as KM
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e})", file=sys.stderr)
@@ -638,20 +1046,30 @@ def main() -> int:
               "src/repro/kernels/attention.py:294", KA.paged_prefill_attention),
         Check("matmul_fused", "src/repro_torch/kernels/csrc/matmul.cu",
               "src/repro/kernels/matmul.py:57", KM.matmul_fused),
+        Check("conv2d_direct", "src/repro_torch/kernels/csrc/conv2d.cu",
+              "src/repro/kernels/conv2d.py:61", KC.conv2d_direct),
+        Check("fused_elementwise", "src/repro_torch/kernels/csrc/fused_elementwise.cu",
+              "src/repro/kernels/fused.py:40", KF.fused_elementwise),
     ]
     log("== kernels against their plain versions")
     check_decode(torch, checks[0])
     check_prefill(torch, checks[1], PREFILL_BLOCK_Q)
     check_matmul(torch, checks[2], get_config("qwen3-1.7b"))
+    check_conv2d(torch, checks[3])
+    check_fused(torch, checks[4])
     torch.cuda.synchronize()
     if args.skip_serve:
         log("--skip-serve: stopping after the kernel checks")
         return 3
 
     log("== serving qwen3-1.7b through ContinuousEngine")
-    launches, _ = phase_serve(torch, get_config("qwen3-1.7b"), PREFILL_BLOCK_Q,
-                              args.profile)
-    kernels = [c.record(launches[c.fn.__name__]) for c in checks]
+    serve, _ = phase_serve(torch, get_config("qwen3-1.7b"), PREFILL_BLOCK_Q,
+                           args.profile)
+    log("== the paper's pipeline on ResNet-18 (optimize_graph, select, Engine)")
+    wpk = phase_wpk(torch, args.profile)
+    paths = {"serve_qwen3_1_7b": serve, **wpk}
+    kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
+                         if c.fn.__name__ in n}) for c in checks]
     print(json.dumps({"kernels": kernels}))
     print(smi)                       # the card's name and power limit
     print(json.dumps({"ok": True, "device": {

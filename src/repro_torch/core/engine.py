@@ -1,0 +1,119 @@
+"""Runtime engine (paper §2), the port of `repro.core.engine`: "collects
+the operator functions generated by automated searches, and drives the
+data flow expressed by the optimized graph to complete inference."
+
+`Engine(graph, plan, registry, device)` runs the toposorted graph eagerly
+on one device; the graph's constants move there once, at construction.
+Backends, as the JAX registry routes them:
+
+  'xla'            -> repro_torch.core.ref_ops (the vendor lane: PyTorch,
+                      cuDNN / cuBLAS on the GPU)
+  'pallas_matmul'  -> kernels.ops.matmul (csrc/matmul.cu)
+  'pallas_conv2d'  -> kernels.ops.conv2d (csrc/conv2d.cu)
+
+`fused_elementwise` nodes run through ref_ops, as in the JAX engine;
+`pallas_attention` waits for the attention kernel's port.  The weight
+of an NHWC conv on the vendor lane is laid out once, at construction, as
+cuDNN reads it (`ref_ops.nhwc_conv_weight`), not on every call.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import ref_ops
+from repro_torch.core.graph import Graph
+from repro_torch.core.plan import InferencePlan
+from repro_torch.platform import DeviceLike, resolve_device
+
+# backend -> fn(inputs: list[Tensor], attrs, config) -> Tensor
+BackendRegistry = Dict[str, Callable]
+
+
+def default_registry() -> BackendRegistry:
+    """Registry with the vendor lane plus every ported kernel template."""
+    from repro_torch.kernels import ops as kops
+
+    return {
+        "xla": None,  # resolved per op via ref_ops
+        "pallas_matmul": lambda inputs, attrs, config: kops.matmul(
+            *inputs, config=config, activation=attrs.get("activation")),
+        "pallas_conv2d": lambda inputs, attrs, config: kops.conv2d(
+            *inputs, stride=attrs.get("stride", 1),
+            padding=attrs.get("padding", "SAME"),
+            layout=attrs.get("layout", "NCHW"),
+            activation=attrs.get("activation"), config=config),
+    }
+
+
+class Engine:
+    def __init__(
+        self,
+        graph: Graph,
+        plan: Optional[InferencePlan] = None,
+        registry: Optional[BackendRegistry] = None,
+        device: DeviceLike = None,
+    ):
+        graph.validate()
+        self.graph = graph
+        self.plan = plan
+        self.registry = registry
+        self.device = resolve_device(device)
+        self._order = graph.toposort()
+        self._consts = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                        for k, v in graph.constants.items()}
+        vendor_w, other = set(), set()
+        for node in self._order:
+            vendor_conv = (node.op in ("conv2d", "fused_conv2d")
+                           and node.attrs.get("layout") == "NHWC"
+                           and self._lane(node) is None)
+            for i, t in enumerate(node.inputs):
+                (vendor_w if vendor_conv and i == 1 else other).add(t)
+        for name in (vendor_w - other) & self._consts.keys():
+            self._consts[name] = ref_ops.nhwc_conv_weight(self._consts[name])
+
+    def _lane(self, node):
+        """The registry function that runs `node`, or None for ref_ops."""
+        choice = self.plan.choice(node.name) if self.plan else None
+        if choice is not None and choice.backend != "xla" and self.registry:
+            return self.registry[choice.backend]
+        return None
+
+    def run_env(self, *args) -> Dict[str, torch.Tensor]:
+        """Run the graph; returns every tensor it computed, by name (inputs
+        may be tensors or numpy arrays; they are moved to the device)."""
+        names = self.graph.inputs
+        if len(args) != len(names):
+            raise ValueError(f"expected {len(names)} inputs {names}")
+        env: Dict[str, Any] = dict(self._consts)
+        env.update((n, torch.as_tensor(a, device=self.device))
+                   for n, a in zip(names, args))
+        for node in self._order:
+            ins = [env[t] for t in node.inputs]
+            lane = self._lane(node)
+            if lane is not None:
+                out = lane(ins, node.attrs, self.plan.choice(node.name).config)
+            else:
+                out = ref_ops.run_op(node.op, ins, node.attrs)
+            env[node.outputs[0]] = out
+        return env
+
+    def __call__(self, *args) -> List[torch.Tensor]:
+        env = self.run_env(*args)
+        return [env[o] for o in self.graph.outputs]
+
+    def verify_against_reference(self, *args, rtol=2e-2, atol=2e-2) -> float:
+        """Every optimized plan must be numerically equivalent to the same
+        graph on the vendor lane.  Returns the max abs error; raises
+        AssertionError past the tolerance."""
+        ref = Engine(self.graph, device=self.device)(*args)
+        got = self(*args)
+        max_err = 0.0
+        for r, g in zip(ref, got):
+            r, g = r.float().cpu().numpy(), g.float().cpu().numpy()
+            np.testing.assert_allclose(g, r, rtol=rtol, atol=atol)
+            max_err = max(max_err, float(np.max(np.abs(g - r))))
+        return max_err

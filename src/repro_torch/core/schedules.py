@@ -1,0 +1,225 @@
+"""Schedule templates (paper §2.2), respaced for the port's Hopper kernels.
+
+The paper's semi-automatic approach: "pre-defines one or more schedule
+templates for a given algorithm, then exposes a set of tunable
+hyper-parameters ... and finally exploits automated search in the tunable
+parameter space".  A template here names the knobs one hand-written CUDA
+kernel reads at launch, and nothing else: the paper's CUDA thread-block
+and per-thread tile dims become the conv kernel's output-channel tile `bn`
+and its output rows per block `row_block`.
+
+The validity constraint is the paper's own kind ("total threads per block
+<= 1024"): `Template.validate` checks a configuration against the kernel's
+launch geometry and the chip's limits from `repro_torch.hw.H100` — shared
+memory per block and threads per block; registers are fixed at compile
+time by the kernel's launch bounds (`kernels.conv2d.geometry`) — and the
+searches only ever propose valid configurations (§2.3 Step1 "any randomly
+generated configuration will be verified first").
+
+`OpDesc` and the `Template` base are copies of `repro.core.schedules`, so
+an operator's `signature()` — the search cache's and the plan's key — is
+the same in both packages.  The TPU kernels' flash-attention template is
+not registered until that kernel is ported: `select` races attention nodes
+on the vendor lane only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import json
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch import hw
+from repro_torch.kernels import conv2d as conv_kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class OpDesc:
+    """Hardware-relevant description of one operator instance.
+
+    kind: 'matmul' | 'conv2d' | 'attention' | 'attention_decode'
+    dims: kind-specific dims dict (see the templates below)
+    dtype: compute dtype
+    """
+
+    kind: str
+    dims: Tuple[Tuple[str, int], ...]
+    dtype: str = "bfloat16"
+    activation: Optional[str] = None
+    label: str = ""
+
+    @staticmethod
+    def make(kind: str, dims: Dict[str, int], dtype: str = "bfloat16",
+             activation: Optional[str] = None, label: str = "") -> "OpDesc":
+        return OpDesc(kind, tuple(sorted(dims.items())), dtype, activation, label)
+
+    @property
+    def d(self) -> Dict[str, int]:
+        return dict(self.dims)
+
+    def signature(self) -> str:
+        return json.dumps(
+            [self.kind, list(self.dims), self.dtype, self.activation], sort_keys=True
+        )
+
+    @staticmethod
+    def matmul(m: int, n: int, k: int, dtype="bfloat16", activation=None, label="") -> "OpDesc":
+        return OpDesc.make("matmul", {"m": m, "n": n, "k": k}, dtype, activation, label)
+
+    @staticmethod
+    def conv2d(n, h, w, cin, cout, kh, kw, stride=1, padding="SAME",
+               dtype="bfloat16", activation=None, label="") -> "OpDesc":
+        pad = 1 if padding == "SAME" else 0
+        oh = h // stride if pad else (h - kh) // stride + 1
+        ow = w // stride if pad else (w - kw) // stride + 1
+        return OpDesc.make(
+            "conv2d",
+            {"n": n, "h": h, "w": w, "cin": cin, "cout": cout, "kh": kh,
+             "kw": kw, "stride": stride, "pad": pad, "oh": oh, "ow": ow},
+            dtype, activation, label)
+
+    @staticmethod
+    def attention(b, q, kv, heads, head_dim, dtype="bfloat16", label="") -> "OpDesc":
+        return OpDesc.make(
+            "attention", {"b": b, "q": q, "kv": kv, "h": heads, "d": head_dim},
+            dtype, None, label)
+
+    def gemm_view(self) -> Tuple[int, int, int]:
+        """(M, N, K) of the underlying GEMM (implicit GEMM for conv)."""
+        d = self.d
+        if self.kind == "matmul":
+            return d["m"], d["n"], d["k"]
+        if self.kind == "conv2d":
+            return d["n"] * d["oh"] * d["ow"], d["cout"], d["kh"] * d["kw"] * d["cin"]
+        if self.kind == "attention":
+            # dominant GEMM: (b*h) batched q x kv
+            return d["b"] * d["h"] * d["q"], d["kv"], d["d"]
+        raise ValueError(self.kind)
+
+    def flops(self) -> float:
+        d = self.d
+        if self.kind == "attention":
+            return 4.0 * d["b"] * d["h"] * d["q"] * d["kv"] * d["d"]
+        m, n, k = self.gemm_view()
+        return 2.0 * m * n * k
+
+    def io_bytes(self) -> int:
+        """Minimum HBM traffic: read inputs once + write output once."""
+        d = self.d
+        item = hw.itemsize(self.dtype)
+        if self.kind == "matmul":
+            return item * (d["m"] * d["k"] + d["k"] * d["n"] + d["m"] * d["n"])
+        if self.kind == "conv2d":
+            return item * (
+                d["n"] * d["h"] * d["w"] * d["cin"]
+                + d["kh"] * d["kw"] * d["cin"] * d["cout"]
+                + d["n"] * d["oh"] * d["ow"] * d["cout"]
+            )
+        if self.kind == "attention":
+            return item * (
+                3 * d["b"] * d["q"] * d["h"] * d["d"]  # q + out (+v-ish)
+                + 2 * d["b"] * d["kv"] * d["h"] * d["d"]
+            )
+        raise ValueError(self.kind)
+
+    def arithmetic_intensity(self) -> float:
+        return self.flops() / max(1, self.io_bytes())
+
+
+Config = Dict[str, Any]
+
+
+class Template:
+    """Base schedule template: a named, finite tunable-parameter space."""
+
+    name: str = "base"
+    kinds: Tuple[str, ...] = ()
+
+    def space(self, op: OpDesc) -> Dict[str, List[Any]]:
+        raise NotImplementedError
+
+    def validate(self, op: OpDesc, cfg: Config, chip: hw.Chip = hw.H100) -> bool:
+        raise NotImplementedError
+
+    # ---- encoding helpers shared by GA / RL / random searches ----------
+    def axes(self, op: OpDesc) -> List[Tuple[str, List[Any]]]:
+        return sorted(self.space(op).items())
+
+    def encode(self, op: OpDesc, cfg: Config) -> List[int]:
+        return [choices.index(cfg[k]) for k, choices in self.axes(op)]
+
+    def decode(self, op: OpDesc, vec: Sequence[int]) -> Config:
+        return {k: choices[v % len(choices)] for (k, choices), v in zip(self.axes(op), vec)}
+
+    def random_config(self, op: OpDesc, rng: np.random.Generator,
+                      chip: hw.Chip = hw.H100, max_tries: int = 200) -> Config:
+        axes = self.axes(op)
+        for _ in range(max_tries):
+            cfg = {k: choices[rng.integers(len(choices))] for k, choices in axes}
+            if self.validate(op, cfg, chip):
+                return cfg
+        # Fall back to the smallest (always-valid) config.
+        cfg = {k: choices[0] for k, choices in axes}
+        assert self.validate(op, cfg, chip), "template has no valid config"
+        return cfg
+
+    def enumerate_configs(self, op: OpDesc, chip: hw.Chip = hw.H100):
+        axes = self.axes(op)
+        names = [k for k, _ in axes]
+        for combo in itertools.product(*[c for _, c in axes]):
+            cfg = dict(zip(names, combo))
+            if self.validate(op, cfg, chip):
+                yield cfg
+
+    def space_size(self, op: OpDesc) -> int:
+        return int(np.prod([len(c) for _, c in self.axes(op)]))
+
+
+class MatmulTemplate(Template):
+    """The tiled GEMM with fused epilogue (`kernels/csrc/matmul.cu`).  The
+    kernel picks its tile from M and reads no knob, so the space is empty:
+    one configuration, `{}`, which the search measures once."""
+
+    name = "pallas_matmul"
+    kinds = ("matmul",)
+
+    def space(self, op: OpDesc) -> Dict[str, List[Any]]:
+        return {}
+
+    def validate(self, op: OpDesc, cfg: Config, chip: hw.Chip = hw.H100) -> bool:
+        return not cfg
+
+
+class Conv2dTemplate(Template):
+    """The direct NHWC convolution (`kernels/csrc/conv2d.cu`): `bn` output
+    channels × `row_block` whole output rows per block.  Valid when
+    `kernels.conv2d.geometry` can launch it within the chip's limits."""
+
+    name = "pallas_conv2d"
+    kinds = ("conv2d",)
+
+    def space(self, op: OpDesc) -> Dict[str, List[Any]]:
+        cout = op.d["cout"]
+        return {
+            "bn": [b for b in conv_kernel.BN_CHOICES if b <= max(16, 2 * cout)],
+            "row_block": list(conv_kernel.ROW_BLOCKS),
+        }
+
+    def validate(self, op: OpDesc, cfg: Config, chip: hw.Chip = hw.H100) -> bool:
+        d = op.d
+        padding = "SAME" if d["pad"] else "VALID"
+        return conv_kernel.geometry(
+            d["n"], d["h"], d["w"], d["cin"], d["cout"], d["kh"], d["kw"],
+            d["stride"], padding, cfg["bn"], cfg["row_block"], chip) is not None
+
+
+TEMPLATES: Dict[str, Template] = {
+    t.name: t for t in (MatmulTemplate(), Conv2dTemplate())
+}
+
+
+def templates_for(op: OpDesc) -> List[Template]:
+    return [t for t in TEMPLATES.values() if op.kind in t.kinds]

@@ -1,0 +1,88 @@
+"""Tuner: orchestrates the searches for one operator (the port of
+`repro.core.search.tuner`).
+
+Mirrors the paper's end-to-end usage (§3): "given an operator, we used both
+genetic search and RL-search to identify optimal code generation
+configurations and single out the best for use", with the §3.3 cache
+checked first.  The port runs the genetic search (default) and random
+search; RL-search (PPO) is not ported yet.  With no `fitness` the tuner
+measures wall-clock time on the GPU (`WallClockFitness`), and raises where
+there is none.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from repro_torch import hw
+from repro_torch.core.costmodel import Fitness, WallClockFitness
+from repro_torch.core.schedules import OpDesc, Template, templates_for
+from repro_torch.core.search.base import SearchResult, SearchTask
+from repro_torch.core.search.cache import MODEL_FITNESS, SearchCache
+from repro_torch.core.search.genetic import GeneticSearch
+from repro_torch.core.search.random_search import random_search
+
+RL_NOT_PORTED = ("RL-search (PPO, repro/core/search/ppo.py) is not ported yet: "
+                 "ROADMAP.md queue 1, 'RL-search (PPO) in torch'")
+
+
+class Tuner:
+    def __init__(
+        self,
+        chip: hw.Chip = hw.H100,
+        fitness: Optional[Fitness] = None,
+        cache: Optional[SearchCache] = None,
+        methods: Sequence[str] = ("genetic",),
+        genetic: Optional[GeneticSearch] = None,
+        random_budget: int = 64,
+        seed: int = 0,
+    ):
+        if "rl" in methods:
+            raise NotImplementedError(RL_NOT_PORTED)
+        self.chip = chip
+        self.fitness = fitness if fitness is not None else WallClockFitness()
+        self.cache = cache if cache is not None else SearchCache()
+        self.methods = tuple(methods)
+        self.genetic = genetic or GeneticSearch()
+        self.random_budget = random_budget
+        self.seed = seed
+        self.log: List[SearchResult] = []
+
+    @property
+    def fitness_kind(self) -> str:
+        """Cache-key tag of the active fitness ('model' when untagged)."""
+        return getattr(self.fitness, "kind", MODEL_FITNESS)
+
+    def _make_task(self, op: OpDesc, template: Template) -> SearchTask:
+        return SearchTask(op, template, self.fitness, self.chip, seed=self.seed)
+
+    def tune(self, op: OpDesc, template: Optional[Template] = None,
+             use_cache: bool = True) -> SearchResult:
+        """Best configuration for `op` under `template` (default: the
+        kind-appropriate template)."""
+        template = template or templates_for(op)[0]
+
+        if use_cache:
+            hit = self.cache.get(self.chip.name, op, template.name,
+                                 fitness=self.fitness_kind)
+            if hit is not None:
+                return SearchResult(op, template.name, hit["config"],
+                                    hit["runtime_s"], 0, 0.0,
+                                    hit["method"] + "+cache")
+
+        results: List[SearchResult] = []
+        for method in self.methods:
+            task = self._make_task(op, template)
+            if method == "genetic":
+                results.append(self.genetic.run(task))
+            elif method == "random":
+                results.append(random_search(task, self.random_budget))
+            else:
+                raise ValueError(method)
+
+        best = min(results, key=lambda r: r.runtime_s)
+        self.log.extend(results)
+        self.cache.put(self.chip.name, op, template.name,
+                       best.config, best.runtime_s, best.method,
+                       fitness=self.fitness_kind)
+        return best

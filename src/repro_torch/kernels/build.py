@@ -34,14 +34,18 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",
     "matmul": "matmul.cu",
+    "conv2d": "conv2d.cu",
+    "fused_elementwise": "fused_elementwise.cu",
 }
-HEADERS = ("paged_attention.cuh",)
+HEADERS = ("paged_attention.cuh", "activation.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
@@ -51,6 +55,9 @@ SIGNATURES = {
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _I, _P]),
     "matmul": ("matmul_fused", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "conv2d": ("conv2d_direct", [_P, _P, _P, _P] + [_I] * 19 + [_P]),
+    "fused_elementwise": ("fused_elementwise",
+                          [_P, _P, _P, _P, _P, _P, _L, _I, _U, _I, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

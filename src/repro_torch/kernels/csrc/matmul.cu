@@ -9,8 +9,7 @@
 // rounding to the output dtype — the Pallas kernel's epilogue.  Ragged
 // edges are masked inside the kernel (out-of-range A/B elements load as
 // zero, out-of-range outputs are not stored), so the wrapper pads nothing.
-// Activations: 0 none, 1 relu, 2 silu, 3 gelu (tanh approximation, as
-// jax.nn.gelu), 4 tanh, 5 sigmoid.
+// Activations: the codes of activation.cuh.
 //
 // bf16 runs on the tensor cores through WMMA 16x16x16 fragments (mma.sync
 // underneath) with f32 accumulation; f32 runs a plain CUDA-core tile so that
@@ -35,26 +34,15 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "activation.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
+using repro_torch::activate;
 
 constexpr int THREADS = 128;
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case 1: return fmaxf(x, 0.f);
-    case 2: return x / (1.f + expf(-x));
-    case 3: {
-      const float c = 0.7978845608028654f;   // sqrt(2 / pi)
-      return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-    }
-    case 4: return tanhf(x);
-    case 5: return 1.f / (1.f + expf(-x));
-    default: return x;
-  }
-}
 
 // ---------------------------------------------------------------- bf16 WMMA
 template <int BM, int BN, int BK, int WM, int WN>

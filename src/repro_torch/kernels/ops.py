@@ -1,23 +1,28 @@
 """Public wrappers over the port's kernels, with the signatures of
-`repro.kernels.ops` (`matmul`, `attention_decode_paged`,
-`attention_prefill_packed`).
+`repro.kernels.ops` (`matmul`, `conv2d`, `fused_elementwise`,
+`attention_decode_paged`, `attention_prefill_packed`).
 
 A CPU tensor goes to the kernel's plain version; a CUDA tensor goes to the
 kernel or the call raises — there is no fallback.  The tuned `config` dicts
 of the JAX plans are accepted: `block_q` sizes the prefill kernel's query
-tile; the matmul's TPU tile keys (bm / bn / bk / order) have no meaning for
-the Hopper GEMM, which picks its tile from M, and are ignored.
+tile, `bn` / `row_block` the conv kernel's block; keys the Hopper kernels
+do not read (the matmul's TPU tile bm / bn / bk / order / k_unroll — the
+GEMM picks its tile from M — the conv's bm / bk / order / k_unroll, the
+elementwise chain's block_rows) are ignored.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels.attention import (paged_decode_attention,
                                            paged_prefill_attention)
+from repro_torch.kernels import conv2d as _conv
+from repro_torch.kernels.fused import fused_elementwise as _fused_elementwise
 from repro_torch.kernels.matmul import matmul_fused
+from repro_torch.kernels.ref import same_pads
 
 Config = Optional[Dict[str, Any]]
 
@@ -32,6 +37,56 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
     x2 = x.reshape(-1, x.shape[-1])
     out = matmul_fused(x2.contiguous(), w, bias, activation, out_dtype)
     return out.reshape(*lead, w.shape[-1])
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+           padding: str = "SAME", layout: str = "NHWC",
+           activation: Optional[str] = None, config: Config = None,
+           vmem_limit: int = 64 * 1024 * 1024) -> torch.Tensor:
+    """Convolution in NCHW (OIHW weights) or NHWC (HWIO weights) [+ bias]
+    -> activation.  The kernel covers images up to `vmem_limit` bytes
+    (padded H x W x Cin, the JAX wrapper's threshold); past it the
+    convolution runs as patches + the GEMM kernel.  A config without bn /
+    row_block takes `kernels.conv2d.default_config`."""
+    if layout == "NCHW":
+        x = x.permute(0, 2, 3, 1)
+        w = w.permute(2, 3, 1, 0)
+    x, w = x.contiguous(), w.contiguous()
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    shape = (n, h, wd, cin, cout, kh, kw, stride, padding)
+    cfg = config or {}
+    if "bn" not in cfg or "row_block" not in cfg:
+        cfg = {**_conv.default_config(*shape), **cfg}
+
+    (pt, pb), (pl, pr) = ((same_pads(h, kh, stride), same_pads(wd, kw, stride))
+                          if padding == "SAME" else ((0, 0), (0, 0)))
+    if (h + pt + pb) * (wd + pl + pr) * cin * x.element_size() <= vmem_limit:
+        out = _conv.conv2d_direct(x, w, bias, stride=stride, padding=padding,
+                                  bn=cfg["bn"], row_block=cfg["row_block"],
+                                  activation=activation)
+    else:
+        # patches (kh, kw, cin order, as w's rows) + the GEMM kernel
+        x = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb))
+        patches = x.unfold(1, kh, stride).unfold(2, kw, stride)  # N,OH,OW,C,kh,kw
+        oh, ow = patches.shape[1], patches.shape[2]
+        patches = patches.permute(0, 1, 2, 4, 5, 3).reshape(-1, kh * kw * cin)
+        out = matmul(patches, w.reshape(kh * kw * cin, cout),
+                     None if bias is None else bias.to(x.dtype),
+                     activation=activation).reshape(n, oh, ow, cout)
+    if layout == "NCHW":
+        out = out.permute(0, 3, 1, 2).contiguous()
+    return out
+
+
+def fused_elementwise(x: torch.Tensor, chain: Sequence[Dict[str, Any]],
+                      extras: Sequence[torch.Tensor] = (), *,
+                      config: Config = None) -> torch.Tensor:
+    """Apply the elementwise `chain` to x in one kernel; binary stages
+    consume `extras` (same shape as x) in order."""
+    del config  # one flat pass: no block_rows to tune
+    return _fused_elementwise(x, chain, extras)
 
 
 def attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,

@@ -62,6 +62,50 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor,
     return apply_activation(out, activation).to(out_dtype)
 
 
+def same_pads(size: int, k: int, stride: int):
+    """(low, high) SAME padding of one spatial dim, TensorFlow's split (as
+    `jax.lax` pads): the odd element goes to the high side."""
+    total = max(0, (-(-size // stride) - 1) * stride + k - size)
+    return total // 2, total - total // 2
+
+
+def conv2d_ref(x: torch.Tensor, w: torch.Tensor,
+               bias: Optional[torch.Tensor] = None, stride: int = 1,
+               padding: str = "SAME",
+               activation: Optional[str] = None) -> torch.Tensor:
+    """NHWC x (N, H, W, Cin) * HWIO w (Kh, Kw, Cin, Cout) -> NHWC, f32
+    accumulation, bias + activation in f32, rounded once to x's dtype."""
+    kh, kw = w.shape[0], w.shape[1]
+    xf = x.float().permute(0, 3, 1, 2)
+    if padding == "SAME":
+        xf = F.pad(xf, same_pads(x.shape[2], kw, stride) + same_pads(x.shape[1], kh, stride))
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r}")
+    out = F.conv2d(xf, w.float().permute(3, 2, 0, 1), stride=stride)
+    if bias is not None:
+        out = out + bias.float().reshape(1, -1, 1, 1)
+    out = apply_activation(out, activation).to(x.dtype)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+_BINARY = {"add": torch.add, "mul": torch.mul, "sub": torch.sub, "div": torch.div}
+
+
+def fused_elementwise_ref(x: torch.Tensor, chain, extras=()) -> torch.Tensor:
+    """Chain of elementwise stages; binary stages pop from `extras`.  A
+    stage is a {'op': name} dict or a bare name."""
+    extras = list(extras)
+    for stage in chain:
+        op = stage["op"] if isinstance(stage, dict) else stage
+        xf = x.float()
+        if op in _BINARY:
+            xf = _BINARY[op](xf, extras.pop(0).float())
+        else:
+            xf = apply_activation(xf, op)
+        x = xf.to(x.dtype)
+    return x
+
+
 def _softmax_pv(logits: torch.Tensor, v_dtype: torch.dtype) -> torch.Tensor:
     return torch.softmax(logits, dim=-1).to(v_dtype)
 

@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.platform import DeviceLike, resolve_device
 from repro_torch.serve.trace import NULL_RECORDER
 
 NULL_BLOCK = 0  # reserved sink block — never allocated to a request
@@ -344,10 +345,12 @@ class BlockAllocator:
 
 
 class PagedKVCache:
-    """Device-side paged K/V pools plus the allocator."""
+    """Device-side paged K/V pools plus the allocator.  `device=None` is the
+    GPU (`platform.resolve_device`); the CPU only when asked for."""
 
     def __init__(self, cfg: KVCacheConfig, n_layers: int, n_kv_heads: int,
-                 head_dim: int, dtype=torch.bfloat16, device="cpu"):
+                 head_dim: int, dtype=torch.bfloat16, device: DeviceLike = None):
+        device = resolve_device(device)
         self.cfg = cfg
         self.alloc = BlockAllocator(cfg)
         shape = (n_layers, cfg.num_blocks, cfg.block_size, n_kv_heads, head_dim)

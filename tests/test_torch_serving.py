@@ -256,6 +256,13 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.serve.runtime" in report["modules"]
-    assert "repro_torch.kernels.build" in report["modules"]
+    for name in ("repro_torch.serve.runtime", "repro_torch.kernels.build",
+                 "repro_torch.hw", "repro_torch.models.resnet",
+                 "repro_torch.kernels.conv2d", "repro_torch.kernels.fused",
+                 "repro_torch.core.graph", "repro_torch.core.ref_ops",
+                 "repro_torch.core.passes.fusion", "repro_torch.core.passes.layout",
+                 "repro_torch.core.schedules", "repro_torch.core.costmodel",
+                 "repro_torch.core.search.genetic", "repro_torch.core.search.tuner",
+                 "repro_torch.core.selection", "repro_torch.core.engine"):
+        assert name in report["modules"], name
     assert report["leaked"] == []
