@@ -16,7 +16,11 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      (f32; bf16 at two), the JAX tests' sweep at every (bn, row_block) it
      takes, each activation and VALID padding; the elementwise kernel at
      ResNet-18's four residual shapes and on chains of every op in f32 and
-     bf16;
+     bf16; the dense flash kernel at the serve graph's three attention
+     shapes (bf16), the JAX tests' sweep and causal Sq < Skv / Sq > Skv
+     (f32) and every tile its template admits; the dense decode kernel at
+     the decode stage's shape with ragged lengths (bf16) and the JAX
+     tests' length sets (f32);
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
      role-tagged matmuls through the kernels: 16 requests, chunked and
@@ -33,10 +37,19 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      on ref_ops, as the JAX engine does), the elementwise kernel replaying
      those chains on the engine's inputs, and the ms per image of three
      lanes;
-  5. one JSON line `{"kernels": [...]}` with each kernel's launches on each
-     path (the forward and the replayed chains are separate paths), error
-     and times;
-  6. the last line `{"ok": true, "device": {...}}`.
+  5. the serve plan: qwen3-1.7b's serve graph (prefill 700, 8 slots,
+     max_seq 1024, chunk 256, bf16) tuned by `build_serve_plan` on
+     wall-clock fitness on the card (the flash kernel against the vendor
+     lane for the three attention nodes, the GEMM for the twelve matmuls),
+     the per-node race, then phase 3's 16 requests served under
+     `PlanRouter(plan)` (every request finishes, the pool drains, the
+     plan's kernel lanes launch, first tokens match the torch lanes), and
+     `ops.attention_decode` called once at the decode stage's shape;
+  6. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+     path (the forward and the replayed chains are separate paths, as are
+     the serve plan's race, its serving run and the decode wrapper's call),
+     error and times;
+  7. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -668,6 +681,136 @@ def check_fused(torch, chk):
                 "libm ulps" if dtype == torch.float32 else "a bf16 ulp carried"))
 
 
+# The dense attention kernels' plain versions have the kernels' arithmetic
+# (f32 Q·Kᵀ, p rounded to the value dtype, f32 P·V) with one global max in
+# place of the online one: in bf16 they differ by where p is rounded (before
+# or after the rescale by the running max) and by the bf16 output, both
+# 2^-9 relative of unit-scale values, within ATT_TOL_F32MATH_BF16; in f32
+# by summation order, within ATT_TOL_F32.  The serve graph's attention
+# shapes for qwen3-1.7b (16 query heads, 8 KV heads, D = 128):
+# (label, B, Sq, Skv), all causal.
+SERVE_ATTENTION = [("prefill", 1, 700, 700), ("decode", 8, 1, 1024),
+                   ("prefill_chunk", 1, 256, 1024)]
+# tests/test_kernels.py::test_attention_sweep (B = 2, D = 64):
+# (Sq, Skv, H, Hkv), causal and not, then Sq < Skv and Sq > Skv
+ATTENTION_SWEEP = [(256, 256, 4, 4), (256, 256, 4, 2), (200, 200, 4, 1),
+                   (128, 384, 2, 2), (32, 300, 4, 2), (40, 17, 4, 2)]
+DECODE_LENGTHS = [1, 16, 17, 1000, 1024, 250, 513, 64]
+
+
+def _causal_pairs(sq, skv):
+    """(query, key) pairs the top-left causal mask lets through."""
+    return sum(min(i + 1, skv) for i in range(sq))
+
+
+def _qkv(torch, g, b, sq, skv, h, hkv, d, dtype, scale=1.0):
+    mk = lambda *s: (torch.randn(s, generator=g, device=DEVICE) * scale).to(dtype)
+    return mk(b, sq, h, d), mk(b, skv, hkv, d), mk(b, skv, hkv, d)
+
+
+def check_flash(torch, chk):
+    from repro_torch.core.schedules import TEMPLATES, OpDesc
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as R
+
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    h, hkv, d = 16, 8, 128
+    for label, b, sq, skv in SERVE_ATTENTION:
+        q, k, v = _qkv(torch, g, b, sq, skv, h, hkv, d, torch.bfloat16)
+        out = kops.attention(q, k, v, causal=True)
+        chk.err = max(chk.err, chk.compare(
+            f"{label} B={b} Sq={sq} Skv={skv} bf16 vs plain", out,
+            R.attention_ref(q, k, v, True), ATT_TOL_F32MATH_BF16,
+            "p rounded at another max, bf16 output"))
+        copies = copies_for(2 * k.numel() * 2)
+        ins = [(k, v)] + [(k.clone(), v.clone()) for _ in range(copies - 1)]
+        kfns = [lambda k=ki, v=vi: kops.attention(q, k, v, causal=True) for ki, vi in ins]
+        pfns = [lambda k=ki, v=vi: R.attention_ref(q, k, v, True) for ki, vi in ins]
+        qt = q.transpose(1, 2).contiguous()
+        lins = [(ki.transpose(1, 2).contiguous(), vi.transpose(1, 2).contiguous())
+                for ki, vi in ins]
+        lfns = [lambda k=ki, v=vi: F.scaled_dot_product_attention(
+            qt, k, v, is_causal=True, enable_gqa=True) for ki, vi in lins]
+        pairs = _causal_pairs(sq, skv)
+        kv_rows = min(sq, skv)              # rows the top-left mask reaches
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * kv_rows * hkv * d)
+        chk.timed(f"{label} B={b} Sq={sq} Skv={skv} H={h} Hkv={hkv} D={d} causal "
+                  "(top-left) bf16, default blocks (library: SDPA is_causal, "
+                  "enable_gqa, on (B, H, S, D) copies)",
+                  kfns, pfns, lfns, nbytes, 4 * b * h * d * pairs)
+    # the JAX sweep in f32 at its config (TPU blocks of 128, clamped)
+    for sq, skv, h_, hkv_ in ATTENTION_SWEEP:
+        for causal in (True, False):
+            q, k, v = _qkv(torch, g, 2, sq, skv, h_, hkv_, 64, torch.float32, 0.3)
+            chk.compare(f"f32 Sq={sq} Skv={skv} H={h_} Hkv={hkv_} causal={causal} "
+                        "vs plain",
+                        kops.attention(q, k, v, causal=causal,
+                                       config={"block_q": 128, "block_kv": 128}),
+                        R.attention_ref(q, k, v, causal), ATT_TOL_F32,
+                        "same algorithm, f32 summation order")
+    # every tile the template admits, at the race's chunk shape (MHA: the
+    # race's inputs carry no Hkv)
+    tmpl = TEMPLATES["pallas_attention"]
+    op = OpDesc.attention(1, 256, 1024, h, d, label="prefill_chunk.attention")
+    tiles = sorted({(c["block_q"], c["block_kv"]) for c in tmpl.enumerate_configs(op)})
+    q, k, v = _qkv(torch, g, 1, 256, 1024, h, h, d, torch.bfloat16)
+    want = R.attention_ref(q, k, v, True)
+    for bq, bkv in tiles:
+        got = KA.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= ATT_TOL_F32MATH_BF16:
+            raise AssertionError(f"flash tile ({bq}, {bkv}): error {err}")
+    log(f"  {chk.name} every template tile {tiles} at B=1 Sq=256 Skv=1024 "
+        f"H=Hkv={h} bf16 within {ATT_TOL_F32MATH_BF16:.0e} of plain")
+
+
+def check_dense_decode(torch, chk):
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as R
+
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    b, h, hkv, d, s = len(DECODE_LENGTHS), 16, 8, 128, 1024
+    q = torch.randn((b, h, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=DEVICE)
+    chk.err = max(chk.err, chk.compare(
+        f"B={b} H={h} Hkv={hkv} D={d} S={s} lengths {DECODE_LENGTHS} bf16 vs plain",
+        kops.attention_decode(q, k, v, lengths),
+        R.dense_decode_attention_ref(q, k, v, lengths), ATT_TOL_F32MATH_BF16,
+        "p rounded at another max, bf16 output"))
+    copies = copies_for(2 * k.numel() * 2)
+    ins = [(k, v)] + [(k.clone(), v.clone()) for _ in range(copies - 1)]
+    kfns = [lambda k=ki, v=vi: kops.attention_decode(q, k, v, lengths) for ki, vi in ins]
+    pfns = [lambda k=ki, v=vi: R.dense_decode_attention_ref(q, k, v, lengths)
+            for ki, vi in ins]
+    qs = q[:, :, None, :]
+    mask = (torch.arange(s, device=DEVICE)[None, :] < lengths[:, None].long())[:, None, None, :]
+    lins = [(ki.transpose(1, 2).contiguous(), vi.transpose(1, 2).contiguous())
+            for ki, vi in ins]
+    lfns = [lambda k=ki, v=vi: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask, enable_gqa=True) for ki, vi in lins]
+    rows = sum(DECODE_LENGTHS)
+    nbytes = 2 * 2 * q.numel() + 2 * 2 * rows * hkv * d + 4 * b
+    chk.timed(f"B={b} H={h} Hkv={hkv} D={d} S={s} bf16 (library: SDPA with a "
+              "boolean length mask, enable_gqa, on (B, Hkv, S, D) copies)",
+              kfns, pfns, lfns, nbytes, 4 * rows * h * d)
+    # f32 at tests/test_kernels.py::test_attention_decode_lengths, and a
+    # length of 0 (zeros)
+    for lens in ([64, 199], [1, 256], [256, 256], [0, 5]):
+        q = torch.randn((2, 4, 64), generator=g, device=DEVICE) * 0.3
+        k = torch.randn((2, 256, 2, 64), generator=g, device=DEVICE) * 0.3
+        v = torch.randn((2, 256, 2, 64), generator=g, device=DEVICE) * 0.3
+        ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        chk.compare(f"f32 B=2 S=256 H=4 Hkv=2 D=64 lengths {lens} vs plain",
+                    kops.attention_decode(q, k, v, ln, config={"block_kv": 128}),
+                    R.dense_decode_attention_ref(q, k, v, ln), ATT_TOL_F32,
+                    "same algorithm, f32 summation order")
+
+
 # -------------------------------------------------------------- phase 3
 # First-token agreement between the kernel lanes and the torch lanes: each
 # lane rounds differently at every layer (f32 vs bf16 Q·Kᵀ, the gate's
@@ -696,16 +839,16 @@ def _spy_first_logits(eng):
     return store
 
 
-def phase_serve(torch, cfg, block_q, profile=False):
+SERVE_RUNTIME = dict(max_slots=8, block_size=16, max_blocks_per_seq=64,
+                     chunk_tokens=256, chunk_segments=4, max_new_tokens=32)
+
+
+def serving_setup(torch, cfg):
+    """qwen3-1.7b at full width (random weights from seed 0) and the 16
+    prompts every serving run takes."""
     import numpy as np
 
-    from repro_torch.core.plan import InferencePlan, OpChoice
-    from repro_torch.kernels import attention as KA
-    from repro_torch.kernels import matmul as KM
-    from repro_torch.kernels.dispatch import MATMUL_ROLES
     from repro_torch.models import DecoderLM
-    from repro_torch.serve.router import PlanRouter
-    from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
 
     model = DecoderLM(cfg)
     t0 = time.perf_counter()
@@ -718,79 +861,73 @@ def phase_serve(torch, cfg, block_q, profile=False):
         f"vocab {cfg.vocab}; {n_params / 1e9:.3f} G params "
         f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB) "
         f"initialised in {time.perf_counter() - t0:.1f} s")
-
-    plan = InferencePlan("serve", "h100")
-    for stage in ("decode", "prefill_chunk"):
-        plan.choices[f"{stage}.attention"] = OpChoice(
-            "cuda_attention", {"block_q": block_q, "max_segments": 4}, 0.0)
-        for role in MATMUL_ROLES:
-            plan.choices[f"{stage}.{role}"] = OpChoice("cuda_matmul", {}, 0.0)
-    rcfg = RuntimeConfig(max_slots=8, block_size=16, max_blocks_per_seq=64,
-                         chunk_tokens=256, chunk_segments=4, max_new_tokens=32)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
                for n in PROMPT_LENS]
+    return model, params, prompts
 
-    def serve(router, label, profile=False):
-        eng = ContinuousEngine(model, params, rcfg, router=router, device=DEVICE)
-        firsts = _spy_first_logits(eng)
-        log(f"[{label}] pool {tuple(eng.cache.k.shape)} x2 "
-            f"{2 * eng.cache.k.numel() * eng.cache.k.element_size() / 1e9:.2f} GB")
-        for p in prompts:
-            eng.submit(p)
-        torch.cuda.synchronize()
-        if profile:
-            from torch.profiler import ProfilerActivity
-            with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-                done = eng.run()
-                torch.cuda.synchronize()
-        else:
+
+def serve(torch, served, router, label, profile=False, require_packing=True):
+    """Serve the 16 prompts under `router`; every request must finish with
+    its 32 in-vocabulary tokens, the pool must drain, and chunked,
+    decode-only and (where the router packs) packed steps must all occur.
+    -> ({rid: tokens}, {rid: first-token logits}, metrics summary)."""
+    from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
+
+    model, params, prompts = served
+    cfg = model.cfg
+    rcfg = RuntimeConfig(**SERVE_RUNTIME)
+    eng = ContinuousEngine(model, params, rcfg, router=router, device=DEVICE)
+    firsts = _spy_first_logits(eng)
+    log(f"[{label}] pool {tuple(eng.cache.k.shape)} x2 "
+        f"{2 * eng.cache.k.numel() * eng.cache.k.element_size() / 1e9:.2f} GB")
+    for p in prompts:
+        eng.submit(p)
+    torch.cuda.synchronize()
+    if profile:
+        from torch.profiler import ProfilerActivity
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
             done = eng.run()
             torch.cuda.synchronize()
-        s = eng.metrics.summary()
-        if profile:
-            _log_device_profile(prof, s["wall_s"], label)
-        log(f"[{label}] {int(s['requests'])} requests, {int(s['tokens_out'])} "
-            f"tokens in {s['wall_s']:.3f} s: {s['tokens_per_s']:.1f} tokens/s, "
-            f"TTFT p50 {s['ttft_p50_s']:.3f} s p95 {s['ttft_p95_s']:.3f} s, "
-            f"latency p95 {s['latency_p95_s']:.3f} s; steps: "
-            f"{int(s['chunk_steps'])} unified ({int(s['prefill_chunks'])} chunks, "
-            f"{int(s['packed_segments'])} packed segments, fill "
-            f"{s['chunk_fill_frac']:.2f}), {int(s['decode_only_steps'])} "
-            f"decode-only, {int(s['decode_steps'])} with decode rows; "
-            f"prefill_time {s['prefill_time_s']:.3f} s decode_time "
-            f"{s['decode_time_s']:.3f} s; preemptions {int(s['preemptions'])}")
-        if len(done) != len(prompts):
-            raise AssertionError(f"[{label}] {len(done)} of {len(prompts)} finished")
-        for r in done:
-            if len(r.output) != rcfg.max_new_tokens:
-                raise AssertionError(f"[{label}] request {r.rid}: {len(r.output)} tokens")
-            if not all(0 <= t < cfg.vocab for t in r.output):
-                raise AssertionError(f"[{label}] request {r.rid}: token out of range")
-        for rid, logits in firsts.items():
-            if logits.shape != (cfg.vocab,) or not bool(torch.isfinite(logits).all()):
-                raise AssertionError(f"[{label}] request {rid}: bad first-token logits")
-        eng.cache.alloc.check_invariants()
-        if eng.cache.alloc.num_used != 0:
-            raise AssertionError(f"[{label}] pool did not drain")
-        if s["decode_only_steps"] == 0 or s["packed_segments"] == 0 or \
-                s["prefill_chunks"] <= len(prompts):
-            raise AssertionError(f"[{label}] chunking / packing / decode-only "
-                                 "steps did not all occur")
-        return {r.rid: r.output for r in done}, firsts, s
+    else:
+        done = eng.run()
+        torch.cuda.synchronize()
+    s = eng.metrics.summary()
+    if profile:
+        _log_device_profile(prof, s["wall_s"], label)
+    log(f"[{label}] {int(s['requests'])} requests, {int(s['tokens_out'])} "
+        f"tokens in {s['wall_s']:.3f} s: {s['tokens_per_s']:.1f} tokens/s, "
+        f"TTFT p50 {s['ttft_p50_s']:.3f} s p95 {s['ttft_p95_s']:.3f} s, "
+        f"latency p95 {s['latency_p95_s']:.3f} s; steps: "
+        f"{int(s['chunk_steps'])} unified ({int(s['prefill_chunks'])} chunks, "
+        f"{int(s['packed_segments'])} packed segments, fill "
+        f"{s['chunk_fill_frac']:.2f}), {int(s['decode_only_steps'])} "
+        f"decode-only, {int(s['decode_steps'])} with decode rows; "
+        f"prefill_time {s['prefill_time_s']:.3f} s decode_time "
+        f"{s['decode_time_s']:.3f} s; preemptions {int(s['preemptions'])}")
+    if len(done) != len(prompts):
+        raise AssertionError(f"[{label}] {len(done)} of {len(prompts)} finished")
+    for r in done:
+        if len(r.output) != rcfg.max_new_tokens:
+            raise AssertionError(f"[{label}] request {r.rid}: {len(r.output)} tokens")
+        if not all(0 <= t < cfg.vocab for t in r.output):
+            raise AssertionError(f"[{label}] request {r.rid}: token out of range")
+    for rid, logits in firsts.items():
+        if logits.shape != (cfg.vocab,) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"[{label}] request {rid}: bad first-token logits")
+    eng.cache.alloc.check_invariants()
+    if eng.cache.alloc.num_used != 0:
+        raise AssertionError(f"[{label}] pool did not drain")
+    if s["decode_only_steps"] == 0 or s["prefill_chunks"] <= len(prompts) or \
+            (require_packing and s["packed_segments"] == 0):
+        raise AssertionError(f"[{label}] chunking / packing / decode-only "
+                             "steps did not all occur")
+    return {r.rid: r.output for r in done}, firsts, s
 
-    counters = (KA.paged_decode_attention, KA.paged_prefill_attention,
-                KM.matmul_fused)
-    for fn in counters:
-        fn.launches = 0
-    out_k, first_k, summary = serve(PlanRouter(plan), "kernel lanes", profile)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"launches on the serving path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the serving path")
 
-    out_t, first_t, _ = serve(PlanRouter(None), "torch lanes", profile)
+def compare_first_tokens(torch, label, out_k, first_k, out_t, first_t):
+    """First tokens of a run must match the torch lanes' wherever the
+    torch lanes' top-2 margin exceeds FIRST_TOKEN_MARGIN."""
     compared, agree, max_dlogit = 0, 0, 0.0
     for rid, ref_logits in first_t.items():
         max_dlogit = max(max_dlogit,
@@ -802,16 +939,151 @@ def phase_serve(torch, cfg, block_q, profile=False):
             agree += out_k[rid][0] == out_t[rid][0]
             if out_k[rid][0] != out_t[rid][0]:
                 raise AssertionError(
-                    f"request {rid}: first token {out_k[rid][0]} on the kernel "
-                    f"lanes vs {out_t[rid][0]} on the torch lanes at margin {margin:.3f}")
+                    f"request {rid}: first token {out_k[rid][0]} on the {label} "
+                    f"vs {out_t[rid][0]} on the torch lanes at margin {margin:.3f}")
     same_stream = sum(out_k[r] == out_t[r] for r in out_t)
-    log(f"first tokens: {agree}/{compared} agree where the torch-lane top-2 "
-        f"margin > {FIRST_TOKEN_MARGIN} (of {len(first_t)}); max |logit "
-        f"difference| {max_dlogit:.4f}; whole 32-token streams identical for "
-        f"{same_stream}/{len(out_t)}")
+    log(f"[{label}] first tokens: {agree}/{compared} agree with the torch lanes "
+        f"where their top-2 margin > {FIRST_TOKEN_MARGIN} (of {len(first_t)}); "
+        f"max |logit difference| {max_dlogit:.4f}; whole 32-token streams "
+        f"identical for {same_stream}/{len(out_t)}")
     if compared == 0:
         raise AssertionError("no request had a first-token margin to compare")
-    return launches, summary
+
+
+def phase_serve(torch, served, block_q, profile=False):
+    from repro_torch.core.plan import InferencePlan, OpChoice
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels.dispatch import MATMUL_ROLES
+    from repro_torch.serve.router import PlanRouter
+
+    plan = InferencePlan("serve", "h100")
+    for stage in ("decode", "prefill_chunk"):
+        plan.choices[f"{stage}.attention"] = OpChoice(
+            "cuda_attention", {"block_q": block_q, "max_segments": 4}, 0.0)
+        for role in MATMUL_ROLES:
+            plan.choices[f"{stage}.{role}"] = OpChoice("cuda_matmul", {}, 0.0)
+
+    counters = (KA.paged_decode_attention, KA.paged_prefill_attention,
+                KM.matmul_fused)
+    for fn in counters:
+        fn.launches = 0
+    out_k, first_k, summary = serve(torch, served, PlanRouter(plan),
+                                    "kernel lanes", profile)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"launches on the serving path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the serving path")
+
+    torch_run = serve(torch, served, PlanRouter(None), "torch lanes", profile)
+    compare_first_tokens(torch, "kernel lanes", out_k, first_k, *torch_run[:2])
+    return launches, torch_run
+
+
+# ------------------------------------------------------------ phase 5
+# The slice's path: the paper's system-level exploration applied to the
+# serve graph.  build_serve_graph -> build_serve_plan (select on
+# wall-clock fitness on the card: the vendor lane against the flash kernel
+# for each attention node, against the GEMM for each matmul) ->
+# PlanRouter(plan) -> ContinuousEngine, at the serving phase's widths.
+SERVE_PLAN = dict(prefill_len=max(PROMPT_LENS), slots=SERVE_RUNTIME["max_slots"],
+                  max_seq=SERVE_RUNTIME["block_size"] * SERVE_RUNTIME["max_blocks_per_seq"],
+                  chunk_tokens=SERVE_RUNTIME["chunk_tokens"])
+
+
+def phase_serve_plan(torch, served, counters, torch_run):
+    from repro_torch.core import (TEMPLATES, Tuner, WallClockFitness, op_desc_of,
+                                  roofline_bound)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
+
+    cfg = served[0].cfg
+    fitness = WallClockFitness(device=DEVICE)
+    tuner = Tuner(fitness=fitness, methods=("genetic",))
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    plan = build_serve_plan(cfg, **SERVE_PLAN, tuner=tuner, dtype="bfloat16")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    race = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    log(f"build_serve_plan {SERVE_PLAN} bf16: {wall:.2f} s wall; fitness calls "
+        f"{fitness.evals}, distinct measurements {fitness.measured}; backends "
+        f"{plan.backend_histogram()}; launches in the race {race}")
+    for name in ("flash_attention", "matmul_fused"):
+        if not race.get(name):
+            raise AssertionError(f"{name} never launched in the race")
+
+    graph = build_serve_graph(cfg, **SERVE_PLAN, dtype="bfloat16")
+    log("per node: vendor ms, kernel ms (config), winner, bound ms (bf16 peak); "
+        "one call, CUDA events, median of 10")
+    for node in graph.toposort():
+        op = op_desc_of(graph, node, "bfloat16")
+        c = plan.choices[node.name]
+        kname = "pallas_attention" if op.kind == "attention" else "pallas_matmul"
+        tuned = tuner.tune(op, TEMPLATES[kname]).config     # a cache hit
+        d = op.d
+        shape = (f"B={d['b']} Sq={d['q']} Skv={d['kv']} H={d['h']} D={d['d']}"
+                 if op.kind == "attention" else f"{d['m']}x{d['k']}->{d['n']}")
+        note = ""
+        if op.kind == "attention" and d["q"] < d["kv"]:
+            note = (f"  [unequal work: the kernel's top-left mask passes "
+                    f"{_causal_pairs(d['q'], d['kv'])} (query, key) pairs a "
+                    f"head, the vendor's bottom-right mask "
+                    f"{sum(d['kv'] - d['q'] + i + 1 for i in range(d['q']))}]")
+        log(f"  {node.name:24s} {shape:30s} vendor {1e3 * c.candidates['xla']:.4f} "
+            f"kernel {1e3 * c.candidates[kname]:.4f} ({tuned}) winner {c.backend} "
+            f"bound {1e3 * roofline_bound(op):.4f}{note}")
+
+    router = PlanRouter(plan)
+    log(f"PlanRouter(plan).describe(): {router.describe()}")
+    log(f"lanes: decode attention {router.attention_backend('decode')}, chunk "
+        f"attention {router.attention_backend('prefill_chunk')}, chunk_segments "
+        f"{router.chunk_segments(default=SERVE_RUNTIME['chunk_segments'])}, "
+        f"decode matmuls {router.matmul_table('decode')}, chunk matmuls "
+        f"{router.matmul_table('prefill_chunk')}")
+    for fn in counters:
+        fn.launches = 0
+    packs = min(SERVE_RUNTIME["chunk_segments"],
+                router.chunk_segments(default=SERVE_RUNTIME["chunk_segments"])) > 1
+    out, first, _ = serve(torch, served, router, "tuned plan", require_packing=packs)
+    serving = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    log(f"launches serving under the tuned plan: {serving}")
+    want = set()
+    for stage, kernel in (("decode", "paged_decode_attention"),
+                          ("prefill_chunk", "paged_prefill_attention")):
+        if router.attention_backend(stage)[0] == "cuda_attention":
+            want.add(kernel)
+        if any(b == "cuda_matmul" for b, _ in router.matmul_table(stage).values()):
+            want.add("matmul_fused")
+    if set(serving) != want:
+        raise AssertionError(f"launches {serving}: the plan's kernel lanes are {want}")
+    compare_first_tokens(torch, "tuned plan", out, first, *torch_run[:2])
+
+    # the second ported wrapper of the slice, through its public entry point
+    # at the decode stage's shape (no JAX path calls flash_decode_padded)
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    b, s = SERVE_PLAN["slots"], SERVE_PLAN["max_seq"]
+    q = torch.randn((b, cfg.n_heads, cfg.hd), generator=g, device=DEVICE).bfloat16()
+    kc, vc = (torch.randn((b, s, cfg.n_kv_heads, cfg.hd), generator=g,
+                          device=DEVICE).bfloat16() for _ in range(2))
+    lengths = torch.tensor([n + 32 for n in PROMPT_LENS[:b]], dtype=torch.int32,
+                           device=DEVICE)
+    for fn in counters:
+        fn.launches = 0
+    out = kops.attention_decode(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    decode = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    if decode != {"dense_decode_attention": 1} or out.shape != q.shape or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"ops.attention_decode: launches {decode}, "
+                             f"shape {tuple(out.shape)}")
+    log(f"ops.attention_decode at B={b} S={s} H={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+        f"D={cfg.hd} lengths {lengths.tolist()}: finite {tuple(out.shape)}; "
+        f"launches {decode}")
+    return {"serve_plan_race": race, "serve_plan_serve": serving,
+            "ops_attention_decode": decode}
 
 
 # -------------------------------------------------------------- phase 4
@@ -1017,7 +1289,7 @@ def main() -> int:
                          "with torch.profiler and print device time by kernel")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 and 4")
+                         "skips phases 3 to 5")
     args = ap.parse_args()
 
     import torch
@@ -1050,6 +1322,10 @@ def main() -> int:
               "src/repro/kernels/conv2d.py:61", KC.conv2d_direct),
         Check("fused_elementwise", "src/repro_torch/kernels/csrc/fused_elementwise.cu",
               "src/repro/kernels/fused.py:40", KF.fused_elementwise),
+        Check("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/attention.py:98", KA.flash_attention),
+        Check("dense_decode_attention", "src/repro_torch/kernels/csrc/dense_decode.cu",
+              "src/repro/kernels/attention.py:414", KA.dense_decode_attention),
     ]
     log("== kernels against their plain versions")
     check_decode(torch, checks[0])
@@ -1057,19 +1333,27 @@ def main() -> int:
     check_matmul(torch, checks[2], get_config("qwen3-1.7b"))
     check_conv2d(torch, checks[3])
     check_fused(torch, checks[4])
+    check_flash(torch, checks[5])
+    check_dense_decode(torch, checks[6])
     torch.cuda.synchronize()
     if args.skip_serve:
         log("--skip-serve: stopping after the kernel checks")
         return 3
 
     log("== serving qwen3-1.7b through ContinuousEngine")
-    serve, _ = phase_serve(torch, get_config("qwen3-1.7b"), PREFILL_BLOCK_Q,
-                           args.profile)
+    served = serving_setup(torch, get_config("qwen3-1.7b"))
+    serve_launches, torch_run = phase_serve(torch, served, PREFILL_BLOCK_Q,
+                                            args.profile)
     log("== the paper's pipeline on ResNet-18 (optimize_graph, select, Engine)")
     wpk = phase_wpk(torch, args.profile)
-    paths = {"serve_qwen3_1_7b": serve, **wpk}
+    log("== the serve plan: build_serve_plan on the card, then serving under it")
+    plan_paths = phase_serve_plan(torch, served, [c.fn for c in checks], torch_run)
+    paths = {"serve_qwen3_1_7b": serve_launches, **wpk, **plan_paths}
     kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
                          if c.fn.__name__ in n}) for c in checks]
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a path: {missing}")
     print(json.dumps({"kernels": kernels}))
     print(smi)                       # the card's name and power limit
     print(json.dumps({"ok": True, "device": {

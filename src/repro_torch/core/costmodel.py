@@ -32,6 +32,10 @@ from repro_torch.core.schedules import Config, OpDesc
 from repro_torch.platform import DeviceLike, resolve_device
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# config keys no kernel reads at launch: `max_segments` is the chunk lane's
+# packing width, read by the scheduler (`PlanRouter.chunk_segments`); one
+# kernel launch cannot price it
+UNPRICED_KEYS = ("max_segments",)
 
 
 def roofline_bound(op: OpDesc, chip: hw.Chip = hw.H100) -> float:
@@ -65,9 +69,15 @@ class WallClockFitness(Fitness):
     """Measured fitness: run the kernel at the operator's shape and time it.
 
     A configuration runs the port's kernel lane (`kernels.ops.conv2d` /
-    `kernels.ops.matmul` with `cfg`) on inputs made once per operator from
-    seed 0.  On a CPU device (an explicit choice) the host clock times the
-    plain versions."""
+    `kernels.ops.matmul` / `kernels.ops.attention` with `cfg`) on inputs
+    made once per operator from seed 0.  On a CPU device (an explicit
+    choice) the host clock times the plain versions.
+
+    An attention node races unequal work where Sq < Skv: the kernel lane
+    masks causally at the top left, as the Pallas kernel does, and skips
+    the key tiles past each query tile's diagonal, while the vendor lane
+    (`ref_ops.attention`) aligns the mask at the bottom right and reads the
+    whole context."""
 
     kind = "wallclock"
 
@@ -114,6 +124,9 @@ class WallClockFitness(Fitness):
         from repro_torch.kernels import ops as kops
 
         x, w, b = self.inputs(op)
+        if op.kind == "attention":
+            # what the engine's pallas_attention lane runs for the node
+            return lambda: kops.attention(x, w, b, causal=True, config=cfg)
         if op.kind == "conv2d":
             padding = "SAME" if op.d["pad"] else "VALID"
             return lambda: kops.conv2d(x, w, b, stride=op.d["stride"],
@@ -169,7 +182,10 @@ class WallClockFitness(Fitness):
 
     def __call__(self, op: OpDesc, cfg: Config) -> float:
         self.evals += 1
-        return self._measure(op, "kernel", cfg, lambda: self.kernel_runner(op, cfg))
+        # keyed on the knobs the kernel reads: configs that differ only in
+        # a scheduler knob share one measurement and tie exactly
+        read = {k: v for k, v in cfg.items() if k not in UNPRICED_KEYS}
+        return self._measure(op, "kernel", read, lambda: self.kernel_runner(op, read))
 
     def vendor_time(self, op: OpDesc) -> float:
         return self._measure(op, "vendor", {}, lambda: self.vendor_runner(op))

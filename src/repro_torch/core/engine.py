@@ -10,11 +10,12 @@ Backends, as the JAX registry routes them:
                       cuDNN / cuBLAS on the GPU)
   'pallas_matmul'  -> kernels.ops.matmul (csrc/matmul.cu)
   'pallas_conv2d'  -> kernels.ops.conv2d (csrc/conv2d.cu)
+  'pallas_attention' -> kernels.ops.attention (csrc/flash_attention.cu)
 
-`fused_elementwise` nodes run through ref_ops, as in the JAX engine;
-`pallas_attention` waits for the attention kernel's port.  The weight
-of an NHWC conv on the vendor lane is laid out once, at construction, as
-cuDNN reads it (`ref_ops.nhwc_conv_weight`), not on every call.
+`fused_elementwise` nodes run through ref_ops, as in the JAX engine.  The
+weight of an NHWC conv on the vendor lane is laid out once, at
+construction, as cuDNN reads it (`ref_ops.nhwc_conv_weight`), not on every
+call.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ def default_registry() -> BackendRegistry:
             padding=attrs.get("padding", "SAME"),
             layout=attrs.get("layout", "NCHW"),
             activation=attrs.get("activation"), config=config),
+        "pallas_attention": lambda inputs, attrs, config: kops.attention(
+            *inputs, causal=attrs.get("causal", True), config=config),
     }
 
 

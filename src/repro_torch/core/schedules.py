@@ -18,9 +18,9 @@ generated configuration will be verified first").
 
 `OpDesc` and the `Template` base are copies of `repro.core.schedules`, so
 an operator's `signature()` — the search cache's and the plan's key — is
-the same in both packages.  The TPU kernels' flash-attention template is
-not registered until that kernel is ported: `select` races attention nodes
-on the vendor lane only.
+the same in both packages.  The templates keep the JAX names
+(`pallas_matmul`, `pallas_conv2d`, `pallas_attention`), so a plan tuned by
+either package loads in the other.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch import hw
+from repro_torch.kernels import attention as attn_kernel
 from repro_torch.kernels import conv2d as conv_kernel
 
 
@@ -216,8 +217,48 @@ class Conv2dTemplate(Template):
             d["stride"], padding, cfg["bn"], cfg["row_block"], chip) is not None
 
 
+class AttentionTemplate(Template):
+    """The dense flash-attention kernel (`kernels/csrc/flash_attention.cu`):
+    `block_q` query rows per CTA × `block_kv` keys per shared-memory tile,
+    sized for a Hopper block (the TPU template's 128–2048 are VMEM-sized).
+    Valid when `kernels.attention.flash_geometry` launches it within the
+    chip's limits.  An `OpDesc` carries no KV-head count, and the race times
+    the kernel on MHA-shaped K/V, so the geometry is checked at one query
+    head per KV head; a GQA call clamps `block_q` to its group
+    (`flash_blocks`).
+
+    Serve-graph `prefill_chunk` ops additionally race `max_segments`, the
+    packing width of the segment-packed chunk lane, which the scheduler
+    reads as its per-step packing cap (`PlanRouter.chunk_segments`).  The
+    flash kernel does not read it, so the wall-clock fitness gives every
+    `max_segments` of one tile the same time."""
+
+    name = "pallas_attention"
+    kinds = ("attention",)
+
+    MAX_SEGMENTS = [1, 2, 4, 8]
+
+    def space(self, op: OpDesc) -> Dict[str, List[Any]]:
+        d = op.d
+        bq, bkv = attn_kernel.FLASH_BLOCK_Q, attn_kernel.FLASH_BLOCK_KV
+        s = {
+            "block_q": [b for b in bq if b <= max(bq[0], d["q"])],
+            "block_kv": [b for b in bkv if b <= max(bkv[0], d["kv"])],
+        }
+        if op.label.startswith("prefill_chunk"):
+            # packing can't exceed one request per query row
+            s["max_segments"] = [m for m in self.MAX_SEGMENTS
+                                 if m <= max(1, d["q"])]
+        return s
+
+    def validate(self, op: OpDesc, cfg: Config, chip: hw.Chip = hw.H100) -> bool:
+        return attn_kernel.flash_geometry(
+            cfg["block_q"], cfg["block_kv"], 1, op.d["d"], hw.itemsize(op.dtype),
+            chip) is not None
+
+
 TEMPLATES: Dict[str, Template] = {
-    t.name: t for t in (MatmulTemplate(), Conv2dTemplate())
+    t.name: t for t in (MatmulTemplate(), Conv2dTemplate(), AttentionTemplate())
 }
 
 

@@ -13,8 +13,9 @@ move between the two packages; on the port it runs PyTorch.
 `select` honours `third_party=False` to reproduce the paper's §3.4 ablation
 ("excluding these TensorRT operators incorporated only results in very
 marginal performance loss of 2%"): the vendor lane is then raced only for
-operators no kernel template covers (attention, until its kernel is
-ported).
+operators no kernel template covers.  Every tunable op kind (conv2d,
+matmul, attention) has a template now, so a WPK-only plan runs every
+tunable node on a hand-written kernel.
 """
 
 from __future__ import annotations

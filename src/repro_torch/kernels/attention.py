@@ -1,31 +1,57 @@
-"""Wrappers of the two paged attention kernels (`csrc/paged_decode.cu`,
-`csrc/paged_prefill.cu`), the Hopper counterparts of `flash_decode_paged`
-and `flash_prefill_paged` in `repro.kernels.attention`.
+"""Wrappers of the port's four attention kernels, all built on the
+online-softmax tile of `csrc/paged_attention.cuh`:
 
-Unlike the Pallas wrappers, these take the whole (num_blocks, block_size,
-Hkv, D) pool of one layer and put the KV head in the kernel's grid — no
-Python loop over KV heads.  A CPU tensor takes the plain version in
-`repro_torch.kernels.ref`; a CUDA tensor launches the kernel or raises.
-Each wrapper counts its launches in a plain int attribute `launches`.
+  * `paged_decode_attention` / `paged_prefill_attention`
+    (`csrc/paged_decode.cu`, `csrc/paged_prefill.cu`), the Hopper
+    counterparts of `flash_decode_paged` and `flash_prefill_paged` in
+    `repro.kernels.attention`: they take the whole (num_blocks, block_size,
+    Hkv, D) pool of one layer and put the KV head in the kernel's grid —
+    no Python loop over KV heads;
+  * `flash_attention` (`csrc/flash_attention.cu`), the counterpart of
+    `flash_attention_padded`: dense (B, Sq, H, D) x (B, Skv, Hkv, D)
+    attention, GQA by KV-head index, the causal mask aligned at the top
+    left as in the Pallas kernel, ragged Sq / Skv masked in the kernel (no
+    padded copies); knobs `block_q` (query rows per CTA) and `block_kv`
+    (keys per shared-memory tile), whose launch geometry `flash_geometry`
+    decides — the schedule template validates with the same function;
+  * `dense_decode_attention` (`csrc/dense_decode.cu`), the counterpart of
+    `flash_decode_padded`: one token per sequence over dense (B, S, Hkv, D)
+    caches, in one launch with the KV head in the grid.
+
+A CPU tensor takes the plain version in `repro_torch.kernels.ref`; a CUDA
+tensor launches the kernel or raises.  Each wrapper counts its launches in
+a plain int attribute `launches`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PREFILL_MAX_VECTORS = 32      # query rows x G per prefill CTA (paged_prefill.cu)
-DECODE_MAX_GROUP = 16         # G = H / Hkv per decode CTA (paged_decode.cu)
+DECODE_MAX_GROUP = 16         # G = H / Hkv per decode CTA (paged_decode.cu,
+                              # dense_decode.cu)
+FLASH_MAX_VECTORS = 32        # query rows x G per flash CTA (flash_attention.cu)
+FLASH_BLOCK_Q = (4, 8, 16, 32)
+FLASH_BLOCK_KV = (16, 32, 64, 128)
+DEFAULT_BLOCK_KV = 64
+THREADS = 128                 # paged::THREADS
+MAX_D = 2 * THREADS
+MAX_GRID_Z = 65_535
 
 
 def _check_common(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                  what: str) -> int:
+                  what: str,
+                  kv_layout: str = "pools must be (num_blocks, block_size, Hkv, D)"
+                  ) -> int:
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {q.dtype} not supported")
     for t in (q, k_pool, v_pool):
@@ -38,11 +64,11 @@ def _check_common(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: tensors must be 16-byte aligned")
     if k_pool.shape != v_pool.shape or k_pool.dim() != 4:
-        raise ValueError(f"{what}: pools must be (num_blocks, block_size, Hkv, D)")
+        raise ValueError(f"{what}: {kv_layout}")
     d = q.shape[-1]
-    if k_pool.shape[3] != d or d % 8 or d > 256:
-        raise ValueError(f"{what}: head dim {d} must match the pool, be a "
-                         "multiple of 8 and at most 256")
+    if k_pool.shape[3] != d or d % 8 or d > MAX_D:
+        raise ValueError(f"{what}: head dim {d} must match K/V, be a "
+                         f"multiple of 8 and at most {MAX_D}")
     return _DTYPES[q.dtype]
 
 
@@ -129,3 +155,135 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_prefill_attention.launches = 0
+
+
+def tile_smem_bytes(nq: int, block_kv: int, d: int, itemsize: int) -> int:
+    """Dynamic shared memory of one attention CTA: `paged::layout` of
+    `csrc/paged_attention.cuh`, term for term (f32 queries, K rows padded
+    by one 32-bit word, V rows, f32 scores, three f32 per-vector stats,
+    each region 16-byte aligned)."""
+    def a16(x):
+        return (x + 15) & ~15
+    off = a16(nq * (d + 1) * 4)
+    off = a16(off + block_kv * (d + 4 // itemsize) * itemsize)
+    off = a16(off + block_kv * d * itemsize)
+    off = a16(off + nq * block_kv * 4)
+    for _ in range(3):
+        off = a16(off + nq * 4)
+    return off
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashGeometry:
+    block_q: int                # query rows per CTA
+    block_kv: int               # keys per shared-memory tile
+    smem_bytes: int
+
+
+def flash_geometry(block_q: int, block_kv: int, group: int, d: int,
+                   itemsize: int, chip: hw.Chip = hw.H100) -> Optional[FlashGeometry]:
+    """The flash kernel's launch geometry for one configuration, or None
+    when it is outside the kernel's limits: more than FLASH_MAX_VECTORS
+    query vectors (block_q x G) per CTA, a head dim the tile does not take,
+    or a tile that does not fit the chip's shared memory or threads per
+    block.  Registers are fixed at compile time (`__launch_bounds__(128)`)."""
+    if block_q < 1 or block_kv < 1 or group < 1:
+        return None
+    if block_q * group > FLASH_MAX_VECTORS or d % 8 or d > MAX_D:
+        return None
+    smem = tile_smem_bytes(block_q * group, block_kv, d, itemsize)
+    if smem > chip.smem_per_block or THREADS > chip.max_threads_per_block:
+        return None
+    return FlashGeometry(block_q, block_kv, smem)
+
+
+def flash_blocks(block_q: Optional[int], block_kv: Optional[int], sq: int,
+                 group: int, d: int, itemsize: int) -> FlashGeometry:
+    """The geometry a call launches: the tuned `block_q` / `block_kv`
+    (defaults: as many rows as fit, DEFAULT_BLOCK_KV keys), clamped to the
+    kernel's limits — TPU-sized blocks of a JAX plan shrink to the largest
+    tile that fits — and `block_q` to Sq.  The dense decode kernel's tile
+    is this one at block_q = 1."""
+    if group > FLASH_MAX_VECTORS:
+        raise ValueError(f"{group} query heads per KV head: the flash kernel "
+                         f"takes at most {FLASH_MAX_VECTORS}")
+    cap = FLASH_MAX_VECTORS // group
+    bq = max(1, min(block_q or cap, cap, sq))
+    bkv = max(1, min(block_kv or DEFAULT_BLOCK_KV, FLASH_BLOCK_KV[-1]))
+    geo = flash_geometry(bq, bkv, group, d, itemsize)
+    while geo is None and bkv > 1:
+        bkv //= 2
+        geo = flash_geometry(bq, bkv, group, d, itemsize)
+    if geo is None:
+        raise ValueError(f"no flash tile fits: G={group}, D={d}")
+    return geo
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_kv: Optional[int] = None) -> torch.Tensor:
+    """Dense attention: q (B, Sq, H, D) over k, v (B, Skv, Hkv, D) ->
+    (B, Sq, H, D); causal rows see keys 0..i (top-left alignment)."""
+    if q.device.type == "cpu":
+        return _ref.attention_ref(q, k, v, causal, scale)
+    dtype = _check_common(q, k, v, "flash_attention",
+                          "k and v must both be (B, Skv, Hkv, D)")
+    if q.dim() != 4 or k.shape[0] != q.shape[0]:
+        raise ValueError("q must be (B, Sq, H, D), with K/V's batch")
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"H={h} must be a multiple of Hkv={hkv}")
+    if b > MAX_GRID_Z or sq < 1:
+        raise ValueError(f"batch {b} must be 1..{MAX_GRID_Z} and Sq >= 1")
+    geo = flash_blocks(block_q, block_kv, sq, h // hkv, d, q.element_size())
+    out = torch.empty_like(q)
+    fn = build.load("flash_attention")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             b, sq, skv, h, hkv, d, geo.block_q, geo.block_kv, int(causal),
+             scale, dtype, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                           scale: Optional[float] = None,
+                           block_kv: Optional[int] = None) -> torch.Tensor:
+    """One token per sequence: q (B, H, D) over the first `lengths[b]` rows
+    of dense caches (B, S, Hkv, D) -> (B, H, D); `block_kv` keys per
+    shared-memory tile (clamped to what fits)."""
+    if q.device.type == "cpu":
+        return _ref.dense_decode_attention_ref(q, k_cache, v_cache, lengths, scale)
+    dtype = _check_common(q, k_cache, v_cache, "dense_decode_attention",
+                          "caches must both be (B, S, Hkv, D)")
+    if q.dim() != 3:
+        raise ValueError("q must be (B, H, D)")
+    b, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != b or lengths.shape != (b,):
+        raise ValueError("caches must be (B, S, Hkv, D) and lengths (B,)")
+    if h % hkv or h // hkv > DECODE_MAX_GROUP:
+        raise ValueError(f"H={h} must be a multiple of Hkv={hkv} with at most "
+                         f"{DECODE_MAX_GROUP} query heads per KV head")
+    # one query row of G vectors: the flash tile's geometry at block_q = 1
+    bkv = flash_blocks(1, block_kv, 1, h // hkv, d, q.element_size()).block_kv
+    lengths = _index(lengths)
+    out = torch.empty_like(q)
+    fn = build.load("dense_decode")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, s, h, hkv, d, bkv, scale,
+             dtype, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "dense_decode_attention")
+    dense_decode_attention.launches += 1
+    return out
+
+
+dense_decode_attention.launches = 0

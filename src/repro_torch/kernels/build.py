@@ -36,6 +36,8 @@ SOURCES = {
     "matmul": "matmul.cu",
     "conv2d": "conv2d.cu",
     "fused_elementwise": "fused_elementwise.cu",
+    "flash_attention": "flash_attention.cu",
+    "dense_decode": "dense_decode.cu",
 }
 HEADERS = ("paged_attention.cuh", "activation.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,6 +60,8 @@ SIGNATURES = {
     "conv2d": ("conv2d_direct", [_P, _P, _P, _P] + [_I] * 19 + [_P]),
     "fused_elementwise": ("fused_elementwise",
                           [_P, _P, _P, _P, _P, _P, _L, _I, _U, _I, _P]),
+    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
+    "dense_decode": ("dense_decode_attention", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

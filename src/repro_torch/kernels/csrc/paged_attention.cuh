@@ -1,18 +1,22 @@
-// Shared body of the two paged attention kernels (paged_decode.cu and
-// paged_prefill.cu): an online-softmax pass of a tile of query vectors over
-// the KV blocks one block table names.
+// Shared body of the four attention kernels (paged_decode.cu,
+// paged_prefill.cu, flash_attention.cu, dense_decode.cu): an online-softmax
+// pass of a tile of query vectors over the KV rows of one KV head, read in
+// blocks of `bs` rows from either a paged pool or a dense cache.
 //
 // A CTA owns one KV head `h` and a tile of query rows; each row carries the
 // G = H / Hkv query heads of that KV head, so the tile holds nq = rows * G
-// query vectors (vector v = local_row * G + g).  A row at absolute position
-// `qpos` of its request attends to key positions 0..qpos, which live in
-// logical blocks 0..qpos / block_size of its block table.  For each such
-// block the CTA stages the block's K and V rows for head h in shared memory
-// (16-byte loads from the (num_blocks, block_size, Hkv, D) pool), computes
-// the scores in f32, updates the running max / denominator per vector and
+// query vectors (vector v = local_row * G + g).  Vector va's row may see key
+// positions 0..qpos_a, each later row one more, and no row sees past `kmax`
+// (a non-causal caller passes qpos_a = kmax, so every row sees 0..kmax).
+// For each block the CTA stages the block's K and V rows for head h in
+// shared memory (16-byte loads; rows past kmax are not read), computes the
+// scores in f32, updates the running max / denominator per vector and
 // rescales the f32 accumulators, exactly the sequence of the Pallas kernels'
 // grid steps — including the rounding of the probabilities to the value
-// dtype before P·V.
+// dtype before P·V.  Where block j's rows live is the addressing policy's
+// business: `PagedKV` reads them through a block table from a
+// (num_blocks, block_size, Hkv, D) pool, `DenseKV` from one sequence's
+// rows of a (B, S, Hkv, D) cache.
 //
 // Thread layout (128 threads): scores are one thread per (vector, key);
 // the softmax update is one thread per vector; the P·V accumulate is one
@@ -49,6 +53,23 @@ template <typename T> __host__ __device__ constexpr int kpad() {
 }
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// Element offset of key row t of logical block j, KV head h.
+struct PagedKV {        // (num_blocks, bs, Hkv, D) pool, block table `table`
+  const int* table;
+  int bs, hkv, d, h;
+  __device__ size_t row(int j, int t) const {
+    return (((size_t)table[j] * bs + t) * hkv + h) * (size_t)d;
+  }
+};
+
+struct DenseKV {        // rows [0, S) of one sequence of a (B, S, Hkv, D) cache
+  size_t base;          // b * S * Hkv * D
+  int bs, hkv, d, h;
+  __device__ size_t row(int j, int t) const {
+    return base + (((size_t)j * bs + t) * hkv + h) * (size_t)d;
+  }
+};
 
 // Shared-memory carve-up, identical on host (launch size) and device.
 struct Layout {
@@ -109,37 +130,39 @@ struct Tile {
     }
   }
 
-  // One pass of vectors [va, vb) over logical blocks [0, nblk) of `table`;
-  // vector va's row sits at absolute position qpos_a, each later row one
-  // further.  Every thread of the CTA must call this with the same arguments.
+  // One pass of vectors [va, vb) over logical blocks [0, nblk) of `kv`;
+  // vector va's row sees key positions 0..qpos_a, each later row one
+  // further, and no row sees past kmax.  Every thread of the CTA must call
+  // this with the same arguments.
+  template <typename KV>
   __device__ void attend(const T* __restrict__ kp, const T* __restrict__ vp,
-                         const int* __restrict__ table, int nblk, int hkv, int h,
-                         int va, int vb, int qpos_a) {
+                         const KV& kv, int nblk, int va, int vb, int qpos_a,
+                         int kmax) {
     const int tid = threadIdx.x;
     const int kstride = d + kpad<T>();
     constexpr int EPC = 16 / (int)sizeof(T);     // elements per 16-byte chunk
     const int cpr = d / EPC;                     // chunks per row
     const int nv = vb - va;
     for (int j = 0; j < nblk; ++j) {
-      const size_t phys = (size_t)table[j];
+      const int kbase = j * bs;
+      const int rows = min(bs, kmax - kbase + 1);   // rows any vector sees
       __syncthreads();                           // previous block consumed
-      for (int c = tid; c < bs * cpr; c += THREADS) {
+      for (int c = tid; c < rows * cpr; c += THREADS) {
         const int t = c / cpr, cc = c % cpr;
-        const size_t goff = ((phys * bs + t) * hkv + h) * (size_t)d;
-        const uint4 kv = reinterpret_cast<const uint4*>(kp + goff)[cc];
-        const uint4 vv = reinterpret_cast<const uint4*>(vp + goff)[cc];
-        const T* kel = reinterpret_cast<const T*>(&kv);
+        const size_t goff = kv.row(j, t);
+        const uint4 kq = reinterpret_cast<const uint4*>(kp + goff)[cc];
+        const uint4 vq = reinterpret_cast<const uint4*>(vp + goff)[cc];
+        const T* kel = reinterpret_cast<const T*>(&kq);
 #pragma unroll
         for (int e = 0; e < EPC; ++e) ks[t * kstride + cc * EPC + e] = kel[e];
-        reinterpret_cast<uint4*>(vs + (size_t)t * d)[cc] = vv;
+        reinterpret_cast<uint4*>(vs + (size_t)t * d)[cc] = vq;
       }
       __syncthreads();
-      const int kbase = j * bs;
       for (int i = tid; i < nv * bs; i += THREADS) {
         const int vi = i / bs, t = i % bs;
         const int v = va + vi;
         float s = NEG_INF;
-        if (kbase + t <= qpos_a + vi / g) {
+        if (kbase + t <= min(qpos_a + vi / g, kmax)) {
           const float* qrow = qs + v * (d + 1);
           const T* krow = ks + t * kstride;
           float dot = 0.f;
@@ -174,9 +197,9 @@ struct Tile {
 #pragma unroll
         for (int v = 0; v < MAXNQ; ++v) {
           if (v < va || v >= vb) continue;
-          // keys past the row's position carry p == 0; skip them so stale
-          // rows of a partly written block are never read
-          const int nt = min(bs, qpos_a + (v - va) / g - kbase + 1);
+          // keys past the row's limit carry p == 0; skip them, so rows that
+          // were never staged are never read
+          const int nt = min(bs, min(qpos_a + (v - va) / g, kmax) - kbase + 1);
           float acc_v = acc[v][c] * a[v];
           const float* prow = sc + v * bs;
           for (int t = 0; t < nt; ++t)

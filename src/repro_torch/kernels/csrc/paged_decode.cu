@@ -47,8 +47,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int len = lengths[b];
   if (len > 0) {
     const int nblk = min(nbt, (len - 1) / bs + 1);
-    tile.attend(k_pool, v_pool, tables + (size_t)b * nbt, nblk, hkv, h, 0, g,
-                len - 1);
+    const paged::PagedKV kv{tables + (size_t)b * nbt, bs, hkv, d, h};
+    tile.attend(k_pool, v_pool, kv, nblk, 0, g, len - 1, len - 1);
   }
   tile.store(out, b, n_heads, h);
 }

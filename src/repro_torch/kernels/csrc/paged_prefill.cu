@@ -65,8 +65,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     if (qn <= 0 || ra >= rb) continue;     // idle segment or not in this tile
     const int qpos_a = kv0 + ra - q0;
     const int nblk = min(nbt, (kv0 + rb - 1 - q0) / bs + 1);
-    tile.attend(k_pool, v_pool, seg_tables + (size_t)s * nbt, nblk, hkv, h,
-                (ra - r0) * g, (rb - r0) * g, qpos_a);
+    const paged::PagedKV kv{seg_tables + (size_t)s * nbt, bs, hkv, d, h};
+    tile.attend(k_pool, v_pool, kv, nblk, (ra - r0) * g, (rb - r0) * g, qpos_a,
+                qpos_a + rb - 1 - ra);
   }
   tile.store(out, r0, n_heads, h);
 }

@@ -1,14 +1,17 @@
 """Public wrappers over the port's kernels, with the signatures of
-`repro.kernels.ops` (`matmul`, `conv2d`, `fused_elementwise`,
-`attention_decode_paged`, `attention_prefill_packed`).
+`repro.kernels.ops` (`matmul`, `conv2d`, `fused_elementwise`, `attention`,
+`attention_decode`, `attention_decode_paged`, `attention_prefill_packed`).
 
 A CPU tensor goes to the kernel's plain version; a CUDA tensor goes to the
 kernel or the call raises — there is no fallback.  The tuned `config` dicts
-of the JAX plans are accepted: `block_q` sizes the prefill kernel's query
-tile, `bn` / `row_block` the conv kernel's block; keys the Hopper kernels
-do not read (the matmul's TPU tile bm / bn / bk / order / k_unroll — the
-GEMM picks its tile from M — the conv's bm / bk / order / k_unroll, the
-elementwise chain's block_rows) are ignored.
+of the JAX plans are accepted: `block_q` sizes the prefill and flash
+kernels' query tiles, `block_kv` the flash and dense decode kernels' key
+tiles (TPU-sized blocks are clamped to the largest Hopper tile that fits),
+`bn` / `row_block` the conv kernel's block; keys the Hopper kernels do not
+read (the matmul's TPU tile bm / bn / bk / order / k_unroll — the GEMM
+picks its tile from M — the conv's bm / bk / order / k_unroll, the
+elementwise chain's block_rows, the chunk lane's max_segments, which the
+scheduler reads) are ignored.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.kernels.attention import (paged_decode_attention,
+from repro_torch.kernels.attention import (dense_decode_attention,
+                                           flash_attention,
+                                           paged_decode_attention,
                                            paged_prefill_attention)
 from repro_torch.kernels import conv2d as _conv
 from repro_torch.kernels.fused import fused_elementwise as _fused_elementwise
@@ -87,6 +92,29 @@ def fused_elementwise(x: torch.Tensor, chain: Sequence[Dict[str, Any]],
     consume `extras` (same shape as x) in order."""
     del config  # one flat pass: no block_rows to tune
     return _fused_elementwise(x, chain, extras)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale: Optional[float] = None,
+              config: Config = None) -> torch.Tensor:
+    """Dense flash attention: q (B, Sq, H, D), k / v (B, Skv, Hkv, D) ->
+    (B, Sq, H, D); GQA by KV-head index; a causal mask aligned at the top
+    left (query row i sees keys 0..i), as the Pallas kernel's."""
+    cfg = config or {}
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, scale=scale,
+                           block_q=cfg.get("block_q"), block_kv=cfg.get("block_kv"))
+
+
+def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     scale: Optional[float] = None,
+                     config: Config = None) -> torch.Tensor:
+    """Single-token decode over dense caches: q (B, H, D), caches (B, S,
+    Hkv, D), lengths (B,) -> (B, H, D); positions >= lengths[b] masked."""
+    return dense_decode_attention(q.contiguous(), k_cache.contiguous(),
+                                  v_cache.contiguous(), lengths, scale=scale,
+                                  block_kv=(config or {}).get("block_kv"))
 
 
 def attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,

@@ -18,6 +18,15 @@ Rounding points follow the JAX package's default lanes:
     The CUDA kernels accumulate Q·Kᵀ and P·V in f32 instead, as the Pallas
     kernels do, so in bf16 the two agree only to a tolerance; in f32 they
     agree to rounding.
+  * the two dense attention references (`attention_ref`,
+    `dense_decode_attention_ref`) follow the Pallas kernels
+    `flash_attention_padded` / `flash_decode_padded` instead, whose
+    counterparts they are: Q·Kᵀ accumulated in f32, probabilities rounded
+    to V's dtype before an f32 P·V, one global max in place of the online
+    one.  `attention_ref`'s causal mask is aligned at the top left, as the
+    Pallas kernel's is (query row i sees keys 0..i); the JAX oracle
+    `repro.kernels.ref.attention_ref` aligns it at the bottom right, and
+    the two agree only where Sq == Skv.
 """
 
 from __future__ import annotations
@@ -184,3 +193,53 @@ def packed_prefill_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     probs = _softmax_pv(logits, v_ctx.dtype)
     out = torch.einsum("hgqk,qkhd->qhgd", probs, v_ctx)
     return out.reshape(1, c, h, d).to(q.dtype)
+
+
+def _rounded_pv(logits: torch.Tensor, valid: torch.Tensor, v: torch.Tensor,
+                eq: str) -> torch.Tensor:
+    """softmax(logits over `valid` keys) · V with the dense kernels'
+    rounding points: p = exp(s - max) in f32, rounded to V's dtype before
+    an f32 P·V (einsum `eq`), divided by the f32 sum of the unrounded p.  A
+    row with no valid key gives zeros (l = 0, as in the kernels)."""
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = torch.where(valid, p, torch.zeros_like(p))
+    denom = p.sum(-1)
+    acc = torch.einsum(eq, p.to(v.dtype).float(), v.float())
+    return acc / torch.where(denom == 0, torch.ones_like(denom), denom)[..., None]
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Dense attention, (B, Sq, H, D) x (B, Skv, Hkv, D) -> (B, Sq, H, D),
+    query head h on KV head h // (H / Hkv); causal rows see keys 0..i (the
+    mask aligned at the top left, as in the Pallas kernel)."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, sq, hkv, h // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = (torch.arange(skv, device=q.device)[None, :]
+                 <= torch.arange(sq, device=q.device)[:, None])
+    out = _rounded_pv(logits, valid, v, "bhgqk,bkhd->bhgqd")   # (B, Hkv, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def dense_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, lengths: torch.Tensor,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """One new token per sequence, q (B, H, D), against the first
+    `lengths[b]` rows of dense caches (B, S, Hkv, D) -> (B, H, D); a length
+    of 0 gives zeros."""
+    b, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, hkv, h // hkv, d)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    valid = (pos[None, :] < lengths.to(q.device).long()[:, None])[:, None, None, :]
+    out = _rounded_pv(logits, valid, v_cache, "bhgk,bkhd->bhgd")
+    return out.reshape(b, h, d).to(q.dtype)

@@ -1,30 +1,165 @@
-"""Plan-aware backend routing for the serving runtime — the query half of
-`repro.serve.router.PlanRouter`.
+"""Plan-aware backend routing for the serving runtime — the port of
+`repro.serve.router` (everything but the layouts-as-sharding half).
 
-A stage-qualified `InferencePlan` names a choice per serve-graph node
-(`decode.attention`, `prefill_chunk.mlp_up`, ...).  `PlanRouter` answers the
-runtime's dispatch questions from it: which attention backend each lane
-runs, how many segments one chunk may pack, and each stage's matmul lane
-table.  Vendor choices (`xla` in plans tuned by the JAX package, `torch`
-here) map to the port's torch lanes; any other choice maps to the
-hand-written CUDA lane (`cuda_attention` / `cuda_matmul`), so a plan tuned
-by the JAX package selects the same lanes here.  With no plan every query
-answers the torch lane.  Building and tuning plans is a later slice.
+The WPK `InferencePlan` is per-operator *and per-shape*: the matmuls and
+attention of a prefill (long query, batch 1) live at a very different point
+of the roofline than the decode step (query length 1, batch = slot count),
+and the unified step's chunked prefill (a `chunk_tokens`-wide query against
+a growing paged cache) at a third.  `build_serve_graph` builds each shape
+family as distinct stage-qualified nodes —
+
+    prefill.attention   decode.attention   prefill_chunk.attention
+    prefill.qkv_proj    decode.qkv_proj    prefill_chunk.qkv_proj
+    prefill.mlp_up      decode.mlp_up      prefill_chunk.mlp_up
+    prefill.mlp_down    decode.mlp_down    prefill_chunk.mlp_down
+    prefill.lm_head     decode.lm_head     prefill_chunk.lm_head
+
+— node for node, name for name and shape for shape the JAX graph, and
+`build_serve_plan` has `selection.select` race the vendor lane against
+every applicable kernel template for each of them, measured on the card.
+An attention node's kernel lane is the dense flash kernel, which the race
+times on MHA-shaped K/V with its causal mask aligned at the top left; the
+serving runtime runs the paged kernels, which read the tuned `block_q` and
+`max_segments` of the `prefill_chunk` choice.
+
+`PlanRouter` answers the runtime's dispatch questions from such a plan:
+which attention backend each lane runs, how many segments one chunk may
+pack, and each stage's matmul lane table.  Vendor choices (`xla` in plans
+tuned by either package, `torch` in hand-built ones) map to the port's
+torch lanes; any other choice maps to the hand-written CUDA lane
+(`cuda_attention` / `cuda_matmul`), so a plan tuned by the JAX package
+selects the same lanes here.  With no plan every query answers the torch
+lane.  Layout verdicts answer `replicated`: the tensor-parallel half
+(`serve_rules`, `model_parallel > 1`) waits for ROADMAP queue 1's tensor
+parallelism item.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch import hw
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.graph import Graph
 from repro_torch.core.plan import InferencePlan, OpChoice
+from repro_torch.core.search.tuner import Tuner
+from repro_torch.core.selection import select
 
-# the decoder family's serve stages (the ssm family's are a later slice)
-STAGES = ("prefill", "decode", "prefill_chunk")
+# the serve stages per model family; the port serves the decoder family
+FAMILY_STAGES = {
+    "decoder": ("prefill", "decode", "prefill_chunk"),
+    "ssm": ("ssm_prefill_chunk", "ssm_decode"),
+}
+STAGES = FAMILY_STAGES["decoder"]
 
 # the prefill lane's default width, shared by RuntimeConfig and the plans
 DEFAULT_CHUNK_TOKENS = 32
 
 VENDOR_BACKENDS = ("xla", "torch")
+
+SSM_NOT_PORTED = ("the ssm family's serve graph is not ported yet: ROADMAP.md "
+                  "queue 1, SSM family")
+TP_NOT_PORTED = ("serve_rules (layouts as sharding) is not ported yet: "
+                 "ROADMAP.md queue 1, tensor parallelism")
+
+
+def serve_stages(family: str):
+    """The serve-plan stages a family's engine dispatches through."""
+    return FAMILY_STAGES.get(family, FAMILY_STAGES["decoder"])
+
+
+def build_serve_graph(cfg: ModelConfig, *, prefill_len: int, slots: int,
+                      max_seq: int, chunk_tokens: Optional[int] = None,
+                      dtype: str = "float32",
+                      family: str = "decoder") -> Graph:
+    """The serve-time operator set as a Graph with stage-qualified names,
+    the JAX graph's nodes, tensors, shapes and dtypes exactly.
+
+    `chunk_tokens` is the unified step's per-step prompt-token budget (the
+    width of the prefill_chunk stage's query); pass the engine's resolved
+    `RuntimeConfig.chunk_width`.  None falls back to DEFAULT_CHUNK_TOKENS,
+    the width of an engine built with a default RuntimeConfig."""
+    if family == "ssm":
+        raise NotImplementedError(SSM_NOT_PORTED)
+    g = Graph("serve")
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ct = min(chunk_tokens or DEFAULT_CHUNK_TOKENS, max_seq)
+
+    # ---- prefill stage: one request, `prefill_len` query tokens
+    xp = g.add_input("x_prefill", (1, prefill_len, d), dtype)
+    wq = g.add_input("w_qkv", (d, (h + 2 * hkv) * hd), dtype)
+    qkv_p = g.add_node("matmul", [xp, wq], (1, prefill_len, (h + 2 * hkv) * hd),
+                       out_dtype=dtype, name="prefill.qkv_proj")
+    qp = g.add_input("q_prefill", (1, prefill_len, h, hd), dtype)
+    kp = g.add_input("k_prefill", (1, prefill_len, hkv, hd), dtype)
+    att_p = g.add_node("attention", [qp, kp, kp], (1, prefill_len, h, hd),
+                       out_dtype=dtype, name="prefill.attention")
+    wu = g.add_input("w_up", (d, cfg.d_ff), dtype)
+    mlp_p = g.add_node("matmul", [xp, wu], (1, prefill_len, cfg.d_ff),
+                       out_dtype=dtype, name="prefill.mlp_up")
+    wd = g.add_input("w_down", (cfg.d_ff, d), dtype)
+    hp = g.add_input("h_prefill", (1, prefill_len, cfg.d_ff), dtype)
+    mlpd_p = g.add_node("matmul", [hp, wd], (1, prefill_len, d),
+                        out_dtype=dtype, name="prefill.mlp_down")
+    wl = g.add_input("w_lm", (d, cfg.vocab), dtype)
+    lm_p = g.add_node("matmul", [xp, wl], (1, prefill_len, cfg.vocab),
+                      out_dtype=dtype, name="prefill.lm_head")
+
+    # ---- decode stage: `slots` requests, one query token each, long cache
+    xd = g.add_input("x_decode", (slots, 1, d), dtype)
+    qkv_d = g.add_node("matmul", [xd, wq], (slots, 1, (h + 2 * hkv) * hd),
+                       out_dtype=dtype, name="decode.qkv_proj")
+    qd = g.add_input("q_decode", (slots, 1, h, hd), dtype)
+    kd = g.add_input("k_decode", (slots, max_seq, hkv, hd), dtype)
+    att_d = g.add_node("attention", [qd, kd, kd], (slots, 1, h, hd),
+                       out_dtype=dtype, name="decode.attention")
+    mlp_d = g.add_node("matmul", [xd, wu], (slots, 1, cfg.d_ff),
+                       out_dtype=dtype, name="decode.mlp_up")
+    hd_ = g.add_input("h_decode", (slots, 1, cfg.d_ff), dtype)
+    mlpd_d = g.add_node("matmul", [hd_, wd], (slots, 1, d),
+                        out_dtype=dtype, name="decode.mlp_down")
+    lm_d = g.add_node("matmul", [xd, wl], (slots, 1, cfg.vocab),
+                      out_dtype=dtype, name="decode.lm_head")
+
+    # ---- prefill_chunk stage: one request, a `chunk_tokens`-wide slice of
+    # its prompt attending to the (up to max_seq) committed paged cache
+    xc = g.add_input("x_chunk", (1, ct, d), dtype)
+    qkv_c = g.add_node("matmul", [xc, wq], (1, ct, (h + 2 * hkv) * hd),
+                       out_dtype=dtype, name="prefill_chunk.qkv_proj")
+    qc = g.add_input("q_chunk", (1, ct, h, hd), dtype)
+    kc = g.add_input("k_chunk", (1, max_seq, hkv, hd), dtype)
+    att_c = g.add_node("attention", [qc, kc, kc], (1, ct, h, hd),
+                       out_dtype=dtype, name="prefill_chunk.attention")
+    mlp_c = g.add_node("matmul", [xc, wu], (1, ct, cfg.d_ff),
+                       out_dtype=dtype, name="prefill_chunk.mlp_up")
+    hc = g.add_input("h_chunk", (1, ct, cfg.d_ff), dtype)
+    mlpd_c = g.add_node("matmul", [hc, wd], (1, ct, d),
+                        out_dtype=dtype, name="prefill_chunk.mlp_down")
+    lm_c = g.add_node("matmul", [xc, wl], (1, ct, cfg.vocab),
+                      out_dtype=dtype, name="prefill_chunk.lm_head")
+
+    g.set_outputs([qkv_p, att_p, mlp_p, mlpd_p, lm_p,
+                   qkv_d, att_d, mlp_d, mlpd_d, lm_d,
+                   qkv_c, att_c, mlp_c, mlpd_c, lm_c])
+    return g
+
+
+def build_serve_plan(cfg: ModelConfig, *, prefill_len: int, slots: int,
+                     max_seq: int, chunk_tokens: Optional[int] = None,
+                     chip: hw.Chip = hw.H100,
+                     tuner: Optional[Tuner] = None,
+                     dtype: str = "bfloat16",
+                     family: str = "decoder",
+                     model_parallel: int = 1) -> InferencePlan:
+    """Tune the serve graph and return its stage-qualified InferencePlan.
+    With no `tuner`, the genetic search on wall-clock fitness on the GPU
+    (`Tuner()`), which raises where there is none.  `model_parallel` > 1
+    (the layout race) raises, as `select` does."""
+    g = build_serve_graph(cfg, prefill_len=prefill_len, slots=slots,
+                          max_seq=max_seq, chunk_tokens=chunk_tokens,
+                          dtype=dtype, family=family)
+    return select(g, tuner=tuner, chip=chip, dtype=dtype,
+                  model_parallel=model_parallel)
 
 
 class PlanRouter:
@@ -85,3 +220,31 @@ class PlanRouter:
         lane."""
         from repro_torch.kernels.dispatch import MATMUL_ROLES
         return {role: self.matmul_config(stage, role) for role in MATMUL_ROLES}
+
+    # -------------------------------------------------------------- layouts
+    def layout(self, stage: str, which: str) -> str:
+        """The plan's layout verdict for one stage op: 'replicated' |
+        'model_parallel'.  No plan, no choice and pre-layout plans answer
+        'replicated' — the single-device semantics they were tuned under."""
+        c = self._lookup(stage, which)
+        if c is None:
+            return "replicated"
+        return getattr(c, "layout", "replicated")
+
+    def layout_table(self, stage: str) -> Dict[str, str]:
+        """Every stage op's layout verdict keyed by role (the matmul roles
+        plus 'attention')."""
+        from repro_torch.kernels.dispatch import MATMUL_ROLES
+        return {role: self.layout(stage, role)
+                for role in tuple(MATMUL_ROLES) + ("attention",)}
+
+    def serve_rules(self, *args, **kwargs):
+        """Folding layout verdicts into sharding rules needs the port's
+        tensor parallelism, which does not exist yet."""
+        raise NotImplementedError(TP_NOT_PORTED)
+
+    def describe(self) -> Dict[str, str]:
+        """Stage-qualified op -> chosen backend (for logs and benches)."""
+        if self.plan is None:
+            return {}
+        return {name: c.backend for name, c in sorted(self.plan.choices.items())}

@@ -263,6 +263,7 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.core.passes.fusion", "repro_torch.core.passes.layout",
                  "repro_torch.core.schedules", "repro_torch.core.costmodel",
                  "repro_torch.core.search.genetic", "repro_torch.core.search.tuner",
-                 "repro_torch.core.selection", "repro_torch.core.engine"):
+                 "repro_torch.core.selection", "repro_torch.core.engine",
+                 "repro_torch.serve.router"):
         assert name in report["modules"], name
     assert report["leaked"] == []

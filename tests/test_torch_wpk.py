@@ -314,7 +314,8 @@ def test_conv_template_space_is_what_the_kernel_launches():
     tall = (64, 2048, 8, 4, 16, 3, 3, 1, "SAME", 16)
     assert KC.geometry(*tall, 2) is None and KC.geometry(*tall, 4) is not None
     assert TEMPLATES["pallas_matmul"].space(OpDesc.matmul(1, 1000, 512)) == {}
-    assert "pallas_attention" not in TEMPLATES
+    assert set(TEMPLATES) == {"pallas_matmul", "pallas_conv2d", "pallas_attention"}
+    assert TEMPLATES["pallas_attention"].kinds == ("attention",)
 
 
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
@@ -422,14 +423,19 @@ def test_wpk_only_ablation_is_never_faster(resnet_opt):
 
 
 def test_attention_nodes_race_the_vendor_lane_only():
+    """Attention nodes race the vendor lane against the flash kernel's
+    template now; the WPK-only ablation leaves the vendor lane out."""
     g = Graph("att")
     q = g.add_input("q", (2, 8, 4, 16))
     k = g.add_input("k", (2, 8, 4, 16))
     g.set_outputs([g.add_node("attention", [q, k, k], (2, 8, 4, 16), name="attn")])
-    for third_party in (True, False):
-        plan = select(g, tuner=_tuner(), third_party=third_party)
-        assert plan.choices["attn"].backend == VENDOR
-        assert list(plan.choices["attn"].candidates) == [VENDOR]
+    plan = select(g, tuner=_tuner(), third_party=True)
+    assert set(plan.choices["attn"].candidates) == {VENDOR, "pallas_attention"}
+    # the fake prices the kernel at 3.0625 x the roofline, the vendor at 3.2
+    assert plan.choices["attn"].backend == "pallas_attention"
+    plan = select(g, tuner=_tuner(), third_party=False)
+    assert plan.choices["attn"].backend == "pallas_attention"
+    assert list(plan.choices["attn"].candidates) == ["pallas_attention"]
 
 
 def test_a_jax_search_cache_file_loads_with_the_same_keys(tmp_path):
