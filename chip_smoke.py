@@ -7,18 +7,27 @@ Phases, each of which must pass (any failure raises and exits nonzero):
 
   1. environment: the card's name and power limit, torch/CUDA versions, the
      sm_90 check, and the build of every CUDA kernel from the sources in
-     this checkout (one nvcc per source, in parallel);
+     this checkout (one nvcc per source, in parallel), with each kernel
+     function's registers and spills from ptxas and the tensor-core
+     instruction counts (HMMA / HGMMA) of the two libraries whose bf16
+     instances run the tensor-core tile;
   2. every kernel against its plain PyTorch version on the card, with
-     kernel / plain / library times and the roofline bound: the serving
+     kernel / plain / library times and the roofline bound (and, for the
+     two tensor-core kernels at their serving shapes, the kernel's and the
+     library call's device time under CUDA-graph replay, over the same
+     rotating input copies): the serving
      kernels at the serving path's shapes in bf16 and at the JAX tests'
-     small shapes in f32, the GEMM also at ResNet-18's fc (M=1, f32, bias);
-     the conv kernel at ResNet-18's 11 conv groups
+     small shapes in f32; paged prefill also in bf16 with warps straddling
+     segments, rows past the fill, idle segments, pool blocks of 8 / 32,
+     D 64 / 256 and G 1-8; the GEMM also at ResNet-18's fc
+     (M=1, f32, bias); the conv kernel at ResNet-18's 11 conv groups
      (f32; bf16 at two), the JAX tests' sweep at every (bn, row_block) it
      takes, each activation and VALID padding; the elementwise kernel at
      ResNet-18's four residual shapes and on chains of every op in f32 and
      bf16; the dense flash kernel at the serve graph's three attention
      shapes (bf16), the JAX tests' sweep and causal Sq < Skv / Sq > Skv
-     (f32) and every tile its template admits; the dense decode kernel at
+     (f32), ragged bf16 shapes (Sq, Skv not multiples of 16, causal and
+     not) and every tile its template admits; the dense decode kernel at
      the decode stage's shape with ragged lengths (bf16) and the JAX
      tests' length sets (f32);
   3. qwen3-1.7b at full width (random weights from seed 0) served through
@@ -61,6 +70,8 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -78,7 +89,10 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 L2_BYTES = 50 * 2**20
 DEVICE = "cuda"
-PREFILL_BLOCK_Q = 16     # rows per prefill CTA: 16 rows x G=2 heads fill a tile
+PREFILL_BLOCK_Q = 16     # rows per prefill CTA: 16 rows x G=2 heads fill the
+                         # 32-vector tile (2 query warps x 16 vectors)
+# the libraries whose bf16 instances run the tensor-core tile
+TENSOR_CORE_LIBS = ("flash_attention", "paged_prefill")
 
 
 def log(*args):
@@ -102,6 +116,38 @@ def time_ms(torch, fns, iters=20, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(torch, fns, calls=20, replays=5):
+    """Device ms of one call: `calls` calls cycling through `fns` (as
+    `time_ms` does, so the inputs come from device memory as there) captured
+    in a CUDA graph, replayed `replays` times, CUDA events around the
+    replays — no host time between launches, so a small call's own time
+    shows."""
+    calls = max(calls, len(fns))
+    for fn in fns:
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def copies_for(nbytes):
@@ -138,27 +184,40 @@ class Check:
         return err
 
     def timed(self, label, kernel_fns, plain_fns, library_fns, nbytes, flops,
-              peak=BF16_FLOPS, weight=1):
+              peak=BF16_FLOPS, weight=1, device=False):
         """Time one shape; `weight` is how many times the main path runs
-        it (the record sums weight x each time)."""
+        it (the record sums weight x each time; 0 for a checked shape the
+        main path does not run, which is logged and listed only).
+        `device`: also the kernel's and the library call's device time
+        (`graph_ms`), listed per shape."""
         torch = sys.modules["torch"]
         k = time_ms(torch, kernel_fns)
         p = time_ms(torch, plain_fns)
         lib = time_ms(torch, library_fns) if library_fns else None
         b, by = bound(nbytes, flops, peak)
-        self.ms += weight * k
-        self.plain_ms += weight * p
-        self.library_ms = None if lib is None or self.library_ms is None \
-            else self.library_ms + weight * lib
-        self.bound_parts[0] += weight * nbytes / HBM_BPS * 1e3
-        self.bound_parts[1] += weight * flops / peak * 1e3
-        self.bound_ms += weight * b
-        self.shapes.append(label)
-        log(f"  {self.name} {label}{f' (x{weight} per pass)' if weight != 1 else ''}: "
+        dev = {}
+        if device:
+            dev["device_ms"] = graph_ms(torch, kernel_fns)
+            dev["library_device_ms"] = graph_ms(torch, library_fns)
+        if weight:
+            self.ms += weight * k
+            self.plain_ms += weight * p
+            self.library_ms = None if lib is None or self.library_ms is None \
+                else self.library_ms + weight * lib
+            self.bound_parts[0] += weight * nbytes / HBM_BPS * 1e3
+            self.bound_parts[1] += weight * flops / peak * 1e3
+            self.bound_ms += weight * b
+        self.shapes.append({"shape": label, "weight": weight, "ms": k,
+                            "plain_ms": p, "library_ms": lib, "bound_ms": b,
+                            "bound_by": by, **dev})
+        tag = {0: " (not on the main path)", 1: ""}.get(weight, f" (x{weight} per pass)")
+        log(f"  {self.name} {label}{tag}: "
             f"kernel_ms {k:.4f} plain_ms {p:.4f} "
             f"library_ms {'n/a' if lib is None else f'{lib:.4f}'} "
             f"bound_ms {b:.4f} ({by}; {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP)")
+            f"{flops / 1e9:.3f} GFLOP)"
+            + ("" if not dev else f"; device (CUDA graph) kernel_ms "
+               f"{dev['device_ms']:.4f} library_ms {dev['library_device_ms']:.4f}"))
 
     def record(self, paths):
         """`paths`: {path name: launches of this kernel on that path}."""
@@ -193,9 +252,23 @@ def phase_environment(torch):
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
         + ", ".join(f"{n} {s:.1f} s" for n, s in seconds.items()))
     for name in build.SOURCES:
+        func = "?"
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                func = m.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {func}: {line.strip()}")
+    # the tensor-core tile shows in the machine code as HMMA (mma.sync) or
+    # HGMMA (wgmma) instructions
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in TENSOR_CORE_LIBS:
+        sass = subprocess.run([tool, "--dump-sass", str(build.lib_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+        log(f"  sass {name}: {counts}")
+        if counts["HMMA"] + counts["HGMMA"] == 0:
+            raise AssertionError(f"{name}: no tensor-core instruction in its library")
     return smi
 
 
@@ -323,42 +396,16 @@ def _real_rows(info):
     return [r for q0, n, _ in info.tolist() for r in range(q0, q0 + n)]
 
 
-def check_prefill(torch, chk, block_q):
-    from repro_torch.kernels import attention as KA
-    from repro_torch.kernels import ref as R
-
+def _prefill_yardsticks(torch, q, kp, vp, tables, info, rotate=False):
+    """The library call for one packed chunk — one SDPA over its segments
+    batched and padded, with their K/V already gathered contiguous (the
+    gather is not timed; `rotate`: cycling through copies of the gathered
+    K/V, as the kernel's timing cycles through pool copies) — and the bytes
+    and flops of its bound."""
     F = torch.nn.functional
     dev = DEVICE
-    g = torch.Generator(device=dev).manual_seed(2)
-    # chunk 256 of qwen3-1.7b heads: a fresh segment, a resumed one
-    # (kv_start 544 > 0), a mid-prompt continuation, an idle segment, and
-    # 6 padding rows past the fill
-    c, h, hkv, d, bs, nbt = 256, 16, 8, 128, 16, 64
-    nb = 8 * nbt + 1
-    segs = [(120, 0), (100, 544), (30, 16), (0, 0)]
-    q, kp, vp, tables, info = _prefill_case(torch, g, c, h, hkv, d, bs, nbt, nb,
-                                            segs, torch.bfloat16)
-    real = _real_rows(info)
-    out = KA.paged_prefill_attention(q, kp, vp, tables, info, block_q=block_q)
-    want = R.packed_prefill_attention_ref(q, kp, vp, tables, info)
-    chk.err = max(chk.err, chk.compare(
-        "bf16 vs plain (real rows)", out[0, real], want[0, real],
-        ATT_TOL_PLAIN_BF16, "f32 vs bf16 Q·Kᵀ rounding"))
-    exact = R.packed_prefill_attention_ref(q.float(), kp.float(), vp.float(),
-                                           tables, info)
-    chk.compare("bf16 vs f32-math reference", out[0, real], exact[0, real],
-                ATT_TOL_F32MATH_BF16, "p and output rounded to bf16")
-    if not bool(torch.isfinite(out).all()):
-        raise AssertionError("prefill kernel: padding rows not finite")
-
-    n_copy = copies_for(2 * kp.numel() * 2)
-    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(n_copy - 1)]
-    kfns = [lambda kq=kq, vq=vq: KA.paged_prefill_attention(
-        q, kq, vq, tables, info, block_q=block_q) for kq, vq in pools]
-    pfns = [lambda kq=kq, vq=vq: R.packed_prefill_attention_ref(
-        q, kq, vq, tables, info) for kq, vq in pools]
-    # library: one SDPA call over the segments batched and padded, with
-    # their K/V already gathered contiguous (the gather is not timed)
+    h, d = q.shape[2], q.shape[3]
+    hkv = kp.shape[2]
     live = [(i, q0, n, kv0) for i, (q0, n, kv0) in enumerate(info.tolist()) if n]
     lq = max(n for _, _, n, _ in live)
     lk = max(kv0 + n for _, _, n, kv0 in live)
@@ -373,15 +420,93 @@ def check_prefill(torch, chk, block_q):
         mask[j, 0, :n] = torch.arange(lk, device=dev)[None, :] <= qpos[:, None]
         mask[j, 0, n:, 0] = True
         rows_keys += sum(kv0 + r + 1 for r in range(n))
-    libs = [lambda: F.scaled_dot_product_attention(qb, kk, vv, attn_mask=mask,
-                                                   enable_gqa=True)]
+    copies = copies_for(2 * kk.numel() * kk.element_size()) if rotate else 1
+    kvs = [(kk, vv)] + [(kk.clone(), vv.clone()) for _ in range(copies - 1)]
+    libs = [lambda k=ki, v=vi: F.scaled_dot_product_attention(
+        qb, k, v, attn_mask=mask, enable_gqa=True) for ki, vi in kvs]
     kv_rows = sum(kv0 + n for _, _, n, kv0 in live)
-    nbytes = 2 * q.numel() * 2 + 2 * kv_rows * hkv * d * 2 + tables.numel() * 4
-    flops = 4 * rows_keys * h * d
-    chk.timed(f"C={c} S=4 (fill {len(real)}, kv_start 544 resumed, 1 idle) "
-              f"H={h} Hkv={hkv} D={d} block_q={block_q} bf16 (library: SDPA "
-              "over pre-gathered, padded K/V, gather excluded)",
-              kfns, pfns, libs, nbytes, flops)
+    item = q.element_size()
+    nbytes = item * (2 * q.numel() + 2 * kv_rows * hkv * d) + tables.numel() * 4
+    return libs, nbytes, 4 * rows_keys * h * d
+
+
+# bf16 prefill chunks where the tensor-core tile is most likely wrong: a
+# warp's 16 vectors straddling two segments, rows past the fill, idle
+# segments, pool blocks of 8 and 32, D = 64 / 128 / 256, G = 1 / 2 / 4 / 8:
+# (H, Hkv, D, block_size, [(seg_len, kv_start)], padding rows, block_q)
+PREFILL_BF16_CASES = [
+    (8, 8, 64, 8, [(5, 0), (11, 40), (0, 0), (9, 3)], 7, None),
+    (16, 8, 128, 32, [(7, 100), (13, 0), (0, 0), (6, 33)], 4, 16),
+    (16, 4, 256, 8, [(3, 17), (6, 0), (5, 64)], 6, None),
+    (32, 4, 64, 32, [(2, 5), (3, 70), (0, 0), (1, 0)], 3, None),
+    (16, 16, 256, 32, [(19, 0), (0, 0), (9, 90)], 5, 8),
+]
+
+
+def _check_prefill_bf16(torch, chk, label, q, kp, vp, tables, info, block_q):
+    """One bf16 chunk against the plain version and an f32-math reference
+    (real rows), and rows past the fill exactly zero."""
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import ref as R
+
+    real = _real_rows(info)
+    out = KA.paged_prefill_attention(q, kp, vp, tables, info, block_q=block_q)
+    want = R.packed_prefill_attention_ref(q, kp, vp, tables, info)
+    chk.err = max(chk.err, chk.compare(
+        f"{label} vs plain (real rows)", out[0, real], want[0, real],
+        ATT_TOL_PLAIN_BF16, "f32 vs bf16 Q·Kᵀ rounding"))
+    exact = R.packed_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                           tables, info)
+    chk.compare(f"{label} vs f32-math reference", out[0, real], exact[0, real],
+                ATT_TOL_F32MATH_BF16, "p and output rounded to bf16")
+    pad = [r for r in range(q.shape[1]) if r not in set(real)]
+    if pad and bool(out[0, pad].abs().max() != 0):
+        raise AssertionError(f"prefill {label}: rows past the fill are not zeros")
+
+
+def check_prefill(torch, chk, block_q):
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import ref as R
+
+    dev = DEVICE
+    g = torch.Generator(device=dev).manual_seed(2)
+    # chunk 256 of qwen3-1.7b heads: a fresh segment, a resumed one
+    # (kv_start 544 > 0), a mid-prompt continuation, an idle segment, and
+    # 6 padding rows past the fill
+    c, h, hkv, d, bs, nbt = 256, 16, 8, 128, 16, 64
+    nb = 8 * nbt + 1
+    segs = [(120, 0), (100, 544), (30, 16), (0, 0)]
+    q, kp, vp, tables, info = _prefill_case(torch, g, c, h, hkv, d, bs, nbt, nb,
+                                            segs, torch.bfloat16)
+    _check_prefill_bf16(torch, chk, "bf16", q, kp, vp, tables, info, block_q)
+
+    n_copy = copies_for(2 * kp.numel() * 2)
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(n_copy - 1)]
+    kfns = [lambda kq=kq, vq=vq: KA.paged_prefill_attention(
+        q, kq, vq, tables, info, block_q=block_q) for kq, vq in pools]
+    pfns = [lambda kq=kq, vq=vq: R.packed_prefill_attention_ref(
+        q, kq, vq, tables, info) for kq, vq in pools]
+    libs, nbytes, flops = _prefill_yardsticks(torch, q, kp, vp, tables, info,
+                                              rotate=True)
+    chk.timed(f"C={c} S=4 (fill {len(_real_rows(info))}, kv_start 544 resumed, "
+              f"1 idle) H={h} Hkv={hkv} D={d} block_q={block_q} bf16 (library: "
+              "SDPA over pre-gathered, padded K/V, gather excluded)",
+              kfns, pfns, libs, nbytes, flops, device=True)
+
+    for h, hkv, d, bs, segs, pad, bq in PREFILL_BF16_CASES:
+        c = sum(n for n, _ in segs) + pad
+        nbt = -(-max(kv0 + n for n, kv0 in segs) // bs)
+        q, kp, vp, tables, info = _prefill_case(
+            torch, g, c, h, hkv, d, bs, nbt, len(segs) * nbt + 1, segs,
+            torch.bfloat16)
+        label = (f"bf16 C={c} segs {segs} H={h} Hkv={hkv} D={d} bs={bs} "
+                 f"block_q={bq}")
+        _check_prefill_bf16(torch, chk, label, q, kp, vp, tables, info, bq)
+        libs, nbytes, flops = _prefill_yardsticks(torch, q, kp, vp, tables, info)
+        chk.timed(label, [lambda: KA.paged_prefill_attention(
+                      q, kp, vp, tables, info, block_q=bq)],
+                  [lambda: R.packed_prefill_attention_ref(q, kp, vp, tables, info)],
+                  libs, nbytes, flops, weight=0)
 
     # f32 at the four cases of tests/test_packed_prefill.py
     h, hkv, d, bs, nbt, nb = 4, 2, 16, 8, 6, 32
@@ -708,6 +833,13 @@ def _qkv(torch, g, b, sq, skv, h, hkv, d, dtype, scale=1.0):
     return mk(b, sq, h, d), mk(b, skv, hkv, d), mk(b, skv, hkv, d)
 
 
+# bf16 shapes where the tensor-core tile's edges are most likely wrong: Sq
+# and Skv not multiples of 16, causal Sq < Skv and Sq > Skv (and each also
+# non-causal), G = 1 / 2 / 4 / 8, D = 64 / 128 / 256: (B, Sq, Skv, H, Hkv, D)
+FLASH_BF16_RAGGED = [(2, 37, 53, 8, 2, 64), (1, 70, 19, 16, 8, 256),
+                     (3, 5, 700, 16, 2, 128), (1, 33, 33, 4, 4, 128)]
+
+
 def check_flash(torch, chk):
     from repro_torch.core.schedules import TEMPLATES, OpDesc
     from repro_torch.kernels import attention as KA
@@ -739,7 +871,7 @@ def check_flash(torch, chk):
         chk.timed(f"{label} B={b} Sq={sq} Skv={skv} H={h} Hkv={hkv} D={d} causal "
                   "(top-left) bf16, default blocks (library: SDPA is_causal, "
                   "enable_gqa, on (B, H, S, D) copies)",
-                  kfns, pfns, lfns, nbytes, 4 * b * h * d * pairs)
+                  kfns, pfns, lfns, nbytes, 4 * b * h * d * pairs, device=True)
     # the JAX sweep in f32 at its config (TPU blocks of 128, clamped)
     for sq, skv, h_, hkv_ in ATTENTION_SWEEP:
         for causal in (True, False):
@@ -750,6 +882,26 @@ def check_flash(torch, chk):
                                        config={"block_q": 128, "block_kv": 128}),
                         R.attention_ref(q, k, v, causal), ATT_TOL_F32,
                         "same algorithm, f32 summation order")
+    for b, sq, skv, h_, hkv_, d_ in FLASH_BF16_RAGGED:
+        q, k, v = _qkv(torch, g, b, sq, skv, h_, hkv_, d_, torch.bfloat16)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        for causal in (True, False):
+            label = (f"bf16 B={b} Sq={sq} Skv={skv} H={h_} Hkv={hkv_} D={d_} "
+                     f"causal={causal}")
+            chk.err = max(chk.err, chk.compare(
+                f"{label} vs plain", kops.attention(q, k, v, causal=causal),
+                R.attention_ref(q, k, v, causal), ATT_TOL_F32MATH_BF16,
+                "p rounded at another max, bf16 output"))
+            pairs = _causal_pairs(sq, skv) if causal else sq * skv
+            kv_rows = min(sq, skv) if causal else skv
+            chk.timed(f"{label} (library: SDPA on (B, H, S, D) copies)",
+                      [lambda: kops.attention(q, k, v, causal=causal)],
+                      [lambda: R.attention_ref(q, k, v, causal)],
+                      [lambda: F.scaled_dot_product_attention(
+                          qt, kt, vt, is_causal=causal, enable_gqa=True)],
+                      2 * (2 * b * sq * h_ * d_ + 2 * b * kv_rows * hkv_ * d_),
+                      4 * b * h_ * d_ * pairs, weight=0)
     # every tile the template admits, at the race's chunk shape (MHA: the
     # race's inputs carry no Hkv)
     tmpl = TEMPLATES["pallas_attention"]

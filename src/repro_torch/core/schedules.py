@@ -222,7 +222,9 @@ class AttentionTemplate(Template):
     `block_q` query rows per CTA × `block_kv` keys per shared-memory tile,
     sized for a Hopper block (the TPU template's 128–2048 are VMEM-sized).
     Valid when `kernels.attention.flash_geometry` launches it within the
-    chip's limits.  An `OpDesc` carries no KV-head count, and the race times
+    chip's limits in the tile the op's dtype runs (bf16: the tensor-core
+    tile, whose two-stage K/V ring must fit shared memory).  An `OpDesc`
+    carries no KV-head count, and the race times
     the kernel on MHA-shaped K/V, so the geometry is checked at one query
     head per KV head; a GQA call clamps `block_q` to its group
     (`flash_blocks`).

@@ -1,5 +1,4 @@
-"""Wrappers of the port's four attention kernels, all built on the
-online-softmax tile of `csrc/paged_attention.cuh`:
+"""Wrappers of the port's four attention kernels:
 
   * `paged_decode_attention` / `paged_prefill_attention`
     (`csrc/paged_decode.cu`, `csrc/paged_prefill.cu`), the Hopper
@@ -18,6 +17,14 @@ online-softmax tile of `csrc/paged_attention.cuh`:
     `flash_decode_padded`: one token per sequence over dense (B, S, Hkv, D)
     caches, in one launch with the KV head in the grid.
 
+Two tiles run them, chosen by dtype alone.  The bf16 instances of the
+prefill and flash kernels run the tensor-core tile of
+`csrc/mma_attention.cuh` (mma.sync on bf16 fragments, K/V in a two-stage
+cp.async ring of tiles of 16, 32, 64 or 128 keys); their f32 instances,
+and both decode kernels in every dtype, run the CUDA-core tile of
+`csrc/paged_attention.cuh`.  `mma_tile_smem_bytes` and
+`paged_tile_smem_bytes` mirror the two tiles' shared memory.
+
 A CPU tensor takes the plain version in `repro_torch.kernels.ref`; a CUDA
 tensor launches the kernel or raises.  Each wrapper counts its launches in
 a plain int attribute `launches`.
@@ -26,6 +33,7 @@ a plain int attribute `launches`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -43,8 +51,10 @@ FLASH_MAX_VECTORS = 32        # query rows x G per flash CTA (flash_attention.cu
 FLASH_BLOCK_Q = (4, 8, 16, 32)
 FLASH_BLOCK_KV = (16, 32, 64, 128)
 DEFAULT_BLOCK_KV = 64
-THREADS = 128                 # paged::THREADS
-MAX_D = 2 * THREADS
+PREFILL_BLOCK_KV = 64         # keys per staged tile of bf16 paged prefill
+MMA_QWARPS = 2                # mma::QWARPS: query warps of 16 vectors
+THREADS = 128                 # paged::THREADS == mma::THREADS
+MAX_D = 256                   # paged::MAX_D
 MAX_GRID_Z = 65_535
 
 
@@ -70,6 +80,13 @@ def _check_common(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise ValueError(f"{what}: head dim {d} must match K/V, be a "
                          f"multiple of 8 and at most {MAX_D}")
     return _DTYPES[q.dtype]
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream of t's device (what
+    `torch.cuda.current_stream(dev).cuda_stream` gives, without building a
+    Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _index(t: torch.Tensor) -> torch.Tensor:
@@ -100,7 +117,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
              b, h, hkv, d, bs, block_tables.shape[1], scale, dtype,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _stream(q))
     build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -110,8 +127,11 @@ paged_decode_attention.launches = 0
 
 
 def prefill_block_q(block_q: Optional[int], c: int, group: int) -> int:
-    """Rows per prefill CTA: the tuned `block_q` (default: as many as fit),
-    clamped so a tile holds at most PREFILL_MAX_VECTORS query vectors."""
+    """Query rows per prefill CTA, and per flash CTA (`flash_blocks`): the
+    tuned `block_q` (default: as many as fit), clamped so a tile holds at
+    most 32 query vectors (PREFILL_MAX_VECTORS == FLASH_MAX_VECTORS) and to
+    the `c` rows there are, so a `block_q` tuned on the flash kernel
+    launches as is on paged prefill."""
     cap = max(1, PREFILL_MAX_VECTORS // group)
     return max(1, min(block_q or cap, cap, c))
 
@@ -148,7 +168,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              seg_tables.data_ptr(), seg_info.data_ptr(), out.data_ptr(),
              c, h, hkv, d, bs, seg_tables.shape[1], seg_tables.shape[0], bq,
-             scale, dtype, torch.cuda.current_stream(q.device).cuda_stream)
+             scale, dtype, _stream(q))
     build.check(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
     return out
@@ -157,20 +177,35 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
 paged_prefill_attention.launches = 0
 
 
-def tile_smem_bytes(nq: int, block_kv: int, d: int, itemsize: int) -> int:
-    """Dynamic shared memory of one attention CTA: `paged::layout` of
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def paged_tile_smem_bytes(nq: int, block_kv: int, d: int, itemsize: int) -> int:
+    """Dynamic shared memory of a CUDA-core tile CTA: `paged::layout` of
     `csrc/paged_attention.cuh`, term for term (f32 queries, K rows padded
     by one 32-bit word, V rows, f32 scores, three f32 per-vector stats,
     each region 16-byte aligned)."""
-    def a16(x):
-        return (x + 15) & ~15
-    off = a16(nq * (d + 1) * 4)
-    off = a16(off + block_kv * (d + 4 // itemsize) * itemsize)
-    off = a16(off + block_kv * d * itemsize)
-    off = a16(off + nq * block_kv * 4)
+    off = _a16(nq * (d + 1) * 4)
+    off = _a16(off + block_kv * (d + 4 // itemsize) * itemsize)
+    off = _a16(off + block_kv * d * itemsize)
+    off = _a16(off + nq * block_kv * 4)
     for _ in range(3):
-        off = a16(off + nq * 4)
+        off = _a16(off + nq * 4)
     return off
+
+
+def mma_tile_smem_bytes(nq: int, block_kv: int, d: int) -> int:
+    """Dynamic shared memory of a tensor-core tile CTA: `mma::layout` of
+    `csrc/mma_attention.cuh`, term for term (bf16 rows of DMAX + 8
+    elements: the query rows rounded up to a warp's 16, then a two-stage
+    K/V ring of `block_kv` rows each, which the KV warps' f32 merge of
+    (acc, m, l) reuses at the end)."""
+    dmax = 64 if d <= 64 else 128 if d <= 128 else 256     # mma::dmax_of
+    row = (dmax + 8) * 2
+    ring = 2 * 2 * block_kv * row
+    merge = MMA_QWARPS * (dmax // 8 * 4 + 4) * 32 * 4
+    return _a16((nq + 15) // 16 * 16 * row) + _a16(max(ring, merge))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,38 +215,51 @@ class FlashGeometry:
     smem_bytes: int
 
 
+@functools.lru_cache(maxsize=4096)
 def flash_geometry(block_q: int, block_kv: int, group: int, d: int,
                    itemsize: int, chip: hw.Chip = hw.H100) -> Optional[FlashGeometry]:
-    """The flash kernel's launch geometry for one configuration, or None
-    when it is outside the kernel's limits: more than FLASH_MAX_VECTORS
-    query vectors (block_q x G) per CTA, a head dim the tile does not take,
-    or a tile that does not fit the chip's shared memory or threads per
-    block.  Registers are fixed at compile time (`__launch_bounds__(128)`)."""
+    """The launch geometry of one configuration of the tile a dtype runs
+    (the tensor-core tile for bf16, itemsize 2; the CUDA-core tile for
+    f32), or None when it is outside the tile's limits: more than
+    FLASH_MAX_VECTORS query vectors (block_q x G) per CTA, a head dim the
+    tile does not take, a tensor-core `block_kv` outside FLASH_BLOCK_KV (its
+    instances split a tile of 16, 32, 64 or 128 keys between two warps), or
+    a tile that does not fit the chip's shared memory or threads per
+    block.  Registers are fixed at compile time
+    (`__launch_bounds__(128)`)."""
     if block_q < 1 or block_kv < 1 or group < 1:
         return None
     if block_q * group > FLASH_MAX_VECTORS or d % 8 or d > MAX_D:
         return None
-    smem = tile_smem_bytes(block_q * group, block_kv, d, itemsize)
+    if itemsize == 2:
+        if block_kv not in FLASH_BLOCK_KV:
+            return None
+        smem = mma_tile_smem_bytes(block_q * group, block_kv, d)
+    else:
+        smem = paged_tile_smem_bytes(block_q * group, block_kv, d, itemsize)
     if smem > chip.smem_per_block or THREADS > chip.max_threads_per_block:
         return None
     return FlashGeometry(block_q, block_kv, smem)
 
 
+@functools.lru_cache(maxsize=4096)
 def flash_blocks(block_q: Optional[int], block_kv: Optional[int], sq: int,
                  group: int, d: int, itemsize: int) -> FlashGeometry:
     """The geometry a call launches: the tuned `block_q` / `block_kv`
     (defaults: as many rows as fit, DEFAULT_BLOCK_KV keys), clamped to the
-    kernel's limits — TPU-sized blocks of a JAX plan shrink to the largest
-    tile that fits — and `block_q` to Sq.  The dense decode kernel's tile
-    is this one at block_q = 1."""
+    tile's limits — TPU-sized blocks of a JAX plan shrink to the largest
+    tile that fits, the tensor-core tile's `block_kv` to one of
+    FLASH_BLOCK_KV — and `block_q` to Sq (`prefill_block_q`)."""
     if group > FLASH_MAX_VECTORS:
         raise ValueError(f"{group} query heads per KV head: the flash kernel "
                          f"takes at most {FLASH_MAX_VECTORS}")
-    cap = FLASH_MAX_VECTORS // group
-    bq = max(1, min(block_q or cap, cap, sq))
-    bkv = max(1, min(block_kv or DEFAULT_BLOCK_KV, FLASH_BLOCK_KV[-1]))
+    tensor_cores = itemsize == 2
+    bq = prefill_block_q(block_q, sq, group)
+    bkv = min(block_kv or DEFAULT_BLOCK_KV, FLASH_BLOCK_KV[-1])
+    if tensor_cores:
+        bkv = max([b for b in FLASH_BLOCK_KV if b <= bkv] or FLASH_BLOCK_KV[:1])
     geo = flash_geometry(bq, bkv, group, d, itemsize)
-    while geo is None and bkv > 1:
+    while geo is None and bkv // 2 >= (FLASH_BLOCK_KV[0] if tensor_cores else 1):
         bkv //= 2
         geo = flash_geometry(bq, bkv, group, d, itemsize)
     if geo is None:
@@ -243,7 +291,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, sq, skv, h, hkv, d, geo.block_q, geo.block_kv, int(causal),
-             scale, dtype, torch.cuda.current_stream(q.device).cuda_stream)
+             scale, dtype, _stream(q))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
@@ -272,15 +320,19 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if h % hkv or h // hkv > DECODE_MAX_GROUP:
         raise ValueError(f"H={h} must be a multiple of Hkv={hkv} with at most "
                          f"{DECODE_MAX_GROUP} query heads per KV head")
-    # one query row of G vectors: the flash tile's geometry at block_q = 1
-    bkv = flash_blocks(1, block_kv, 1, h // hkv, d, q.element_size()).block_kv
+    # one query row of G vectors on the CUDA-core tile: the tuned block_kv,
+    # halved until the tile fits shared memory
+    bkv = max(1, min(block_kv or DEFAULT_BLOCK_KV, FLASH_BLOCK_KV[-1]))
+    while bkv > 1 and paged_tile_smem_bytes(h // hkv, bkv, d, q.element_size()) \
+            > hw.H100.smem_per_block:
+        bkv //= 2
     lengths = _index(lengths)
     out = torch.empty_like(q)
     fn = build.load("dense_decode")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), b, s, h, hkv, d, bkv, scale,
-             dtype, torch.cuda.current_stream(q.device).cuda_stream)
+             dtype, _stream(q))
     build.check(err, "dense_decode_attention")
     dense_decode_attention.launches += 1
     return out

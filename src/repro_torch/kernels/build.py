@@ -39,7 +39,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "dense_decode": "dense_decode.cu",
 }
-HEADERS = ("paged_attention.cuh", "activation.cuh")
+HEADERS = ("paged_attention.cuh", "mma_attention.cuh", "activation.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,7 +64,7 @@ SIGNATURES = {
     "dense_decode": ("dense_decode_attention", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
 }
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_entry: Dict[str, object] = {}
 
 
 def build_dir() -> Path:
@@ -133,14 +133,16 @@ def build_log(name: str) -> str:
 
 def load(name: str):
     """The C entry point of kernel library `name`, building it first if
-    needed; its argtypes/restype are set."""
-    if name not in _loaded:
+    needed; its argtypes/restype are set.  Kept after the first call, so a
+    launch pays a dictionary lookup."""
+    fn = _entry.get(name)
+    if fn is None:
         build_all([name])
-        _loaded[name] = ctypes.CDLL(str(lib_path(name)))
-    symbol, argtypes = SIGNATURES[name]
-    fn = getattr(_loaded[name], symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(lib_path(name))), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entry[name] = fn
     return fn
 
 

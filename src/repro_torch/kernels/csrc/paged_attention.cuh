@@ -1,7 +1,11 @@
-// Shared body of the four attention kernels (paged_decode.cu,
-// paged_prefill.cu, flash_attention.cu, dense_decode.cu): an online-softmax
-// pass of a tile of query vectors over the KV rows of one KV head, read in
-// blocks of `bs` rows from either a paged pool or a dense cache.
+// CUDA-core body of the attention kernels: an online-softmax pass of a
+// tile of query vectors over the KV rows of one KV head, read in blocks of
+// `bs` rows from either a paged pool or a dense cache.  The two decode
+// kernels (paged_decode.cu, dense_decode.cu) run it in every dtype;
+// paged_prefill.cu and flash_attention.cu run it in f32 only, chosen by
+// dtype: their bf16 instances run the tensor-core tile of mma_attention.cuh
+// (the tensor cores take f32 only as TF32, whose 10-bit mantissa the f32
+// tolerance does not allow).
 //
 // A CTA owns one KV head `h` and a tile of query rows; each row carries the
 // G = H / Hkv query heads of that KV head, so the tile holds nq = rows * G
@@ -54,13 +58,15 @@ template <typename T> __host__ __device__ constexpr int kpad() {
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-// Element offset of key row t of logical block j, KV head h.
+// Element offset of key row t of logical block j, KV head h (`row`), and
+// of key position t (`key`, for tiles not aligned to the pool's blocks).
 struct PagedKV {        // (num_blocks, bs, Hkv, D) pool, block table `table`
   const int* table;
   int bs, hkv, d, h;
   __device__ size_t row(int j, int t) const {
     return (((size_t)table[j] * bs + t) * hkv + h) * (size_t)d;
   }
+  __device__ size_t key(int t) const { return row(t / bs, t % bs); }
 };
 
 struct DenseKV {        // rows [0, S) of one sequence of a (B, S, Hkv, D) cache
@@ -68,6 +74,9 @@ struct DenseKV {        // rows [0, S) of one sequence of a (B, S, Hkv, D) cache
   int bs, hkv, d, h;
   __device__ size_t row(int j, int t) const {
     return base + (((size_t)j * bs + t) * hkv + h) * (size_t)d;
+  }
+  __device__ size_t key(int t) const {
+    return base + ((size_t)t * hkv + h) * (size_t)d;
   }
 };
 

@@ -37,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (Engine, Graph, InferencePlan, TEMPLATES, Tuner,
                               WallClockFitness, default_registry, op_desc_of,
                               roofline_bound)
+from repro_torch.core.schedules import OpDesc
 from repro_torch.core.costmodel import Fitness
 from repro_torch.kernels import attention as KA
 from repro_torch.kernels import ops
@@ -161,6 +162,63 @@ def test_attention_template_space_is_what_the_kernel_launches(node):
     # a JAX plan's TPU-sized blocks shrink to the largest Hopper tile at G=2
     assert KA.flash_blocks(512, 1024, d["q"], 2, d["d"], 2).block_kv == 128
     assert KA.flash_blocks(512, 1024, d["q"], 2, d["d"], 2).block_q == min(16, d["q"])
+
+
+def _mma_layout_bytes(nq, block_kv, d):
+    """`mma::layout` of csrc/mma_attention.cuh, written out term for term:
+    bf16 rows of DMAX + 8 elements (DMAX = 64, 128 or 256, the instance's
+    head-dim bound); round16(nq) query rows; a two-stage ring of K and V
+    rows; the merge of 2 query warps' (acc, m, l) in f32 over 32 lanes,
+    which reuses the ring."""
+    r16 = lambda x: (x + 15) // 16 * 16
+    dmax = 64 if d <= 64 else 128 if d <= 128 else 256
+    row = (dmax + 8) * 2
+    q = r16(r16(nq) * row)
+    ring = 2 * 2 * block_kv * row
+    merge = 2 * (dmax // 8 * 4 + 4) * 32 * 4
+    return q + r16(max(ring, merge))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tensor_core_tile_smem_mirrors_the_cpp_layout(d):
+    tmpl = TEMPLATES["pallas_attention"]
+    op = OpDesc.attention(1, 256, 1024, 16, d, label="prefill_chunk.attention")
+    configs = list(tmpl.enumerate_configs(op))
+    tiles = {(c["block_q"], c["block_kv"]) for c in configs}
+    # the two-stage ring of 128 keys of D = 256 needs 264 KiB: only that tile
+    # is refused
+    want = {(bq, bkv) for bq in KA.FLASH_BLOCK_Q for bkv in KA.FLASH_BLOCK_KV
+            if not (d == 256 and bkv == 128)}
+    assert tiles == want
+    for bq, bkv in tiles:
+        for group in (1, 2, 4, 8):
+            if bq * group > KA.FLASH_MAX_VECTORS:
+                continue
+            smem = KA.mma_tile_smem_bytes(bq * group, bkv, d)
+            assert smem == _mma_layout_bytes(bq * group, bkv, d)
+            assert smem <= hw.H100.smem_per_block
+            assert KA.flash_geometry(bq, bkv, group, d, 2).smem_bytes == smem
+    # paged prefill's bf16 tile, full
+    prefill = KA.mma_tile_smem_bytes(KA.PREFILL_MAX_VECTORS, KA.PREFILL_BLOCK_KV, d)
+    assert prefill == _mma_layout_bytes(32, KA.PREFILL_BLOCK_KV, d)
+    assert prefill <= hw.H100.smem_per_block
+    # f32 keeps the CUDA-core tile; the tensor-core tile takes block_kv from
+    # FLASH_BLOCK_KV only (a tuned 48 launches 32)
+    assert KA.flash_geometry(1, 64, 8, d, 4).smem_bytes == \
+        KA.paged_tile_smem_bytes(8, 64, d, 4)
+    assert KA.flash_geometry(4, 48, 1, d, 2) is None
+    assert KA.flash_blocks(4, 48, 256, 1, d, 2).block_kv == 32
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("tuned", [None, 4, 8, 16, 32, 512])
+def test_flash_and_prefill_launch_the_same_block_q(tuned, group, itemsize):
+    """A chunk `block_q` tuned on the flash kernel launches as is on paged
+    prefill, whatever the dtype's tile."""
+    for rows in (256, 5):
+        assert KA.flash_blocks(tuned, None, rows, group, 128, itemsize).block_q == \
+            KA.prefill_block_q(tuned, rows, group)
 
 
 def test_wallclock_fitness_times_attention_once_per_tile():

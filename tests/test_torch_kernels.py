@@ -8,6 +8,8 @@ kernels themselves are held against the same plain versions on the card by
 `chip_smoke.py`.
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -192,6 +194,16 @@ def test_build_names_libraries_by_source_digest(monkeypatch, tmp_path):
         p = build.lib_path(name)
         assert p.parent == tmp_path and p.name.startswith(name + "-")
         assert p == build.lib_path(name)
+    # an edit of a shared header rebuilds the libraries that include it
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    before = {n: build.lib_path(n).name for n in ("flash_attention", "paged_prefill")}
+    monkeypatch.setattr(build, "CSRC", src)
+    assert {n: build.lib_path(n).name for n in before} == before
+    with open(src / "mma_attention.cuh", "a") as f:
+        f.write("// edited\n")
+    for name, old in before.items():
+        assert build.lib_path(name).name != old
     monkeypatch.setenv("PATH", str(tmp_path))
     if not __import__("os").path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
