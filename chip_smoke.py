@@ -9,15 +9,19 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      sm_90 check, and the build of every CUDA kernel from the sources in
      this checkout (one nvcc per source, in parallel), with each kernel
      function's registers and spills from ptxas and the tensor-core
-     instruction counts (HMMA / HGMMA) of the two libraries whose bf16
-     instances run the tensor-core tile;
+     instruction counts (HMMA / HGMMA) of the three libraries whose bf16
+     instances run on the tensor cores (flash, paged prefill, the GEMM);
   2. every kernel against its plain PyTorch version on the card, with
-     kernel / plain / library times and the roofline bound (and, for the
-     two tensor-core kernels at their serving shapes, the kernel's and the
-     library call's device time under CUDA-graph replay, over the same
-     rotating input copies): the serving
-     kernels at the serving path's shapes in bf16 and at the JAX tests'
-     small shapes in f32; paged prefill also in bf16 with warps straddling
+     kernel / plain / library times and the roofline bound (and, at the
+     serving shapes of the GEMM, paged decode and the two tensor-core
+     attention kernels, the kernel's and the library call's device time
+     under CUDA-graph replay, over the same rotating input copies): the
+     serving kernels at the serving path's shapes in bf16 and at the JAX
+     tests' small shapes in f32; the two split kernels (the GEMM's split-K,
+     paged decode's split-KV) also at their split edges, each such call
+     twice and bitwise equal, the GEMM's geometry beside its neighbours
+     (device ms of the other tile height and of half / double the split)
+     at every serving shape; paged prefill also in bf16 with warps straddling
      segments, rows past the fill, idle segments, pool blocks of 8 / 32,
      D 64 / 256 and G 1-8; the GEMM also at ResNet-18's fc
      (M=1, f32, bias); the conv kernel at ResNet-18's 11 conv groups
@@ -91,8 +95,8 @@ L2_BYTES = 50 * 2**20
 DEVICE = "cuda"
 PREFILL_BLOCK_Q = 16     # rows per prefill CTA: 16 rows x G=2 heads fill the
                          # 32-vector tile (2 query warps x 16 vectors)
-# the libraries whose bf16 instances run the tensor-core tile
-TENSOR_CORE_LIBS = ("flash_attention", "paged_prefill")
+# the libraries whose bf16 instances run on the tensor cores (mma.sync)
+TENSOR_CORE_LIBS = ("flash_attention", "paged_prefill", "matmul")
 
 
 def log(*args):
@@ -324,15 +328,21 @@ def check_decode(torch, chk):
     q = torch.randn((b, h, d), generator=g, device=dev).to(torch.bfloat16)
     kp = torch.randn((nb, bs, hkv, d), generator=g, device=dev).to(torch.bfloat16)
     vp = torch.randn((nb, bs, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    nsplit, kps = KA.decode_splits(nbt, bs)
+    if nsplit < 2:
+        raise AssertionError(f"paged decode at nbt={nbt} bs={bs}: no split-KV")
     out = KA.paged_decode_attention(q, kp, vp, lengths, tables)
     want = R.paged_decode_attention_ref(q, kp, vp, lengths, tables)
     chk.err = max(chk.err, chk.compare(
-        "bf16 vs plain (real slots)", out[real], want[real],
+        f"bf16 vs plain (real slots; grid {b} x {hkv} x {nsplit} splits of "
+        f"{kps} keys)", out[real], want[real],
         ATT_TOL_PLAIN_BF16, "f32 vs bf16 Q·Kᵀ rounding"))
     exact = R.paged_decode_attention_ref(q.float(), kp.float(), vp.float(),
                                          lengths, tables)
     chk.compare("bf16 vs f32-math reference", out[real], exact[real],
                 ATT_TOL_F32MATH_BF16, "p and output rounded to bf16")
+    _bitwise(chk, "bf16 serving shape", out,
+             KA.paged_decode_attention(q, kp, vp, lengths, tables))
 
     n_copy = copies_for(2 * kp.numel() * 2)
     pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(n_copy - 1)]
@@ -351,14 +361,39 @@ def check_decode(torch, chk):
     flops = 4 * rows * h * d
     chk.timed(f"B={b} H={h} Hkv={hkv} D={d} bs={bs} nbt={nbt} bf16 "
               "(library: SDPA over pre-gathered K/V, gather excluded)",
-              kfns, pfns, libs, nbytes, flops)
+              kfns, pfns, libs, nbytes, flops, device=True)
+
+    # split edges in bf16: lengths that leave whole splits empty, one block
+    # short of a split edge, at it and one past it, a length of 0 (zeros),
+    # an inactive slot (all-null table, length 1); 64-block and 1-block
+    # tables
+    for nbt_, lens in ((64, (0, 112, 128, 129, 1, 255, 256, 1024)), (1, (0, 1, 15, 16))):
+        nb_ = len(lens) * nbt_ + 1
+        q_ = torch.randn((len(lens), h, d), generator=g, device=dev).to(torch.bfloat16)
+        kp_ = torch.randn((nb_, bs, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+        vp_ = torch.randn((nb_, bs, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+        tables_ = (torch.randperm(nb_ - 1, generator=g, device=dev)[: len(lens) * nbt_]
+                   + 1).reshape(len(lens), nbt_).to(torch.int32)
+        tables_[lens.index(1)] = 0                       # the inactive slot
+        lengths_ = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out_ = KA.paged_decode_attention(q_, kp_, vp_, lengths_, tables_)
+        want_ = R.paged_decode_attention_ref(q_.float(), kp_.float(), vp_.float(),
+                                             lengths_, tables_)
+        label = f"bf16 nbt={nbt_} lengths {lens} ({KA.decode_splits(nbt_, bs)[0]} splits)"
+        chk.compare(f"{label} vs f32-math reference", out_, want_,
+                    ATT_TOL_F32MATH_BF16, "p and output rounded to bf16; length 0 "
+                    "gives zeros")
+        _bitwise(chk, label, out_, KA.paged_decode_attention(q_, kp_, vp_, lengths_,
+                                                            tables_))
 
     # f32 at tests/test_serving_runtime.py's shapes (first row), then other
-    # head geometries: G = 1 / 8 / 4, D = 64 / 128 / 256, block 8 / 32 / 16
+    # head geometries: G = 1 / 8 / 4, D = 64 / 128 / 256, block 8 / 32 / 16,
+    # and G = 16 over 5 splits with a length of 0
     for b, h, hkv, d, bs, nbt, lens in [(3, 4, 2, 16, 8, 4, (5, 19, 32)),
                                         (2, 8, 8, 64, 8, 5, (40, 1)),
                                         (2, 32, 4, 128, 32, 3, (70, 96)),
-                                        (2, 16, 4, 256, 16, 4, (33, 64))]:
+                                        (2, 16, 4, 256, 16, 4, (33, 64)),
+                                        (4, 16, 1, 128, 16, 40, (0, 300, 640, 129))]:
         nb = b * nbt + 1
         q = torch.randn((b, h, d), generator=g, device=dev)
         kp = torch.randn((nb, bs, hkv, d), generator=g, device=dev)
@@ -366,9 +401,10 @@ def check_decode(torch, chk):
         tables = (torch.randperm(nb - 1, generator=g, device=dev)[: b * nbt] + 1
                   ).reshape(b, nbt).to(torch.int32)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        chk.compare(f"f32 H={h} Hkv={hkv} D={d} bs={bs} vs plain",
-                    KA.paged_decode_attention(q, kp, vp, lengths, tables),
-                    R.paged_decode_attention_ref(q, kp, vp, lengths, tables),
+        want = R.paged_decode_attention_ref(q, kp, vp, lengths, tables)
+        chk.compare(f"f32 H={h} Hkv={hkv} D={d} bs={bs} lengths {lens} "
+                    f"({KA.decode_splits(nbt, bs)[0]} splits) vs plain",
+                    KA.paged_decode_attention(q, kp, vp, lengths, tables), want,
                     ATT_TOL_F32, "same algorithm, f32 summation order")
 
 
@@ -536,6 +572,17 @@ def check_prefill(torch, chk, block_q):
                     ATT_TOL_F32, "same algorithm, f32 summation order")
 
 
+def _bitwise(chk, label, a, b):
+    """Two calls on the same inputs must give the same bits (the split
+    kernels combine their partials in split order, with no float atomics)."""
+    torch = sys.modules["torch"]
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    same = torch.equal(a.view(bits), b.view(bits))
+    log(f"  {chk.name} {label}: two calls bitwise equal {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{chk.name} {label}: two calls differ")
+
+
 def check_matmul(torch, chk, cfg):
     from repro_torch.kernels import matmul as KM
     from repro_torch.kernels import ref as R
@@ -553,12 +600,21 @@ def check_matmul(torch, chk, cfg):
             x = (torch.randn((m, k), generator=g, device=dev)).to(torch.bfloat16)
             w = (torch.randn((k, n), generator=g, device=dev)
                  / math.sqrt(k)).to(torch.bfloat16)
+            geo = KM.gemm_geometry(m, n, k, x.dtype)
+            before = KM.matmul_fused.launches
             out = KM.matmul_fused(x, w, None, act)
+            if KM.matmul_fused.launches != before + 1:
+                raise AssertionError("matmul_fused: one launch per call")
+            if m == 8 and role != "lm_head" and geo.split < 2:
+                raise AssertionError(f"{role} M=8: no split-K ({geo})")
             want = R.matmul_ref(x, w, None, act)
             tol = MM_RTOL_BF16 * max(1.0, want.float().abs().max().item())
+            label = f"{role} M={m} K={k} N={n} act={act} bf16"
             chk.err = max(chk.err, chk.compare(
-                f"{role} M={m} K={k} N={n} act={act} bf16 vs plain", out, want,
+                f"{label} vs plain ({geo.ctas(m, n)} CTAs, bm {geo.bm}, "
+                f"split {geo.split})", out, want,
                 tol, "f32 summation order, one bf16 rounding"))
+            _bitwise(chk, label, out, KM.matmul_fused(x, w, None, act))
             ws = [w] + [w.clone() for _ in range(copies_for(w.numel() * 2) - 1)]
             kfns = [lambda wq=wq: KM.matmul_fused(x, wq, None, act) for wq in ws]
             pfns = [lambda wq=wq: R.matmul_ref(x, wq, None, act) for wq in ws]
@@ -568,9 +624,8 @@ def check_matmul(torch, chk, cfg):
             else:
                 lfns = [lambda wq=wq: torch.matmul(x, wq) for wq in ws]
             nbytes = 2 * (m * k + k * n + m * n)
-            chk.timed(f"{role} M={m} K={k} N={n} act={act} bf16 "
-                      "(library: torch.matmul + activation)",
-                      kfns, pfns, lfns, nbytes, 2 * m * n * k)
+            chk.timed(f"{label} (library: torch.matmul + activation)",
+                      kfns, pfns, lfns, nbytes, 2 * m * n * k, device=True)
     # f32 at small ragged and aligned shapes (the JAX kernel tests' scale)
     for (m, k, n) in ((37, 70, 53), (64, 128, 256)):
         for act in (None, "silu", "gelu"):
@@ -588,29 +643,40 @@ def check_matmul(torch, chk, cfg):
     w = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
     b = torch.randn((n,), generator=g, device=dev) * 0.1
     want = R.matmul_ref(x, w, b, None)
+    out = KM.matmul_fused(x, w, b, None)
     chk.err = max(chk.err, chk.compare(
-        f"resnet18 fc M={m} K={k} N={n} act=None f32 bias vs plain",
-        KM.matmul_fused(x, w, b, None), want,
+        f"resnet18 fc M={m} K={k} N={n} act=None f32 bias vs plain (split "
+        f"{KM.gemm_geometry(m, n, k, x.dtype).split})", out, want,
         MM_RTOL_F32 * max(1.0, want.abs().max().item()), "f32 summation order"))
+    _bitwise(chk, "resnet18 fc f32", out, KM.matmul_fused(x, w, b, None))
     ws = [w] + [w.clone() for _ in range(copies_for(w.numel() * 4) - 1)]
     chk.timed(f"resnet18 fc M={m} K={k} N={n} act=None f32 bias "
               "(library: torch.addmm)",
               [lambda wq=wq: KM.matmul_fused(x, wq, b, None) for wq in ws],
               [lambda wq=wq: R.matmul_ref(x, wq, b, None) for wq in ws],
               [lambda wq=wq: torch.addmm(b, x, wq) for wq in ws],
-              4 * (m * k + k * n + n + m * n), 2 * m * n * k, F32_FLOPS)
+              4 * (m * k + k * n + n + m * n), 2 * m * n * k, F32_FLOPS, device=True)
     # bf16 edges the serving shapes never reach: K and N not multiples of 8
-    # (element-wise tile loads), bias, and M between the two tile heights
-    for (m, k, n) in ((37, 70, 53), (20, 2048, 1000)):
+    # (element-wise tile loads), bias, and M between the two tile heights;
+    # then split-K at its edges: K not a multiple of S x BK (a short last
+    # split, a ragged last k-step), N ragged, M = 17 and 255 (ragged
+    # 64-row tiles), bias + gelu after the ordered sum
+    for (m, k, n) in ((37, 70, 53), (20, 2048, 1000), (8, 2056, 1000),
+                      (17, 2048, 2048), (255, 2000, 1000), (8, 6144, 2047),
+                      (1, 1000, 260), (255, 6200, 1020)):
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
              ).to(torch.bfloat16)
         b = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16)
+        geo = KM.gemm_geometry(m, n, k, x.dtype)
         want = R.matmul_ref(x, w, b, "gelu")
         tol = MM_RTOL_BF16 * max(1.0, want.float().abs().max().item())
-        chk.compare(f"bf16 M={m} K={k} N={n} act=gelu bias vs plain",
-                    KM.matmul_fused(x, w, b, "gelu"), want, tol,
+        out = KM.matmul_fused(x, w, b, "gelu")
+        label = (f"bf16 M={m} K={k} N={n} act=gelu bias (bm {geo.bm}, split "
+                 f"{geo.split}, K % (S x BK) = {k % (geo.split * geo.bk)})")
+        chk.compare(f"{label} vs plain", out, want, tol,
                     "f32 summation order, one bf16 rounding")
+        _bitwise(chk, label, out, KM.matmul_fused(x, w, b, "gelu"))
 
 
 # Conv and elementwise tolerances.  The conv's plain version has the

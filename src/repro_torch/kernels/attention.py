@@ -17,13 +17,16 @@
     `flash_decode_padded`: one token per sequence over dense (B, S, Hkv, D)
     caches, in one launch with the KV head in the grid.
 
-Two tiles run them, chosen by dtype alone.  The bf16 instances of the
-prefill and flash kernels run the tensor-core tile of
-`csrc/mma_attention.cuh` (mma.sync on bf16 fragments, K/V in a two-stage
-cp.async ring of tiles of 16, 32, 64 or 128 keys); their f32 instances,
-and both decode kernels in every dtype, run the CUDA-core tile of
-`csrc/paged_attention.cuh`.  `mma_tile_smem_bytes` and
-`paged_tile_smem_bytes` mirror the two tiles' shared memory.
+Three bodies run them.  The bf16 instances of the prefill and flash
+kernels run the tensor-core tile of `csrc/mma_attention.cuh` (mma.sync on
+bf16 fragments, K/V in a two-stage cp.async ring of tiles of 16, 32, 64 or
+128 keys); their f32 instances, and dense decode in every dtype, run the
+CUDA-core tile of `csrc/paged_attention.cuh`; paged decode runs the
+split-KV body of `csrc/split_decode.cuh` in every dtype (grid (slot, KV
+head, split), the splits of `decode_splits` combined in split order by
+the CTA that finishes last, in the same launch).  `mma_tile_smem_bytes`,
+`paged_tile_smem_bytes` and `split_decode_smem_bytes` mirror the three
+bodies' shared memory.
 
 A CPU tensor takes the plain version in `repro_torch.kernels.ref`; a CUDA
 tensor launches the kernel or raises.  Each wrapper counts its launches in
@@ -35,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,6 +59,9 @@ MMA_QWARPS = 2                # mma::QWARPS: query warps of 16 vectors
 THREADS = 128                 # paged::THREADS == mma::THREADS
 MAX_D = 256                   # paged::MAX_D
 MAX_GRID_Z = 65_535
+DECODE_SPLIT_KEYS = 128       # key positions per split of paged decode
+SPLIT_STAGE_BYTES = 32_768    # split::STAGE_BYTES (csrc/split_decode.cuh)
+SPLIT_MAX_CHUNK = 64          # split::MAX_CHUNK
 
 
 def _check_common(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -89,6 +95,53 @@ def _stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+@functools.lru_cache(maxsize=1024)
+def decode_splits(nbt: int, block_size: int) -> Tuple[int, int]:
+    """(splits, keys per split) of a paged decode launch over block tables
+    of `nbt` blocks of `block_size` rows: splits of DECODE_SPLIT_KEYS keys
+    rounded up to whole blocks, as many as cover the table.  A function of
+    the table's shape alone — never of the lengths, which live on the
+    device — so a decode step costs no host sync."""
+    kps = -(-DECODE_SPLIT_KEYS // block_size) * block_size
+    keys = nbt * block_size
+    while -(-keys // kps) > MAX_GRID_Z:
+        kps *= 2
+    return -(-keys // kps), kps
+
+
+def dmax_of(d: int) -> int:
+    """The head-dim bound of the attention instance (tensor-core tile or
+    split decode) that runs head dim d: `ptx::dmax_of` (64, 128 or 256;
+    dims past d are zero-filled)."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def split_chunk_keys(d: int, itemsize: int) -> int:
+    """Keys per staged chunk of the split decode body: `split::chunk_keys`
+    of `csrc/split_decode.cuh` (K + V rows of one chunk, at the instance's
+    head-dim bound, within SPLIT_STAGE_BYTES; at most SPLIT_MAX_CHUNK)."""
+    return min(SPLIT_STAGE_BYTES // (2 * dmax_of(d) * itemsize), SPLIT_MAX_CHUNK)
+
+
+def split_decode_smem_bytes(group: int, d: int, itemsize: int) -> int:
+    """Dynamic shared memory of a split decode CTA: `split::layout` of
+    `csrc/split_decode.cuh`, term for term, for the instance that runs
+    `group` query heads per KV head (MAXG: the next power of two) at head
+    dim d (rows of the head-dim bound): f32 queries, a two-stage ring of K
+    and of V chunks, f32 scores, three f32 per-vector stats and the
+    arrival flag, each region 16-byte aligned."""
+    maxg = 1 << max(0, group - 1).bit_length()
+    dmax = dmax_of(d)
+    c = split_chunk_keys(d, itemsize)
+    off = _a16(maxg * dmax * 4)
+    off = _a16(off + 2 * c * dmax * itemsize)
+    off = _a16(off + 2 * c * dmax * itemsize)
+    off = _a16(off + maxg * c * 4)
+    for _ in range(3):
+        off = _a16(off + maxg * 4)
+    return _a16(off + 4)
+
+
 def _index(t: torch.Tensor) -> torch.Tensor:
     return t.to(device="cuda", dtype=torch.int32).contiguous()
 
@@ -111,13 +164,21 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if lengths.shape != (b,) or block_tables.dim() != 2 or block_tables.shape[0] != b:
         raise ValueError("lengths must be (B,) and block_tables (B, nbt)")
     lengths, block_tables = _index(lengths), _index(block_tables)
+    nbt = block_tables.shape[1]
+    nsplit, kps = decode_splits(nbt, bs)
     out = torch.empty_like(q)
+    ws = counters = None
+    if nsplit > 1:
+        ws = torch.empty(b * hkv * nsplit * (h // hkv) * (d + 2),
+                         dtype=torch.float32, device=q.device)
+        counters = build.counters("paged_decode", q.device, b * hkv)
     fn = build.load("paged_decode")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-             b, h, hkv, d, bs, block_tables.shape[1], scale, dtype,
-             _stream(q))
+             b, h, hkv, d, bs, nbt, kps, nsplit, scale, dtype,
+             ws.data_ptr() if ws is not None else None,
+             counters.data_ptr() if counters is not None else None, _stream(q))
     build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -201,7 +262,7 @@ def mma_tile_smem_bytes(nq: int, block_kv: int, d: int) -> int:
     elements: the query rows rounded up to a warp's 16, then a two-stage
     K/V ring of `block_kv` rows each, which the KV warps' f32 merge of
     (acc, m, l) reuses at the end)."""
-    dmax = 64 if d <= 64 else 128 if d <= 128 else 256     # mma::dmax_of
+    dmax = dmax_of(d)
     row = (dmax + 8) * 2
     ring = 2 * 2 * block_kv * row
     merge = MMA_QWARPS * (dmax // 8 * 4 + 4) * 32 * 4

@@ -39,7 +39,8 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "dense_decode": "dense_decode.cu",
 }
-HEADERS = ("paged_attention.cuh", "mma_attention.cuh", "activation.cuh")
+HEADERS = ("paged_attention.cuh", "mma_attention.cuh", "activation.cuh",
+           "ptx.cuh", "split_decode.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,11 +53,11 @@ _L = ctypes.c_longlong
 # would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
     "paged_decode": ("paged_decode_attention",
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+                     [_P] * 6 + [_I] * 8 + [_F, _I, _P, _P, _P]),
     "paged_prefill": ("paged_prefill_attention",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _I, _P]),
-    "matmul": ("matmul_fused", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "matmul": ("matmul_fused", [_P] * 4 + [_I] * 10 + [_P, _P, _P]),
     "conv2d": ("conv2d_direct", [_P, _P, _P, _P] + [_I] * 19 + [_P]),
     "fused_elementwise": ("fused_elementwise",
                           [_P, _P, _P, _P, _P, _P, _L, _I, _U, _I, _P]),
@@ -65,6 +66,7 @@ SIGNATURES = {
 }
 
 _entry: Dict[str, object] = {}
+_counters: Dict[tuple, object] = {}
 
 
 def build_dir() -> Path:
@@ -144,6 +146,32 @@ def load(name: str):
         fn.restype = ctypes.c_int
         _entry[name] = fn
     return fn
+
+
+def counters(name: str, device, n: int):
+    """At least `n` zeroed int32 arrival counters of kernel library `name`
+    on a CUDA `device`, kept across launches: its split kernels reset every
+    counter they use, so the buffer is zeroed once, when it is allocated
+    (or grown), and never again.  Launches that share the buffer must run
+    one after another (one stream), as the serving path's do.
+
+    The buffer must exist before a CUDA graph that launches these kernels
+    is captured: zeroing it inside a capture would only record the memset
+    (and take the graph's memory), leaving eager launches after it with
+    counters that were never zeroed.  So growing it while the current
+    stream captures raises; an eager call at the same shapes first (a
+    warm-up) allocates it."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    buf = _counters.get((name, index))
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: {n} split counters must be allocated "
+                               "before a CUDA graph capture; call once eagerly")
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[(name, index)] = buf
+    return buf
 
 
 def check(err: int, what: str) -> None:

@@ -52,9 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <utility>
-
 #include "paged_attention.cuh"
+#include "ptx.cuh"
 
 namespace mma {
 
@@ -67,8 +66,17 @@ constexpr float NEG_INF = paged::NEG_INF;
 
 typedef __nv_bfloat16 bf16;
 
-// The head-dim bound of the instance that runs head dim d: 64, 128 or 256.
-__host__ __device__ constexpr int dmax_of(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+using ptx::allow_smem;
+using ptx::cp_async16;
+using ptx::cp_async_commit;
+using ptx::cp_async_wait;
+using ptx::dmax_of;
+using ptx::ldsm_x4;
+using ptx::ldsm_x4_trans;
+using ptx::mma16816;
+using ptx::pack_bf16;
+using ptx::smem_u32;
+
 // Keys per warp step of the instance that runs KV tiles of bkv keys (16,
 // 32, 64 or 128): each of the KSPLIT KV warps takes one step of a tile
 // (a tile of 16 keys is KV warp 0's alone).
@@ -95,63 +103,6 @@ __host__ __device__ inline Layout layout(int nq, int bkv, int d) {
   L.kv = round16(round16(nq) * row);
   L.bytes = L.kv + round16(ring > merge ? ring : merge);
   return L;
-}
-
-// Allow kernel instance K `max_bytes` of dynamic shared memory: its largest
-// layout, so the attribute is set on the instance's first launch and again
-// only on a launch from another device, not on every launch.
-template <auto K>
-inline cudaError_t allow_smem(size_t max_bytes) {
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const auto set = [max_bytes] {
-    return cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)max_bytes);
-  };
-  static const std::pair<int, cudaError_t> first{dev, set()};
-  return dev == first.first ? first.second : set();
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; `ok == false` writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 -> one register of bf16 (lo in the low half), round to nearest
-// even, as Pallas's astype
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // DMAX: the head-dim bound (64, 128 or 256); any D <= DMAX that is a

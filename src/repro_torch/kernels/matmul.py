@@ -5,20 +5,86 @@ The kernel masks ragged M/N/K edges itself, so nothing is padded here.  A
 CPU tensor takes `repro_torch.kernels.ref.matmul_ref`; a CUDA tensor
 launches the kernel or raises.  Launches are counted in the plain int
 attribute `matmul_fused.launches`.
+
+The launch geometry — the tile and the split-K count — is a function of
+the host integers (M, N, K) and the dtype alone (`gemm_geometry`), so a
+call reads nothing back from the device and stays capturable in a CUDA
+graph.  A split launch takes an f32 workspace (`torch.empty` per call) and
+one int32 counter per output tile from a per-device buffer that is zeroed
+once when it is allocated: the kernel leaves every counter at zero.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
 ACTIVATIONS = {None: 0, "none": 0, "identity": 0, "relu": 1, "silu": 2,
                "gelu": 3, "tanh": 4, "sigmoid": 5}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The tiles `csrc/matmul.cu` is built with (its BF16_TILES and F_BM / F_BN /
+# F_BK): tile height -> (bm, bn, bk, stages).
+GEMM_TILES = {16: (16, 128, 64, 4), 64: (64, 128, 64, 4), 128: (128, 128, 64, 3)}
+GEMM_TILE_F32 = (64, 64, 16, 1)
+SMALL_M = 16             # M <= SMALL_M takes the 16-row tile
+LARGE_BM = 64            # the tile height for larger M, unless 128 fills the chip
+SPLIT_WAVES = 2          # CTAs per SM a grid aims at (two fit: one resident wave)
+
+
+class GemmGeometry(NamedTuple):
+    bm: int              # output rows per CTA
+    bn: int              # output columns per CTA
+    bk: int              # K per pipeline step
+    stages: int          # cp.async ring slots (1: the f32 tile, unpipelined)
+    split: int           # split-K count S
+
+    def ctas(self, m: int, n: int) -> int:
+        return -(-m // self.bm) * -(-n // self.bn) * self.split
+
+    def steps_per_split(self, k: int) -> int:
+        steps = -(-k // self.bk)
+        return -(-steps // self.split)
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_geometry(m: int, n: int, k: int, dtype: torch.dtype) -> GemmGeometry:
+    """The launch geometry of an (M, K) @ (K, N) product on the H100, from
+    the shape alone.
+
+    The tile (bf16): 16 rows for M <= 16; for larger M, 128 rows when that
+    grid alone gives SPLIT_WAVES CTAs per SM (fewer re-reads of the weight
+    tiles), else 64.  f32 has one tile.
+
+    The split S: 1 when the tile grid alone fills the 132 SMs; otherwise as
+    many splits as keep the grid within SPLIT_WAVES CTAs per SM (two CTAs
+    of every tile fit an SM, so that is one resident wave: a grid past it
+    leaves a tail of CTAs running on a few SMs), capped so that the f32
+    partials (S x M x N x 4 bytes) take no more than the weights (K x N x
+    itemsize); each split is a whole number of k-steps and none is
+    empty."""
+    sms = hw.H100.sms
+    if dtype.itemsize == 2:
+        big = -(-m // 128) * -(-n // GEMM_TILES[128][1])
+        bm = SMALL_M if m <= SMALL_M else (128 if big >= SPLIT_WAVES * sms
+                                           else LARGE_BM)
+        bm, bn, bk, stages = GEMM_TILES[bm]
+    else:
+        bm, bn, bk, stages = GEMM_TILE_F32
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-k // bk)
+    split = 1
+    if tiles < sms:
+        split = max(1, SPLIT_WAVES * sms // tiles)
+        split = max(1, min(split, (k * dtype.itemsize) // (4 * m), steps))
+        split = -(-steps // -(-steps // split))      # none empty
+    return GemmGeometry(bm, bn, bk, stages, split)
 
 
 def matmul_fused(x: torch.Tensor, w: torch.Tensor,
@@ -52,11 +118,18 @@ def matmul_fused(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
+    geo = gemm_geometry(m, n, k, x.dtype)
+    ws = counters = None
+    if geo.split > 1:
+        ws = torch.empty((geo.split, m, n), dtype=torch.float32, device=x.device)
+        counters = build.counters("matmul", x.device, -(-m // geo.bm) * -(-n // geo.bn))
     fn = build.load("matmul")
     err = fn(x.data_ptr(), w.data_ptr(),
              bias.data_ptr() if bias is not None else None, out.data_ptr(),
-             m, n, k, ACTIVATIONS[activation], _DTYPES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+             m, n, k, ACTIVATIONS[activation], _DTYPES[x.dtype], *geo,
+             ws.data_ptr() if ws is not None else None,
+             counters.data_ptr() if counters is not None else None,
+             torch._C._cuda_getCurrentRawStream(x.device.index))
     build.check(err, "matmul_fused")
     matmul_fused.launches += 1
     return out

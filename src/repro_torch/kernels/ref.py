@@ -128,8 +128,8 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     q (B, H, D); pools (num_blocks, block_size, Hkv, D); lengths (B,) valid
     context lengths INCLUDING the new token (positions >= length masked);
     block_tables (B, nbt).  Returns (B, H, D) in q's dtype.  A row with
-    length 0 has no valid key; the kernel returns zeros for it and the
-    serving path never consumes it (inactive slots pass length 1)."""
+    length 0 has no valid key and gives zeros, as the Pallas kernel does;
+    the serving path never consumes it (inactive slots pass length 1)."""
     b, h, d = q.shape
     bs, hkv = k_pool.shape[1], k_pool.shape[2]
     nbt = block_tables.shape[1]
@@ -144,8 +144,9 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     logits = torch.where(pos < lengths.long()[:, None, None, None], logits,
                          torch.full_like(logits, NEG_INF))
     probs = _softmax_pv(logits, v_ctx.dtype)
-    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_ctx)
-    return out.reshape(b, h, d).to(q.dtype)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_ctx).reshape(b, h, d)
+    out = torch.where(lengths.long()[:, None, None] > 0, out, torch.zeros_like(out))
+    return out.to(q.dtype)
 
 
 def packed_row_map(seg_info: torch.Tensor, c: int):

@@ -59,11 +59,14 @@ def _numpy_gather_decode(q, kp, vp, lengths, tables):
 
 def test_paged_decode_plain_matches_pallas_interpret():
     q, kp, vp, lengths, tables = _decode_inputs()
-    want = np.asarray(jops.attention_decode_paged(
-        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(lengths),
-        jnp.asarray(tables)))
-    got = ops.attention_decode_paged(_t(q), _t(kp), _t(vp), _t(lengths), _t(tables))
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the JAX tests' lengths, then a row of length 0 (no key: zeros)
+    for lens in (lengths, np.asarray([0, 19, 32], np.int32)):
+        want = np.asarray(jops.attention_decode_paged(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(lens),
+            jnp.asarray(tables)))
+        got = ops.attention_decode_paged(_t(q), _t(kp), _t(vp), _t(lens), _t(tables))
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not got[0].any()
 
 
 def test_paged_decode_plain_matches_gather_reference():
