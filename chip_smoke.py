@@ -9,30 +9,34 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      sm_90 check, and the build of every CUDA kernel from the sources in
      this checkout (one nvcc per source, in parallel), with each kernel
      function's registers and spills from ptxas and the tensor-core
-     instruction counts (HMMA / HGMMA) of the three libraries whose bf16
-     instances run on the tensor cores (flash, paged prefill, the GEMM);
+     instruction counts (HMMA / HGMMA) of the four libraries that run on the
+     tensor cores (flash, paged prefill, the GEMM, the conv);
   2. every kernel against its plain PyTorch version on the card, with
      kernel / plain / library times and the roofline bound (and, at the
      serving shapes of the GEMM, paged decode and the two tensor-core
-     attention kernels, the kernel's and the library call's device time
-     under CUDA-graph replay, over the same rotating input copies): the
+     attention kernels, at ResNet-18's conv groups and at dense decode's
+     shape, the kernel's and the library call's device time under
+     CUDA-graph replay, over the same rotating input copies): the
      serving kernels at the serving path's shapes in bf16 and at the JAX
-     tests' small shapes in f32; the two split kernels (the GEMM's split-K,
-     paged decode's split-KV) also at their split edges, each such call
-     twice and bitwise equal, the GEMM's geometry beside its neighbours
-     (device ms of the other tile height and of half / double the split)
-     at every serving shape; paged prefill also in bf16 with warps straddling
+     tests' small shapes in f32; the four split kernels (the GEMM's and the
+     conv's split-K, paged and dense decode's split-KV) also at their split
+     edges, each such call twice and bitwise equal; paged prefill also in
+     bf16 with warps straddling
      segments, rows past the fill, idle segments, pool blocks of 8 / 32,
      D 64 / 256 and G 1-8; the GEMM also at ResNet-18's fc
      (M=1, f32, bias); the conv kernel at ResNet-18's 11 conv groups
-     (f32; bf16 at two), the JAX tests' sweep at every (bn, row_block) it
-     takes, each activation and VALID padding; the elementwise kernel at
+     (f32; bf16 at two, the stem one of them), every splitting (bn,
+     row_block) of its two longest-K groups in f32 and bf16, the JAX tests'
+     sweep at every (bn, row_block) it takes, each activation, VALID
+     padding and a ragged Cout; the elementwise kernel at
      ResNet-18's four residual shapes and on chains of every op in f32 and
      bf16; the dense flash kernel at the serve graph's three attention
      shapes (bf16), the JAX tests' sweep and causal Sq < Skv / Sq > Skv
      (f32), ragged bf16 shapes (Sq, Skv not multiples of 16, causal and
      not) and every tile its template admits; the dense decode kernel at
-     the decode stage's shape with ragged lengths (bf16) and the JAX
+     the decode stage's shape with ragged lengths (bf16), at its split
+     edges (lengths 0, kps - 1 / kps / kps + 1, S and past S) in bf16 and
+     in f32 at G = 1 / 4 / 8 / 16 and D = 64 / 128 / 256, and at the JAX
      tests' length sets (f32);
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
@@ -50,11 +54,14 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      on ref_ops, as the JAX engine does), the elementwise kernel replaying
      those chains on the engine's inputs, and the ms per image of three
      lanes;
-  5. the serve plan: qwen3-1.7b's serve graph (prefill 700, 8 slots,
-     max_seq 1024, chunk 256, bf16) tuned by `build_serve_plan` on
-     wall-clock fitness on the card (the flash kernel against the vendor
-     lane for the three attention nodes, the GEMM for the twelve matmuls),
-     the per-node race, then phase 3's 16 requests served under
+  5. the serve plan: the vendor lane of a bf16 matmul (one bf16 cuBLAS
+     product, the call serving's torch lane makes) held against the f32
+     upcast it replaced at the 10 serving GEMM shapes; qwen3-1.7b's serve
+     graph (prefill 700, 8 slots, max_seq 1024, chunk 256, bf16) tuned by
+     `build_serve_plan` on wall-clock fitness on the card (the flash kernel
+     against the vendor lane for the three attention nodes, the GEMM for
+     the twelve matmuls, with the count of matmul nodes the GEMM wins), the
+     per-node race, then phase 3's 16 requests served under
      `PlanRouter(plan)` (every request finishes, the pool drains, the
      plan's kernel lanes launch, first tokens match the torch lanes), and
      `ops.attention_decode` called once at the decode stage's shape;
@@ -95,8 +102,9 @@ L2_BYTES = 50 * 2**20
 DEVICE = "cuda"
 PREFILL_BLOCK_Q = 16     # rows per prefill CTA: 16 rows x G=2 heads fill the
                          # 32-vector tile (2 query warps x 16 vectors)
-# the libraries whose bf16 instances run on the tensor cores (mma.sync)
-TENSOR_CORE_LIBS = ("flash_attention", "paged_prefill", "matmul")
+# the libraries that run on the tensor cores (mma.sync): the bf16 instances
+# of all four, and the conv's f32 instances as 3xTF32
+TENSOR_CORE_LIBS = ("flash_attention", "paged_prefill", "matmul", "conv2d")
 
 
 def log(*args):
@@ -583,20 +591,24 @@ def _bitwise(chk, label, a, b):
         raise AssertionError(f"{chk.name} {label}: two calls differ")
 
 
+def serving_gemms(cfg):
+    """(role, K, N, activation) of the serving path's five GEMM shapes."""
+    d, hd = cfg.d_model, cfg.hd
+    return [("qkv_proj", d, cfg.n_heads * hd, None),
+            ("qkv_proj(k,v)", d, cfg.n_kv_heads * hd, None),
+            ("mlp_up", d, cfg.d_ff, "silu"),
+            ("mlp_down", cfg.d_ff, d, None),
+            ("lm_head", d, cfg.vocab, None)]
+
+
 def check_matmul(torch, chk, cfg):
     from repro_torch.kernels import matmul as KM
     from repro_torch.kernels import ref as R
 
     dev = DEVICE
     g = torch.Generator(device=dev).manual_seed(3)
-    d, hd = cfg.d_model, cfg.hd
-    roles = [("qkv_proj", d, cfg.n_heads * hd, None),
-             ("qkv_proj(k,v)", d, cfg.n_kv_heads * hd, None),
-             ("mlp_up", d, cfg.d_ff, "silu"),
-             ("mlp_down", cfg.d_ff, d, None),
-             ("lm_head", d, cfg.vocab, None)]
     for m in (8, 256):
-        for role, k, n, act in roles:
+        for role, k, n, act in serving_gemms(cfg):
             x = (torch.randn((m, k), generator=g, device=dev)).to(torch.bfloat16)
             w = (torch.randn((k, n), generator=g, device=dev)
                  / math.sqrt(k)).to(torch.bfloat16)
@@ -740,6 +752,12 @@ def _fastest_conv_config(torch, KC, x, w, b, d):
     return best[1]
 
 
+def _conv_geometry(KC, d, cfg, itemsize=4):
+    return KC.geometry(d["n"], d["h"], d["w"], d["cin"], d["cout"], d["kh"], d["kw"],
+                       d["stride"], "SAME", cfg["bn"], cfg["row_block"],
+                       itemsize=itemsize)
+
+
 def check_conv2d(torch, chk):
     from repro_torch.kernels import conv2d as KC
     from repro_torch.kernels import ref as R
@@ -747,15 +765,18 @@ def check_conv2d(torch, chk):
     F = torch.nn.functional
     g = torch.Generator(device=DEVICE).manual_seed(4)
     # ResNet-18's 11 conv groups at batch 1, f32, bias + relu, each at the
-    # (bn, row_block) of least device time among all the kernel takes
+    # (bn, row_block) of least time among all the kernel takes
     # (back-to-back launches; the plan's search in phase 4 times single
-    # calls, host included); timed per group and summed over the 20 convs
-    # of a forward
+    # calls, host included); timed per group, host included and on the
+    # device alone, and summed over the 20 convs of a forward
+    groups = {}
     for name, op, count in resnet_conv_shapes():
         d = op.d
         x, w, b = _conv_inputs(torch, g, d["n"], d["h"], d["w"], d["cin"],
                                d["cout"], d["kh"], torch.float32)
+        groups[name] = (d, x, w, b)
         cfg = _fastest_conv_config(torch, KC, x, w, b, d)
+        geo = _conv_geometry(KC, d, cfg)
 
         def kern(x=x, w=w, d=d, cfg=cfg, b=b):
             return KC.conv2d_direct(x, w, b, stride=d["stride"], padding="SAME",
@@ -763,10 +784,13 @@ def check_conv2d(torch, chk):
 
         out, want = kern(), R.conv2d_ref(x, w, b, d["stride"], "SAME", "relu")
         label = (f"{name} {d['h']}x{d['w']}x{d['cin']} -> {d['cout']} "
-                 f"k{d['kh']}/s{d['stride']} bn={cfg['bn']} row_block={cfg['row_block']}")
+                 f"k{d['kh']}/s{d['stride']} bn={cfg['bn']} row_block={cfg['row_block']} "
+                 f"(tile {geo.bm}x{cfg['bn']}, {geo.tiles_m * geo.tiles_n} tiles, "
+                 f"split {geo.split})")
         chk.err = max(chk.err, chk.compare(
             f"{label} f32 vs plain", out, want, _rel_tol(CONV_RTOL_F32, want),
-            "f32 summation order"))
+            "3xTF32 products, f32 summation order"))
+        _bitwise(chk, f"{label} f32", out, kern())
         copies = copies_for((x.numel() + w.numel()) * 4)
         ins = [(x, w)] + [(x.clone(), w.clone()) for _ in range(copies - 1)]
         kfns = [lambda x=xi, w=wi, d=d, cfg=cfg: KC.conv2d_direct(
@@ -785,9 +809,10 @@ def check_conv2d(torch, chk):
         lfns = [lambda x=xi, w=wi, d=d: torch.relu(F.conv2d(x, w, b, stride=d["stride"]))
                 for xi, wi in lins]
         nbytes = 4 * (x.numel() + w.numel() + b.numel() + out.numel())
-        chk.timed(f"{label} f32 bias+relu (library: F.conv2d via cuDNN, "
+        chk.timed(f"{label} f32 bias+relu (library: F.conv2d via cuDNN, TF32 off, "
                   "pre-padded channels-last input, + relu)",
-                  kfns, pfns, lfns, nbytes, op.flops(), F32_FLOPS, weight=count)
+                  kfns, pfns, lfns, nbytes, op.flops(), F32_FLOPS, weight=count,
+                  device=True)
         if name in ("c1", "c3"):      # the stem and a 3x3/s2 group in bf16
             xb, wb = x.bfloat16(), w.bfloat16()
             out = KC.conv2d_direct(xb, wb, b, stride=d["stride"], padding="SAME",
@@ -796,9 +821,39 @@ def check_conv2d(torch, chk):
             chk.err = max(chk.err, chk.compare(
                 f"{label} bf16 vs plain", out, want,
                 _rel_tol(CONV_RTOL_BF16, want), "one bf16 rounding"))
+            _bitwise(chk, f"{label} bf16", out, KC.conv2d_direct(
+                xb, wb, b, stride=d["stride"], padding="SAME", activation="relu", **cfg))
+
+    # split-K in f32 and bf16: every (bn, row_block) of the two longest-K
+    # groups (K = 2,304 and 4,608) whose geometry splits, twice each
+    for name in ("c7", "c10"):
+        d, x, w, b = groups[name]
+        for dtype, rtol in ((torch.float32, CONV_RTOL_F32), (torch.bfloat16, CONV_RTOL_BF16)):
+            xd, wt = x.to(dtype), w.to(dtype)
+            want = R.conv2d_ref(xd, wt, b, d["stride"], "SAME", "relu")
+            splits = []
+            for bn in KC.BN_CHOICES:
+                for rb in KC.ROW_BLOCKS:
+                    geo = _conv_geometry(KC, d, {"bn": bn, "row_block": rb},
+                                         xd.element_size())
+                    if geo is None or geo.split < 2:
+                        continue
+                    run = lambda bn=bn, rb=rb: KC.conv2d_direct(
+                        xd, wt, b, stride=d["stride"], padding="SAME", bn=bn,
+                        row_block=rb, activation="relu")
+                    label = (f"{name} {str(dtype)[6:]} bn={bn} row_block={rb} "
+                             f"(tile {geo.bm}x{bn}, split {geo.split})")
+                    out = run()
+                    chk.compare(f"{label} vs plain", out, want, _rel_tol(rtol, want),
+                                "split partials summed in split order")
+                    _bitwise(chk, label, out, run())
+                    splits.append(geo.split)
+            if not splits:
+                raise AssertionError(f"conv2d {name}: no configuration splits K")
 
     # the JAX kernel tests' sweep at every (bn, row_block) the kernel
-    # takes, then each activation, VALID padding and a ragged Cout
+    # takes, then each activation, VALID padding, a ragged Cout and Cin
+    # not a multiple of the k-step (element-wise gathers)
     for k, stride, cin, cout in CONV_SWEEP:
         x, w, b = _conv_inputs(torch, g, 2, 16, 16, cin, cout, k, torch.float32)
         want = R.conv2d_ref(x, w, b, stride, "SAME", "relu")
@@ -821,14 +876,21 @@ def check_conv2d(torch, chk):
     for act in ("none", "gelu", "silu", "tanh", "sigmoid"):
         for padding, stride in (("SAME", 1), ("VALID", 2)):
             want = R.conv2d_ref(x, w, b, stride, padding, act)
-            chk.compare(f"f32 (2,15,13,24)->40 k3/s{stride} {padding} act={act} bn=32 rb=2",
+            chk.compare(f"f32 (2,15,13,24)->40 k3/s{stride} {padding} act={act} bn=64 rb=2",
                         KC.conv2d_direct(x, w, b, stride=stride, padding=padding,
-                                         bn=32, row_block=2, activation=act),
+                                         bn=64, row_block=2, activation=act),
                         want, _rel_tol(CONV_RTOL_F32, want), "f32 summation order")
     want = R.conv2d_ref(x, w, None)
     chk.compare("f32 no bias, bn=64 over Cout 40",
                 KC.conv2d_direct(x, w, None, bn=64, row_block=1), want,
                 _rel_tol(CONV_RTOL_F32, want), "f32 summation order")
+    for dtype, rtol in ((torch.float32, CONV_RTOL_F32), (torch.bfloat16, CONV_RTOL_BF16)):
+        x, w, b = _conv_inputs(torch, g, 2, 12, 12, 64, 10, 3, dtype)
+        want = R.conv2d_ref(x, w, b, 1, "SAME", "relu")
+        chk.compare(f"{str(dtype)[6:]} (2,12,12,64)->10 k3 (Cout 10: element-wise "
+                    "weight loads) bn=32 rb=4",
+                    KC.conv2d_direct(x, w, b, bn=32, row_block=4, activation="relu"),
+                    want, _rel_tol(rtol, want), "summation order, one rounding")
 
 
 RESIDUAL_SHAPES = [(1, 64, 56, 56), (1, 128, 28, 28), (1, 256, 14, 14),
@@ -985,21 +1047,27 @@ def check_flash(torch, chk):
 
 
 def check_dense_decode(torch, chk):
+    from repro_torch.kernels import attention as KA
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as R
 
     F = torch.nn.functional
     g = torch.Generator(device=DEVICE).manual_seed(8)
     b, h, hkv, d, s = len(DECODE_LENGTHS), 16, 8, 128, 1024
+    nsplit, kps = KA.dense_decode_splits(s)
+    if nsplit < 2:
+        raise AssertionError(f"dense decode at S={s}: no split-KV")
     q = torch.randn((b, h, d), generator=g, device=DEVICE).to(torch.bfloat16)
     k = torch.randn((b, s, hkv, d), generator=g, device=DEVICE).to(torch.bfloat16)
     v = torch.randn((b, s, hkv, d), generator=g, device=DEVICE).to(torch.bfloat16)
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=DEVICE)
+    out = kops.attention_decode(q, k, v, lengths)
+    label = (f"B={b} H={h} Hkv={hkv} D={d} S={s} lengths {DECODE_LENGTHS} bf16 "
+             f"(grid {b} x {hkv} x {nsplit} splits of {kps} keys)")
     chk.err = max(chk.err, chk.compare(
-        f"B={b} H={h} Hkv={hkv} D={d} S={s} lengths {DECODE_LENGTHS} bf16 vs plain",
-        kops.attention_decode(q, k, v, lengths),
-        R.dense_decode_attention_ref(q, k, v, lengths), ATT_TOL_F32MATH_BF16,
-        "p rounded at another max, bf16 output"))
+        f"{label} vs plain", out, R.dense_decode_attention_ref(q, k, v, lengths),
+        ATT_TOL_F32MATH_BF16, "p rounded at another max, bf16 output"))
+    _bitwise(chk, "bf16 decode shape", out, kops.attention_decode(q, k, v, lengths))
     copies = copies_for(2 * k.numel() * 2)
     ins = [(k, v)] + [(k.clone(), v.clone()) for _ in range(copies - 1)]
     kfns = [lambda k=ki, v=vi: kops.attention_decode(q, k, v, lengths) for ki, vi in ins]
@@ -1015,15 +1083,39 @@ def check_dense_decode(torch, chk):
     nbytes = 2 * 2 * q.numel() + 2 * 2 * rows * hkv * d + 4 * b
     chk.timed(f"B={b} H={h} Hkv={hkv} D={d} S={s} bf16 (library: SDPA with a "
               "boolean length mask, enable_gqa, on (B, Hkv, S, D) copies)",
-              kfns, pfns, lfns, nbytes, 4 * rows * h * d)
-    # f32 at tests/test_kernels.py::test_attention_decode_lengths, and a
-    # length of 0 (zeros)
+              kfns, pfns, lfns, nbytes, 4 * rows * h * d, device=True)
+
+    # split edges: lengths 0 (zeros), 1, one short of a split edge, at it,
+    # one past it, S and past S (taken as S), in bf16 at the decode shape and
+    # in f32 at G = 1 / 4 / 8 / 16 and D = 64 / 128 / 256
+    edges = [0, 1, kps - 1, kps, kps + 1, 2 * kps + 1, s, s + 5]
+    for dtype, h_, hkv_, d_, tol in ((torch.bfloat16, 16, 8, 128, ATT_TOL_F32MATH_BF16),
+                                     (torch.float32, 8, 8, 64, ATT_TOL_F32),
+                                     (torch.float32, 16, 4, 128, ATT_TOL_F32),
+                                     (torch.float32, 16, 2, 256, ATT_TOL_F32),
+                                     (torch.float32, 16, 1, 128, ATT_TOL_F32)):
+        n_ = len(edges)
+        mk = lambda *shape: (torch.randn(shape, generator=g, device=DEVICE) * 0.5).to(dtype)
+        q_, k_, v_ = mk(n_, h_, d_), mk(n_, s, hkv_, d_), mk(n_, s, hkv_, d_)
+        ln = torch.tensor(edges, dtype=torch.int32, device=DEVICE)
+        got = kops.attention_decode(q_, k_, v_, ln)
+        want = R.dense_decode_attention_ref(q_.float(), k_.float(), v_.float(), ln)
+        label = (f"{str(dtype)[6:]} G={h_ // hkv_} D={d_} S={s} lengths {edges} "
+                 f"({nsplit} splits)")
+        chk.compare(f"{label} vs f32-math reference", got, want, tol,
+                    "split partials combined in split order; length 0 gives zeros")
+        if bool(got[0].abs().max() != 0):
+            raise AssertionError(f"dense decode {label}: length 0 is not zeros")
+        _bitwise(chk, label, got, kops.attention_decode(q_, k_, v_, ln))
+    # f32 at tests/test_kernels.py::test_attention_decode_lengths (S = 256:
+    # two splits of 128 keys), and a length of 0 (zeros)
     for lens in ([64, 199], [1, 256], [256, 256], [0, 5]):
         q = torch.randn((2, 4, 64), generator=g, device=DEVICE) * 0.3
         k = torch.randn((2, 256, 2, 64), generator=g, device=DEVICE) * 0.3
         v = torch.randn((2, 256, 2, 64), generator=g, device=DEVICE) * 0.3
         ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-        chk.compare(f"f32 B=2 S=256 H=4 Hkv=2 D=64 lengths {lens} vs plain",
+        chk.compare(f"f32 B=2 S=256 H=4 Hkv=2 D=64 lengths {lens} vs plain "
+                    "(config block_kv 128, ignored)",
                     kops.attention_decode(q, k, v, ln, config={"block_kv": 128}),
                     R.dense_decode_attention_ref(q, k, v, ln), ATT_TOL_F32,
                     "same algorithm, f32 summation order")
@@ -1212,11 +1304,29 @@ SERVE_PLAN = dict(prefill_len=max(PROMPT_LENS), slots=SERVE_RUNTIME["max_slots"]
 
 def phase_serve_plan(torch, served, counters, torch_run):
     from repro_torch.core import (TEMPLATES, Tuner, WallClockFitness, op_desc_of,
-                                  roofline_bound)
+                                  ref_ops, roofline_bound)
     from repro_torch.kernels import ops as kops
     from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
 
     cfg = served[0].cfg
+    # the race's vendor lane of a bf16 matmul is the lane serving runs: one
+    # bf16 cuBLAS product (f32 accumulation, one rounding); held against
+    # the f32 upcast it replaced, at the 10 serving GEMM shapes
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    for m in (8, 256):
+        for role, k, n, _ in serving_gemms(cfg):
+            x = torch.randn((m, k), generator=g, device=DEVICE).to(torch.bfloat16)
+            w = (torch.randn((k, n), generator=g, device=DEVICE) / math.sqrt(k)
+                 ).to(torch.bfloat16)
+            lane = ref_ops.run_op("fused_matmul", [x, w], {})
+            upcast = torch.matmul(x.float(), w.float()).to(torch.bfloat16)
+            err = (lane.float() - upcast.float()).abs().max().item()
+            tol = MM_RTOL_BF16 * max(1.0, upcast.float().abs().max().item())
+            log(f"  vendor matmul lane {role} M={m} K={k} N={n}: one bf16 product vs "
+                f"the f32 upcast max_abs_err {err:.3e} tol {tol:.1e} "
+                f"{'ok' if err <= tol else 'FAIL'}")
+            if not err <= tol:
+                raise AssertionError(f"vendor matmul lane {role} M={m}: {err} > {tol}")
     fitness = WallClockFitness(device=DEVICE)
     tuner = Tuner(fitness=fitness, methods=("genetic",))
     for fn in counters:
@@ -1234,6 +1344,11 @@ def phase_serve_plan(torch, served, counters, torch_run):
             raise AssertionError(f"{name} never launched in the race")
 
     graph = build_serve_graph(cfg, **SERVE_PLAN, dtype="bfloat16")
+    matmuls = [n.name for n in graph.toposort()
+               if getattr(op_desc_of(graph, n, "bfloat16"), "kind", None) == "matmul"]
+    won = [n for n in matmuls if plan.choices[n].backend == "pallas_matmul"]
+    log(f"the GEMM kernel won {len(won)} of the {len(matmuls)} matmul nodes against "
+        f"the vendor lane (one bf16 cuBLAS product): {won}")
     log("per node: vendor ms, kernel ms (config), winner, bound ms (bf16 peak); "
         "one call, CUDA events, median of 10")
     for node in graph.toposort():
@@ -1526,6 +1641,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products in cuBLAS accumulate in f32 and round once, as the
+    # JAX reference's vendor lane and the GEMM kernel do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     smi = phase_environment(torch)
 

@@ -110,9 +110,19 @@ def nhwc_conv_weight(w: torch.Tensor) -> torch.Tensor:
 def matmul(inputs: List[torch.Tensor], attrs: Dict[str, Any]) -> torch.Tensor:
     """x @ w with an f32 accumulator rounded to x's dtype, then bias and
     activation in that dtype (`jnp.matmul(preferred_element_type=f32)`
-    followed by `astype(x.dtype)`)."""
+    followed by `astype(x.dtype)`).
+
+    On the GPU a bf16 product is one cuBLAS call, `x @ w`: the call the
+    serving path's vendor lane makes (`kernels.dispatch.torch_lane`), so a
+    plan's race times the lane that serving then runs.  cuBLAS accumulates
+    it in f32 and rounds once while
+    `torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction` is
+    False (`chip_smoke.py` sets it so).  `torch.mm(x, w,
+    out_dtype=torch.float32).to(x.dtype)` would give the same function in
+    two kernels, an f32 product and a cast, which serving never runs.  On
+    the CPU the operands are upcast to an f32 product."""
     x, w = inputs[0], inputs[1]
-    if x.dtype == torch.float32:
+    if x.dtype == torch.float32 or x.device.type == "cuda":
         out = torch.matmul(x, w)
     else:
         out = torch.matmul(x.float(), w.float()).to(x.dtype)

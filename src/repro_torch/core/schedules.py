@@ -6,7 +6,7 @@ hyper-parameters ... and finally exploits automated search in the tunable
 parameter space".  A template here names the knobs one hand-written CUDA
 kernel reads at launch, and nothing else: the paper's CUDA thread-block
 and per-thread tile dims become the conv kernel's output-channel tile `bn`
-and its output rows per block `row_block`.
+and its output rows per tile `row_block`.
 
 The validity constraint is the paper's own kind ("total threads per block
 <= 1024"): `Template.validate` checks a configuration against the kernel's
@@ -195,9 +195,10 @@ class MatmulTemplate(Template):
 
 
 class Conv2dTemplate(Template):
-    """The direct NHWC convolution (`kernels/csrc/conv2d.cu`): `bn` output
-    channels × `row_block` whole output rows per block.  Valid when
-    `kernels.conv2d.geometry` can launch it within the chip's limits."""
+    """The implicit-GEMM NHWC convolution (`kernels/csrc/conv2d.cu`): `bn`
+    output channels × `row_block` whole output rows per tile.  Valid when
+    `kernels.conv2d.geometry` can launch it, in the op's dtype, within the
+    chip's limits."""
 
     name = "pallas_conv2d"
     kinds = ("conv2d",)
@@ -214,7 +215,8 @@ class Conv2dTemplate(Template):
         padding = "SAME" if d["pad"] else "VALID"
         return conv_kernel.geometry(
             d["n"], d["h"], d["w"], d["cin"], d["cout"], d["kh"], d["kw"],
-            d["stride"], padding, cfg["bn"], cfg["row_block"], chip) is not None
+            d["stride"], padding, cfg["bn"], cfg["row_block"], chip,
+            itemsize=hw.itemsize(op.dtype)) is not None
 
 
 class AttentionTemplate(Template):

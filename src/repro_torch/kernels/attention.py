@@ -15,18 +15,18 @@
     decides — the schedule template validates with the same function;
   * `dense_decode_attention` (`csrc/dense_decode.cu`), the counterpart of
     `flash_decode_padded`: one token per sequence over dense (B, S, Hkv, D)
-    caches, in one launch with the KV head in the grid.
+    caches, in one launch with the KV head and the split in the grid.
 
 Three bodies run them.  The bf16 instances of the prefill and flash
 kernels run the tensor-core tile of `csrc/mma_attention.cuh` (mma.sync on
 bf16 fragments, K/V in a two-stage cp.async ring of tiles of 16, 32, 64 or
-128 keys); their f32 instances, and dense decode in every dtype, run the
-CUDA-core tile of `csrc/paged_attention.cuh`; paged decode runs the
-split-KV body of `csrc/split_decode.cuh` in every dtype (grid (slot, KV
-head, split), the splits of `decode_splits` combined in split order by
-the CTA that finishes last, in the same launch).  `mma_tile_smem_bytes`,
-`paged_tile_smem_bytes` and `split_decode_smem_bytes` mirror the three
-bodies' shared memory.
+128 keys); their f32 instances run the CUDA-core tile of
+`csrc/paged_attention.cuh`; paged and dense decode run the split-KV body
+of `csrc/split_decode.cuh` in every dtype (grid (sequence, KV head,
+split), the splits of `decode_splits` / `dense_decode_splits` combined in
+split order by the CTA that finishes last, in the same launch).
+`mma_tile_smem_bytes`, `paged_tile_smem_bytes` and
+`split_decode_smem_bytes` mirror the three bodies' shared memory.
 
 A CPU tensor takes the plain version in `repro_torch.kernels.ref`; a CUDA
 tensor launches the kernel or raises.  Each wrapper counts its launches in
@@ -361,13 +361,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+def dense_decode_splits(s: int) -> Tuple[int, int]:
+    """(splits, keys per split) of a dense decode launch over caches of S
+    rows: `decode_splits` with the cache as a table of S one-row blocks,
+    so splits of DECODE_SPLIT_KEYS keys, as many as cover S.  A function
+    of S alone — never of the lengths, which live on the device."""
+    return decode_splits(s, 1)
+
+
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                           scale: Optional[float] = None,
-                           block_kv: Optional[int] = None) -> torch.Tensor:
+                           scale: Optional[float] = None) -> torch.Tensor:
     """One token per sequence: q (B, H, D) over the first `lengths[b]` rows
-    of dense caches (B, S, Hkv, D) -> (B, H, D); `block_kv` keys per
-    shared-memory tile (clamped to what fits)."""
+    (taken within [0, S]) of dense caches (B, S, Hkv, D) -> (B, H, D)."""
     if q.device.type == "cpu":
         return _ref.dense_decode_attention_ref(q, k_cache, v_cache, lengths, scale)
     dtype = _check_common(q, k_cache, v_cache, "dense_decode_attention",
@@ -376,24 +382,25 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("q must be (B, H, D)")
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    if k_cache.shape[0] != b or lengths.shape != (b,):
-        raise ValueError("caches must be (B, S, Hkv, D) and lengths (B,)")
+    if k_cache.shape[0] != b or lengths.shape != (b,) or s < 1:
+        raise ValueError("caches must be (B, S, Hkv, D) with S >= 1 and lengths (B,)")
     if h % hkv or h // hkv > DECODE_MAX_GROUP:
         raise ValueError(f"H={h} must be a multiple of Hkv={hkv} with at most "
                          f"{DECODE_MAX_GROUP} query heads per KV head")
-    # one query row of G vectors on the CUDA-core tile: the tuned block_kv,
-    # halved until the tile fits shared memory
-    bkv = max(1, min(block_kv or DEFAULT_BLOCK_KV, FLASH_BLOCK_KV[-1]))
-    while bkv > 1 and paged_tile_smem_bytes(h // hkv, bkv, d, q.element_size()) \
-            > hw.H100.smem_per_block:
-        bkv //= 2
     lengths = _index(lengths)
+    nsplit, kps = dense_decode_splits(s)
     out = torch.empty_like(q)
+    ws = counters = None
+    if nsplit > 1:
+        ws = torch.empty(b * hkv * nsplit * (h // hkv) * (d + 2),
+                         dtype=torch.float32, device=q.device)
+        counters = build.counters("dense_decode", q.device, b * hkv)
     fn = build.load("dense_decode")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), b, s, h, hkv, d, bkv, scale,
-             dtype, _stream(q))
+             lengths.data_ptr(), out.data_ptr(), b, s, h, hkv, d, kps, nsplit,
+             scale, dtype, ws.data_ptr() if ws is not None else None,
+             counters.data_ptr() if counters is not None else None, _stream(q))
     build.check(err, "dense_decode_attention")
     dense_decode_attention.launches += 1
     return out

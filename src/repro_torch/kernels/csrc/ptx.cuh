@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // cp.async copies into shared memory, ldmatrix operand loads, the bf16
-// mma.sync m16n8k16 tensor-core product, the head-dim bound of an
-// attention instance, the dynamic-shared-memory opt-in of a kernel
-// instance, and the arrival counter of the split kernels.
+// mma.sync m16n8k16 and the TF32 m16n8k8 tensor-core products with the
+// 3xTF32 split of an f32 operand, the head-dim bound of an attention
+// instance, the dynamic-shared-memory opt-in of a kernel instance, and the
+// arrival counter of the split kernels.
 //
-// Split kernels (matmul.cu's split-K, split_decode.cuh's split-KV) finish
-// in the launch that computed the partials: every CTA of an output unit
-// writes its f32 partial to a workspace, then `arrive_last` counts it in
-// on the unit's int32 counter; the CTA that arrives last reads the
+// Split kernels (matmul.cu's and conv2d.cu's split-K, split_decode.cuh's
+// split-KV) finish in the launch that computed the partials: every CTA of
+// an output unit writes its f32 partial to a workspace, then `arrive_last`
+// counts it in on the unit's int32 counter; the CTA that arrives last reads the
 // partials back in split order 0..S-1 (so the same inputs give the same
 // bits on every run: no float atomics) and resets the counter to 0, so the
 // counter buffer is zeroed once when it is allocated and never again.
@@ -30,6 +31,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(ok ? 16 : 0));
 }
+// 4 bytes global -> shared (one f32, for gathers whose rows are not
+// 16-byte pieces); `ok == false` writes zeros and reads nothing
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -50,6 +57,25 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: x = hi + lo with both halves TF32 (hi = x rounded to 10 explicit
+// mantissa bits, lo = the rest rounded the same way), so that
+// hi·hi + hi·lo + lo·hi carries an f32 product to about f32 accuracy on
+// the tensor cores (lo·lo, ~2^-22 relative, is dropped)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// c += a (16 x 8, row) . b (8 x 8, col), TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
                "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
                : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

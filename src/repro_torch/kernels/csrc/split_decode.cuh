@@ -1,10 +1,10 @@
 // Split-KV decode body (flash-decoding) for Hopper (sm_90a): the G query
 // vectors of one new token that share KV head h, over one split — a fixed
 // range of key positions — of their sequence's KV rows, on the CUDA cores.
-// paged_decode.cu runs it over the paged pool; the row addressing (`Rows`:
-// block(t), the block that holds key t, and offset(block, t), the element
-// offset of its row for head h — PagedRows below) is a template parameter,
-// so a dense cache can run the same body.
+// paged_decode.cu runs it over the paged pool, dense_decode.cu over dense
+// caches: the row addressing (`Rows`: block(t), the block that holds key t,
+// and offset(block, t), the element offset of its row for head h —
+// PagedRows and DenseRows below) is a template parameter.
 //
 // One CTA per (sequence, KV head, split).  Split s covers key positions
 // [s * kps, (s + 1) * kps) and stops at the sequence's length; a split
@@ -98,6 +98,17 @@ struct PagedRows {
   __device__ int block(int t) const { return __ldg(table + t / bs); }
   __device__ size_t offset(int blk, int t) const {
     return (((size_t)blk * bs + t % bs) * hkv + h) * (size_t)d;
+  }
+};
+
+// Rows of one sequence in a dense (B, S, Hkv, D) cache, KV head h: key t
+// is row t of the sequence's slab, so there is no block to look up.
+struct DenseRows {
+  size_t base;                     // b * S * Hkv * D, the sequence's slab
+  int hkv, d, h;
+  __device__ int block(int) const { return 0; }
+  __device__ size_t offset(int, int t) const {
+    return base + ((size_t)t * hkv + h) * (size_t)d;
   }
 };
 

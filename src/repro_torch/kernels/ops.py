@@ -5,13 +5,15 @@
 A CPU tensor goes to the kernel's plain version; a CUDA tensor goes to the
 kernel or the call raises — there is no fallback.  The tuned `config` dicts
 of the JAX plans are accepted: `block_q` sizes the prefill and flash
-kernels' query tiles, `block_kv` the flash and dense decode kernels' key
-tiles (TPU-sized blocks are clamped to the largest Hopper tile that fits),
-`bn` / `row_block` the conv kernel's block; keys the Hopper kernels do not
-read (the matmul's TPU tile bm / bn / bk / order / k_unroll — the GEMM
-picks its tile from M — the conv's bm / bk / order / k_unroll, the
-elementwise chain's block_rows, the chunk lane's max_segments, which the
-scheduler reads) are ignored.
+kernels' query tiles, `block_kv` the flash kernel's key tiles (TPU-sized
+blocks are clamped to the largest Hopper tile that fits), `bn` /
+`row_block` the conv kernel's tile; keys the Hopper kernels do not read
+(the matmul's TPU tile bm / bn / bk / order / k_unroll — the GEMM picks
+its tile from M — the conv's bm / bk / order / k_unroll, the dense and
+paged decode kernels' block_kv — both run the split-KV body, whose splits
+and chunks follow from the cache's shape — the elementwise chain's
+block_rows, the chunk lane's max_segments, which the scheduler reads) are
+ignored.
 """
 
 from __future__ import annotations
@@ -112,9 +114,9 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                      config: Config = None) -> torch.Tensor:
     """Single-token decode over dense caches: q (B, H, D), caches (B, S,
     Hkv, D), lengths (B,) -> (B, H, D); positions >= lengths[b] masked."""
+    del config  # the split-KV body's splits and chunks follow from S
     return dense_decode_attention(q.contiguous(), k_cache.contiguous(),
-                                  v_cache.contiguous(), lengths, scale=scale,
-                                  block_kv=(config or {}).get("block_kv"))
+                                  v_cache.contiguous(), lengths, scale=scale)
 
 
 def attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,

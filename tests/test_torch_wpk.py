@@ -303,16 +303,21 @@ def test_conv_template_space_is_what_the_kernel_launches():
             geo = KC.geometry(d["n"], d["h"], d["w"], d["cin"], d["cout"], d["kh"],
                               d["kw"], d["stride"], "SAME", cfg["bn"], cfg["row_block"])
             assert geo.smem_bytes <= hw.H100.smem_per_block
-            assert geo.tm * (256 * KC.TN // cfg["bn"]) >= cfg["row_block"] * d["ow"]
+            # a tile holds row_block whole output rows, padded to the next
+            # tile height of 16s, and the tiles cover M
+            assert geo.rows == min(cfg["row_block"] * d["ow"], d["n"] * geo.oh * geo.ow)
+            assert (geo.bm, cfg["bn"]) in KC.CONV_TILES and geo.rows <= geo.bm < 2 * geo.rows + 16
+            assert (geo.tiles_m - 1) * geo.rows < d["n"] * geo.oh * geo.ow <= geo.tiles_m * geo.rows
         default = KC.default_config(d["n"], d["h"], d["w"], d["cin"], d["cout"],
                                     d["kh"], d["kw"], d["stride"], "SAME")
         assert tmpl.validate(op, default)
-    # the stem's 112-pixel rows do not fit 8 rows per block at bn 128
+    # the stem's 112-pixel rows do not fit 8 rows per tile at bn 128
     stem = OpDesc.make("conv2d", conv_groups()[0][1].d, "float32")
     assert not tmpl.validate(stem, {"bn": 128, "row_block": 8})
-    # a grid's y dimension (images x row blocks) holds at most 65,535 blocks
+    # bn 16 needs a 64-row tile (four warps of 16 rows): 8-pixel rows take
+    # row_block 8
     tall = (64, 2048, 8, 4, 16, 3, 3, 1, "SAME", 16)
-    assert KC.geometry(*tall, 2) is None and KC.geometry(*tall, 4) is not None
+    assert KC.geometry(*tall, 4) is None and KC.geometry(*tall, 8) is not None
     assert TEMPLATES["pallas_matmul"].space(OpDesc.matmul(1, 1000, 512)) == {}
     assert set(TEMPLATES) == {"pallas_matmul", "pallas_conv2d", "pallas_attention"}
     assert TEMPLATES["pallas_attention"].kinds == ("attention",)
