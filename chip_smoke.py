@@ -37,23 +37,39 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      the decode stage's shape with ragged lengths (bf16), at its split
      edges (lengths 0, kps - 1 / kps / kps + 1, S and past S) in bf16 and
      in f32 at G = 1 / 4 / 8 / 16 and D = 64 / 128 / 256, and at the JAX
-     tests' length sets (f32);
+     tests' length sets (f32); a CUDA graph of dense decode captured before
+     its split counters grow, replayed after a larger eager launch grew
+     them, bitwise equal to the eager call;
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
      role-tagged matmuls through the kernels: 16 requests, chunked and
-     packed prefill and decode-only steps; every request must finish, the
-     pool must drain, every kernel must have launched on this path, and the
-     first tokens must match the same engine on the torch lanes wherever the
-     reference's top-2 margin exceeds the stated tolerance;
+     packed prefill and decode-only steps, the two step programs captured
+     in CUDA graphs and replayed, against the same engine run eagerly
+     (`cuda_graphs=False`) in three alternating pairs: every request must
+     finish, the pool must drain, `submit()` must capture nothing, each
+     graphed engine must capture 2 programs (one signature each) and replay
+     every later step, the graphed and eager runs must give the same token
+     streams, first-token logits and kernel launches bit for bit (tokens/s
+     and TTFT p50 / p95 logged per run, median and spread per lane), every
+     kernel must have launched on this path, and the first tokens must
+     match the torch lanes (graphed) wherever the reference's top-2 margin
+     exceeds the stated tolerance; then on the graphed kernel lanes the
+     reference's schedule identities: preempted = unconstrained and
+     sharing-on = sharing-off bitwise, chunked vs unchunked and packed vs
+     single-segment by first tokens at that margin, with whole-stream
+     identity, the first diverging token and the geometry that differs
+     logged;
   4. the paper's pipeline on ResNet-18 (batch 1, 224 x 224, f32):
      `optimize_graph`, `select` on wall-clock fitness with and without the
-     vendor lane (the §3.4 ablation), the per-operator race, both plans
-     held to the vendor lane by `Engine.verify_against_reference`, one
-     WPK-only forward that must launch the conv kernel 20 times and the
-     GEMM once, then, outside the engine (which runs its 8 residual chains
-     on ref_ops, as the JAX engine does), the elementwise kernel replaying
-     those chains on the engine's inputs, and the ms per image of three
-     lanes;
+     vendor lane (the §3.4 ablation), the per-operator race, both plans run
+     graphed (the engine's forward captured in a CUDA graph) and eagerly,
+     each graphed forward bitwise equal to its eager one and each held to
+     the vendor lane by `Engine.verify_against_reference`, one WPK-only
+     forward that must launch the conv kernel 20 times and the GEMM once
+     (eagerly, and the same replayed from its graph), then, outside the
+     engine (which runs its 8 residual chains on ref_ops, as the JAX
+     engine does), the elementwise kernel replaying those chains on the
+     engine's inputs, and the ms per image of five lanes;
   5. the serve plan: the vendor lane of a bf16 matmul (one bf16 cuBLAS
      product, the call serving's torch lane makes) held against the f32
      upcast it replaced at the 10 serving GEMM shapes; qwen3-1.7b's serve
@@ -66,9 +82,10 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      plan's kernel lanes launch, first tokens match the torch lanes), and
      `ops.attention_decode` called once at the decode stage's shape;
   6. one JSON line `{"kernels": [...]}` with each kernel's launches on each
-     path (the forward and the replayed chains are separate paths, as are
-     the serve plan's race, its serving run and the decode wrapper's call),
-     error and times;
+     path (the eager and the graphed forward and the replayed chains are
+     separate paths, as are the serve plan's race, its serving run and the
+     decode wrapper's call; a replayed CUDA graph counts the launches it
+     captured), error and times;
   7. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
@@ -1121,6 +1138,62 @@ def check_dense_decode(torch, chk):
                     "same algorithm, f32 summation order")
 
 
+def check_counter_growth(torch, chk):
+    """A CUDA graph captured before the split counters grow must replay into
+    the buffer it captured: capture dense decode at the decode shape, grow
+    its counter buffer with a larger eager launch, churn the allocator, and
+    replay — the same bits as before the growth, and the outgrown buffer
+    still all zeros."""
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import build
+
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    h, hkv, d = 16, 8, 128
+
+    def case(b, s):
+        q = torch.randn((b, h, d), generator=g, device=DEVICE).to(torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, d), generator=g, device=DEVICE)
+                .to(torch.bfloat16) for _ in range(2))
+        lengths = torch.randint(1, s + 1, (b,), generator=g, device=DEVICE,
+                                dtype=torch.int32)
+        return q, k, v, lengths
+
+    small = case(8, 1024)
+    eager = KA.dense_decode_attention(*small)
+    key = ("dense_decode", torch.cuda.current_device())
+    old = build._counters[key]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        KA.dense_decode_attention(*small)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = KA.dense_decode_attention(*small)
+    graph.replay()
+    torch.cuda.synchronize()
+    before = static.clone()
+    b_big = old.numel() // hkv + 1                 # needs one buffer more than there is
+    KA.dense_decode_attention(*case(b_big, 256))
+    grown = build._counters[key]
+    if grown is old or grown.numel() <= old.numel() or old not in build._superseded:
+        raise AssertionError("the larger launch did not grow the counter buffer")
+    churn = [torch.full((old.numel(),), 7, dtype=torch.int32, device=DEVICE)
+             for _ in range(16)]
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(static.view(torch.int16), before.view(torch.int16)) and \
+        torch.equal(before.view(torch.int16), eager.view(torch.int16))
+    clean = int(old.abs().sum().item()) == 0 and int(grown.abs().sum().item()) == 0
+    log(f"  {chk.name} counter growth: a graph captured at B=8 replayed after a "
+        f"B={b_big} eager launch grew the buffer {old.numel()} -> {grown.numel()} "
+        f"counters: bitwise equal to the eager call {'ok' if same else 'FAIL'}; "
+        f"both buffers zeroed {'ok' if clean else 'FAIL'}")
+    del churn
+    if not (same and clean):
+        raise AssertionError("a graph replay after the counter buffer grew differs")
+
+
 # -------------------------------------------------------------- phase 3
 # First-token agreement between the kernel lanes and the torch lanes: each
 # lane rounds differently at every layer (f32 vs bf16 Q·Kᵀ, the gate's
@@ -1142,7 +1215,10 @@ def _spy_first_logits(eng):
         out = orig(params, dec_rids, lengths, last_tok, chunks, *rest)
         for i, (req, start, n) in enumerate(chunks):
             if start + n == req.prompt_len:
-                store[req.rid] = eng.adapter.last_seg_logits[i].float().cpu()
+                # a copy: the logits are the unified program's output
+                # buffer, which its next step overwrites
+                store[req.rid] = eng.adapter.last_seg_logits[i].to(
+                    "cpu", sys.modules["torch"].float32, copy=True)
         return out
 
     eng.adapter.dispatch = dispatch
@@ -1177,22 +1253,33 @@ def serving_setup(torch, cfg):
     return model, params, prompts
 
 
-def serve(torch, served, router, label, profile=False, require_packing=True):
-    """Serve the 16 prompts under `router`; every request must finish with
-    its 32 in-vocabulary tokens, the pool must drain, and chunked,
-    decode-only and (where the router packs) packed steps must all occur.
-    -> ({rid: tokens}, {rid: first-token logits}, metrics summary)."""
+def serve(torch, served, router, label, profile=False, require_packing=True,
+          graphs=True, prompts=None, check_schedule=True, **runtime):
+    """Serve `prompts` (default: the 16) under `router`, the step programs
+    captured in CUDA graphs or (graphs=False) run eagerly; every request
+    must finish with its 32 in-vocabulary tokens, the pool must drain,
+    `submit()` must capture nothing, each program must hold one signature
+    (graphed: captured once, replayed by every later step), and (with
+    `check_schedule`) chunked, decode-only and (where the router packs)
+    packed steps must all occur.  `runtime` overrides SERVE_RUNTIME.
+    -> ({rid: tokens}, {rid: first-token logits}, metrics summary with the
+    lane's width and segments)."""
     from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
 
-    model, params, prompts = served
+    model, params, all_prompts = served
+    prompts = all_prompts if prompts is None else prompts
     cfg = model.cfg
-    rcfg = RuntimeConfig(**SERVE_RUNTIME)
+    rcfg = RuntimeConfig(**{**SERVE_RUNTIME, **runtime}, cuda_graphs=graphs)
     eng = ContinuousEngine(model, params, rcfg, router=router, device=DEVICE)
     firsts = _spy_first_logits(eng)
     log(f"[{label}] pool {tuple(eng.cache.k.shape)} x2 "
         f"{2 * eng.cache.k.numel() * eng.cache.k.element_size() / 1e9:.2f} GB")
+    progs = (eng._unified, eng._decode_only)
+    before = [p._cache_size() for p in progs]
     for p in prompts:
         eng.submit(p)
+    if before != [0, 0] or [p._cache_size() for p in progs] != [0, 0]:
+        raise AssertionError(f"[{label}] submit() captured a program")
     torch.cuda.synchronize()
     if profile:
         from torch.profiler import ProfilerActivity
@@ -1203,6 +1290,7 @@ def serve(torch, served, router, label, profile=False, require_packing=True):
         done = eng.run()
         torch.cuda.synchronize()
     s = eng.metrics.summary()
+    s["lane_width"], s["lane_segments"] = eng.adapter.chunk_width, eng.adapter.chunk_segments
     if profile:
         _log_device_profile(prof, s["wall_s"], label)
     log(f"[{label}] {int(s['requests'])} requests, {int(s['tokens_out'])} "
@@ -1214,7 +1302,18 @@ def serve(torch, served, router, label, profile=False, require_packing=True):
         f"{s['chunk_fill_frac']:.2f}), {int(s['decode_only_steps'])} "
         f"decode-only, {int(s['decode_steps'])} with decode rows; "
         f"prefill_time {s['prefill_time_s']:.3f} s decode_time "
-        f"{s['decode_time_s']:.3f} s; preemptions {int(s['preemptions'])}")
+        f"{s['decode_time_s']:.3f} s; preemptions {int(s['preemptions'])}, "
+        f"prefix hit tokens {int(s['prefix_hit_tokens'])}")
+    steps = int(s["chunk_steps"] + s["decode_only_steps"])
+    sizes = [p._cache_size() for p in progs]
+    captures = sum(p.captures for p in progs)
+    replays = sum(p.replays for p in progs)
+    log(f"[{label}] step programs: {sizes} signatures (unified, decode-only), "
+        f"{captures} captures, {replays} replays over {steps} steps")
+    want = (2, steps - 2) if graphs else (0, 0)
+    if sizes != [1, 1] or (captures, replays) != want:
+        raise AssertionError(f"[{label}] programs {sizes}, captures {captures}, "
+                             f"replays {replays}: want [1, 1] and {want}")
     if len(done) != len(prompts):
         raise AssertionError(f"[{label}] {len(done)} of {len(prompts)} finished")
     for r in done:
@@ -1228,8 +1327,9 @@ def serve(torch, served, router, label, profile=False, require_packing=True):
     eng.cache.alloc.check_invariants()
     if eng.cache.alloc.num_used != 0:
         raise AssertionError(f"[{label}] pool did not drain")
-    if s["decode_only_steps"] == 0 or s["prefill_chunks"] <= len(prompts) or \
-            (require_packing and s["packed_segments"] == 0):
+    if check_schedule and (s["decode_only_steps"] == 0
+                           or s["prefill_chunks"] <= len(prompts)
+                           or (require_packing and s["packed_segments"] == 0)):
         raise AssertionError(f"[{label}] chunking / packing / decode-only "
                              "steps did not all occur")
     return {r.rid: r.output for r in done}, firsts, s
@@ -1260,6 +1360,135 @@ def compare_first_tokens(torch, label, out_k, first_k, out_t, first_t):
         raise AssertionError("no request had a first-token margin to compare")
 
 
+# graphed / eager run order of the kernel lanes: three pairs, alternating
+KERNEL_LANE_RUNS = (True, False, False, True, True, False)
+# the identity pairs (graphed kernel lanes): the first 8 prompts; a pool of
+# 120 blocks preempts them (they need 216 with their 32 new tokens); the
+# first 12 with prompt 1's first 256 tokens as a shared prefix wherever
+# they are longer, so the second wave adopts the first's blocks; an
+# unchunked lane as wide as the longest prompt
+IDENTITY_PROMPTS = 8
+PREEMPT_BLOCKS = 120
+SHARED_PROMPTS, SHARED_PREFIX = 12, 256
+UNCHUNKED_TOKENS = 704
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+def _lane_stats(label, summaries):
+    """Log one lane's runs: tokens/s and TTFT p50 / p95 of each, their
+    medians and spread (max - min).  -> median tokens/s."""
+    tps = [s["tokens_per_s"] for s in summaries]
+    p50 = [s["ttft_p50_s"] for s in summaries]
+    p95 = [s["ttft_p95_s"] for s in summaries]
+    med = _median(tps)
+    log(f"[{label}] {len(tps)} runs: tokens/s {[round(x, 1) for x in tps]} median "
+        f"{med:.1f} spread {max(tps) - min(tps):.1f} ({100 * (max(tps) - min(tps)) / med:.1f}%); "
+        f"TTFT p50 {[round(x, 3) for x in p50]} s median {_median(p50):.3f} spread "
+        f"{max(p50) - min(p50):.3f}; TTFT p95 {[round(x, 3) for x in p95]} s median "
+        f"{_median(p95):.3f} spread {max(p95) - min(p95):.3f}")
+    return med
+
+
+def _first_divergence(out_a, out_b):
+    """(rid, token index, token a, token b) of the first stream that
+    differs, or None."""
+    for rid in sorted(out_a):
+        for i, (a, b) in enumerate(zip(out_a[rid], out_b[rid])):
+            if a != b:
+                return rid, i, a, b
+    return None
+
+
+def _geometry_diff(cfg, s_a, s_b):
+    """The launch geometry that differs between two runs' prefill lanes:
+    each serving GEMM's M (the lane width; the segment count for lm_head)
+    and `gemm_geometry`, and the torch-lane wo product's M (cuBLAS picks
+    its own algorithm from the shape)."""
+    import torch
+    from repro_torch.kernels.matmul import gemm_geometry
+
+    diffs = []
+    for role, k, n, _ in serving_gemms(cfg):
+        key = "lane_segments" if role == "lm_head" else "lane_width"
+        m_a, m_b = int(s_a[key]), int(s_b[key])
+        g_a, g_b = (gemm_geometry(m, n, k, torch.bfloat16) for m in (m_a, m_b))
+        if (m_a, g_a) != (m_b, g_b):
+            diffs.append(f"{role} M {m_a} -> {m_b}, (bm, bn, bk, stages, split) "
+                         f"{tuple(g_a)} -> {tuple(g_b)}")
+    if s_a["lane_width"] != s_b["lane_width"]:
+        diffs.append(f"attn wo (cuBLAS) M {int(s_a['lane_width'])} -> "
+                     f"{int(s_b['lane_width'])}; paged prefill grid over "
+                     f"{int(s_a['lane_width'])} -> {int(s_b['lane_width'])} rows")
+    return diffs or ["none"]
+
+
+def _same_firsts(first_a, first_b):
+    torch = sys.modules["torch"]
+    return first_a.keys() == first_b.keys() and all(
+        torch.equal(first_a[r], first_b[r]) for r in first_a)
+
+
+def phase_identities(torch, served, router):
+    """The reference's schedule identities on the graphed kernel lanes:
+    preempted = unconstrained and sharing-on = sharing-off bitwise (the
+    same shapes run); chunked vs unchunked and packed vs single-segment
+    (other GEMM shapes) held to the first tokens wherever the top-2 margin
+    exceeds FIRST_TOKEN_MARGIN, whole-stream identity logged with the first
+    diverging token and the geometry that differs."""
+    model, _, prompts = served
+    cfg = model.cfg
+    few = prompts[:IDENTITY_PROMPTS]
+    shared = [p.copy() for p in prompts[:SHARED_PROMPTS]]
+    for p in shared:
+        if len(p) > SHARED_PREFIX:
+            p[:SHARED_PREFIX] = prompts[1][:SHARED_PREFIX]
+    pairs = [("preempted vs unconstrained", few, dict(num_blocks=PREEMPT_BLOCKS), {}, True),
+             ("sharing-on vs sharing-off", shared, dict(prefix_sharing=True), {}, True),
+             ("chunked 256 vs unchunked", few, {}, dict(chunk_tokens=UNCHUNKED_TOKENS), False),
+             ("packed 4 vs single-segment", few, {}, dict(chunk_segments=1), False)]
+    for name, ps, rt_a, rt_b, bitwise in pairs:
+        a_label, b_label = name.split(" vs ")
+        out_a, first_a, s_a = serve(torch, served, router, f"identity: {a_label}",
+                                    prompts=ps, check_schedule=False, **rt_a)
+        out_b, first_b, s_b = serve(torch, served, router, f"identity: {b_label}",
+                                    prompts=ps, check_schedule=False, **rt_b)
+        if "preempted" in name and not s_a["preemptions"] > 0:
+            raise AssertionError("the small pool preempted nothing")
+        if "sharing" in name and not s_a["prefix_hit_tokens"] > 0:
+            raise AssertionError("no prefix was adopted")
+        same = sum(out_a[r] == out_b[r] for r in out_a)
+        div = _first_divergence(out_a, out_b)
+        firsts = _same_firsts(first_a, first_b)
+        geo = _geometry_diff(cfg, s_a, s_b)
+        log(f"[identity] {name}: whole 32-token streams identical for {same}/"
+            f"{len(out_a)}; first-token logits bitwise equal: {firsts}; first "
+            f"diverging token: {'none' if div is None else 'request %d token %d: %d vs %d' % div}; "
+            f"geometry that differs: {'; '.join(geo)}")
+        if bitwise:
+            if div is not None or not firsts:
+                raise AssertionError(f"{name}: not bitwise equal ({div})")
+            continue
+        compared = 0
+        for rid, logits in first_a.items():
+            top2 = torch.topk(logits, 2).values
+            margin = float(top2[0] - top2[1])
+            if margin > FIRST_TOKEN_MARGIN:
+                compared += 1
+                if out_a[rid][0] != out_b[rid][0]:
+                    raise AssertionError(
+                        f"{name}: request {rid} first token {out_a[rid][0]} vs "
+                        f"{out_b[rid][0]} at margin {margin:.3f}")
+        log(f"[identity] {name}: first tokens agree for {compared}/{len(first_a)} "
+            f"requests with a top-2 margin > {FIRST_TOKEN_MARGIN}")
+        if compared == 0:
+            raise AssertionError(f"{name}: no first-token margin to compare")
+
+
 def phase_serve(torch, served, block_q, profile=False):
     from repro_torch.core.plan import InferencePlan, OpChoice
     from repro_torch.kernels import attention as KA
@@ -1273,21 +1502,47 @@ def phase_serve(torch, served, block_q, profile=False):
             "cuda_attention", {"block_q": block_q, "max_segments": 4}, 0.0)
         for role in MATMUL_ROLES:
             plan.choices[f"{stage}.{role}"] = OpChoice("cuda_matmul", {}, 0.0)
+    router = PlanRouter(plan)
 
+    # the kernel lanes graphed and eager in alternating pairs: the same
+    # streams, first-token logits and kernel launches, bit for bit
     counters = (KA.paged_decode_attention, KA.paged_prefill_attention,
                 KM.matmul_fused)
-    for fn in counters:
-        fn.launches = 0
-    out_k, first_k, summary = serve(torch, served, PlanRouter(plan),
-                                    "kernel lanes", profile)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"launches on the serving path: {launches}")
+    runs = []
+    for graphs in KERNEL_LANE_RUNS:
+        for fn in counters:
+            fn.launches = 0
+        lane = "graphed" if graphs else "eager"
+        out, first, s = serve(torch, served, router, f"kernel lanes, {lane}",
+                              profile, graphs=graphs)
+        runs.append((graphs, out, first, s, {fn.__name__: fn.launches
+                                              for fn in counters}))
+    _, out_k, first_k, _, launches = runs[0]
+    for graphs, out, first, _, n in runs[1:]:
+        if out != out_k or not _same_firsts(first, first_k) or n != launches:
+            raise AssertionError(
+                f"kernel lanes ({'graphed' if graphs else 'eager'}) differ from "
+                f"the first graphed run: streams {out == out_k}, launches {n} vs "
+                f"{launches}, first divergence {_first_divergence(out_k, out)}")
+    log(f"kernel lanes: {len(runs)} runs, graphed and eager, give the same token "
+        "streams, first-token logits (bitwise) and kernel launches")
+    log(f"launches on the serving path (one run; graphed: the warm-up's plus "
+        f"each replay's): {launches}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the serving path")
+    if not profile:
+        med = {graphs: _lane_stats(f"kernel lanes, {'graphed' if graphs else 'eager'}",
+                                   [r[3] for r in runs if r[0] == graphs])
+               for graphs in (True, False)}
+        log(f"kernel lanes: graphed / eager median tokens/s {med[True] / med[False]:.2f}x")
 
-    torch_run = serve(torch, served, PlanRouter(None), "torch lanes", profile)
+    torch_run = serve(torch, served, PlanRouter(None), "torch lanes, graphed", profile)
+    if profile:
+        serve(torch, served, PlanRouter(None), "torch lanes, eager", profile,
+              graphs=False)
     compare_first_tokens(torch, "kernel lanes", out_k, first_k, *torch_run[:2])
+    phase_identities(torch, served, router)
     return launches, torch_run
 
 
@@ -1429,6 +1684,7 @@ def phase_serve_plan(torch, served, counters, torch_run):
 # above that and far below what a padding or layout fault gives.
 WPK_TOL = 1e-3
 FORWARD_REPEATS = 50
+WPK_IMAGE = 224
 
 
 def _forward_ms(torch, engines, x, repeats=FORWARD_REPEATS, warmup=3):
@@ -1466,7 +1722,7 @@ def phase_wpk(torch, profile=False):
     from repro_torch.kernels import ops as kops
     from repro_torch.models.resnet import resnet18_graph
 
-    g = resnet18_graph(batch=1, image=224, seed=0)
+    g = resnet18_graph(batch=1, image=WPK_IMAGE, seed=0)
     t0 = time.perf_counter()
     gopt = optimize_graph(g)
     log(f"optimize_graph: {time.perf_counter() - t0:.2f} s; {gopt.op_histogram()}")
@@ -1521,17 +1777,35 @@ def phase_wpk(torch, profile=False):
         f"{1e3 * vendor_sum[0]:.4f} ms, HWIO weights converted per call "
         f"{1e3 * vendor_sum[1]:.4f} ms")
 
-    x = torch.randn((1, 3, 224, 224), generator=torch.Generator(device=DEVICE).manual_seed(6),
-                    device=DEVICE)
+    x = torch.randn((1, 3, WPK_IMAGE, WPK_IMAGE),
+                    generator=torch.Generator(device=DEVICE).manual_seed(6), device=DEVICE)
     reg = default_registry()
-    engines = {"torch lanes (no plan)": Engine(gopt, None, None, device=DEVICE),
-               "race plan": Engine(gopt, plans["race"], reg, device=DEVICE),
-               "WPK-only plan": Engine(gopt, plans["wpk_only"], reg, device=DEVICE)}
+    # each engine's forward captured in a CUDA graph (its first call), and
+    # the two plans also eagerly, to compare against
+    engines = {"torch lanes (no plan), graphed": Engine(gopt, None, None, device=DEVICE)}
+    for label, plan in (("race plan", plans["race"]), ("WPK-only plan", plans["wpk_only"])):
+        for graphed in (True, False):
+            engines[f"{label}, {'graphed' if graphed else 'eager'}"] = Engine(
+                gopt, plan, reg, device=DEVICE, cuda_graph=graphed)
+    for eng in engines.values():
+        eng(x)                                   # graphed: warm-up, capture
     for label in ("race plan", "WPK-only plan"):
-        err = engines[label].verify_against_reference(x, rtol=WPK_TOL, atol=WPK_TOL)
-        log(f"[{label}] verify_against_reference: max |err| {err:.3e} "
-            f"(rtol = atol = {WPK_TOL:.0e}) ok")
-    ref_unopt = Engine(g, None, None, device=DEVICE)(x)[0]
+        graphed, eager = engines[f"{label}, graphed"], engines[f"{label}, eager"]
+        got, want = graphed(x)[0], eager(x)[0]  # a replay; an eager forward
+        if not torch.equal(got, want):
+            raise AssertionError(f"[{label}] graphed forward differs from eager: "
+                                 f"{(got - want).abs().max().item()}")
+        if (graphed._program.captures, graphed._program.replays) != (1, 1) or \
+                eager._program.captures:
+            raise AssertionError(f"[{label}] captures / replays wrong")
+        log(f"[{label}] graphed forward (a replay) bitwise equal to the eager one; "
+            "one capture")
+        for lane in ("graphed", "eager"):
+            err = engines[f"{label}, {lane}"].verify_against_reference(
+                x, rtol=WPK_TOL, atol=WPK_TOL)
+            log(f"[{label}, {lane}] verify_against_reference: max |err| {err:.3e} "
+                f"(rtol = atol = {WPK_TOL:.0e}) ok")
+    ref_unopt = Engine(g, None, None, device=DEVICE, cuda_graph=False)(x)[0]
 
     # the main path: one forward under the WPK-only plan (the engine runs
     # the convs and the fc on the kernels, its 8 fused_elementwise nodes on
@@ -1540,9 +1814,16 @@ def phase_wpk(torch, profile=False):
     counters = (KC.conv2d_direct, KM.matmul_fused, KF.fused_elementwise)
     for fn in counters:
         fn.launches = 0
-    env = engines["WPK-only plan"].run_env(x)
+    env = engines["WPK-only plan, eager"].run_env(x)
     torch.cuda.synchronize()
     forward = {fn.__name__: fn.launches for fn in counters}
+    for fn in counters:
+        fn.launches = 0
+    engines["WPK-only plan, graphed"](x)        # a replay: the launches it captured
+    torch.cuda.synchronize()
+    graphed = {fn.__name__: fn.launches for fn in counters}
+    if graphed != forward:
+        raise AssertionError(f"a replayed forward counts {graphed}, an eager one {forward}")
     KF.fused_elementwise.launches = 0
     logits = env[gopt.outputs[0]]
     fused_nodes = [n for n in gopt.nodes if n.op == "fused_elementwise"]
@@ -1554,7 +1835,8 @@ def phase_wpk(torch, profile=False):
         fused_err = max(fused_err, (got - want).abs().max().item())
     torch.cuda.synchronize()
     replay = {"fused_elementwise": KF.fused_elementwise.launches}
-    log(f"launches on the WPK-only forward: {forward}; replaying its "
+    log(f"launches on the WPK-only forward: {forward} (eager; the same replayed "
+        f"from its CUDA graph); replaying its "
         f"{len(fused_nodes)} fused chains outside the engine: {replay}")
     if forward != {"conv2d_direct": 20, "matmul_fused": 1, "fused_elementwise": 0} \
             or replay != {"fused_elementwise": 8} or len(fused_nodes) != 8:
@@ -1573,9 +1855,10 @@ def phase_wpk(torch, profile=False):
         f"torch lanes: max |diff| {d_unopt:.3e} (max |logit| "
         f"{ref_unopt.abs().max().item():.3f})")
 
-    for label, ms in _forward_ms(torch, engines, x).items():
-        log(f"[{label}] one forward: {ms:.4f} ms/image (median of {FORWARD_REPEATS}, "
-            "CUDA events, lanes in turn)")
+    if not profile:
+        for label, ms in _forward_ms(torch, engines, x).items():
+            log(f"[{label}] one forward: {ms:.4f} ms/image (median of {FORWARD_REPEATS}, "
+                "CUDA events, lanes in turn)")
     if profile:
         from torch.profiler import ProfilerActivity
         for label, eng in engines.items():
@@ -1586,8 +1869,9 @@ def phase_wpk(torch, profile=False):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             _log_device_profile(prof, wall, f"{label}, {FORWARD_REPEATS} forwards")
-    del forward["fused_elementwise"]
-    return {"wpk_resnet18_forward": forward, "wpk_resnet18_chains_replayed": replay}
+    del forward["fused_elementwise"], graphed["fused_elementwise"]
+    return {"wpk_resnet18_forward": forward, "wpk_resnet18_forward_graphed": graphed,
+            "wpk_resnet18_chains_replayed": replay}
 
 
 def _log_device_profile(prof, wall_s, label):
@@ -1618,8 +1902,10 @@ def _leaves(tree):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace both serving runs and the ResNet-18 forwards "
-                         "with torch.profiler and print device time by kernel")
+                    help="trace the serving runs (kernel and torch lanes, "
+                         "graphed and eager) and the ResNet-18 forwards with "
+                         "torch.profiler and print the device busy share and "
+                         "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
                          "skips phases 3 to 5")
@@ -1671,6 +1957,7 @@ def main() -> int:
     check_fused(torch, checks[4])
     check_flash(torch, checks[5])
     check_dense_decode(torch, checks[6])
+    check_counter_growth(torch, checks[6])
     torch.cuda.synchronize()
     if args.skip_serve:
         log("--skip-serve: stopping after the kernel checks")

@@ -2,8 +2,13 @@
 the operator functions generated by automated searches, and drives the
 data flow expressed by the optimized graph to complete inference."
 
-`Engine(graph, plan, registry, device)` runs the toposorted graph eagerly
-on one device; the graph's constants move there once, at construction.
+`Engine(graph, plan, registry, device)` runs the toposorted graph on one
+device; the graph's constants move there once, at construction.  On a
+CUDA device `__call__` captures the forward in a CUDA graph once per input
+signature and replays it after (`launch.program.Program`), the
+counterpart of the JAX engine's `jax.jit`; `cuda_graph=False` runs every
+forward eagerly, kept only to compare against (the reference's
+`jit=False`).  `run_env`, which returns every intermediate, stays eager.
 Backends, as the JAX registry routes them:
 
   'xla'            -> repro_torch.core.ref_ops (the vendor lane: PyTorch,
@@ -28,6 +33,7 @@ import torch
 from repro_torch.core import ref_ops
 from repro_torch.core.graph import Graph
 from repro_torch.core.plan import InferencePlan
+from repro_torch.launch.program import Program
 from repro_torch.platform import DeviceLike, resolve_device
 
 # backend -> fn(inputs: list[Tensor], attrs, config) -> Tensor
@@ -59,6 +65,7 @@ class Engine:
         plan: Optional[InferencePlan] = None,
         registry: Optional[BackendRegistry] = None,
         device: DeviceLike = None,
+        cuda_graph: bool = True,
     ):
         graph.validate()
         self.graph = graph
@@ -77,6 +84,8 @@ class Engine:
                 (vendor_w if vendor_conv and i == 1 else other).add(t)
         for name in (vendor_w - other) & self._consts.keys():
             self._consts[name] = ref_ops.nhwc_conv_weight(self._consts[name])
+        self._program = Program(self._forward, "engine", self.device,
+                                graphed=cuda_graph)
 
     def _lane(self, node):
         """The registry function that runs `node`, or None for ref_ops."""
@@ -104,15 +113,23 @@ class Engine:
             env[node.outputs[0]] = out
         return env
 
-    def __call__(self, *args) -> List[torch.Tensor]:
+    def _forward(self, *args) -> List[torch.Tensor]:
         env = self.run_env(*args)
         return [env[o] for o in self.graph.outputs]
+
+    def __call__(self, *args) -> List[torch.Tensor]:
+        """The graph's outputs, fresh tensors that later calls leave alone
+        (the captured forward's outputs are copied out of its buffers)."""
+        if len(args) != len(self.graph.inputs):
+            raise ValueError(f"expected {len(self.graph.inputs)} inputs "
+                             f"{self.graph.inputs}")
+        return [t.clone() for t in self._program((), args)]
 
     def verify_against_reference(self, *args, rtol=2e-2, atol=2e-2) -> float:
         """Every optimized plan must be numerically equivalent to the same
         graph on the vendor lane.  Returns the max abs error; raises
         AssertionError past the tolerance."""
-        ref = Engine(self.graph, device=self.device)(*args)
+        ref = Engine(self.graph, device=self.device, cuda_graph=False)(*args)
         got = self(*args)
         max_err = 0.0
         for r, g in zip(ref, got):

@@ -30,7 +30,8 @@ split order by the CTA that finishes last, in the same launch).
 
 A CPU tensor takes the plain version in `repro_torch.kernels.ref`; a CUDA
 tensor launches the kernel or raises.  Each wrapper counts its launches in
-a plain int attribute `launches`.
+a plain int attribute `launches` (`build.counted`; a replayed CUDA graph
+adds the launches it captured).
 """
 
 from __future__ import annotations
@@ -146,6 +147,7 @@ def _index(t: torch.Tensor) -> torch.Tensor:
     return t.to(device="cuda", dtype=torch.int32).contiguous()
 
 
+@build.counted
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, lengths: torch.Tensor,
                            block_tables: torch.Tensor,
@@ -184,9 +186,6 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-paged_decode_attention.launches = 0
-
-
 def prefill_block_q(block_q: Optional[int], c: int, group: int) -> int:
     """Query rows per prefill CTA, and per flash CTA (`flash_blocks`): the
     tuned `block_q` (default: as many as fit), clamped so a tile holds at
@@ -197,6 +196,7 @@ def prefill_block_q(block_q: Optional[int], c: int, group: int) -> int:
     return max(1, min(block_q or cap, cap, c))
 
 
+@build.counted
 def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, seg_tables: torch.Tensor,
                             seg_info: torch.Tensor, *,
@@ -233,9 +233,6 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     build.check(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
     return out
-
-
-paged_prefill_attention.launches = 0
 
 
 def _a16(x: int) -> int:
@@ -328,6 +325,7 @@ def flash_blocks(block_q: Optional[int], block_kv: Optional[int], sq: int,
     return geo
 
 
+@build.counted
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     block_q: Optional[int] = None,
@@ -358,9 +356,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flash_attention.launches = 0
-
-
 def dense_decode_splits(s: int) -> Tuple[int, int]:
     """(splits, keys per split) of a dense decode launch over caches of S
     rows: `decode_splits` with the cache as a table of S one-row blocks,
@@ -369,6 +364,7 @@ def dense_decode_splits(s: int) -> Tuple[int, int]:
     return decode_splits(s, 1)
 
 
+@build.counted
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, lengths: torch.Tensor, *,
                            scale: Optional[float] = None) -> torch.Tensor:
@@ -404,6 +400,3 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     build.check(err, "dense_decode_attention")
     dense_decode_attention.launches += 1
     return out
-
-
-dense_decode_attention.launches = 0

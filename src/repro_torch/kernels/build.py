@@ -27,7 +27,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
@@ -68,6 +68,13 @@ SIGNATURES = {
 
 _entry: Dict[str, object] = {}
 _counters: Dict[tuple, object] = {}
+# Every counter buffer that a larger one replaced.  A CUDA graph captured
+# before the growth still holds the old buffer's address and replays into
+# it, so no buffer is ever freed: each one stays alive, and zeroed by the
+# kernels that use it, for the life of the process.
+_superseded: List[object] = []
+# The kernel wrappers whose plain int `launches` counts their launches.
+_counted: List[Callable] = []
 
 
 def build_dir() -> Path:
@@ -149,6 +156,12 @@ def load(name: str):
     return fn
 
 
+def _zeroed_counters(n: int, device):
+    import torch
+
+    return torch.zeros(n, dtype=torch.int32, device=device)
+
+
 def counters(name: str, device, n: int):
     """At least `n` zeroed int32 arrival counters of kernel library `name`
     on a CUDA `device`, kept across launches: its split kernels reset every
@@ -161,7 +174,9 @@ def counters(name: str, device, n: int):
     (and take the graph's memory), leaving eager launches after it with
     counters that were never zeroed.  So growing it while the current
     stream captures raises; an eager call at the same shapes first (a
-    warm-up) allocates it."""
+    warm-up) allocates it.  A buffer that a later eager call outgrows is
+    replaced for eager launches and kept alive (`_superseded`) for the
+    graphs that captured it."""
     import torch
 
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -170,9 +185,26 @@ def counters(name: str, device, n: int):
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{name}: {n} split counters must be allocated "
                                "before a CUDA graph capture; call once eagerly")
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        if buf is not None:
+            _superseded.append(buf)
+        buf = _zeroed_counters(max(n, 1024), device)
         _counters[(name, index)] = buf
     return buf
+
+
+def counted(fn: Callable) -> Callable:
+    """Register a kernel wrapper that adds one to its plain int attribute
+    `launches` where it launches its kernel.  A captured program reads the
+    registry (`launch_counts`) to count the launches its replays make,
+    which run no Python."""
+    fn.launches = 0
+    _counted.append(fn)
+    return fn
+
+
+def launch_counts() -> Dict[Callable, int]:
+    """{wrapper: launches so far} of every counted wrapper."""
+    return {fn: fn.launches for fn in _counted}
 
 
 def check(err: int, what: str) -> None:

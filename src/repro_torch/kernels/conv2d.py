@@ -23,7 +23,8 @@ launch; its int32 counters come from `build.counters("conv2d", ...)`.
 
 A CPU tensor takes `repro_torch.kernels.ref.conv2d_ref`; a CUDA tensor
 launches the kernel or raises.  Launches are counted in the plain int
-attribute `conv2d_direct.launches`.
+attribute `conv2d_direct.launches` (`build.counted`; a replayed CUDA graph
+adds the launches it captured).
 """
 
 from __future__ import annotations
@@ -152,6 +153,7 @@ def default_config(n, h, w, cin, cout, kh, kw, stride, padding) -> dict:
     return {"bn": 64, "row_block": 1}
 
 
+@build.counted
 def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *, stride: int = 1,
                   padding: str = "SAME", bn: int = 64, row_block: int = 1,
@@ -203,6 +205,3 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
     build.check(err, "conv2d_direct")
     conv2d_direct.launches += 1
     return out
-
-
-conv2d_direct.launches = 0

@@ -11,7 +11,8 @@ Pallas kernel's lookup does.
 
 A CPU tensor takes `repro_torch.kernels.ref.fused_elementwise_ref`; a CUDA
 tensor launches the kernel or raises.  Launches are counted in the plain
-int attribute `fused_elementwise.launches`.
+int attribute `fused_elementwise.launches` (`build.counted`; a replayed
+CUDA graph adds the launches it captured).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ def chain_code(chain: Sequence[Stage]):
     return len(ops), code, sum(op in BINARY_CODES for op in ops)
 
 
+@build.counted
 def fused_elementwise(x: torch.Tensor, chain: Sequence[Stage],
                       extras: Sequence[torch.Tensor] = ()) -> torch.Tensor:
     """Apply `chain` to x in one pass; binary stages take `extras` in
@@ -77,6 +79,3 @@ def fused_elementwise(x: torch.Tensor, chain: Sequence[Stage],
     build.check(err, "fused_elementwise")
     fused_elementwise.launches += 1
     return out
-
-
-fused_elementwise.launches = 0

@@ -4,7 +4,8 @@ Hopper counterpart of `repro.kernels.matmul.matmul_padded`.
 The kernel masks ragged M/N/K edges itself, so nothing is padded here.  A
 CPU tensor takes `repro_torch.kernels.ref.matmul_ref`; a CUDA tensor
 launches the kernel or raises.  Launches are counted in the plain int
-attribute `matmul_fused.launches`.
+attribute `matmul_fused.launches` (`build.counted`; a replayed CUDA graph
+adds the launches it captured).
 
 The launch geometry — the tile and the split-K count — is a function of
 the host integers (M, N, K) and the dtype alone (`gemm_geometry`), so a
@@ -87,6 +88,7 @@ def gemm_geometry(m: int, n: int, k: int, dtype: torch.dtype) -> GemmGeometry:
     return GemmGeometry(bm, bn, bk, stages, split)
 
 
+@build.counted
 def matmul_fused(x: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor] = None,
                  activation: Optional[str] = None,
@@ -133,6 +135,3 @@ def matmul_fused(x: torch.Tensor, w: torch.Tensor,
     build.check(err, "matmul_fused")
     matmul_fused.launches += 1
     return out
-
-
-matmul_fused.launches = 0

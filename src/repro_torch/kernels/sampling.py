@@ -19,12 +19,28 @@ KEYED_SAMPLING_TODO = ("keyed sampling (temperature > 0) is not ported yet: "
                        "(port threefry2x32 PRNGKey/fold_in and categorical)")
 
 
-def sample_tokens(logits: torch.Tensor, sampling, keys) -> torch.Tensor:
-    """(rows, V) logits + (rows, 3) sampling + (rows, 3) keys -> (rows,)
-    int32 next tokens."""
-    del keys
+def check_sampling(sampling) -> None:
+    """The host half: raise NotImplementedError(KEYED_SAMPLING_TODO) when a
+    row of the (rows, 3) `sampling` array asks for keyed sampling
+    (temperature > 0).  The serving adapter calls it on the host arrays
+    before every step, since a replayed CUDA graph runs no Python."""
     temps = np.asarray(sampling.cpu() if isinstance(sampling, torch.Tensor)
                        else sampling, np.float32)[:, 0]
     if (temps > 0).any():
         raise NotImplementedError(KEYED_SAMPLING_TODO)
+
+
+def greedy_tokens(logits: torch.Tensor, sampling, keys) -> torch.Tensor:
+    """The device half: (rows, V) logits -> (rows,) int32 argmax, reading
+    nothing back to the host, so a captured step program can run it.
+    `sampling` and `keys` are the step's inputs that keyed sampling will
+    read; greedy rows need neither."""
+    del sampling, keys
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def sample_tokens(logits: torch.Tensor, sampling, keys) -> torch.Tensor:
+    """(rows, V) logits + (rows, 3) sampling + (rows, 3) keys -> (rows,)
+    int32 next tokens: `check_sampling`, then `greedy_tokens`."""
+    check_sampling(sampling)
+    return greedy_tokens(logits, sampling, keys)

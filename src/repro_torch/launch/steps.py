@@ -1,21 +1,33 @@
-"""The paged serving step functions — the port of the continuous-serving
-builders of `repro.launch.steps` (`jit_unified_step`,
-`jit_decode_only_step`, `jit_commit_prefill`, `jit_cow_block`).
+"""The paged serving step functions and their step programs — the port of
+the continuous-serving builders of `repro.launch.steps`.
 
-PyTorch runs eagerly, so these are plain functions: no jit, no mesh, no
-donation.  The KV pools (L, num_blocks, block_size, Hkv, hd) are updated
-in place.  The attention backends and the per-stage matmul tables are
-passed per call (JAX closes them over at trace time).
+`unified_step` and `decode_only_step` are the step bodies.
+`graph_unified_step` and `graph_decode_only_step`, the counterparts of
+`jit_unified_step` and `jit_decode_only_step`, wrap them in a
+`launch.program.Program`: on a CUDA device each is captured in a CUDA
+graph once, at the engine's fixed shapes, and every later step replays it
+(on the CPU, or with graphs off, the body runs eagerly).  The attention
+backends and per-stage matmul tables are fixed per program, baked in at
+capture as JAX closes them over at trace time.  A program is called as
+`program((params, k_pool, v_pool), host_arrays)`; the KV pools (L,
+num_blocks, block_size, Hkv, hd) are updated in place, where JAX donates
+them.
+
+`commit_prefill` and `cow_block` (`jit_commit_prefill`, `jit_cow_block`)
+stay eager functions: the port's resume commit takes more than one shape
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.kernels.dispatch import MatmulTable, matmul_dispatch
-from repro_torch.kernels.sampling import sample_tokens
+from repro_torch.kernels.sampling import greedy_tokens
+from repro_torch.launch.program import Program
 
 
 def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -34,7 +46,9 @@ def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
     disjoint blocks — a request never prefills and decodes in one step).
     seg_next[s] is segment s's first token, valid only for segments that
     complete their prompt this step; `seg_logits` are the logits it was
-    drawn from, returned for callers that inspect them."""
+    drawn from, returned for callers that inspect them.  The tokens are
+    drawn on the device alone (`greedy_tokens`): the caller checks the
+    sampling arrays on the host first (`kernels.sampling.check_sampling`)."""
     with matmul_dispatch(chunk_matmul_table):
         ch_logits = model.prefill_packed_paged(
             params, k_pool, v_pool, seg_tables, ch_tokens, seg_info,
@@ -43,8 +57,8 @@ def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
         logits = model.decode_step_paged(
             params, k_pool, v_pool, dec_tables, dec_lengths, dec_tokens,
             attn_backend=decode_attn_backend)
-    nxt = sample_tokens(logits[:, -1], dec_sampling, dec_keys)
-    seg_next = sample_tokens(ch_logits[0], seg_sampling, seg_keys)
+    nxt = greedy_tokens(logits[:, -1], dec_sampling, dec_keys)
+    seg_next = greedy_tokens(ch_logits[0], seg_sampling, seg_keys)
     return nxt, seg_next, ch_logits[0]
 
 
@@ -58,7 +72,27 @@ def decode_only_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
         logits = model.decode_step_paged(
             params, k_pool, v_pool, dec_tables, dec_lengths, dec_tokens,
             attn_backend=decode_attn_backend)
-    return sample_tokens(logits[:, -1], dec_sampling, dec_keys)
+    return greedy_tokens(logits[:, -1], dec_sampling, dec_keys)
+
+
+def graph_unified_step(model, device, *, graphed: bool = True, pool=None,
+                       **lanes) -> Program:
+    """The unified step program: `unified_step` with the model and the
+    lanes (`decode_attn_backend`, `chunk_attn_backend`,
+    `chunk_attn_config`, `decode_matmul_table`, `chunk_matmul_table`)
+    fixed.  Inputs: dec_tables, dec_lengths, dec_tokens, ch_tokens,
+    seg_tables, seg_info, dec_sampling, dec_keys, seg_sampling, seg_keys."""
+    return Program(functools.partial(unified_step, model, **lanes), "unified",
+                   device, graphed=graphed, pool=pool)
+
+
+def graph_decode_only_step(model, device, *, graphed: bool = True, pool=None,
+                           **lanes) -> Program:
+    """The decode-only step program: `decode_only_step` with the model and
+    the decode lane (`decode_attn_backend`, `decode_matmul_table`) fixed.
+    Inputs: dec_tables, dec_lengths, dec_tokens, dec_sampling, dec_keys."""
+    return Program(functools.partial(decode_only_step, model, **lanes),
+                   "decode_only", device, graphed=graphed, pool=pool)
 
 
 def commit_prefill(k_pool: torch.Tensor, v_pool: torch.Tensor,

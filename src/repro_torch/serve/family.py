@@ -4,7 +4,9 @@
 `ContinuousEngine` is family-agnostic orchestration; the adapter owns what
 the family's per-request device state is.  For attention decoders that is
 the paged KV pool (`PagedKVCache`), its block tables, and the two step
-functions (`steps.unified_step` / `steps.decode_only_step`).  The adapter
+programs (`_unified` / `_decode_only`, from `steps.graph_unified_step` /
+`steps.graph_decode_only_step`): on a CUDA device each is captured in a
+CUDA graph at its first step and replayed by every later one.  The adapter
 protocol is the JAX package's (see `repro.serve.family`): `family`,
 `chunk_width`, `chunk_segments`, `resume_segments`, `cache`, `alloc`,
 `capacity()`, `victim_eligible`, `grow_for_decode`, `claim_chunk`,
@@ -19,6 +21,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.sampling import check_sampling
 from repro_torch.launch import steps
 from repro_torch.models.common import torch_dtype
 from repro_torch.serve.kvcache import NULL_BLOCK, PagedKVCache
@@ -67,8 +70,18 @@ class DecoderFamilyAdapter:
         self._chunk_kw = dict(
             chunk_attn_backend=chunk_backend, chunk_attn_config=chunk_config,
             chunk_matmul_table=router.matmul_table("prefill_chunk"))
+        # THE two step programs, with the lanes baked in; they never run at
+        # the same time, so their graphs share one memory pool
+        pool = (torch.cuda.graph_pool_handle()
+                if cfg.cuda_graphs and device.type == "cuda" else None)
+        self._unified = steps.graph_unified_step(
+            model, device, graphed=cfg.cuda_graphs, pool=pool,
+            **self._decode_kw, **self._chunk_kw)
+        self._decode_only = steps.graph_decode_only_step(
+            model, device, graphed=cfg.cuda_graphs, pool=pool, **self._decode_kw)
         # the last unified step's per-segment logits (S, V), for callers
-        # that inspect the first-token margins
+        # that inspect the first-token margins: the unified program's
+        # output buffer, valid until its next step
         self.last_seg_logits: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------- capacity
@@ -174,32 +187,27 @@ class DecoderFamilyAdapter:
         info[len(chunks):, 0] = q0            # idle slots: empty span at fill
         return toks, tables, info
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a).to(self.device)
-
     def dispatch(self, params, dec_rids: List[Optional[int]],
                  lengths: np.ndarray, last_tok: np.ndarray,
                  chunks: List[Tuple[ServeRequest, int, int]],
                  dec_sampling: np.ndarray, dec_keys: np.ndarray):
-        """Run one step: the unified step when `chunks` carries prompt work,
-        else the decode-only step.  Returns the decode lane's next tokens
-        (host, (slots,)) and the chunk segments' next tokens ((segments,)
-        or None); the `.cpu()` copies synchronize with the device."""
-        bt = self._dev(self.cache.table_array(dec_rids))
-        lens = self._dev(lengths)
-        tokens = self._dev(last_tok[:, None])
+        """Run one step: the unified program when `chunks` carries prompt
+        work, else the decode-only program.  The sampling arrays are
+        checked on the host first (a replay runs no Python).  Returns the
+        decode lane's next tokens (host, (slots,)) and the chunk segments'
+        next tokens ((segments,) or None); the `.cpu()` copies, outside the
+        programs, synchronize with the device."""
+        pools = (params, self.cache.k, self.cache.v)
+        dec = (self.cache.table_array(dec_rids), lengths, last_tok[:, None])
+        check_sampling(dec_sampling)
         if chunks:
-            ch_toks, seg_tables, seg_info = self._chunk_inputs(chunks)
             seg_sp, seg_ks = segment_sampling_arrays(chunks, self.chunk_segments)
-            nxt, seg_next, self.last_seg_logits = steps.unified_step(
-                self.model, params, self.cache.k, self.cache.v, bt, lens,
-                tokens, self._dev(ch_toks), self._dev(seg_tables),
-                self._dev(seg_info), dec_sampling, dec_keys, seg_sp, seg_ks,
-                **self._decode_kw, **self._chunk_kw)
+            check_sampling(seg_sp)
+            nxt, seg_next, self.last_seg_logits = self._unified(
+                pools, (*dec, *self._chunk_inputs(chunks), dec_sampling,
+                        dec_keys, seg_sp, seg_ks))
             return nxt.cpu().numpy(), seg_next.cpu().numpy()
-        nxt = steps.decode_only_step(
-            self.model, params, self.cache.k, self.cache.v, bt, lens, tokens,
-            dec_sampling, dec_keys, **self._decode_kw)
+        nxt = self._decode_only(pools, (*dec, dec_sampling, dec_keys))
         return nxt.cpu().numpy(), None
 
     def occupancy(self) -> float:

@@ -16,8 +16,13 @@ Request lifecycle (the JAX package's, unchanged):
 
 `step()` is orchestration only — admit -> schedule chunks -> grow-or-preempt
 -> dispatch -> retire — and every family question goes through the
-adapter (`repro_torch.serve.family`).  A step runs the unified step when
-prompt work is pending and the decode-only step otherwise.  Under pool
+adapter (`repro_torch.serve.family`).  A step runs the unified step
+program when prompt work is pending and the decode-only program otherwise:
+exactly two programs, at fixed shapes, each captured in a CUDA graph at
+its first step on the GPU (`RuntimeConfig.cuda_graphs`) and replayed by
+every later step; admission captures nothing.  A trace records a `compile`
+event where a program captures (or, on the CPU, first runs), as the JAX
+engine records one where a program compiles.  Under pool
 pressure the grow path preempts the scheduler's victim: its KV is copied to
 host buffers, its slot and blocks are freed, and it re-enters ahead of new
 arrivals with its KV scattered back (no token is recomputed).
@@ -66,6 +71,10 @@ class RuntimeConfig:
     # prefix sharing: admission may adopt committed full-block prefixes
     # (refcounted, copy-on-write); off by default
     prefix_sharing: bool = False
+    # on a CUDA device, capture each step program in a CUDA graph at its
+    # first step and replay it after; False runs every step eagerly, kept
+    # only to compare against (the counterpart of the reference's jit)
+    cuda_graphs: bool = True
 
     @property
     def max_seq(self) -> int:
@@ -90,7 +99,7 @@ class ContinuousEngine:
     """Slot-based continuous-batching engine over a family state cache."""
 
     # family-owned attributes read off the engine, resolved via the adapter
-    _ADAPTER_ATTRS = ("cache", "kv_cfg")
+    _ADAPTER_ATTRS = ("_unified", "_decode_only", "cache", "kv_cfg")
 
     def __init__(self, model, params, cfg: RuntimeConfig,
                  router: Optional[PlanRouter] = None,
@@ -285,6 +294,8 @@ class ContinuousEngine:
                 trace.emit("chunk_scheduled", t=now, rid=req.rid,
                            start=start, n=n)
             trace.emit("step_begin", t=now, **step_fields)
+            prog = self._unified if chunks else self._decode_only
+            n_compiled = prog._cache_size()
 
         dec_sampling, dec_keys = slot_sampling_arrays(self.scheduler.slots)
 
@@ -295,6 +306,8 @@ class ContinuousEngine:
             self.params, dec_rids, self._lengths, self._last_tok, chunks,
             dec_sampling, dec_keys)
         step_s = time.perf_counter() - t0
+        if trace.enabled and prog._cache_size() > n_compiled:
+            trace.emit("compile", program=kind, device_s=step_s)
         if decoding:
             self.metrics.decode_time_s += step_s
         else:
