@@ -17,8 +17,14 @@ Backends, as the JAX registry routes them:
   'pallas_conv2d'  -> kernels.ops.conv2d (csrc/conv2d.cu)
   'pallas_attention' -> kernels.ops.attention (csrc/flash_attention.cu)
 
-`fused_elementwise` nodes run through ref_ops, as in the JAX engine.  The
-weight of an NHWC conv on the vendor lane is laid out once, at
+A `fused_elementwise` node is no plan choice: it is not a tunable op in
+either package.  With a registry the engine runs it on the registry's
+'fused_elementwise' entry, kernels.ops.fused_elementwise
+(csrc/fused_elementwise.cu), one launch per chain: the counterpart of XLA
+fusing each chain inside the JAX engine's `jit`, as `Program` is the
+counterpart of `jit` itself.  An engine without a registry (the vendor
+lane, `verify_against_reference`'s reference) runs it through ref_ops,
+one PyTorch op per stage.  The weight of an NHWC conv on the vendor lane is laid out once, at
 construction, as cuDNN reads it (`ref_ops.nhwc_conv_weight`), not on every
 call.
 """
@@ -55,6 +61,8 @@ def default_registry() -> BackendRegistry:
             activation=attrs.get("activation"), config=config),
         "pallas_attention": lambda inputs, attrs, config: kops.attention(
             *inputs, causal=attrs.get("causal", True), config=config),
+        "fused_elementwise": lambda inputs, attrs, config: kops.fused_elementwise(
+            inputs[0], attrs["chain"], inputs[1:]),
     }
 
 
@@ -87,11 +95,20 @@ class Engine:
         self._program = Program(self._forward, "engine", self.device,
                                 graphed=cuda_graph)
 
+    def _choice(self, node):
+        return self.plan.choice(node.name) if self.plan else None
+
     def _lane(self, node):
-        """The registry function that runs `node`, or None for ref_ops."""
-        choice = self.plan.choice(node.name) if self.plan else None
-        if choice is not None and choice.backend != "xla" and self.registry:
+        """The registry function that runs `node`, or None for ref_ops: the
+        plan's backend where it routes the node, else the registry's
+        `fused_elementwise` entry for a fused chain."""
+        if not self.registry:
+            return None
+        choice = self._choice(node)
+        if choice is not None and choice.backend != "xla":
             return self.registry[choice.backend]
+        if node.op == "fused_elementwise":
+            return self.registry.get("fused_elementwise")
         return None
 
     def run_env(self, *args) -> Dict[str, torch.Tensor]:
@@ -107,7 +124,8 @@ class Engine:
             ins = [env[t] for t in node.inputs]
             lane = self._lane(node)
             if lane is not None:
-                out = lane(ins, node.attrs, self.plan.choice(node.name).config)
+                choice = self._choice(node)
+                out = lane(ins, node.attrs, choice.config if choice else None)
             else:
                 out = ref_ops.run_op(node.op, ins, node.attrs)
             env[node.outputs[0]] = out

@@ -60,7 +60,7 @@ SIGNATURES = {
     "matmul": ("matmul_fused", [_P] * 4 + [_I] * 10 + [_P, _P, _P]),
     "conv2d": ("conv2d_direct", [_P] * 4 + [_I] * 18 + [_P] * 3),
     "fused_elementwise": ("fused_elementwise",
-                          [_P, _P, _P, _P, _P, _P, _L, _I, _U, _I, _P]),
+                          [_P] * 6 + [_L, _I, _U] + [_I] * 6 + [_P]),
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
     "dense_decode": ("dense_decode_attention",
                      [_P] * 5 + [_I] * 7 + [_F, _I, _P, _P, _P]),

@@ -263,22 +263,36 @@ def test_conv2d_nchw_and_the_large_image_path_match_pallas(path):
     np.testing.assert_allclose(got, want, **CONV_TOL)
 
 
-@pytest.mark.parametrize("chain,shape", [
-    (["add", "gelu", "mul", "tanh"], (3, 50, 33)),        # tests/test_kernels.py
-    (["add", "relu"], (1, 64, 8, 8)),                     # the residual chain
-    (["sub", "silu", "div", "sigmoid", "identity"], (7, 129)),
-])
-def test_fused_elementwise_plain_matches_pallas_interpret(chain, shape):
+# the Hopper kernel's edge lengths: 1..17 around its 16-byte vectors and
+# 2^k +- 1, whose tails are never a whole vector
+FUSED_EDGE_LENGTHS = [1, 2, 3, 5, 7, 8, 9, 15, 16, 17, 1023, 1025, 65535, 65537]
+
+
+@pytest.mark.parametrize("chain,shape,dtype", [
+    pytest.param(["add", "gelu", "mul", "tanh"], (3, 50, 33), "float32",
+                 id="chain0-shape0"),                     # tests/test_kernels.py
+    pytest.param(["add", "relu"], (1, 64, 8, 8), "float32",
+                 id="chain1-shape1"),                     # the residual chain
+    pytest.param(["sub", "silu", "div", "sigmoid", "identity"], (7, 129), "float32",
+                 id="chain2-shape2"),
+] + [pytest.param(["mul", "add", "relu"], (n,), dtype, id=f"edge-{n}-{dtype}")
+     for dtype in ("float32", "bfloat16") for n in FUSED_EDGE_LENGTHS])
+def test_fused_elementwise_plain_matches_pallas_interpret(chain, shape, dtype):
     rng = np.random.default_rng(6)
     x = rng.standard_normal(shape).astype(np.float32)
     n_extra = sum(op in ("add", "mul", "sub", "div") for op in chain)
     extras = [(rng.standard_normal(shape) + 3.0).astype(np.float32)
               for _ in range(n_extra)]
     stages = [{"op": op} for op in chain]
-    want = np.asarray(jops.fused_elementwise(jnp.asarray(x), stages,
-                                             [jnp.asarray(e) for e in extras]))
-    got = ops.fused_elementwise(_t(x), stages, [_t(e) for e in extras]).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jops.fused_elementwise(
+        jnp.asarray(x, jdt), stages, [jnp.asarray(e, jdt) for e in extras]), np.float32)
+    got = ops.fused_elementwise(_t(x).to(tdt), stages,
+                                [_t(e).to(tdt) for e in extras]).float().numpy()
+    # bf16: XLA may keep an intermediate stage in f32 (excess precision)
+    # where the plain version rounds it, one bf16 rounding (2^-8 relative)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
 def test_fused_elementwise_rounds_bf16_after_every_stage():
