@@ -46,7 +46,12 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      in f32 at G = 1 / 4 / 8 / 16 and D = 64 / 128 / 256, and at the JAX
      tests' length sets (f32); a CUDA graph of dense decode captured before
      its split counters grow, replayed after a larger eager launch grew
-     them, bitwise equal to the eager call;
+     them, bitwise equal to the eager call; the keyed draw kernel at the
+     decode lane's (8, 151936) and the chunk lane's (4, 151936) with bf16
+     logits, rows of temperature 0, pure temperature, top-k and top-p, at
+     seeds 0 / 1 / 2^31 - 1 and token indices 0 / 31: tokens equal to the
+     plain version and every uniform draw bitwise equal (through the
+     kernel's debug output), each call twice and bitwise equal;
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
      role-tagged matmuls through the kernels: 16 requests, chunked and
@@ -89,11 +94,26 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      `PlanRouter(plan)` (every request finishes, the pool drains, the
      plan's kernel lanes launch, first tokens match the torch lanes), and
      `ops.attention_decode` called once at the decode stage's shape;
-  6. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+  6. sampled serving (run right after phase 3): phase 3's 16 prompts on
+     the graphed kernel lanes with the bench's mixed cycle (greedy / T 0.8
+     / T 1.0 top-k 8 / T 0.9 top-p 0.85, seed 1000 + i), every token drawn
+     by the draw kernel inside the captured step programs (2 launches a
+     unified step, 1 a decode-only step): every request finishes and the
+     pool drains, graphed = eager bitwise, the greedy requests equal phase
+     3's greedy streams, a sampled stream differs from greedy; preempted
+     (120-block pool) = unconstrained and sharing-on = sharing-off bitwise;
+     `_unified`, `_decode_only` and `_commit` one signature each and `_cow`
+     at most one; each commit's host-to-device bytes (counted, and from the
+     profiler's memcpy events where it reports them) equal the swapped
+     bytes plus the block ids; the commit program's ms; then
+     `FixedBatchEngine` at batch 1 on one prompt of each mix, held by first
+     tokens where the draw's top-2 margin exceeds 0.25; under --profile the
+     draw kernel's device share of the graphed steps;
+  7. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are the serve plan's race, its serving run and the
      decode wrapper's call; a replayed CUDA graph counts the launches it
      captured), error and times;
-  7. the last line `{"ok": true, "device": {...}}`.
+  8. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -1347,6 +1367,75 @@ def check_counter_growth(torch, chk):
         raise AssertionError("a graph replay after the counter buffer grew differs")
 
 
+# The keyed draw (sampling.cu) at the serving lanes' shapes: the decode
+# lane's 8 slots and the chunk lane's 4 segments over qwen3-1.7b's
+# vocabulary, rows cycling through the bench's mix (greedy, temperature,
+# top-k, top-p), each at three seeds and two token indices.  Its integer
+# work: threefry's 20 rounds of an add, a rotate (one funnel shift) and a
+# xor, and 6 key injections of two adds, then the bits' xor and the
+# mantissa's shift and or: 75 32-bit integer instructions per element, at
+# the H100's INT32 issue rate (132 SMs x 64 INT32 lanes x 1.98 GHz, the
+# Hopper white paper's SM and the SXM part's boost clock).  Its bytes: x in
+# f32 and the logits in bf16, 6 per element.
+SAMPLE_SHAPES = ((8, "decode lane"), (4, "chunk lane"))
+SAMPLE_SEEDS = (0, 1, 2**31 - 1)
+SAMPLE_TOKEN_INDICES = (0, 31)
+THREEFRY_INT_OPS = 75
+INT32_OPS = 132 * 64 * 1.98e9
+
+
+def _mixed_sampling(torch, rows):
+    sp = torch.zeros((rows, 3), device=DEVICE)
+    for i in range(rows):
+        sp[i, 0] = (0.0, 0.8, 1.0, 0.9)[i % 4]
+        sp[i, 1] = (0, 0, 8, 0)[i % 4]
+        sp[i, 2] = (1.0, 1.0, 1.0, 0.85)[i % 4]
+    return sp
+
+
+def check_sampling(torch, chk, vocab):
+    """The draw kernel against `ref.sample_draw_ref` on the same masked,
+    scaled x: tokens equal, and every element's f32 uniform (the kernel's
+    debug output) bitwise equal to the plain threefry's."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import sampling as KS
+
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    for rows, lane in SAMPLE_SHAPES:
+        logits = (torch.randn((rows, vocab), generator=g, device=DEVICE) * 3).bfloat16()
+        sp = _mixed_sampling(torch, rows)
+        temps = sp[:, 0].contiguous()
+        x = logits.float() / torch.clamp(temps, min=KS.TEMP_EPS)[:, None]
+        x = KS.mask_top_p(KS.mask_top_k(x, sp[:, 1].long()), sp[:, 2])
+        for seed in SAMPLE_SEEDS:
+            for index in SAMPLE_TOKEN_INDICES:
+                keys = torch.tensor([[seed, 1000 + r, index] for r in range(rows)],
+                                    dtype=torch.int32, device=DEVICE)
+                u = torch.empty((rows, vocab), device=DEVICE)
+                got = KS.sample_draw(x, logits, temps, keys, uniforms=u)
+                want = R.sample_draw_ref(x, logits, temps, keys)
+                want_u = R.uniform_from_bits(R.random_bits(R.derive_key(keys), vocab))
+                same_u = torch.equal(u.view(torch.int32), want_u.view(torch.int32))
+                ok = torch.equal(got, want) and same_u
+                log(f"  sample_draw ({rows}, {vocab}) {lane} seed {seed} token "
+                    f"{index}: tokens {got.tolist()} plain {want.tolist()}, uniforms "
+                    f"bitwise {'equal' if same_u else 'DIFFERENT'} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"sample_draw ({rows}, {vocab}) seed {seed} "
+                                         f"token {index}: kernel != plain")
+                _bitwise(chk, f"({rows}, {vocab}) seed {seed} token {index}", got,
+                         KS.sample_draw(x, logits, temps, keys))
+        copies = copies_for(6 * rows * vocab)
+        ins = [(x, logits)] + [(x.clone(), logits.clone()) for _ in range(copies - 1)]
+        kfns = [lambda x=xi, l=li: KS.sample_draw(x, l, temps, keys) for xi, li in ins]
+        pfns = [lambda x=xi, l=li: R.sample_draw_ref(x, l, temps, keys) for xi, li in ins]
+        chk.timed(f"({rows}, {vocab}) {lane}, logits bf16, {KS.draw_splits(rows, vocab)} "
+                  f"CTAs a row (bound: {THREEFRY_INT_OPS} INT32 instructions an "
+                  "element at 16.7 T/s; no library call draws threefry)",
+                  kfns, pfns, None, 6 * rows * vocab, THREEFRY_INT_OPS * rows * vocab,
+                  peak=INT32_OPS, device=True)
+
+
 # -------------------------------------------------------------- phase 3
 # First-token agreement between the kernel lanes and the torch lanes: each
 # lane rounds differently at every layer (f32 vs bf16 Q·Kᵀ, the gate's
@@ -1407,14 +1496,17 @@ def serving_setup(torch, cfg):
 
 
 def serve(torch, served, router, label, profile=False, require_packing=True,
-          graphs=True, prompts=None, check_schedule=True, **runtime):
+          graphs=True, prompts=None, check_schedule=True, samplings=None,
+          setup=None, **runtime):
     """Serve `prompts` (default: the 16) under `router`, the step programs
     captured in CUDA graphs or (graphs=False) run eagerly; every request
     must finish with its 32 in-vocabulary tokens, the pool must drain,
     `submit()` must capture nothing, each program must hold one signature
     (graphed: captured once, replayed by every later step), and (with
     `check_schedule`) chunked, decode-only and (where the router packs)
-    packed steps must all occur.  `runtime` overrides SERVE_RUNTIME.
+    packed steps must all occur.  `samplings`: one SamplingParams per
+    prompt (default greedy).  `runtime` overrides SERVE_RUNTIME; `setup`
+    is called on the engine before anything is submitted.
     -> ({rid: tokens}, {rid: first-token logits}, metrics summary with the
     lane's width and segments)."""
     from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
@@ -1425,12 +1517,14 @@ def serve(torch, served, router, label, profile=False, require_packing=True,
     rcfg = RuntimeConfig(**{**SERVE_RUNTIME, **runtime}, cuda_graphs=graphs)
     eng = ContinuousEngine(model, params, rcfg, router=router, device=DEVICE)
     firsts = _spy_first_logits(eng)
+    if setup is not None:
+        setup(eng)
     log(f"[{label}] pool {tuple(eng.cache.k.shape)} x2 "
         f"{2 * eng.cache.k.numel() * eng.cache.k.element_size() / 1e9:.2f} GB")
     progs = (eng._unified, eng._decode_only)
     before = [p._cache_size() for p in progs]
-    for p in prompts:
-        eng.submit(p)
+    for i, p in enumerate(prompts):
+        eng.submit(p, sampling=None if samplings is None else samplings[i])
     if before != [0, 0] or [p._cache_size() for p in progs] != [0, 0]:
         raise AssertionError(f"[{label}] submit() captured a program")
     torch.cuda.synchronize()
@@ -1445,7 +1539,7 @@ def serve(torch, served, router, label, profile=False, require_packing=True,
     s = eng.metrics.summary()
     s["lane_width"], s["lane_segments"] = eng.adapter.chunk_width, eng.adapter.chunk_segments
     if profile:
-        _log_device_profile(prof, s["wall_s"], label)
+        s["device_rows"] = _log_device_profile(prof, s["wall_s"], label)
     log(f"[{label}] {int(s['requests'])} requests, {int(s['tokens_out'])} "
         f"tokens in {s['wall_s']:.3f} s: {s['tokens_per_s']:.1f} tokens/s, "
         f"TTFT p50 {s['ttft_p50_s']:.3f} s p95 {s['ttft_p95_s']:.3f} s, "
@@ -1646,6 +1740,7 @@ def phase_serve(torch, served, block_q, profile=False):
     from repro_torch.core.plan import InferencePlan, OpChoice
     from repro_torch.kernels import attention as KA
     from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import sampling as KS
     from repro_torch.kernels.dispatch import MATMUL_ROLES
     from repro_torch.serve.router import PlanRouter
 
@@ -1660,7 +1755,7 @@ def phase_serve(torch, served, block_q, profile=False):
     # the kernel lanes graphed and eager in alternating pairs: the same
     # streams, first-token logits and kernel launches, bit for bit
     counters = (KA.paged_decode_attention, KA.paged_prefill_attention,
-                KM.matmul_fused)
+                KM.matmul_fused, KS.sample_draw)
     runs = []
     for graphs in KERNEL_LANE_RUNS:
         for fn in counters:
@@ -1696,7 +1791,241 @@ def phase_serve(torch, served, block_q, profile=False):
               graphs=False)
     compare_first_tokens(torch, "kernel lanes", out_k, first_k, *torch_run[:2])
     phase_identities(torch, served, router)
-    return launches, torch_run
+    return launches, torch_run, router, out_k
+
+
+# ------------------------------------------------------------ phase 6
+# Sampled serving: phase 3's 16 prompts on the graphed kernel lanes with the
+# bench's mixed cycle (benchmarks/bench_serving.py:158-169: greedy / T 0.8 /
+# T 1.0 top-k 8 / T 0.9 top-p 0.85, seed 1000 + i), every token drawn by the
+# draw kernel inside the captured step programs.
+def _mix(i):
+    from repro_torch.serve.sampling import SamplingParams
+
+    r = i % 4
+    if r == 0:
+        return SamplingParams()
+    if r == 1:
+        return SamplingParams(temperature=0.8, seed=1000 + i)
+    if r == 2:
+        return SamplingParams(temperature=1.0, top_k=8, seed=1000 + i)
+    return SamplingParams(temperature=0.9, top_p=0.85, seed=1000 + i)
+
+
+def _draw_margin(torch, logits, sampling, rid):
+    """The top-2 margin of what a first token is the argmax of: the
+    logits of a greedy request; else the masked, temperature-scaled
+    logits plus the Gumbel noise of its key (seed, rid, 0)."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import sampling as KS
+
+    x = logits.to(DEVICE).float()[None]
+    if not sampling.greedy:
+        x = x / max(sampling.temperature, KS.TEMP_EPS)
+        x = KS.mask_top_k(x, torch.tensor([sampling.top_k], device=DEVICE))
+        x = KS.mask_top_p(x, torch.tensor([sampling.top_p], device=DEVICE))
+        keys = torch.tensor([[sampling.seed, rid, 0]], dtype=torch.int32, device=DEVICE)
+        u = R.uniform_from_bits(R.random_bits(R.derive_key(keys), x.shape[-1]))
+        x = R.gumbel_from_uniform(u) + x
+    top2 = torch.topk(x[0], 2).values
+    return float(top2[0] - top2[1])
+
+
+def _h2d_bytes(prof):
+    """Bytes of the host-to-device copies in a profiler trace (the memcpy
+    events' `bytes`), or None when the trace carries no byte counts."""
+    path = os.path.join(ROOT, "build", f"commit_trace_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    sizes = [e.get("args", {}).get("bytes") for e in events
+             if "HtoD" in str(e.get("name", ""))]
+    if not sizes or any(b is None for b in sizes):
+        return None
+    return sum(sizes)
+
+
+def phase_sampled(torch, served, router, greedy_out, profile=False):
+    """Sampled serving on the graphed kernel lanes (see the module
+    docstring, phase 6).  -> the draw kernel's and the serving kernels'
+    launches on the sampled path."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import sampling as KS
+    from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    model, params, prompts = served
+    mix = [_mix(i) for i in range(len(prompts))]
+    counters = (KA.paged_decode_attention, KA.paged_prefill_attention,
+                KM.matmul_fused, KS.sample_draw)
+    for fn in counters:
+        fn.launches = 0
+    engines = []
+    out_s, first_s, s_s = serve(torch, served, router, "sampled, graphed", profile,
+                                samplings=mix, setup=engines.append)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    eng = engines[0]
+    want_draws = 2 * int(s_s["chunk_steps"]) + int(s_s["decode_only_steps"])
+    log(f"[sampled] launches on the sampled path: {launches}; the draw kernel "
+        f"{launches['sample_draw']} = 2 x {int(s_s['chunk_steps'])} unified + "
+        f"{int(s_s['decode_only_steps'])} decode-only steps")
+    if launches["sample_draw"] != want_draws or min(launches.values()) <= 0:
+        raise AssertionError(f"sampled path launches {launches}: want "
+                             f"{want_draws} draws and every kernel")
+    sizes = (eng._unified._cache_size(), eng._decode_only._cache_size())
+    if sizes != (1, 1):
+        raise AssertionError(f"sampled serving: step programs {sizes}, want (1, 1)")
+    if profile:
+        rows = s_s["device_rows"]
+        busy = sum(t for t, _, _ in rows)
+        draw = sum(t for t, key, _ in rows if "draw_kernel" in key)
+        steps = int(s_s["chunk_steps"] + s_s["decode_only_steps"])
+        log(f"[sampled] the draw kernel's device share of the graphed steps: "
+            f"{draw / 1e3:.3f} ms of {busy / 1e3:.3f} ms device time "
+            f"({100 * draw / max(busy, 1e-9):.2f} %), {draw / steps:.2f} of "
+            f"{busy / steps:.1f} device us a step over {steps} steps")
+    else:
+        log("[sampled] the draw kernel's device share: not measured here "
+            "(python3 chip_smoke.py --profile logs it)")
+
+    out_e, first_e, _ = serve(torch, served, router, "sampled, eager", graphs=False,
+                              samplings=mix)
+    if out_e != out_s or not _same_firsts(first_e, first_s):
+        raise AssertionError(f"sampled: graphed != eager, first divergence "
+                             f"{_first_divergence(out_s, out_e)}")
+    greedy_rids = [i + 1 for i, m in enumerate(mix) if m.greedy]
+    if any(out_s[r] != greedy_out[r] for r in greedy_rids):
+        raise AssertionError("sampled: a greedy request's stream differs from "
+                             "phase 3's greedy run")
+    n_diff = sum(out_s[r] != greedy_out[r] for r in out_s if r not in greedy_rids)
+    log(f"[sampled] graphed = eager bitwise (streams, first-token logits); the "
+        f"{len(greedy_rids)} greedy requests equal phase 3's greedy streams; "
+        f"{n_diff} of {len(out_s) - len(greedy_rids)} sampled streams differ "
+        "from greedy")
+    if n_diff == 0:
+        raise AssertionError("sampled: no sampled stream differs from greedy")
+
+    # preempted = unconstrained, with the commit's bytes and time
+    few = prompts[:IDENTITY_PROMPTS]
+    commits, held = [], []
+
+    def watch_commits(e):
+        ad = e.adapter
+        orig = ad.resume_commit
+
+        def resume_commit(group):
+            with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+                nbytes = orig(group)
+                torch.cuda.synchronize()
+            commits.append((sum(nbytes), ad.last_commit_h2d_bytes, _h2d_bytes(prof),
+                            len(group)))
+            return nbytes
+
+        ad.resume_commit = resume_commit
+        held.append(e)
+
+    out_p, first_p, s_p = serve(torch, served, router, "sampled, preempted",
+                                prompts=few, samplings=mix, check_schedule=False,
+                                num_blocks=PREEMPT_BLOCKS, setup=watch_commits)
+    out_u, first_u, _ = serve(torch, served, router, "sampled, unconstrained",
+                              prompts=few, samplings=mix, check_schedule=False)
+    pe = held[0]
+    sizes = (pe._unified._cache_size(), pe._decode_only._cache_size(),
+             pe._commit._cache_size(), pe._cow._cache_size())
+    log(f"[sampled] preempted: {int(s_p['preemptions'])} preemptions, "
+        f"{int(s_p['resume_commits'])} resume commits; programs (unified, "
+        f"decode-only, commit, cow) {sizes}")
+    if not (s_p["preemptions"] >= 1 and s_p["resume_commits"] >= 1):
+        raise AssertionError("sampled: the 120-block pool preempted nothing")
+    if sizes[:3] != (1, 1, 1):
+        raise AssertionError(f"sampled, preempted: program signatures {sizes}")
+    if out_p != out_u or not _same_firsts(first_p, first_u):
+        raise AssertionError(f"sampled: preempted != unconstrained, first "
+                             f"divergence {_first_divergence(out_u, out_p)}")
+    kv = pe.adapter._commit_kv
+    padded = 2 * kv[0].numel() * kv[0].element_size()
+    for swapped, counted, measured, n in commits:
+        ids = counted - swapped
+        log(f"[sampled] commit of {n} request(s): swapped {swapped} bytes; "
+            f"host-to-device {counted} bytes counted (swapped + {ids} of block "
+            f"ids), {'no byte counts in the profiler trace' if measured is None else f'{measured} bytes measured'} "
+            f"(profiler memcpy events); the padded inputs {padded} bytes")
+        if ids != pe.kv_cfg.max_blocks_per_seq * pe.adapter.resume_segments * 4:
+            raise AssertionError(f"commit: {counted} bytes != swapped + ids")
+        if measured is not None and measured != counted:
+            raise AssertionError(f"commit: {measured} bytes crossed the bus, "
+                                 f"{counted} counted")
+    bound = (pe.cache.k, pe.cache.v, *kv)
+    ids = np.full((pe.adapter.resume_segments, pe.kv_cfg.max_blocks_per_seq), 0, np.int32)
+    ms = time_ms(torch, [lambda: pe._commit(bound, (ids,))], iters=20)
+    log(f"[sampled] commit program ms (replays, CUDA events, host staging of "
+        f"the ids included): {ms:.4f}; {pe._commit.replays} replays in all")
+
+    # sharing-on = sharing-off
+    shared = [p.copy() for p in prompts[:SHARED_PROMPTS]]
+    for p in shared:
+        if len(p) > SHARED_PREFIX:
+            p[:SHARED_PREFIX] = prompts[1][:SHARED_PREFIX]
+    held.clear()
+    out_on, first_on, s_on = serve(torch, served, router, "sampled, sharing on",
+                                   prompts=shared, samplings=mix, check_schedule=False,
+                                   prefix_sharing=True, setup=held.append)
+    out_off, first_off, _ = serve(torch, served, router, "sampled, sharing off",
+                                  prompts=shared, samplings=mix, check_schedule=False)
+    se = held[0]
+    sizes = (se._unified._cache_size(), se._decode_only._cache_size(),
+             se._commit._cache_size(), se._cow._cache_size())
+    log(f"[sampled] sharing on: {int(s_on['prefix_hit_tokens'])} prefix-hit tokens, "
+        f"{int(s_on['cow_copies'])} CoW copies; programs (unified, decode-only, "
+        f"commit, cow) {sizes}")
+    if not s_on["prefix_hit_tokens"] > 0 or sizes[:2] != (1, 1) or sizes[3] > 1:
+        raise AssertionError(f"sampled, sharing on: hits "
+                             f"{s_on['prefix_hit_tokens']}, programs {sizes}")
+    if out_on != out_off or not _same_firsts(first_on, first_off):
+        raise AssertionError(f"sampled: sharing on != off, first divergence "
+                             f"{_first_divergence(out_off, out_on)}")
+    log("[sampled] preempted = unconstrained and sharing-on = sharing-off, "
+        "bitwise (streams, first-token logits)")
+
+    # the fixed-batch engine at batch 1, unpadded, on one prompt of each mix
+    n_fixed = 4
+    fixed = FixedBatchEngine(model, params,
+                             ServeConfig(batch_size=1, max_seq=SERVE_PLAN["max_seq"],
+                                         max_new_tokens=SERVE_RUNTIME["max_new_tokens"]),
+                             device=DEVICE)
+    for i in range(n_fixed):
+        fixed.submit(prompts[i], sampling=mix[i])
+    t0 = time.perf_counter()
+    out_f = {r.rid: r.output for r in fixed.run()}
+    torch.cuda.synchronize()
+    compared = 0
+    for rid in sorted(out_f):
+        margin = _draw_margin(torch, first_s[rid], mix[rid - 1], rid)
+        same = out_f[rid] == out_s[rid]
+        div = _first_divergence({rid: out_s[rid]}, {rid: out_f[rid]})
+        log(f"[sampled] fixed batch request {rid} ({'greedy' if mix[rid - 1].greedy else mix[rid - 1]}): "
+            f"first token {out_f[rid][0]} vs {out_s[rid][0]} continuous, draw "
+            f"margin {margin:.3f}; whole stream identical {same}; first diverging "
+            f"token {'none' if div is None else 'index %d: %d vs %d' % div[1:]}")
+        if margin > FIRST_TOKEN_MARGIN:
+            compared += 1
+            if out_f[rid][0] != out_s[rid][0]:
+                raise AssertionError(f"fixed batch request {rid}: first token "
+                                     f"differs at margin {margin:.3f}")
+    log(f"[sampled] fixed batch: {n_fixed} requests in "
+        f"{time.perf_counter() - t0:.1f} s; first tokens agree for {compared}/"
+        f"{n_fixed} with a draw margin > {FIRST_TOKEN_MARGIN}")
+    if compared == 0:
+        raise AssertionError("fixed batch: no first-token margin to compare")
+    log(f"[sampled] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    return launches
 
 
 # ------------------------------------------------------------ phase 5
@@ -1791,7 +2120,7 @@ def phase_serve_plan(torch, served, counters, torch_run):
     out, first, _ = serve(torch, served, router, "tuned plan", require_packing=packs)
     serving = {fn.__name__: fn.launches for fn in counters if fn.launches}
     log(f"launches serving under the tuned plan: {serving}")
-    want = set()
+    want = {"sample_draw"}          # every step draws, greedy rows too
     for stage, kernel in (("decode", "paged_decode_attention"),
                           ("prefill_chunk", "paged_prefill_attention")):
         if router.attention_backend(stage)[0] == "cuda_attention":
@@ -2035,6 +2364,7 @@ def _log_device_profile(prof, wall_s, label, calls=None):
         f"({100 * busy_s / max(wall_s, 1e-9):.1f}%{per}); top kernels by device time:")
     for t_us, key, count in rows[:12]:
         log(f"[{label}]   {t_us / 1e3:10.2f} ms  {count:7d} calls  {key[:90]}")
+    return rows
 
 
 def _leaves(tree):
@@ -2069,6 +2399,7 @@ def main() -> int:
         from repro_torch.kernels import conv2d as KC
         from repro_torch.kernels import fused as KF
         from repro_torch.kernels import matmul as KM
+        from repro_torch.kernels import sampling as KS
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e})", file=sys.stderr)
         return 2
@@ -2095,6 +2426,9 @@ def main() -> int:
               "src/repro/kernels/attention.py:98", KA.flash_attention),
         Check("dense_decode_attention", "src/repro_torch/kernels/csrc/dense_decode.cu",
               "src/repro/kernels/attention.py:414", KA.dense_decode_attention),
+        # no Pallas kernel: the reference's draw (XLA-fused) in _sample_row
+        Check("sample_draw", "src/repro_torch/kernels/csrc/sampling.cu",
+              "src/repro/kernels/sampling.py:80", KS.sample_draw),
     ]
     log("== kernels against their plain versions")
     check_decode(torch, checks[0])
@@ -2105,6 +2439,7 @@ def main() -> int:
     check_flash(torch, checks[5])
     check_dense_decode(torch, checks[6])
     check_counter_growth(torch, checks[6])
+    check_sampling(torch, checks[7], get_config("qwen3-1.7b").vocab)
     torch.cuda.synchronize()
     if args.skip_serve:
         log("--skip-serve: stopping after the kernel checks")
@@ -2112,13 +2447,16 @@ def main() -> int:
 
     log("== serving qwen3-1.7b through ContinuousEngine")
     served = serving_setup(torch, get_config("qwen3-1.7b"))
-    serve_launches, torch_run = phase_serve(torch, served, PREFILL_BLOCK_Q,
-                                            args.profile)
+    serve_launches, torch_run, router, greedy_out = phase_serve(
+        torch, served, PREFILL_BLOCK_Q, args.profile)
+    log("== sampled serving: the mixed cycle through the step programs")
+    sampled_launches = phase_sampled(torch, served, router, greedy_out, args.profile)
     log("== the paper's pipeline on ResNet-18 (optimize_graph, select, Engine)")
     wpk = phase_wpk(torch, args.profile)
     log("== the serve plan: build_serve_plan on the card, then serving under it")
     plan_paths = phase_serve_plan(torch, served, [c.fn for c in checks], torch_run)
-    paths = {"serve_qwen3_1_7b": serve_launches, **wpk, **plan_paths}
+    paths = {"serve_qwen3_1_7b": serve_launches, "serve_sampled": sampled_launches,
+             **wpk, **plan_paths}
     kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
                          if c.fn.__name__ in n}) for c in checks]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -38,6 +38,7 @@ SOURCES = {
     "fused_elementwise": "fused_elementwise.cu",
     "flash_attention": "flash_attention.cu",
     "dense_decode": "dense_decode.cu",
+    "sampling": "sampling.cu",
 }
 HEADERS = ("paged_attention.cuh", "mma_attention.cuh", "activation.cuh",
            "ptx.cuh", "split_decode.cuh")
@@ -64,6 +65,7 @@ SIGNATURES = {
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
     "dense_decode": ("dense_decode_attention",
                      [_P] * 5 + [_I] * 7 + [_F, _I, _P, _P, _P]),
+    "sampling": ("sample_draw", [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 _entry: Dict[str, object] = {}

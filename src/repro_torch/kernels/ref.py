@@ -244,3 +244,111 @@ def dense_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     valid = (pos[None, :] < lengths.to(q.device).long()[:, None])[:, None, None, :]
     out = _rounded_pv(logits, valid, v_cache, "bhgk,bkhd->bhgd")
     return out.reshape(b, h, d).to(q.dtype)
+
+
+# ------------------------------------------------------------ keyed sampling
+# jax.random's threefry2x32 generator as uint32 arithmetic on int64 tensors
+# masked to 32 bits (`jax/_src/prng.py`, `jax/_src/random.py`, jax 0.9 with
+# `jax_threefry_partitionable` on, its default).  A key is a pair of
+# uint32 words, held as the last dim of an int64 tensor.
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+F32_TINY = 1.1754943508222875e-38          # np.finfo(np.float32).tiny
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & _M32
+
+
+def threefry_hash(k0, k1, x0, x1):
+    """The Threefry-2x32 block (`prng._threefry2x32_lowering`): 20 rounds
+    over the counter pair (x0, x1) under the key (k0, k1), every argument
+    an int64 tensor of uint32 values (broadcast together).  -> (y0, y1)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def threefry2x32(key: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """`prng.threefry_2x32`: hash a flat uint32 `count` under `key` (2,),
+    its first half as x0 and its second as x1 (an odd count padded with
+    one 0); the two outputs concatenated, cut to count's shape."""
+    flat = count.reshape(-1).long() & _M32
+    n = flat.numel()
+    if n % 2:
+        flat = torch.cat([flat, flat.new_zeros(1)])
+    x0, x1 = flat.chunk(2)
+    y0, y1 = threefry_hash(key[0], key[1], x0, x1)
+    return torch.cat([y0, y1])[:n].reshape(count.shape)
+
+
+def threefry_seed(seed: torch.Tensor) -> torch.Tensor:
+    """`prng.threefry_seed` of int32 seeds (...,) -> keys (..., 2): the
+    high word is the seed shifted right by 32 (0 for a 32-bit seed), the
+    low word the seed's 32 bits."""
+    seed = seed.long() & _M32
+    return torch.stack([torch.zeros_like(seed), seed], -1)
+
+
+def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """`prng.threefry_fold_in`: keys (..., 2) and uint32 data (...,) ->
+    the hash of the counter pair (0, data) under each key, (..., 2)."""
+    data = data.long() & _M32
+    y0, y1 = threefry_hash(key[..., 0], key[..., 1], torch.zeros_like(data), data)
+    return torch.stack([y0, y1], -1)
+
+
+def derive_key(keys: torch.Tensor) -> torch.Tensor:
+    """`repro.kernels.sampling.derive_key` per row: (rows, 3) int32 [seed,
+    rid, token_index] -> (rows, 2) keys fold_in(fold_in(PRNGKey(seed),
+    rid), token_index)."""
+    keys = keys.long()
+    return fold_in(fold_in(threefry_seed(keys[:, 0]), keys[:, 1]), keys[:, 2])
+
+
+def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`prng._threefry_random_bits_partitionable` at 32 bits over the shape
+    (n,), one row per key: keys (rows, 2) -> (rows, n) uint32 values in
+    int64.  Element i hashes the counter pair (i >> 32, i & 0xFFFFFFFF)
+    and keeps the xor of the two outputs."""
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)[None, :]
+    y0, y1 = threefry_hash(key[:, :1], key[:, 1:], idx >> 32, idx & _M32)
+    return y0 ^ y1
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """`random._uniform` in f32 on [tiny, 1): the top 23 bits as the
+    mantissa of a float in [1, 2), minus 1, scaled by (1 - tiny) (1.0 in
+    f32), plus tiny, floored at tiny."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    floats = mant - 1.0
+    minval = torch.tensor(F32_TINY, dtype=torch.float32, device=bits.device)
+    scale = torch.tensor(1.0, dtype=torch.float32, device=bits.device) - minval
+    return torch.maximum(minval, floats * scale + minval)
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """`random._gumbel`, mode "low": -log(-log(u))."""
+    return -torch.log(-torch.log(u))
+
+
+def sample_draw_ref(x: torch.Tensor, logits: torch.Tensor, temps: torch.Tensor,
+                    keys: torch.Tensor) -> torch.Tensor:
+    """The draw of `repro.kernels.sampling._sample_row` over rows: x (rows,
+    V) the masked, temperature-scaled f32 logits, `logits` (rows, V) the
+    raw ones, temps (rows,), keys (rows, 3) int32 [seed, rid, token_index].
+    -> (rows,) int32: argmax(gumbel + x) under the row's derived key where
+    the temperature is > 0, else argmax(logits); both take the first index
+    on ties."""
+    v = x.shape[-1]
+    u = uniform_from_bits(random_bits(derive_key(keys), v))
+    sampled = torch.argmax(gumbel_from_uniform(u) + x, dim=-1)
+    greedy = torch.argmax(logits, dim=-1)
+    return torch.where(temps > 0, sampled, greedy).to(torch.int32)

@@ -1,21 +1,27 @@
-"""The paged serving step functions and their step programs — the port of
-the continuous-serving builders of `repro.launch.steps`.
+"""The serving step functions and their step programs — the port of the
+serving builders of `repro.launch.steps`.
 
-`unified_step` and `decode_only_step` are the step bodies.
-`graph_unified_step` and `graph_decode_only_step`, the counterparts of
-`jit_unified_step` and `jit_decode_only_step`, wrap them in a
-`launch.program.Program`: on a CUDA device each is captured in a CUDA
-graph once, at the engine's fixed shapes, and every later step replays it
-(on the CPU, or with graphs off, the body runs eagerly).  The attention
-backends and per-stage matmul tables are fixed per program, baked in at
-capture as JAX closes them over at trace time.  A program is called as
-`program((params, k_pool, v_pool), host_arrays)`; the KV pools (L,
-num_blocks, block_size, Hkv, hd) are updated in place, where JAX donates
-them.
+`unified_step` and `decode_only_step` are the paged step bodies; both end
+in keyed sampling (`kernels.sampling.sample_tokens`) on each lane, as
+`repro/launch/steps.py` does.  `graph_unified_step` and
+`graph_decode_only_step`, the counterparts of `jit_unified_step` and
+`jit_decode_only_step`, wrap them in a `launch.program.Program`: on a CUDA
+device each is captured in a CUDA graph once, at the engine's fixed
+shapes, and every later step replays it (on the CPU, or with graphs off,
+the body runs eagerly).  The attention backends and per-stage matmul
+tables are fixed per program, baked in at capture as JAX closes them over
+at trace time.  A program is called as `program((params, k_pool, v_pool),
+host_arrays)`; the KV pools (L, num_blocks, block_size, Hkv, hd) are
+updated in place, where JAX donates them.
 
-`commit_prefill` and `cow_block` (`jit_commit_prefill`, `jit_cow_block`)
-stay eager functions: the port's resume commit takes more than one shape
-(ROADMAP.md, queue 1).
+`graph_commit_prefill` and `graph_cow_block` (`jit_commit_prefill`,
+`jit_cow_block`) are two more programs, each with one signature: the
+resume commit's scatter of swapped-in K/V into the pools, at one padded
+shape, and the copy-on-write of one block.
+
+`prefill_step` and `serve_step` (`make_prefill_step`, `make_serve_step`)
+are the fixed-batch engine's dense-cache steps.  They run eagerly: the
+reference retraces them per prompt length.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.kernels.dispatch import MatmulTable, matmul_dispatch
-from repro_torch.kernels.sampling import greedy_tokens
+from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.launch.program import Program
 
 
@@ -46,9 +52,9 @@ def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
     disjoint blocks — a request never prefills and decodes in one step).
     seg_next[s] is segment s's first token, valid only for segments that
     complete their prompt this step; `seg_logits` are the logits it was
-    drawn from, returned for callers that inspect them.  The tokens are
-    drawn on the device alone (`greedy_tokens`): the caller checks the
-    sampling arrays on the host first (`kernels.sampling.check_sampling`)."""
+    drawn from, returned for callers that inspect them.  Each lane's
+    tokens are drawn on the device (`sample_tokens`) from its sampling and
+    key arrays."""
     with matmul_dispatch(chunk_matmul_table):
         ch_logits = model.prefill_packed_paged(
             params, k_pool, v_pool, seg_tables, ch_tokens, seg_info,
@@ -57,8 +63,8 @@ def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
         logits = model.decode_step_paged(
             params, k_pool, v_pool, dec_tables, dec_lengths, dec_tokens,
             attn_backend=decode_attn_backend)
-    nxt = greedy_tokens(logits[:, -1], dec_sampling, dec_keys)
-    seg_next = greedy_tokens(ch_logits[0], seg_sampling, seg_keys)
+    nxt = sample_tokens(logits[:, -1], dec_sampling, dec_keys)
+    seg_next = sample_tokens(ch_logits[0], seg_sampling, seg_keys)
     return nxt, seg_next, ch_logits[0]
 
 
@@ -72,7 +78,7 @@ def decode_only_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
         logits = model.decode_step_paged(
             params, k_pool, v_pool, dec_tables, dec_lengths, dec_tokens,
             attn_backend=decode_attn_backend)
-    return greedy_tokens(logits[:, -1], dec_sampling, dec_keys)
+    return sample_tokens(logits[:, -1], dec_sampling, dec_keys)
 
 
 def graph_unified_step(model, device, *, graphed: bool = True, pool=None,
@@ -95,12 +101,27 @@ def graph_decode_only_step(model, device, *, graphed: bool = True, pool=None,
                    "decode_only", device, graphed=graphed, pool=pool)
 
 
+def graph_commit_prefill(device, *, graphed: bool = True, pool=None) -> Program:
+    """The resume-commit program: `commit_prefill`, called as
+    `program((k_pool, v_pool, ks, vs), (block_ids,))` where ks / vs are the
+    caller's fixed (L, S, S_pad, Hkv, hd) device buffers (bound: the
+    caller fills them in place before each call) and block_ids is the
+    (S, S_pad / block_size) int32 host array, so it has one signature."""
+    return Program(commit_prefill, "commit", device, graphed=graphed, pool=pool)
+
+
+def graph_cow_block(device, *, graphed: bool = True, pool=None) -> Program:
+    """The copy-on-write program: `cow_block`, called as
+    `program((k_pool, v_pool), (src, dst))` with (1,) int32 block ids."""
+    return Program(cow_block, "cow", device, graphed=graphed, pool=pool)
+
+
 def commit_prefill(k_pool: torch.Tensor, v_pool: torch.Tensor,
                    ks: torch.Tensor, vs: torch.Tensor,
                    block_ids: torch.Tensor) -> None:
     """Scatter S resuming requests' K/V (L, S, S_pad, Hkv, hd) into the
     pools at `block_ids` (S, S_pad / block_size), in place.  Padding
-    entries point at the null sink block with zero payloads."""
+    entries point at the null sink block, whose contents are unspecified."""
     n_layers, block_size = k_pool.shape[0], k_pool.shape[2]
     n_seg, s_pad = ks.shape[1], ks.shape[2]
     nb = s_pad // block_size
@@ -111,10 +132,23 @@ def commit_prefill(k_pool: torch.Tensor, v_pool: torch.Tensor,
     v_pool[:, flat_ids] = vb.to(v_pool.dtype)
 
 
-def cow_block(k_pool: torch.Tensor, v_pool: torch.Tensor, src: int,
-              dst: int) -> None:
-    """Copy-on-write: duplicate physical block `src` into `dst` in both
-    pools, in place (the allocator has already repointed the writer's
-    table at `dst`)."""
-    k_pool[:, dst] = k_pool[:, src]
-    v_pool[:, dst] = v_pool[:, src]
+def cow_block(k_pool: torch.Tensor, v_pool: torch.Tensor, src: torch.Tensor,
+              dst: torch.Tensor) -> None:
+    """Copy-on-write: duplicate physical block `src` into `dst` ((1,) int
+    tensors) in both pools, in place (the allocator has already repointed
+    the writer's table at `dst`)."""
+    src, dst = src.long(), dst.long()
+    k_pool.index_copy_(1, dst, k_pool.index_select(1, src))
+    v_pool.index_copy_(1, dst, v_pool.index_select(1, src))
+
+
+def prefill_step(model, params, tokens: torch.Tensor, max_seq: int):
+    """The fixed-batch prefill: tokens (B, S) -> (last-position logits
+    (B, 1, V), a dense cache of `max_seq` rows)."""
+    return model.prefill(params, {"tokens": tokens}, max_seq)
+
+
+def serve_step(model, params, cache, tokens: torch.Tensor):
+    """The fixed-batch decode step: tokens (B, 1) -> (logits (B, 1, V),
+    the cache advanced by one row, updated in place)."""
+    return model.decode_step(params, cache, tokens)

@@ -1,7 +1,15 @@
-"""GQA attention with RoPE and qk-norm against the paged KV pool — the port
-of the serving half of `repro.models.attention` (`attn_init`,
-`_project_qkv`, `packed_row_map`, `attn_prefill_packed`,
-`attn_decode_paged`).
+"""GQA attention with RoPE and qk-norm — the port of the serving half of
+`repro.models.attention`: the paged path (`attn_init`, `_project_qkv`,
+`packed_row_map`, `attn_prefill_packed`, `attn_decode_paged`) and the
+dense-cache path of the fixed-batch engine (`attn_forward` with
+`return_kv`, `init_cache`, `attn_decode`).
+
+The dense path is the reference's XLA lane, outside any Pallas kernel, so
+here it is plain PyTorch: Q·Kᵀ in the working dtype, then cast to f32 and
+scaled, the softmax in f32, the probabilities rounded to V's dtype before
+P·V.  The reference scans long prompts (>= 1024 keys) in KV chunks with an
+online softmax to bound its memory, equal to the direct form to ~1e-6;
+the port computes every length in the direct form.
 
 Attention backends: `torch` runs the gather lanes (the plain versions in
 `repro_torch.kernels.ref`, which mirror the JAX XLA lanes), and
@@ -16,6 +24,7 @@ slots still write into the null sink block 0.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -26,8 +35,8 @@ from repro_torch.kernels.ref import packed_row_map
 from repro_torch.models.common import (Params, apply_rope, dense, dense_init,
                                        norm_init, rms_norm)
 
-__all__ = ["attn_init", "packed_row_map", "attn_prefill_packed",
-           "attn_decode_paged"]
+__all__ = ["attn_init", "attn_forward", "init_cache", "attn_decode",
+           "packed_row_map", "attn_prefill_packed", "attn_decode_paged"]
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig,
@@ -63,6 +72,65 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+          q_per_kv: int) -> torch.Tensor:
+    """`repro.models.attention._sdpa_direct`: (B, Sq, H, D) x (B, Skv, Hkv,
+    D), GQA grouped, the causal mask aligned at the bottom right."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, q_per_kv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * (1.0 / math.sqrt(d))
+    if causal:
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device).tril(skv - sq)
+        logits = torch.where(mask, logits, torch.full_like(logits, _ref.NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, sq, h, d)
+
+
+def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                 positions: Optional[torch.Tensor] = None, causal: bool = True,
+                 return_kv: bool = False):
+    """Full-sequence attention over x (B, S, d) -> (B, S, d), and with
+    `return_kv` the (K, V) it built, each (B, S, Hkv, hd), for the cache."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = _sdpa(q, k, v, causal, cfg.q_per_kv)
+    y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.hd))
+    return (y, (k, v)) if return_kv else y
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, n_layers: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Zeroed dense K / V caches (L, B, max_seq, Hkv, hd)."""
+    shape = (n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+    """One new token per sequence, x (B, 1, d) at position lengths[b],
+    against one layer's dense caches (B, S_max, Hkv, hd): the token's K/V
+    row is written at lengths[b] IN PLACE (where JAX returns new caches),
+    then it attends to rows 0..lengths[b].  Returns (B, 1, d)."""
+    b = x.shape[0]
+    lengths = lengths.long()
+    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None])
+    bidx = torch.arange(b, device=x.device)
+    k_cache[bidx, lengths] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[bidx, lengths] = v_new[:, 0].to(v_cache.dtype)
+    qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, cfg.hd)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float() * (
+        1.0 / math.sqrt(cfg.hd))
+    pos = torch.arange(k_cache.shape[1], device=x.device)[None, None, None, :]
+    logits = torch.where(pos <= lengths[:, None, None, None], logits,
+                         torch.full_like(logits, _ref.NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache)
+    return dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.hd))
 
 
 def attn_prefill_packed(p: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -1,5 +1,7 @@
 """Decoder-only LM (dense family) — the port of `repro.models.zoo.block_init`
-and the paged serving half of `repro.models.zoo.DecoderLM`.
+and the serving half of `repro.models.zoo.DecoderLM`: the paged path of the
+continuous engine and the dense-cache path (`init_cache`, `prefill`,
+`decode_step`) of the fixed-batch engine.
 
 Parameters keep the JAX package's tree: `blocks` leaves are stacked over
 layers (leading dim n_layers), `dense` weights are (d_in, d_out).  `init`
@@ -102,6 +104,52 @@ class DecoderLM:
     def _mlp(self, bp: Params, x: torch.Tensor) -> torch.Tensor:
         h = rms_norm(bp["mlp_norm"], x)
         return x + F.mlp_apply(bp["mlp"], h, self.cfg.act)
+
+    # -------------------------------------------- dense-cache serving path
+    def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
+        """Zeroed dense caches (L, batch, max_seq, Hkv, hd) of `cfg.dtype`
+        and (batch,) int32 lengths."""
+        cfg = self.cfg
+        cache = A.init_cache(cfg, batch, max_seq, cfg.n_layers,
+                             torch_dtype(cfg.dtype), device)
+        cache["lengths"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+        return cache
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                max_seq: int):
+        """Run the whole prompt batch["tokens"] (B, S), build a cache of
+        `max_seq` rows holding its K/V; -> (last-position logits (B, 1, V),
+        cache)."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        cache = self.init_cache(b, max_seq, x.device)
+        for i, bp in enumerate(self._layers(params)):
+            h = rms_norm(bp["attn_norm"], x)
+            y, (k, v) = A.attn_forward(bp["attn"], cfg, h, positions=positions,
+                                       causal=True, return_kv=True)
+            cache["k"][i, :, :s] = k.to(cache["k"].dtype)
+            cache["v"][i, :, :s] = v.to(cache["v"].dtype)
+            x = self._mlp(bp, x + y)
+        x = rms_norm(params["final_norm"], x)
+        cache["lengths"].fill_(s)
+        return lm_head_logits(params["lm_head"], x[:, -1:]), cache
+
+    def decode_step(self, params: Params, cache: Dict[str, Any],
+                    tokens: torch.Tensor):
+        """tokens (B, 1) -> (logits (B, 1, V), the cache with this row
+        written in place and lengths advanced by one)."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+        lengths = cache["lengths"]
+        for i, bp in enumerate(self._layers(params)):
+            h = rms_norm(bp["attn_norm"], x)
+            x = x + A.attn_decode(bp["attn"], cfg, h, cache["k"][i],
+                                  cache["v"][i], lengths)
+            x = self._mlp(bp, x)
+        x = rms_norm(params["final_norm"], x)
+        return lm_head_logits(params["lm_head"], x), dict(cache, lengths=lengths + 1)
 
     # ------------------------------------------------- paged serving path
     def decode_step_paged(self, params: Params, k_pool: torch.Tensor,

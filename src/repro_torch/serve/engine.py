@@ -1,0 +1,189 @@
+"""Serving engines of the fixed-batch kind — the port of
+`repro.serve.engine` (`ServeConfig`, `Request`, `FixedBatchEngine`,
+`ServeEngine`).
+
+`FixedBatchEngine` is the synchronous drain loop: fixed-size batches,
+left-padded prompts, one whole-prompt prefill per batch over a dense cache
+(`launch.steps.prefill_step`), then every request of the batch decodes the
+full `max_new_tokens` (`launch.steps.serve_step`), each token drawn by the
+step programs' own sampler (`serve.sampling.sample_host`).  It runs
+eagerly: the reference retraces its programs per prompt length.  At
+batch 1 its drain is the per-request ground truth the continuous engine's
+streams, greedy and sampled, are held against.
+
+`ServeEngine` keeps the historical API (`submit` / `run` / `stats` /
+`throughput`): a model with a paged decode path and no modality extras is
+served by `ContinuousEngine`, anything else by the fixed-batch loop — the
+reference's routing predicate.
+
+The engines take `device` where the JAX engines take a mesh and sharding
+rules; `device=None` means the GPU and raises without one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.launch.steps import prefill_step, serve_step
+from repro_torch.platform import DeviceLike, resolve_device
+from repro_torch.serve.sampling import (SamplingParams, batch_sampling_arrays,
+                                        sample_host, truncate_at_eos)
+
+EXTRAS_TODO = ("modality extras (the VLM's images) are served by a later slice "
+               "of the port: ROADMAP.md, queue 1, 'Remaining families'")
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    batch_size: int = 4
+    max_seq: int = 256
+    max_new_tokens: int = 32
+    eos_id: int = -1          # -1: never stop early (synthetic vocab)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                      # (S,) int32
+    output: List[int] = dataclasses.field(default_factory=list)
+    latency_s: float = 0.0
+    sampling: SamplingParams = dataclasses.field(
+        default_factory=SamplingParams)
+
+
+class FixedBatchEngine:
+    """The fixed-batch drain loop (the baseline engine)."""
+
+    def __init__(self, model, params, cfg: ServeConfig,
+                 extras: Optional[Dict[str, Any]] = None,
+                 device: DeviceLike = None):
+        if extras:
+            raise NotImplementedError(EXTRAS_TODO)
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = model.serving_params(params, self.device)
+        self.cfg = cfg
+        self.queue: List[Request] = []
+        self._rid = 0
+        self.stats = {"requests": 0, "tokens_out": 0, "decode_s": 0.0,
+                      "prefill_s": 0.0}
+
+    def submit(self, prompt: np.ndarray,
+               sampling: Optional[SamplingParams] = None) -> int:
+        sampling = sampling if sampling is not None else SamplingParams()
+        bad = sampling.invalid_reason()
+        if bad is not None:
+            raise ValueError(f"invalid sampling params: {bad}")
+        self._rid += 1
+        self.queue.append(Request(self._rid, np.asarray(prompt, np.int32),
+                                  sampling=sampling))
+        return self._rid
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self) -> List[Request]:
+        """Drain the queue in fixed-size batches; returns completed requests."""
+        done: List[Request] = []
+        cfg = self.cfg
+        while self.queue:
+            batch_reqs = self.queue[: cfg.batch_size]
+            self.queue = self.queue[cfg.batch_size:]
+            n = len(batch_reqs)
+            plen = max(len(r.prompt) for r in batch_reqs)
+            toks = np.zeros((cfg.batch_size, plen), np.int32)
+            for i, r in enumerate(batch_reqs):
+                toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
+
+            # keyed sampling arrays at token index 0 (the prefill sample)
+            sp, ks = batch_sampling_arrays(batch_reqs, cfg.batch_size)
+
+            t_batch0 = time.perf_counter()
+            logits, cache = prefill_step(
+                self.model, self.params,
+                torch.as_tensor(toks, device=self.device), cfg.max_seq)
+            nxt = sample_host(logits[:, -1], sp, ks)
+            outs = [nxt.cpu().numpy()]                     # syncs
+            tok_t = [time.perf_counter()]
+            self.stats["prefill_s"] += tok_t[0] - t_batch0
+
+            t0 = time.perf_counter()
+            for j in range(1, cfg.max_new_tokens):
+                logits, cache = serve_step(self.model, self.params, cache,
+                                           nxt[:, None])
+                ks[:, 2] = j                               # token index advances
+                nxt = sample_host(logits[:, -1], sp, ks)
+                outs.append(nxt.cpu().numpy())
+                tok_t.append(time.perf_counter())
+            out_tokens = np.stack(outs, 1)
+            self._sync()
+            self.stats["decode_s"] += time.perf_counter() - t0
+
+            for i, r in enumerate(batch_reqs):
+                r.output = truncate_at_eos(out_tokens[i].tolist(), cfg.eos_id)
+                # latency is this request's: batch start to the step that
+                # emitted its last surviving token
+                r.latency_s = tok_t[len(r.output) - 1] - t_batch0
+                done.append(r)
+                self.stats["tokens_out"] += len(r.output)
+            self.stats["requests"] += n
+        return done
+
+    def throughput(self) -> float:
+        return self.stats["tokens_out"] / max(1e-9, self.stats["decode_s"])
+
+
+class ServeEngine:
+    """Historical API over the continuous runtime: models with a paged
+    decode path are served by `ContinuousEngine`, other families by the
+    fixed-batch loop."""
+
+    def __init__(self, model, params, cfg: ServeConfig,
+                 extras: Optional[Dict[str, Any]] = None,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self._continuous = hasattr(model, "decode_step_paged") and not extras
+        if self._continuous:
+            from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
+            block = 16
+            rcfg = RuntimeConfig(
+                max_slots=cfg.batch_size,
+                block_size=block,
+                max_blocks_per_seq=max(1, -(-cfg.max_seq // block)),
+                max_new_tokens=cfg.max_new_tokens,
+                eos_id=cfg.eos_id,
+            )
+            self._engine = ContinuousEngine(model, params, rcfg, device=device)
+        else:
+            self._engine = FixedBatchEngine(model, params, cfg, extras, device)
+        self.stats = {"requests": 0, "tokens_out": 0, "decode_s": 0.0,
+                      "prefill_s": 0.0}
+
+    def submit(self, prompt: np.ndarray,
+               sampling: Optional[SamplingParams] = None) -> int:
+        return self._engine.submit(prompt, sampling=sampling)
+
+    def run(self) -> List[Request]:
+        if not self._continuous:
+            done = self._engine.run()
+            self.stats = self._engine.stats
+            return done
+        reqs = self._engine.run()
+        m = self._engine.metrics
+        self.stats["requests"] += m.requests_done
+        self.stats["tokens_out"] += m.tokens_out
+        # device-compute split, as FixedBatchEngine's stats
+        self.stats["decode_s"] += m.decode_time_s
+        self.stats["prefill_s"] += m.prefill_time_s
+        self._engine.reset_metrics()  # the next run() accumulates afresh
+        return [Request(r.rid, r.prompt, list(r.output), r.latency_s)
+                for r in sorted(reqs, key=lambda r: r.rid)]
+
+    def throughput(self) -> float:
+        return self.stats["tokens_out"] / max(1e-9, self.stats["decode_s"])

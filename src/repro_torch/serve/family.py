@@ -3,10 +3,11 @@
 
 `ContinuousEngine` is family-agnostic orchestration; the adapter owns what
 the family's per-request device state is.  For attention decoders that is
-the paged KV pool (`PagedKVCache`), its block tables, and the two step
+the paged KV pool (`PagedKVCache`), its block tables, the two step
 programs (`_unified` / `_decode_only`, from `steps.graph_unified_step` /
-`steps.graph_decode_only_step`): on a CUDA device each is captured in a
-CUDA graph at its first step and replayed by every later one.  The adapter
+`steps.graph_decode_only_step`) and the resume-commit and copy-on-write
+programs (`_commit` / `_cow`): on a CUDA device each is captured in a CUDA
+graph at its first call and replayed by every later one.  The adapter
 protocol is the JAX package's (see `repro.serve.family`): `family`,
 `chunk_width`, `chunk_segments`, `resume_segments`, `cache`, `alloc`,
 `capacity()`, `victim_eligible`, `grow_for_decode`, `claim_chunk`,
@@ -21,7 +22,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.sampling import check_sampling
 from repro_torch.launch import steps
 from repro_torch.models.common import torch_dtype
 from repro_torch.serve.kvcache import NULL_BLOCK, PagedKVCache
@@ -79,6 +79,19 @@ class DecoderFamilyAdapter:
             **self._decode_kw, **self._chunk_kw)
         self._decode_only = steps.graph_decode_only_step(
             model, device, graphed=cfg.cuda_graphs, pool=pool, **self._decode_kw)
+        # the resume commit, at one padded shape (see `resume_commit`), and
+        # the copy-on-write: two more programs, captured at their first
+        # call, never at admission
+        self._commit = steps.graph_commit_prefill(
+            device, graphed=cfg.cuda_graphs, pool=pool)
+        self._cow = steps.graph_cow_block(device, graphed=cfg.cuda_graphs,
+                                          pool=pool)
+        # the commit program's K / V inputs (L, resume_segments,
+        # max_blocks_per_seq * block_size, Hkv, hd), allocated at the first
+        # commit and filled in place; and the bytes the last commit copied
+        # from the host
+        self._commit_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.last_commit_h2d_bytes = 0
         # the last unified step's per-segment logits (S, V), for callers
         # that inspect the first-token margins: the unified program's
         # output buffer, valid until its next step
@@ -108,7 +121,9 @@ class DecoderFamilyAdapter:
             except MemoryError:
                 return False
             if copied is not None:
-                steps.cow_block(self.cache.k, self.cache.v, *copied)
+                src, dst = copied
+                self._cow((self.cache.k, self.cache.v),
+                          (np.array([src], np.int32), np.array([dst], np.int32)))
         return True
 
     def grow_for_decode(self, req: ServeRequest, need_rows: int) -> bool:
@@ -136,32 +151,42 @@ class DecoderFamilyAdapter:
 
     def resume_commit(self, group: List[ServeRequest]) -> List[int]:
         """Swap up to `resume_segments` re-admitted requests' KV back in with
-        one commit: each host buffer scatters into its freshly allocated
-        blocks, padded to the group's widest table (padding ids point at
-        the null sink with zero payloads).  Returns the bytes moved per
-        request."""
+        one commit: every segment padded to the full table width and the
+        group to the full segment count, as the reference pads, so the
+        commit program has one signature.  Only the swapped blocks cross
+        the bus: each request's pinned host buffers are copied into its
+        segment's rows of the program's K / V inputs, and the padding rows
+        keep whatever an earlier commit left there — their block ids point
+        at the null sink, whose contents are unspecified.  Returns the
+        bytes moved per request."""
         assert 0 < len(group) <= self.resume_segments
         bs = self.kv_cfg.block_size
+        nb_pad = self.kv_cfg.max_blocks_per_seq
+        n_seg = self.resume_segments
         hosts = [self.cache.take_swapped(r.rid) for r in group]
-        nb_pad = max(k.shape[1] for k, _ in hosts)
-        k0 = hosts[0][0]
-        L = k0.shape[0]
-        ks = torch.zeros((L, len(group), nb_pad * bs, *k0.shape[3:]), dtype=k0.dtype)
-        vs = torch.zeros_like(ks)
-        ids = np.full((len(group), nb_pad), NULL_BLOCK, np.int32)
+        pool = self.cache.k
+        n_layers = pool.shape[0]
+        if self._commit_kv is None:
+            shape = (n_layers, n_seg, nb_pad * bs, *pool.shape[3:])
+            self._commit_kv = tuple(torch.zeros(shape, dtype=pool.dtype,
+                                                device=self.device)
+                                    for _ in range(2))
+        ks, vs = self._commit_kv
+        ids = np.full((n_seg, nb_pad), NULL_BLOCK, np.int32)
         nbytes: List[int] = []
         for i, (req, (k_host, v_host)) in enumerate(zip(group, hosts)):
-            nbytes.append(k_host.numel() * k_host.element_size()
-                          + v_host.numel() * v_host.element_size())
             table = self.cache.alloc.tables[req.rid]
             nb = k_host.shape[1]
             assert nb == len(table)
-            ks[:, i, :nb * bs] = k_host.reshape(L, nb * bs, *k_host.shape[3:])
-            vs[:, i, :nb * bs] = v_host.reshape(L, nb * bs, *v_host.shape[3:])
+            for buf, host in ((ks, k_host), (vs, v_host)):
+                buf[:, i, :nb * bs].copy_(
+                    host.reshape(n_layers, nb * bs, *host.shape[3:]),
+                    non_blocking=True)
+            nbytes.append(k_host.numel() * k_host.element_size()
+                          + v_host.numel() * v_host.element_size())
             ids[i, :nb] = table
-        steps.commit_prefill(self.cache.k, self.cache.v, ks.to(self.device),
-                             vs.to(self.device),
-                             torch.as_tensor(ids, device=self.device))
+        self._commit((self.cache.k, self.cache.v, ks, vs), (ids,))
+        self.last_commit_h2d_bytes = sum(nbytes) + ids.nbytes
         return nbytes
 
     # ------------------------------------------------------------- dispatch
@@ -192,17 +217,14 @@ class DecoderFamilyAdapter:
                  chunks: List[Tuple[ServeRequest, int, int]],
                  dec_sampling: np.ndarray, dec_keys: np.ndarray):
         """Run one step: the unified program when `chunks` carries prompt
-        work, else the decode-only program.  The sampling arrays are
-        checked on the host first (a replay runs no Python).  Returns the
-        decode lane's next tokens (host, (slots,)) and the chunk segments'
-        next tokens ((segments,) or None); the `.cpu()` copies, outside the
-        programs, synchronize with the device."""
+        work, else the decode-only program; both draw their tokens on the
+        device.  Returns the decode lane's next tokens (host, (slots,)) and
+        the chunk segments' next tokens ((segments,) or None); the `.cpu()`
+        copies, outside the programs, synchronize with the device."""
         pools = (params, self.cache.k, self.cache.v)
         dec = (self.cache.table_array(dec_rids), lengths, last_tok[:, None])
-        check_sampling(dec_sampling)
         if chunks:
             seg_sp, seg_ks = segment_sampling_arrays(chunks, self.chunk_segments)
-            check_sampling(seg_sp)
             nxt, seg_next, self.last_seg_logits = self._unified(
                 pools, (*dec, *self._chunk_inputs(chunks), dec_sampling,
                         dec_keys, seg_sp, seg_ks))

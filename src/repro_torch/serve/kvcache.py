@@ -368,11 +368,15 @@ class PagedKVCache:
         """Copy rid's KV blocks to host buffers and release the physical
         blocks; returns the bytes moved.  A later `take_swapped` + commit
         scatters them back into (possibly different) physical blocks.
-        Shared blocks are saved too; co-owners keep the originals live."""
+        Shared blocks are saved too; co-owners keep the originals live.
+        From a GPU the buffers are pinned, so the commit's copies back are
+        asynchronous."""
         ids = torch.as_tensor(self.alloc.tables[rid], dtype=torch.long,
                               device=self.k.device)
-        k_host = self.k[:, ids].cpu()
-        v_host = self.v[:, ids].cpu()
+        pin = self.k.device.type == "cuda"
+        k_host, v_host = (torch.empty((pool.shape[0], len(ids), *pool.shape[2:]),
+                                      dtype=pool.dtype, pin_memory=pin)
+                          .copy_(pool[:, ids]) for pool in (self.k, self.v))
         self._swapped[rid] = (k_host, v_host)
         nbytes = (k_host.numel() * k_host.element_size()
                   + v_host.numel() * v_host.element_size())

@@ -18,11 +18,13 @@ Request lifecycle (the JAX package's, unchanged):
 -> dispatch -> retire — and every family question goes through the
 adapter (`repro_torch.serve.family`).  A step runs the unified step
 program when prompt work is pending and the decode-only program otherwise:
-exactly two programs, at fixed shapes, each captured in a CUDA graph at
-its first step on the GPU (`RuntimeConfig.cuda_graphs`) and replayed by
-every later step; admission captures nothing.  A trace records a `compile`
-event where a program captures (or, on the CPU, first runs), as the JAX
-engine records one where a program compiles.  Under pool
+exactly two step programs, at fixed shapes, each captured in a CUDA graph
+at its first step on the GPU (`RuntimeConfig.cuda_graphs`) and replayed by
+every later step; admission captures nothing.  The resume commit and the
+copy-on-write are two more programs of one signature each.  A trace
+records a `compile` event where a step or commit program captures (or, on
+the CPU, first runs), as the JAX engine records one where a program
+compiles.  Under pool
 pressure the grow path preempts the scheduler's victim: its KV is copied to
 host buffers, its slot and blocks are freed, and it re-enters ahead of new
 arrivals with its KV scattered back (no token is recomputed).
@@ -99,7 +101,8 @@ class ContinuousEngine:
     """Slot-based continuous-batching engine over a family state cache."""
 
     # family-owned attributes read off the engine, resolved via the adapter
-    _ADAPTER_ATTRS = ("_unified", "_decode_only", "cache", "kv_cfg")
+    _ADAPTER_ATTRS = ("_unified", "_decode_only", "_commit", "_cow", "cache",
+                      "kv_cfg")
 
     def __init__(self, model, params, cfg: RuntimeConfig,
                  router: Optional[PlanRouter] = None,
@@ -169,6 +172,11 @@ class ContinuousEngine:
         done, self._done = self._done, []
         return done
 
+    def reset_metrics(self) -> None:
+        """Fresh metrics (e.g. after a warm-up pass); the programs and the
+        cache state are kept."""
+        self.metrics = ServeMetrics(family=self.family)
+
     # ------------------------------------------------- preemption / resume
     def _ensure_blocks(self, req: ServeRequest) -> None:
         """Grow req's state to cover its next decode write, preempting
@@ -205,12 +213,17 @@ class ContinuousEngine:
             self._resume_group(reqs[i:i + width])
 
     def _resume_group(self, group: List[ServeRequest]) -> None:
-        """One packed commit of the group's swapped KV, then each slot's
-        host state; the batch's wall time is split evenly across the group."""
+        """One packed commit of the group's swapped KV (the commit program,
+        one signature), then each slot's host state; the batch's wall time
+        is split evenly across the group."""
         t0 = time.perf_counter()
+        n_commit = self._commit._cache_size()
         nbytes = self.adapter.resume_commit(group)
-        swap_in_s = (time.perf_counter() - t0) / len(group)
+        batch_s = time.perf_counter() - t0
+        swap_in_s = batch_s / len(group)
         self.metrics.record_resume_commit(len(group))
+        if self.trace.enabled and self._commit._cache_size() > n_commit:
+            self.trace.emit("compile", program="commit", device_s=batch_s)
         for req, nb in zip(group, nbytes):
             if self.trace.enabled:
                 self.trace.emit("swap_in", rid=req.rid, nbytes=nb)

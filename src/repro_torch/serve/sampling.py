@@ -1,12 +1,15 @@
 """Per-request sampling policy: `SamplingParams` and the host-side packing
-(the port of `repro.serve.sampling`, without the jitted host sampler).
+(the port of `repro.serve.sampling`).
 
   * `SamplingParams` — the submit-time knobs a request carries through its
     whole life.  temperature=0 (the default) is greedy argmax.
-  * array builders — pack per-slot / per-segment (rows, 3)
+  * array builders — pack per-slot / per-segment / per-batch (rows, 3)
     float32 sampling and (rows, 3) int32 [seed, rid, token_index] key
     arrays, the conventions of `repro_torch.kernels.sampling`.  Rows
     without an active sampled request are greedy.
+  * `sample_host` — the step programs' sampler called on its own, for
+    `FixedBatchEngine`: the same routine, so its tokens equal the
+    programs' on equal logits.
   * `truncate_at_eos` — the one stop-at-first-eos definition.
 """
 
@@ -17,6 +20,9 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.kernels.sampling import sample_tokens
 
 _INT32_MAX = 2**31 - 1
 
@@ -54,6 +60,9 @@ class SamplingParams:
         if not (0 <= self.seed <= _INT32_MAX):
             return f"seed must fit int32 (0 <= seed < 2**31), got {self.seed}"
         return None
+
+
+GREEDY = SamplingParams()
 
 
 # ------------------------------------------------------------ array packing
@@ -95,6 +104,24 @@ def segment_sampling_arrays(chunks: Sequence[tuple],
     for i, (req, _start, _n) in enumerate(chunks):
         _fill_row(sp, ks, i, req.sampling, req.rid, 0)
     return sp, ks
+
+
+def batch_sampling_arrays(reqs, width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Fixed-batch arrays at token index 0 (the prefill sample); the drain
+    loop advances column 2 in place per decode iteration.  Padding rows
+    past len(reqs) are greedy."""
+    sp, ks = _greedy_arrays(width)
+    for i, r in enumerate(reqs):
+        _fill_row(sp, ks, i, r.sampling, r.rid, 0)
+    return sp, ks
+
+
+# ------------------------------------------------------------- host sampler
+def sample_host(logits: torch.Tensor, sampling: np.ndarray,
+                keys: np.ndarray) -> torch.Tensor:
+    """The keyed sampler for the fixed-batch engine: `sample_tokens` on the
+    logits' device, (rows,) int32 tokens there."""
+    return sample_tokens(logits, sampling, keys)
 
 
 # ------------------------------------------------------------ eos semantics

@@ -12,10 +12,11 @@ signatures they saw.  Here the reference's workloads run on the f32
 `tiny` model of `tests/test_torch_serving.py` through both engines, and
 the port's `_cache_size()` counts and `compile` trace events must equal the
 JAX engine's wherever the reference asserts them, its streams the JAX
-engine's token for token.  The resume commit and copy-on-write stay eager
-in the port (`commit_prefill`, `cow_block`), so the reference's `_commit` /
-`_cow` counts and its `compile` events of the commit program are not
-compared.
+engine's token for token.  The resume commit and the copy-on-write are
+programs too (`_commit`, `_cow`): their `_cache_size()` counts and the
+commit program's `compile` events are compared with the reference's as
+well, and after a resume the pools' non-sink blocks must equal the JAX
+engine's.
 
 The JAX engines run on a mesh built with Auto axis types (see
 `tests/test_torch_serving.py`).
@@ -35,6 +36,7 @@ from repro.distributed.sharding import DEFAULT_RULES
 from repro.models import build_model
 from repro.serve.runtime import ContinuousEngine as JaxEngine
 from repro.serve.runtime import RuntimeConfig as JaxRuntimeConfig
+from repro.serve.sampling import SamplingParams as JaxSamplingParams
 from repro.serve.trace import TraceRecorder as JaxTraceRecorder
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs.base import ModelConfig
@@ -49,6 +51,8 @@ from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.trace import TraceRecorder
 
 STEP_PROGRAMS = ("unified", "decode_only")
+# the programs whose `compile` trace events the two engines must share
+TRACED_PROGRAMS = STEP_PROGRAMS + ("commit",)
 
 
 @pytest.fixture(scope="module")
@@ -78,19 +82,24 @@ def _engines(tiny, clock=None, **rcfg):
 
 
 def _step_compiles(eng):
-    """[(program, step)] of the step programs' `compile` events, each with
-    the step whose dispatch compiled (or captured) it."""
+    """[(program, step)] of the step and commit programs' `compile` events,
+    each with the step during (or, for a commit, before) which it compiled
+    (or captured)."""
     out, step = [], None
     for e in eng.trace.events:
         if e.name == "step_begin":
             step = e.fields["step"]
-        elif e.name == "compile" and e.fields["program"] in STEP_PROGRAMS:
+        elif e.name == "compile" and e.fields["program"] in TRACED_PROGRAMS:
             out.append((e.fields["program"], step))
     return out
 
 
 def _sizes(eng):
     return eng._unified._cache_size(), eng._decode_only._cache_size()
+
+
+def _commit_cow(eng):
+    return eng._commit._cache_size(), eng._cow._cache_size()
 
 
 def _streams(eng):
@@ -227,15 +236,16 @@ def test_decode_only_fast_path_program(tiny):
 
 # ----------------------------------------------- tests/test_preemption.py
 def test_preemption_recompiles_nothing(tiny):
-    """test_preemption.py::test_preemption_differential_identity (the step
-    programs; the port's resume commit stays eager)"""
+    """test_preemption.py::test_preemption_differential_identity: the step
+    programs and the commit program (`_commit._cache_size() == 1` after a
+    preempting run, 0 with none), with the commit's `compile` event"""
     prompts, budgets = _prompts(0, 6, 6, 20, 8, 16)
 
     def drive(eng):
         for p, b in zip(prompts, budgets):
             eng.submit(p, max_new_tokens=b, arrival_time=0.0)
         eng._done = eng.run()
-        return [eng.metrics.preemptions > 0]
+        return [eng.metrics.preemptions > 0, _commit_cow(eng)]
 
     outs = {}
     for num_blocks in (7, None):
@@ -243,9 +253,42 @@ def test_preemption_recompiles_nothing(tiny):
                                 max_blocks_per_seq=6, num_blocks=num_blocks,
                                 max_new_tokens=16)
         assert record[0] == (num_blocks is not None)
-        assert record[1][0] == 1
+        assert record[1] == ((1, 0) if num_blocks else (0, 0))
+        assert record[2][0] == 1
+        commits = [c for c in _step_compiles(eng) if c[0] == "commit"]
+        assert len(commits) == (1 if num_blocks else 0)
+        assert eng.metrics.resume_commits > (0 if num_blocks else -1)
         outs[num_blocks] = _streams(eng)
     assert outs[7] == outs[None]
+
+
+def test_pools_after_a_resume_commit_equal_the_jax_engine(tiny):
+    """After every resume commit the pools' non-sink blocks equal the JAX
+    engine's (f32: the K/V the two frameworks computed differ by rounding
+    only); the sink's contents are unspecified."""
+    prompts, budgets = _prompts(0, 6, 6, 20, 8, 16)
+    pools = {}
+    for fw, eng, ctx in _engines(tiny, max_slots=3, block_size=8,
+                                 max_blocks_per_seq=6, num_blocks=7,
+                                 max_new_tokens=16):
+        snaps = pools.setdefault(fw, [])
+        orig = eng.adapter.resume_commit
+
+        def commit(group, orig=orig, eng=eng, snaps=snaps):
+            out = orig(group)
+            snaps.append([np.array(t, dtype=np.float32)[:, 1:]
+                          for t in (eng.cache.k, eng.cache.v)])
+            return out
+
+        eng.adapter.resume_commit = commit
+        with ctx:
+            for p, b in zip(prompts, budgets):
+                eng.submit(p, max_new_tokens=b, arrival_time=0.0)
+            eng.run()
+    assert len(pools["port"]) == len(pools["jax"]) > 0
+    for got, want in zip(pools["port"], pools["jax"]):
+        for g, w in zip(got, want):
+            assert np.abs(g - w).max() <= 1e-5 * max(1.0, np.abs(w).max())
 
 
 # -------------------------------------------- tests/test_prefix_sharing.py
@@ -261,18 +304,22 @@ def _system_prompt_workload(rng, vocab=97):
     return prompts, arrivals, budgets
 
 
-def test_prefix_sharing_two_step_programs(tiny):
-    """test_prefix_sharing.py::test_prefix_sharing_identity_and_chunk_token_savings
-    (greedy: keyed sampling is not ported yet)"""
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_prefix_sharing_two_step_programs(tiny, sampled):
+    """test_prefix_sharing.py::test_prefix_sharing_identity_and_chunk_token_savings:
+    two step programs, no commit (`_commit == 0`), at most one CoW
+    signature (`_cow <= 1`)"""
     prompts, arrivals, budgets = _system_prompt_workload(np.random.default_rng(3))
 
     def drive(eng):
-        for p, a, b in zip(prompts, arrivals, budgets):
-            eng.submit(p, max_new_tokens=b, arrival_time=a)
+        cls = SamplingParams if isinstance(eng, ContinuousEngine) else JaxSamplingParams
+        for i, (p, a, b) in enumerate(zip(prompts, arrivals, budgets)):
+            s = cls(temperature=0.9, top_k=8, seed=100 + i) if sampled and i % 2 else cls()
+            eng.submit(p, max_new_tokens=b, arrival_time=a, sampling=s)
         while eng.scheduler.has_work:
             ran = eng.step()
             eng._clock["t"] += 0.2 if ran else 0.05
-        return []
+        return [eng._commit._cache_size(), eng._cow._cache_size() <= 1]
 
     def clock():
         state = {"t": 0.0}
@@ -291,7 +338,7 @@ def test_prefix_sharing_two_step_programs(tiny):
                                 block_size=8, max_blocks_per_seq=6,
                                 max_new_tokens=10, chunk_tokens=16,
                                 prefix_sharing=sharing)
-        assert record == [(1, 1)]
+        assert record == [0, True, (1, 1)]
         assert (eng.metrics.prefix_hit_tokens > 0) == sharing
         outs[sharing] = _streams(eng)
     assert outs[False] == outs[True]
@@ -383,16 +430,6 @@ def test_step_program_refuses_other_params_or_pools(tiny):
         prog((eng.params, k.clone(), v), inputs)
 
 
-def test_keyed_sampling_guard_fires_before_dispatch(tiny):
-    _, _, model, params = tiny
-    eng = ContinuousEngine(model, params, RuntimeConfig(**RUNTIME), device="cpu")
-    eng.submit(_serving_prompts()[0], sampling=SamplingParams(temperature=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run()
-    assert _sizes(eng) == (0, 0)                   # no program ran
-    assert not bool(eng.cache.k.any()) and not bool(eng.cache.v.any())
-
-
 def test_port_engine_emits_one_compile_per_program_with_graphs_off(tiny):
     """`cuda_graphs=False` runs the same programs (no capture on any
     device): the same two signatures and compile events."""
@@ -408,7 +445,8 @@ def test_port_engine_emits_one_compile_per_program_with_graphs_off(tiny):
                         _step_compiles(eng))
     assert outs[True] == outs[False]
     assert outs[True][1] == (1, 1)
-    assert [p for p, _ in outs[True][2]] == ["unified", "decode_only"]
+    # the workload preempts: the commit program compiles once too
+    assert [p for p, _ in outs[True][2]] == ["unified", "decode_only", "commit"]
 
 
 # -------------------------------------------------- the capture, on the CPU

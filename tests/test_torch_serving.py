@@ -40,7 +40,6 @@ from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.models import DecoderLM
 from repro_torch.serve.router import PlanRouter
 from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
-from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.trace import TraceRecorder, write_trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -213,17 +212,6 @@ def test_greedy_sampling_is_argmax_first_index_on_ties():
     sp[:, 2] = 1.0
     ks = np.zeros((2, 3), np.int32)
     assert sample_tokens(logits, sp, ks).tolist() == [1, 0]
-
-
-def test_keyed_sampling_raises_naming_the_roadmap_item(tiny):
-    sp = np.asarray([[0.7, 0, 1.0]], np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample_tokens(torch.zeros(1, 5), sp, np.zeros((1, 3), np.int32))
-    _, _, model, params = tiny
-    eng = ContinuousEngine(model, params, RuntimeConfig(**RUNTIME), device="cpu")
-    eng.submit(_prompts()[0], sampling=SamplingParams(temperature=0.5))
-    with pytest.raises(NotImplementedError):
-        eng.run()
 
 
 # ------------------------------------------------------------- devices
