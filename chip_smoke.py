@@ -51,7 +51,11 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      logits, rows of temperature 0, pure temperature, top-k and top-p, at
      seeds 0 / 1 / 2^31 - 1 and token indices 0 / 31: tokens equal to the
      plain version and every uniform draw bitwise equal (through the
-     kernel's debug output), each call twice and bitwise equal;
+     kernel's debug output), each call twice and bitwise equal; and, for
+     phase 7, the GEMM at mamba2-2.7b's six serving shapes (in_proj N
+     10,576, out_proj N 2,560, lm_head N 50,280; M 256 / 1 in the chunk
+     lane, 8 in the decode lane: ragged N, split-K over ragged tiles) and
+     the draw kernel at (8, 50280) and (1, 50280);
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
      role-tagged matmuls through the kernels: 16 requests, chunked and
@@ -109,11 +113,31 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      `FixedBatchEngine` at batch 1 on one prompt of each mix, held by first
      tokens where the draw's top-2 margin exceeds 0.25; under --profile the
      draw kernel's device share of the graphed steps;
-  7. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+  7. mamba2-2.7b at full width and depth (64 layers, d_model 2560, 80
+     heads x 64, state 128, conv 4, vocab 50,280, bf16, random weights from
+     seed 0, initialised on the card) served through `ContinuousEngine` on
+     the slot-pooled state cache: phase 3's 16 prompts over this
+     vocabulary, 8 slots, 256-token chunks, 32 new tokens.  The kernel
+     lanes (the three projections of both ssm stages on the GEMM) graphed
+     and eager in two alternating pairs: streams, first-token logits and
+     launches bitwise equal, one signature per program, captured once,
+     replayed steps - 2 times, nothing captured at submit(); tokens/s and
+     TTFT, and the captured decode-only step's device ms against its bytes
+     bound; the torch lanes (first tokens at the 0.25 margin, first
+     diverging token logged); 7 usable state rows for 8 slots preempting,
+     bitwise equal to the unconstrained run, `_commit` one signature, each
+     commit's host-to-device bytes = the swapped rows + the row ids, the
+     commit program's ms; the mixed sampling cycle graphed = eager, its
+     greedy requests equal to the first run; `FixedBatchEngine` at batch 1
+     on 4 prompts (<= 256 tokens or 512) by first tokens; the ssm serve
+     plan raced on the card (6 matmul nodes) and 16 requests served under
+     it; the phase's peak device memory and seconds (--profile: each
+     serving run's device-time breakdown and busy share);
+  8. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are the serve plan's race, its serving run and the
      decode wrapper's call; a replayed CUDA graph counts the launches it
      captured), error and times;
-  8. the last line `{"ok": true, "device": {...}}`.
+  9. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -738,6 +762,49 @@ def check_matmul(torch, chk, cfg):
         chk.compare(f"{label} vs plain", out, want, tol,
                     "f32 summation order, one bf16 rounding")
         _bitwise(chk, label, out, KM.matmul_fused(x, w, b, "gelu"))
+
+
+def ssm_gemms(cfg):
+    """(lane, role, M, K, N) of the ssm serving path's six GEMM shapes: the
+    chunk lane's in_proj / out_proj at M = chunk width and its lm_head at
+    M = 1 (the segment's last row), the decode lane's three at M = slots."""
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    proj = 2 * d_in + 2 * cfg.ssm_state + d_in // cfg.ssm_head_dim
+    c, b = SERVE_RUNTIME["chunk_tokens"], SERVE_RUNTIME["max_slots"]
+    return [("chunk", "in_proj", c, d, proj), ("chunk", "out_proj", c, d_in, d),
+            ("chunk", "lm_head", 1, d, cfg.vocab),
+            ("decode", "in_proj", b, d, proj), ("decode", "out_proj", b, d_in, d),
+            ("decode", "lm_head", b, d, cfg.vocab)]
+
+
+def check_matmul_ssm(torch, chk, cfg):
+    """The GEMM at mamba2-2.7b's six serving shapes (bf16, no activation):
+    N = 10,576 (82.6 tiles of 128) and 50,280 (392.8 tiles, not a multiple
+    of 16) are ragged, and split-K runs over ragged tiles at M = 8."""
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    for lane, role, m, k, n in ssm_gemms(cfg):
+        x = torch.randn((m, k), generator=g, device=DEVICE).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device=DEVICE) / math.sqrt(k)
+             ).to(torch.bfloat16)
+        geo = KM.gemm_geometry(m, n, k, x.dtype)
+        want = R.matmul_ref(x, w, None, None)
+        out = KM.matmul_fused(x, w, None, None)
+        tol = MM_RTOL_BF16 * max(1.0, want.float().abs().max().item())
+        label = (f"mamba2 {lane} {role} M={m} K={k} N={n} bf16 ({n / geo.bn:.1f} "
+                 f"column tiles, {geo.ctas(m, n)} CTAs, bm {geo.bm}, split {geo.split})")
+        chk.err = max(chk.err, chk.compare(f"{label} vs plain", out, want, tol,
+                                           "f32 summation order, one bf16 rounding"))
+        _bitwise(chk, label, out, KM.matmul_fused(x, w, None, None))
+        ws = [w] + [w.clone() for _ in range(copies_for(w.numel() * 2) - 1)]
+        chk.timed(f"{label} (library: torch.matmul)",
+                  [lambda wq=wq: KM.matmul_fused(x, wq, None, None) for wq in ws],
+                  [lambda wq=wq: R.matmul_ref(x, wq, None, None) for wq in ws],
+                  [lambda wq=wq: torch.matmul(x, wq) for wq in ws],
+                  2 * (m * k + k * n + m * n), 2 * m * n * k, device=True)
 
 
 # Conv and elementwise tolerances.  The conv's plain version has the
@@ -1378,6 +1445,8 @@ def check_counter_growth(torch, chk):
 # Hopper white paper's SM and the SXM part's boost clock).  Its bytes: x in
 # f32 and the logits in bf16, 6 per element.
 SAMPLE_SHAPES = ((8, "decode lane"), (4, "chunk lane"))
+# the ssm path's draws: 8 slots, and one chunk segment
+SSM_SAMPLE_SHAPES = ((8, "ssm decode lane"), (1, "ssm chunk lane"))
 SAMPLE_SEEDS = (0, 1, 2**31 - 1)
 SAMPLE_TOKEN_INDICES = (0, 31)
 THREEFRY_INT_OPS = 75
@@ -1393,15 +1462,16 @@ def _mixed_sampling(torch, rows):
     return sp
 
 
-def check_sampling(torch, chk, vocab):
+def check_sampling(torch, chk, vocab, shapes=SAMPLE_SHAPES):
     """The draw kernel against `ref.sample_draw_ref` on the same masked,
-    scaled x: tokens equal, and every element's f32 uniform (the kernel's
-    debug output) bitwise equal to the plain threefry's."""
+    scaled x at each (rows, lane) of `shapes`: tokens equal, and every
+    element's f32 uniform (the kernel's debug output) bitwise equal to the
+    plain threefry's."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sampling as KS
 
     g = torch.Generator(device=DEVICE).manual_seed(11)
-    for rows, lane in SAMPLE_SHAPES:
+    for rows, lane in shapes:
         logits = (torch.randn((rows, vocab), generator=g, device=DEVICE) * 3).bfloat16()
         sp = _mixed_sampling(torch, rows)
         temps = sp[:, 0].contiguous()
@@ -1519,8 +1589,10 @@ def serve(torch, served, router, label, profile=False, require_packing=True,
     firsts = _spy_first_logits(eng)
     if setup is not None:
         setup(eng)
-    log(f"[{label}] pool {tuple(eng.cache.k.shape)} x2 "
-        f"{2 * eng.cache.k.numel() * eng.cache.k.element_size() / 1e9:.2f} GB")
+    pools = ((eng.cache.conv, eng.cache.ssm) if eng.family == "ssm"
+             else (eng.cache.k, eng.cache.v))
+    log(f"[{label}] pools {' + '.join(str(tuple(p.shape)) for p in pools)} "
+        f"{sum(p.numel() * p.element_size() for p in pools) / 1e9:.2f} GB")
     progs = (eng._unified, eng._decode_only)
     before = [p._cache_size() for p in progs]
     for i, p in enumerate(prompts):
@@ -2039,9 +2111,38 @@ SERVE_PLAN = dict(prefill_len=max(PROMPT_LENS), slots=SERVE_RUNTIME["max_slots"]
                   chunk_tokens=SERVE_RUNTIME["chunk_tokens"])
 
 
+def _log_race(graph, plan, tuner):
+    """How many matmul nodes the GEMM won, and the race per node."""
+    from repro_torch.core import TEMPLATES, op_desc_of, roofline_bound
+
+    matmuls = [n.name for n in graph.toposort()
+               if getattr(op_desc_of(graph, n, "bfloat16"), "kind", None) == "matmul"]
+    won = [n for n in matmuls if plan.choices[n].backend == "pallas_matmul"]
+    log(f"the GEMM kernel won {len(won)} of the {len(matmuls)} matmul nodes against "
+        f"the vendor lane (one bf16 cuBLAS product): {won}")
+    log("per node: vendor ms, kernel ms (config), winner, bound ms (bf16 peak); "
+        "one call, CUDA events, median of 10")
+    for node in graph.toposort():
+        op = op_desc_of(graph, node, "bfloat16")
+        c = plan.choices[node.name]
+        kname = "pallas_attention" if op.kind == "attention" else "pallas_matmul"
+        tuned = tuner.tune(op, TEMPLATES[kname]).config     # a cache hit
+        d = op.d
+        shape = (f"B={d['b']} Sq={d['q']} Skv={d['kv']} H={d['h']} D={d['d']}"
+                 if op.kind == "attention" else f"{d['m']}x{d['k']}->{d['n']}")
+        note = ""
+        if op.kind == "attention" and d["q"] < d["kv"]:
+            note = (f"  [unequal work: the kernel's top-left mask passes "
+                    f"{_causal_pairs(d['q'], d['kv'])} (query, key) pairs a "
+                    f"head, the vendor's bottom-right mask "
+                    f"{sum(d['kv'] - d['q'] + i + 1 for i in range(d['q']))}]")
+        log(f"  {node.name:24s} {shape:30s} vendor {1e3 * c.candidates['xla']:.4f} "
+            f"kernel {1e3 * c.candidates[kname]:.4f} ({tuned}) winner {c.backend} "
+            f"bound {1e3 * roofline_bound(op):.4f}{note}")
+
+
 def phase_serve_plan(torch, served, counters, torch_run):
-    from repro_torch.core import (TEMPLATES, Tuner, WallClockFitness, op_desc_of,
-                                  ref_ops, roofline_bound)
+    from repro_torch.core import Tuner, WallClockFitness, ref_ops
     from repro_torch.kernels import ops as kops
     from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
 
@@ -2081,30 +2182,7 @@ def phase_serve_plan(torch, served, counters, torch_run):
             raise AssertionError(f"{name} never launched in the race")
 
     graph = build_serve_graph(cfg, **SERVE_PLAN, dtype="bfloat16")
-    matmuls = [n.name for n in graph.toposort()
-               if getattr(op_desc_of(graph, n, "bfloat16"), "kind", None) == "matmul"]
-    won = [n for n in matmuls if plan.choices[n].backend == "pallas_matmul"]
-    log(f"the GEMM kernel won {len(won)} of the {len(matmuls)} matmul nodes against "
-        f"the vendor lane (one bf16 cuBLAS product): {won}")
-    log("per node: vendor ms, kernel ms (config), winner, bound ms (bf16 peak); "
-        "one call, CUDA events, median of 10")
-    for node in graph.toposort():
-        op = op_desc_of(graph, node, "bfloat16")
-        c = plan.choices[node.name]
-        kname = "pallas_attention" if op.kind == "attention" else "pallas_matmul"
-        tuned = tuner.tune(op, TEMPLATES[kname]).config     # a cache hit
-        d = op.d
-        shape = (f"B={d['b']} Sq={d['q']} Skv={d['kv']} H={d['h']} D={d['d']}"
-                 if op.kind == "attention" else f"{d['m']}x{d['k']}->{d['n']}")
-        note = ""
-        if op.kind == "attention" and d["q"] < d["kv"]:
-            note = (f"  [unequal work: the kernel's top-left mask passes "
-                    f"{_causal_pairs(d['q'], d['kv'])} (query, key) pairs a "
-                    f"head, the vendor's bottom-right mask "
-                    f"{sum(d['kv'] - d['q'] + i + 1 for i in range(d['q']))}]")
-        log(f"  {node.name:24s} {shape:30s} vendor {1e3 * c.candidates['xla']:.4f} "
-            f"kernel {1e3 * c.candidates[kname]:.4f} ({tuned}) winner {c.backend} "
-            f"bound {1e3 * roofline_bound(op):.4f}{note}")
+    _log_race(graph, plan, tuner)
 
     router = PlanRouter(plan)
     log(f"PlanRouter(plan).describe(): {router.describe()}")
@@ -2154,6 +2232,316 @@ def phase_serve_plan(torch, served, counters, torch_run):
         f"launches {decode}")
     return {"serve_plan_race": race, "serve_plan_serve": serving,
             "ops_attention_decode": decode}
+
+
+# ------------------------------------------------------------ phase 7
+# mamba2-2.7b at full width and depth (64 layers, d_model 2560, 80 heads x
+# 64, state 128, conv 4, vocab 50,280, bf16, random weights from seed 0)
+# served through ContinuousEngine on the slot-pooled state cache: the 16
+# prompts of phase 3 over this vocabulary, SERVE_RUNTIME's 8 slots, 256-token
+# chunks (one ssm_chunk) and 32 new tokens.
+SSM_KERNEL_RUNS = (True, False, False, True)      # two alternating pairs
+SSM_PREEMPT_ROWS = 8          # state_slots: 7 usable rows for 8 slots
+SSM_FIXED_PROMPTS = 4
+SSM_DECODE_REPLAYS = 20
+
+
+def ssm_setup(torch, cfg):
+    """mamba2-2.7b initialised on the card (f32 from seed 0, then the
+    serving dtypes) and the 16 prompts."""
+    import numpy as np
+
+    from repro_torch.models import MambaLM
+
+    model = MambaLM(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = model.serving_params(model.init(gen), DEVICE)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    log(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} heads x "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv {cfg.conv_width}, vocab "
+        f"{cfg.vocab}; {sum(t.numel() for t in leaves) / 1e9:.3f} G params "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    return model, params, prompts
+
+
+def ssm_decode_bound(cfg, slots):
+    """(ms, bytes) of a decode-only step's bytes bound: the in_proj and
+    out_proj weights of every layer and lm_head (bf16) read once, each
+    slot's SSM and conv state (f32) read and written once."""
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    nh = d_in // cfg.ssm_head_dim
+    proj = 2 * d_in + 2 * cfg.ssm_state + nh
+    conv_dim = d_in + 2 * cfg.ssm_state
+    weights = 2 * cfg.n_layers * (d * proj + d_in * d) + 2 * d * cfg.vocab
+    state = 2 * 4 * slots * cfg.n_layers * (nh * cfg.ssm_head_dim * cfg.ssm_state
+                                            + (cfg.conv_width - 1) * conv_dim)
+    return 1e3 * (weights + state) / HBM_BPS, weights + state
+
+
+def _replay_ms(torch, prog, replays=SSM_DECODE_REPLAYS):
+    """Device ms of one replay of `prog`'s captured graph (CUDA events
+    around back-to-back replays)."""
+    graph = next(iter(prog._signatures.values())).graph
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def phase_ssm(torch, cfg, profile=False):
+    """mamba2-2.7b served on the card (see the module docstring, phase 7).
+    -> the kernels' launches on each of its paths."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.core import Tuner, WallClockFitness
+    from repro_torch.core.plan import InferencePlan, OpChoice
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import sampling as KS
+    from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
+    from repro_torch.serve.router import (SSM_MATMUL_ROLES, PlanRouter,
+                                          build_serve_graph, build_serve_plan)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    served = ssm_setup(torch, cfg)
+    prompts = served[2]
+    counters = (KM.matmul_fused, KS.sample_draw)
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    # 1. kernel lanes (every projection of both ssm stages on the GEMM),
+    # graphed and eager in alternating pairs
+    plan = InferencePlan("serve_ssm", "h100")
+    for stage in ("ssm_prefill_chunk", "ssm_decode"):
+        for role in SSM_MATMUL_ROLES:
+            plan.choices[f"{stage}.{role}"] = OpChoice("cuda_matmul", {}, 0.0)
+    router = PlanRouter(plan)
+    runs, engines = [], []
+    for graphs in SSM_KERNEL_RUNS:
+        zero()
+        lane = "graphed" if graphs else "eager"
+        out, first, s = serve(torch, served, router, f"ssm kernel lanes, {lane}",
+                              profile, graphs=graphs, require_packing=False,
+                              setup=engines.append)
+        runs.append((graphs, out, first, s, counts()))
+    _, out_k, first_k, s_k, launches = runs[0]
+    for graphs, out, first, _, n in runs[1:]:
+        if out != out_k or not _same_firsts(first, first_k) or n != launches:
+            raise AssertionError(
+                f"ssm kernel lanes ({'graphed' if graphs else 'eager'}) differ from "
+                f"the first graphed run: streams {out == out_k}, launches {n} vs "
+                f"{launches}, first divergence {_first_divergence(out_k, out)}")
+    steps = int(s_k["chunk_steps"] + s_k["decode_only_steps"])
+    want_mm = 2 * (2 * cfg.n_layers + 1) * int(s_k["chunk_steps"]) + \
+        (2 * cfg.n_layers + 1) * int(s_k["decode_only_steps"])
+    want_draw = 2 * int(s_k["chunk_steps"]) + int(s_k["decode_only_steps"])
+    log(f"[ssm] kernel lanes: {len(runs)} runs, graphed and eager, give the same "
+        f"token streams, first-token logits (bitwise) and launches {launches} over "
+        f"{steps} steps ({int(s_k['chunk_steps'])} unified, "
+        f"{int(s_k['decode_only_steps'])} decode-only)")
+    if launches != {"matmul_fused": want_mm, "sample_draw": want_draw}:
+        raise AssertionError(f"ssm kernel lanes launches {launches}: want GEMM "
+                             f"{want_mm}, draw {want_draw}")
+    if not profile:
+        med = {g: _lane_stats(f"ssm kernel lanes, {'graphed' if g else 'eager'}",
+                              [r[3] for r in runs if r[0] == g]) for g in (True, False)}
+        log(f"[ssm] kernel lanes: graphed / eager median tokens/s "
+            f"{med[True] / med[False]:.2f}x")
+    bound_ms, bound_bytes = ssm_decode_bound(cfg, SERVE_RUNTIME["max_slots"])
+    dec_ms = _replay_ms(torch, engines[0]._decode_only)
+    log(f"[ssm] decode-only step: {dec_ms:.4f} device ms a replay (CUDA events, "
+        f"{SSM_DECODE_REPLAYS} replays of the captured graph) against a bytes bound "
+        f"of {bound_ms:.4f} ms ({bound_bytes / 1e9:.3f} GB at {HBM_BPS / 1e12:.2f} TB/s); "
+        f"{dec_ms / bound_ms:.2f}x the bound")
+    del engines[:]
+
+    # 2. torch lanes, graphed: first tokens at the margin
+    out_t, first_t, _ = serve(torch, served, PlanRouter(None), "ssm torch lanes, graphed",
+                              profile, require_packing=False)
+    div = _first_divergence(out_t, out_k)
+    log(f"[ssm] kernel vs torch lanes: first diverging token "
+        f"{'none' if div is None else 'request %d token %d: %d vs %d' % div}")
+    compare_first_tokens(torch, "ssm kernel lanes", out_k, first_k, out_t, first_t)
+
+    # 3. preemption: 7 usable state rows for 8 slots against run 1 (the
+    # unconstrained graphed kernel lanes), bitwise
+    commits, held = [], []
+
+    def watch_commits(e):
+        ad = e.adapter
+        orig = ad.resume_commit
+
+        def resume_commit(group):
+            with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                nbytes = orig(group)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            commits.append((sum(nbytes), ad.last_commit_h2d_bytes, _h2d_bytes(prof),
+                            len(group), wall))
+            return nbytes
+
+        ad.resume_commit = resume_commit
+        held.append(e)
+
+    zero()
+    out_p, first_p, s_p = serve(torch, served, router, "ssm preempted",
+                                require_packing=False, state_slots=SSM_PREEMPT_ROWS,
+                                setup=watch_commits)
+    pe = held[0]
+    sizes = (pe._unified._cache_size(), pe._decode_only._cache_size(),
+             pe._commit._cache_size())
+    log(f"[ssm] preempted (state_slots {SSM_PREEMPT_ROWS}): "
+        f"{int(s_p['preemptions'])} preemptions, {int(s_p['resume_commits'])} resume "
+        f"commits; programs (unified, decode-only, commit) {sizes}")
+    if not (s_p["preemptions"] >= 1 and s_p["resume_commits"] >= 1):
+        raise AssertionError("ssm: the 7-row state pool preempted nothing")
+    if sizes != (1, 1, 1):
+        raise AssertionError(f"ssm preempted: program signatures {sizes}")
+    if out_p != out_k or not _same_firsts(first_p, first_k):
+        raise AssertionError(f"ssm: preempted != unconstrained, first divergence "
+                             f"{_first_divergence(out_k, out_p)}")
+    row_bytes = sum(t.numel() * t.element_size() for t in (pe.cache.conv[:, 0],
+                                                            pe.cache.ssm[:, 0]))
+    ids_bytes = 4 * pe.adapter.resume_segments
+    for swapped, counted, measured, n, wall in commits:
+        log(f"[ssm] commit of {n} request(s): swapped {swapped} bytes ({n} x "
+            f"{row_bytes} a state row); host-to-device {counted} bytes counted "
+            f"(swapped + {counted - swapped} of row ids), "
+            f"{'no byte counts in the profiler trace' if measured is None else f'{measured} bytes measured'}"
+            f" (profiler memcpy events); {1e3 * wall:.2f} ms wall, profiled")
+        if swapped != n * row_bytes or counted != swapped + ids_bytes:
+            raise AssertionError(f"ssm commit: {counted} bytes != {n} rows + ids")
+        if measured is not None and measured != counted:
+            raise AssertionError(f"ssm commit: {measured} bytes crossed the bus, "
+                                 f"{counted} counted")
+    bound = (pe.cache.conv, pe.cache.ssm, *pe.adapter._commit_state)
+    rows = np.zeros((pe.adapter.resume_segments,), np.int32)
+    ms = time_ms(torch, [lambda: pe._commit(bound, (rows,))], iters=20)
+    log(f"[ssm] commit program ms (replays, CUDA events, host staging of the rows "
+        f"included): {ms:.4f}; its bytes bound {1e3 * 2 * 4 * row_bytes / HBM_BPS:.4f} "
+        f"ms ({pe.adapter.resume_segments} rows read and written)")
+    preempt_launches = counts()
+    del held[:]
+
+    # 4. the mixed sampling cycle on the graphed kernel lanes
+    mix = [_mix(i) for i in range(len(prompts))]
+    zero()
+    out_s, first_s, s_s = serve(torch, served, router, "ssm sampled, graphed", profile,
+                                require_packing=False, samplings=mix)
+    sampled = counts()
+    out_e, first_e, _ = serve(torch, served, router, "ssm sampled, eager", graphs=False,
+                              require_packing=False, samplings=mix)
+    if out_e != out_s or not _same_firsts(first_e, first_s):
+        raise AssertionError(f"ssm sampled: graphed != eager, first divergence "
+                             f"{_first_divergence(out_s, out_e)}")
+    greedy_rids = [i + 1 for i, m in enumerate(mix) if m.greedy]
+    if any(out_s[r] != out_k[r] for r in greedy_rids):
+        raise AssertionError("ssm sampled: a greedy request differs from run 1")
+    n_diff = sum(out_s[r] != out_k[r] for r in out_s if r not in greedy_rids)
+    want_draw = 2 * int(s_s["chunk_steps"]) + int(s_s["decode_only_steps"])
+    log(f"[ssm] sampled: graphed = eager bitwise; the {len(greedy_rids)} greedy "
+        f"requests equal run 1's streams; {n_diff} of "
+        f"{len(out_s) - len(greedy_rids)} sampled streams differ from greedy; "
+        f"launches {sampled}")
+    if n_diff == 0 or sampled["sample_draw"] != want_draw:
+        raise AssertionError(f"ssm sampled: {n_diff} sampled streams differ, draws "
+                             f"{sampled['sample_draw']} (want {want_draw})")
+
+    # 5. the fixed-batch engine at batch 1 (torch lanes, the whole prompt in
+    # one SSD scan: lengths <= ssm_chunk or a multiple of it)
+    fixed_ids = [i for i, n in enumerate(PROMPT_LENS)
+                 if n <= cfg.ssm_chunk or n % cfg.ssm_chunk == 0][:SSM_FIXED_PROMPTS]
+    fixed = FixedBatchEngine(served[0], served[1],
+                             ServeConfig(batch_size=1, max_seq=SERVE_PLAN["max_seq"],
+                                         max_new_tokens=SERVE_RUNTIME["max_new_tokens"]),
+                             device=DEVICE)
+    for i in fixed_ids:
+        fixed.submit(prompts[i])
+    t0 = time.perf_counter()
+    out_f = {fixed_ids[r.rid - 1] + 1: r.output for r in fixed.run()}
+    torch.cuda.synchronize()
+    compared = 0
+    for rid in sorted(out_f):
+        top2 = torch.topk(first_t[rid], 2).values
+        margin = float(top2[0] - top2[1])
+        div = _first_divergence({rid: out_t[rid]}, {rid: out_f[rid]})
+        log(f"[ssm] fixed batch request {rid} ({PROMPT_LENS[rid - 1]} tokens): first "
+            f"token {out_f[rid][0]} vs {out_t[rid][0]} continuous torch lanes "
+            f"(margin {margin:.3f}), {out_k[rid][0]} kernel lanes; whole stream "
+            f"identical to the torch lanes {out_f[rid] == out_t[rid]}, to the kernel "
+            f"lanes {out_f[rid] == out_k[rid]}; first diverging token (torch lanes) "
+            f"{'none' if div is None else 'index %d: %d vs %d' % div[1:]}")
+        if margin > FIRST_TOKEN_MARGIN:
+            compared += 1
+            if out_f[rid][0] != out_t[rid][0]:
+                raise AssertionError(f"ssm fixed batch request {rid}: first token "
+                                     f"differs at margin {margin:.3f}")
+    log(f"[ssm] fixed batch: {len(out_f)} requests in {time.perf_counter() - t0:.1f} s; "
+        f"first tokens agree for {compared}/{len(out_f)} with a top-2 margin > "
+        f"{FIRST_TOKEN_MARGIN}")
+    if compared == 0:
+        raise AssertionError("ssm fixed batch: no first-token margin to compare")
+
+    # 6. the ssm serve plan, raced on the card, then serving under it
+    fitness = WallClockFitness(device=DEVICE)
+    tuner = Tuner(fitness=fitness, methods=("genetic",))
+    ssm_plan = dict(SERVE_PLAN, family="ssm")
+    zero()
+    t0 = time.perf_counter()
+    tuned = build_serve_plan(cfg, **ssm_plan, tuner=tuner, dtype="bfloat16")
+    torch.cuda.synchronize()
+    race = {k: v for k, v in counts().items() if v}
+    log(f"build_serve_plan {ssm_plan} bf16: {time.perf_counter() - t0:.2f} s wall; "
+        f"fitness calls {fitness.evals}, distinct measurements {fitness.measured}; "
+        f"backends {tuned.backend_histogram()}; launches in the race {race}")
+    graph = build_serve_graph(cfg, **ssm_plan, dtype="bfloat16")
+    if len(graph.toposort()) != 6 or not race.get("matmul_fused"):
+        raise AssertionError(f"ssm serve plan: {len(graph.toposort())} nodes, race {race}")
+    _log_race(graph, tuned, tuner)
+    prouter = PlanRouter(tuned)
+    log(f"[ssm] lanes: chunk matmuls {prouter.matmul_table('ssm_prefill_chunk')}, "
+        f"decode matmuls {prouter.matmul_table('ssm_decode')}")
+    zero()
+    out_pl, first_pl, _ = serve(torch, served, prouter, "ssm tuned plan",
+                                require_packing=False)
+    plan_serve = {k: v for k, v in counts().items() if v}
+    want = {"sample_draw"}
+    if any(b == "cuda_matmul" for st in ("ssm_prefill_chunk", "ssm_decode")
+           for b, _ in prouter.matmul_table(st).values()):
+        want.add("matmul_fused")
+    log(f"[ssm] launches serving under the tuned plan: {plan_serve}")
+    if set(plan_serve) != want:
+        raise AssertionError(f"ssm tuned plan launches {plan_serve}: want {want}")
+    compare_first_tokens(torch, "ssm tuned plan", out_pl, first_pl, out_t, first_t)
+
+    log(f"[ssm] peak device memory of the phase: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        "(torch.cuda.max_memory_allocated)")
+    log(f"[ssm] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    return {"serve_mamba2_2_7b": launches, "serve_mamba2_preempted": preempt_launches,
+            "serve_mamba2_sampled": sampled, "serve_mamba2_plan_race": race,
+            "serve_mamba2_plan_serve": plan_serve}
 
 
 # -------------------------------------------------------------- phase 4
@@ -2385,7 +2773,7 @@ def main() -> int:
                          "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 5")
+                         "skips phases 3 to 7")
     args = ap.parse_args()
 
     import torch
@@ -2440,6 +2828,8 @@ def main() -> int:
     check_dense_decode(torch, checks[6])
     check_counter_growth(torch, checks[6])
     check_sampling(torch, checks[7], get_config("qwen3-1.7b").vocab)
+    check_matmul_ssm(torch, checks[2], get_config("mamba2-2.7b"))
+    check_sampling(torch, checks[7], get_config("mamba2-2.7b").vocab, SSM_SAMPLE_SHAPES)
     torch.cuda.synchronize()
     if args.skip_serve:
         log("--skip-serve: stopping after the kernel checks")
@@ -2455,8 +2845,10 @@ def main() -> int:
     wpk = phase_wpk(torch, args.profile)
     log("== the serve plan: build_serve_plan on the card, then serving under it")
     plan_paths = phase_serve_plan(torch, served, [c.fn for c in checks], torch_run)
+    log("== serving mamba2-2.7b through ContinuousEngine (the slot-pooled state cache)")
+    ssm_paths = phase_ssm(torch, get_config("mamba2-2.7b"), args.profile)
     paths = {"serve_qwen3_1_7b": serve_launches, "serve_sampled": sampled_launches,
-             **wpk, **plan_paths}
+             **wpk, **plan_paths, **ssm_paths}
     kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
                          if c.fn.__name__ in n}) for c in checks]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

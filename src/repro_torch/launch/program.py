@@ -35,6 +35,7 @@ kept per signature and added back on every replay.
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -131,13 +132,20 @@ class Program:
 
     def _capture(self, sig: _Signature, bound: Tuple) -> None:
         """Capture `fn` on the signature's static buffers; the launches the
-        wrappers count meanwhile are the graph's, not executions."""
+        wrappers count meanwhile are the graph's, not executions.  Python's
+        cyclic garbage collector is off during the capture: collecting an
+        unreachable program there would destroy its graph, a CUDA call the
+        capture forbids, and the capture would fail."""
         before = build.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 outputs = self.fn(*bound, *sig.static)
         finally:
+            if collecting:
+                gc.enable()
             for fn, n in before.items():
                 if fn.launches != n:
                     sig.launches[fn] = fn.launches - n

@@ -19,6 +19,15 @@ updated in place, where JAX donates them.
 resume commit's scatter of swapped-in K/V into the pools, at one padded
 shape, and the copy-on-write of one block.
 
+`ssm_unified_step` / `ssm_decode_only_step` and `ssm_commit_state` are
+the state-cache family's counterparts (`jit_ssm_unified_step`,
+`jit_ssm_decode_only_step`, `jit_ssm_commit_state`) over the slot-pooled
+conv / SSM pools (L, rows, ...); `graph_ssm_unified_step`,
+`graph_ssm_decode_only_step` and `graph_ssm_commit_state` are their
+programs, one signature each.  Every row index and segment scalar is a
+program input, so admission, chunk progress, preemption and resume
+capture nothing.
+
 `prefill_step` and `serve_step` (`make_prefill_step`, `make_serve_step`)
 are the fixed-batch engine's dense-cache steps.  They run eagerly: the
 reference retraces them per prompt length.
@@ -142,9 +151,89 @@ def cow_block(k_pool: torch.Tensor, v_pool: torch.Tensor, src: torch.Tensor,
     v_pool.index_copy_(1, dst, v_pool.index_select(1, src))
 
 
+# ------------------------------------------- slot-pooled (ssm) serving
+def ssm_unified_step(model, params, conv_pool: torch.Tensor,
+                     ssm_pool: torch.Tensor, dec_state_idx, dec_tokens,
+                     ch_tokens, ch_state_idx, ch_seg_len, ch_seg_start,
+                     dec_sampling, dec_keys, ch_sampling, ch_keys, *,
+                     decode_matmul_table: Optional[MatmulTable] = None,
+                     chunk_matmul_table: Optional[MatmulTable] = None):
+    """-> (dec_next (slots,), ch_next (1,), ch_logits (1, V))
+
+    The ssm step for steps that carry prompt work: one C-token prompt
+    segment (rows past `ch_seg_len` made exact identities) committed into
+    the chunk request's state row `ch_state_idx` — `ch_seg_start == 0`
+    selects zero carries on the device — then a decode token for every
+    slot (`dec_state_idx` maps slot -> pool row; idle and prefilling slots
+    point at the null row).  The lanes touch disjoint rows.  ch_next is
+    the segment's next-token draw, read by the host only when the segment
+    completes its prompt; ch_logits are what it was drawn from."""
+    with matmul_dispatch(chunk_matmul_table):
+        ch_logits = model.prefill_chunk_slots(
+            params, conv_pool, ssm_pool, ch_state_idx, ch_tokens, ch_seg_len,
+            ch_seg_start)
+    with matmul_dispatch(decode_matmul_table):
+        logits = model.decode_step_slots(params, conv_pool, ssm_pool,
+                                         dec_state_idx, dec_tokens)
+    nxt = sample_tokens(logits[:, -1], dec_sampling, dec_keys)
+    ch_next = sample_tokens(ch_logits[:, -1], ch_sampling, ch_keys)
+    return nxt, ch_next, ch_logits[:, -1]
+
+
+def ssm_decode_only_step(model, params, conv_pool: torch.Tensor,
+                         ssm_pool: torch.Tensor, dec_state_idx, dec_tokens,
+                         dec_sampling, dec_keys, *,
+                         decode_matmul_table: Optional[MatmulTable] = None):
+    """-> dec_next (slots,): the ssm unified step's decode lane alone."""
+    with matmul_dispatch(decode_matmul_table):
+        logits = model.decode_step_slots(params, conv_pool, ssm_pool,
+                                         dec_state_idx, dec_tokens)
+    return sample_tokens(logits[:, -1], dec_sampling, dec_keys)
+
+
+def ssm_commit_state(conv_pool: torch.Tensor, ssm_pool: torch.Tensor,
+                     conv: torch.Tensor, ssm: torch.Tensor,
+                     rows: torch.Tensor) -> None:
+    """Scatter S resuming requests' state, conv (L, S, W-1, conv_dim) and
+    ssm (L, S, nh, hd, n), into pool rows `rows` (S,), in place.  Padding
+    entries point at the null row, whose contents are unspecified."""
+    rows = rows.long()
+    conv_pool.index_copy_(1, rows, conv.to(conv_pool.dtype))
+    ssm_pool.index_copy_(1, rows, ssm.to(ssm_pool.dtype))
+
+
+def graph_ssm_unified_step(model, device, *, graphed: bool = True, pool=None,
+                           **lanes) -> Program:
+    """The ssm unified step program (`decode_matmul_table`,
+    `chunk_matmul_table` fixed), called as `program((params, conv_pool,
+    ssm_pool), (dec_state_idx, dec_tokens, ch_tokens, ch_state_idx,
+    ch_seg_len, ch_seg_start, dec_sampling, dec_keys, ch_sampling,
+    ch_keys))`."""
+    return Program(functools.partial(ssm_unified_step, model, **lanes), "unified",
+                   device, graphed=graphed, pool=pool)
+
+
+def graph_ssm_decode_only_step(model, device, *, graphed: bool = True, pool=None,
+                               **lanes) -> Program:
+    """The ssm decode-only program (`decode_matmul_table` fixed), called as
+    `program((params, conv_pool, ssm_pool), (dec_state_idx, dec_tokens,
+    dec_sampling, dec_keys))`."""
+    return Program(functools.partial(ssm_decode_only_step, model, **lanes),
+                   "decode_only", device, graphed=graphed, pool=pool)
+
+
+def graph_ssm_commit_state(device, *, graphed: bool = True, pool=None) -> Program:
+    """The ssm resume-commit program: `ssm_commit_state`, called as
+    `program((conv_pool, ssm_pool, conv, ssm), (rows,))` with the caller's
+    fixed device buffers conv / ssm (filled in place before each call) and
+    the (S,) int32 host array of rows, so it has one signature."""
+    return Program(ssm_commit_state, "commit", device, graphed=graphed, pool=pool)
+
+
 def prefill_step(model, params, tokens: torch.Tensor, max_seq: int):
     """The fixed-batch prefill: tokens (B, S) -> (last-position logits
-    (B, 1, V), a dense cache of `max_seq` rows)."""
+    (B, 1, V), the model's fixed-batch cache: dense K/V of `max_seq` rows,
+    or Mamba2's carries)."""
     return model.prefill(params, {"tokens": tokens}, max_seq)
 
 

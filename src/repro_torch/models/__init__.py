@@ -1,5 +1,5 @@
-"""Model code of the port (the dense decoder family in this slice)."""
+"""Model code of the port (the dense decoder and Mamba2 families)."""
 
-from repro_torch.models.zoo import DecoderLM
+from repro_torch.models.zoo import DecoderLM, MambaLM
 
-__all__ = ["DecoderLM"]
+__all__ = ["DecoderLM", "MambaLM"]

@@ -1,0 +1,265 @@
+"""Mamba2 (state-space duality) block — the port of `repro.models.mamba`:
+chunked SSD for prefill, the O(1)-state recurrence for decode.
+
+The SSD scan follows the minimal reference of Dao & Gu (arXiv:2405.21060,
+Listing 1) as the JAX package writes it: the sequence is cut into chunks
+of Q tokens; within a chunk the output is a masked quadratic form, across
+chunks a short recurrence carries the (n_heads, head_dim, d_state)
+states.  Every heavy op is a matrix product (`torch.einsum` of two
+operands, so the contraction order is fixed here and not chosen by a path
+optimiser) or one of the three projections `in_proj` / `out_proj` /
+`lm_head`, which the serving paths route by role through the plan's
+matmul lanes (`models.common.dense`).  The inter-chunk `lax.scan` of the
+reference is a Python loop over the static chunk count.
+
+Decode keeps two carries per layer: the depthwise conv's window (the last
+`conv_width - 1` raw inputs) and the SSM state,
+h' = exp(dt·A) h + dt · x ⊗ B.
+
+Softplus is `jax.nn.softplus` as JAX computes it, logaddexp(x, 0) =
+max(x, 0) + log1p(exp(-|x|)), with no threshold branch: the dt of a padded
+row is forced to 0.0 after it (`mamba_chunk_forward`), which is what makes
+a chunked prompt equal the whole-prompt prefill.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import Params, dense, dense_init, norm_init, rms_norm
+
+
+def _dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    nheads = d_in // cfg.ssm_head_dim
+    conv_dim = d_in + 2 * cfg.ssm_state
+    return d_in, nheads, conv_dim
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """f32 parameters of one block on `gen.device`, drawn from the JAX
+    init's distributions."""
+    d = cfg.d_model
+    d_in, nh, conv_dim = _dims(cfg)
+    dev = gen.device
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((nh,), generator=gen, device=dev) * (hi - lo) + lo
+    return {
+        "in_proj": dense_init(gen, d, 2 * d_in + 2 * cfg.ssm_state + nh),
+        "conv_w": torch.randn((cfg.conv_width, conv_dim), generator=gen,
+                              device=dev) * 0.2,
+        "conv_b": torch.zeros((conv_dim,), device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, device=dev)),
+        "D": torch.ones((nh,), device=dev),
+        "dt_bias": torch.log(torch.expm1(torch.exp(u))),
+        "norm": norm_init(d_in, dev),
+        "out_proj": dense_init(gen, d_in, d),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    d_in, _, _ = _dims(cfg)
+    n = cfg.ssm_state
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:2 * d_in + 2 * n]
+    dt = zxbcdt[..., 2 * d_in + 2 * n:]
+    return z, xbc, dt
+
+
+def _causal_conv(w: torch.Tensor, b: torch.Tensor, xbc: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv (B, S, C) by static shifts, then SiLU."""
+    width = w.shape[0]
+    s = xbc.shape[1]
+    out = xbc * w[-1].to(xbc.dtype)
+    for i in range(1, width):
+        shifted = F.pad(xbc, (0, 0, i, 0))[:, :s]
+        out = out + shifted * w[-1 - i].to(xbc.dtype)
+    return F.silu(out + b.to(xbc.dtype))
+
+
+def _causal_conv_carry(w: torch.Tensor, b: torch.Tensor, xbc: torch.Tensor,
+                       carry: torch.Tensor) -> torch.Tensor:
+    """`_causal_conv` continued from a previous segment: `carry` (B, W-1,
+    C), the last W-1 raw inputs before it, stands in for the zero
+    left-padding.  The same shift-and-accumulate order, so a zero carry is
+    bitwise the from-scratch conv."""
+    width = w.shape[0]
+    s = xbc.shape[1]
+    ext = torch.cat([carry.to(xbc.dtype), xbc], dim=1)
+    out = xbc * w[-1].to(xbc.dtype)
+    for i in range(1, width):
+        shifted = ext[:, width - 1 - i:width - 1 - i + s]
+        out = out + shifted * w[-1 - i].to(xbc.dtype)
+    return F.silu(out + b.to(xbc.dtype))
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """(..., Q) -> (..., Q, Q): out[i, j] = sum_{j < t <= i} x[t], -inf
+    above the diagonal."""
+    q = x.shape[-1]
+    cs = torch.cumsum(x, -1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, -math.inf)
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
+    """SSD scan.  x (b, s, h, p); dt (b, s, h); A (h,); B, C (b, s, n);
+    optional h0 (b, h, p, n) seeds the inter-chunk recurrence (zeros by
+    default).  Returns y (b, s, h, p) and the final state (b, h, p, n)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    assert s % q == 0, (s, q)
+    nc = s // q
+
+    xc = x.reshape(b, nc, q, h, p)
+    dtc = dt.reshape(b, nc, q, h)
+    Bc = B.reshape(b, nc, q, n)
+    Cc = C.reshape(b, nc, q, n)
+    dA = dtc * A                                             # (b, nc, q, h)
+    dA_cs = torch.cumsum(dA, dim=2)
+
+    # 1. intra-chunk: the masked quadratic form
+    L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))          # (b, nc, h, q, q)
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)         # (b, nc, q, q)
+    xdt = xc * dtc[..., None]                                # (b, nc, q, h, p)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores[:, :, None] * L, xdt)
+    # 2. each chunk's state
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)    # (b, nc, q, h)
+    states = torch.einsum("bckn,bckhp->bchpn", Bc, xdt * decay_states[..., None])
+
+    # 3. the recurrence over chunks
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])              # (b, nc, h)
+    h_prev = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device) \
+        if h0 is None else h0
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h_prev)
+        h_prev = h_prev * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                    # (b, nc, h, p, n)
+
+    # 4. what the previous chunks' states contribute
+    state_decay = torch.exp(dA_cs)                           # (b, nc, q, h)
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", Cc, h_prevs) * state_decay[..., None]
+
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y, h_prev
+
+
+def _ssd_inputs(p: Params, cfg: ModelConfig, xbc: torch.Tensor):
+    d_in, nh, _ = _dims(cfg)
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    b, s, _ = xbc.shape
+    xs = xbc[..., :d_in].reshape(b, s, nh, hd)
+    Bm = xbc[..., d_in:d_in + n]
+    Cm = xbc[..., d_in + n:]
+    A = -torch.exp(p["A_log"].float())
+    return xs, Bm, Cm, A
+
+
+def _gated_out(p: Params, cfg: ModelConfig, y: torch.Tensor, xs: torch.Tensor,
+               z: torch.Tensor, dtype: torch.dtype, role) -> torch.Tensor:
+    """y + D·x, the gated RMSNorm and the output projection."""
+    d_in, _, _ = _dims(cfg)
+    b, s = z.shape[:2]
+    y = y + xs.float() * p["D"].float()[:, None]
+    y = y.reshape(b, s, d_in).to(dtype)
+    y = rms_norm(p["norm"], y * F.silu(z))
+    return dense(p["out_proj"], y, role=role)
+
+
+def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  return_state: bool = False):
+    """x (B, S, d) -> (B, S, d), and with `return_state` the decode carries
+    (conv window (B, W-1, conv_dim), SSM state (B, nh, hd, n) f32)."""
+    zxbcdt = dense(p["in_proj"], x)
+    z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
+    xbc = _causal_conv(p["conv_w"], p["conv_b"], xbc_raw)
+    xs, Bm, Cm, A = _ssd_inputs(p, cfg, xbc)
+    dt = softplus(dt.float() + p["dt_bias"].float())
+    y, h_final = ssd_chunked(xs.float(), dt, A, Bm.float(), Cm.float(),
+                             cfg.ssm_chunk)
+    out = _gated_out(p, cfg, y, xs, z, x.dtype, None)
+    if return_state:
+        return out, (xbc_raw[:, -(cfg.conv_width - 1):, :], h_final)
+    return out
+
+
+def mamba_chunk_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                        conv_carry: torch.Tensor, h0: torch.Tensor, seg_len):
+    """One resumable serve-time prefill segment: `mamba_forward` over a
+    fixed-width window x (B, C, d) of which the first `seg_len` rows are
+    real, continuing from `conv_carry` (B, W-1, conv_dim) and `h0`
+    (B, nh, hd, n).  `seg_len` may be a device tensor: nothing here reads
+    it on the host.
+
+    Fed a prompt in C-token segments (zero carries first, each segment's
+    carries into the next, C a multiple of `cfg.ssm_chunk`) this gives
+    `mamba_forward`'s outputs and final state: padded rows get dt = 0.0
+    after the softplus (exact identities of the recurrence), the conv
+    continues through `_causal_conv_carry`, and the scan starts from h0.
+
+    Returns y (B, C, d), the new conv carry (B, W-1, conv_dim) f32 — the
+    last W-1 real raw inputs, read at offset `seg_len` of the
+    carry-extended input — and the final state (B, nh, hd, n) f32."""
+    b, s, _ = x.shape
+    zxbcdt = dense(p["in_proj"], x, role="in_proj")
+    z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
+    xbc = _causal_conv_carry(p["conv_w"], p["conv_b"], xbc_raw, conv_carry)
+    xs, Bm, Cm, A = _ssd_inputs(p, cfg, xbc)
+    seg_len = torch.as_tensor(seg_len, device=x.device).reshape(())
+    dtv = softplus(dt.float() + p["dt_bias"].float())
+    row = torch.arange(s, device=x.device)[None, :, None]
+    dtv = torch.where(row < seg_len, dtv, 0.0)
+    y, h_final = ssd_chunked(xs.float(), dtv, A, Bm.float(), Cm.float(),
+                             cfg.ssm_chunk, h0=h0.float())
+    out = _gated_out(p, cfg, y, xs, z, x.dtype, "out_proj")
+    ext = torch.cat([conv_carry.to(xbc_raw.dtype), xbc_raw], dim=1)
+    rows = seg_len.long() + torch.arange(cfg.conv_width - 1, device=x.device)
+    return out, ext.index_select(1, rows).float(), h_final
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int,
+                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    _, nh, conv_dim = _dims(cfg)
+    conv = torch.zeros((batch, cfg.conv_width - 1, conv_dim), device=device)
+    h = torch.zeros((batch, nh, cfg.ssm_head_dim, cfg.ssm_state), device=device)
+    return conv, h
+
+
+def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 conv_cache: torch.Tensor, h: torch.Tensor):
+    """One token.  x (B, 1, d); conv_cache (B, W-1, conv_dim); h (B, nh,
+    hd, n) -> (y (B, 1, d), new conv_cache f32, new h f32)."""
+    d_in, nh, _ = _dims(cfg)
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    b = x.shape[0]
+    zxbcdt = dense(p["in_proj"], x, role="in_proj")
+    z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
+    window = torch.cat([conv_cache.to(xbc_raw.dtype), xbc_raw], dim=1)
+    xbc = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"].to(window.dtype))
+                 + p["conv_b"].to(window.dtype))
+    new_conv = window[:, 1:, :].float()
+
+    xs = xbc[:, :d_in].reshape(b, nh, hd).float()
+    Bm = xbc[:, d_in:d_in + n].float()                       # (B, n)
+    Cm = xbc[:, d_in + n:].float()
+    A = -torch.exp(p["A_log"].float())
+    dtv = softplus(dt[:, 0].float() + p["dt_bias"].float())  # (B, nh)
+
+    dA = torch.exp(dtv * A)
+    h = h * dA[..., None, None] + (xs * dtv[..., None])[..., None] * Bm[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h, Cm)
+    out = _gated_out(p, cfg, y[:, None], xs[:, None], z, x.dtype, "out_proj")
+    return out, new_conv, h

@@ -1,9 +1,14 @@
-"""The port's serving layer (the decoder half of `repro.serve`): the
-continuous-batching runtime, the fixed-batch engines, sampling, the paged
-KV cache, the plan router and the trace with its audit."""
+"""The port's serving layer (`repro.serve`): the continuous-batching
+runtime over its two families (paged KV for decoders, slot-pooled state
+for Mamba2), the fixed-batch engines, sampling, the paged KV cache and the
+state cache, the plan router and the trace with its audit."""
 
 from repro_torch.serve.engine import FixedBatchEngine, Request, ServeConfig, ServeEngine
-from repro_torch.serve.family import DecoderFamilyAdapter, resolve_family_adapter
+from repro_torch.serve.family import (
+    DecoderFamilyAdapter,
+    SSMFamilyAdapter,
+    resolve_family_adapter,
+)
 from repro_torch.serve.kvcache import BlockAllocator, KVCacheConfig, PagedKVCache
 from repro_torch.serve.metrics import ServeMetrics, percentile
 from repro_torch.serve.router import (
@@ -17,6 +22,12 @@ from repro_torch.serve.router import (
 from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
 from repro_torch.serve.sampling import GREEDY, SamplingParams, truncate_at_eos
 from repro_torch.serve.scheduler import ContinuousScheduler, PagedCapacity, ServeRequest
+from repro_torch.serve.statecache import (
+    SlotAllocator,
+    SlotCapacity,
+    SlotStateCache,
+    StateCacheConfig,
+)
 from repro_torch.serve.trace import (
     NULL_RECORDER,
     TraceRecorder,
@@ -40,11 +51,16 @@ __all__ = [
     "PlanRouter",
     "Request",
     "RuntimeConfig",
+    "SSMFamilyAdapter",
     "SamplingParams",
     "ServeConfig",
     "ServeEngine",
     "ServeMetrics",
     "ServeRequest",
+    "SlotAllocator",
+    "SlotCapacity",
+    "SlotStateCache",
+    "StateCacheConfig",
     "TraceRecorder",
     "build_serve_graph",
     "build_serve_plan",

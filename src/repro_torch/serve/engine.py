@@ -3,8 +3,9 @@
 `ServeEngine`).
 
 `FixedBatchEngine` is the synchronous drain loop: fixed-size batches,
-left-padded prompts, one whole-prompt prefill per batch over a dense cache
-(`launch.steps.prefill_step`), then every request of the batch decodes the
+left-padded prompts, one whole-prompt prefill per batch into the model's
+fixed-batch cache (a dense KV cache, or Mamba2's conv / SSM carries;
+`launch.steps.prefill_step`), then every request of the batch decodes the
 full `max_new_tokens` (`launch.steps.serve_step`), each token drawn by the
 step programs' own sampler (`serve.sampling.sample_host`).  It runs
 eagerly: the reference retraces its programs per prompt length.  At
@@ -14,7 +15,8 @@ streams, greedy and sampled, are held against.
 `ServeEngine` keeps the historical API (`submit` / `run` / `stats` /
 `throughput`): a model with a paged decode path and no modality extras is
 served by `ContinuousEngine`, anything else by the fixed-batch loop — the
-reference's routing predicate.
+reference's routing predicate, so a `MambaLM` drains through the loop (its
+continuous serving is an explicit `ContinuousEngine`).
 
 The engines take `device` where the JAX engines take a mesh and sharding
 rules; `device=None` means the GPU and raises without one.

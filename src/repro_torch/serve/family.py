@@ -12,7 +12,16 @@ protocol is the JAX package's (see `repro.serve.family`): `family`,
 `chunk_width`, `chunk_segments`, `resume_segments`, `cache`, `alloc`,
 `capacity()`, `victim_eligible`, `grow_for_decode`, `claim_chunk`,
 `register_prefix`, `is_swapped`, `swap_out`, `resume_commit`, `dispatch`,
-`occupancy`.  The state-cache (ssm) family is a later slice.
+`occupancy`.
+
+`SSMFamilyAdapter` serves the state-cache family (`zoo.MambaLM`): the pool
+is a `SlotStateCache` grid of fixed-size state rows, the block table
+degenerates to one row index per slot, nothing grows during decode, and a
+request's row is claimed when its first prompt chunk dispatches — so a
+state pool smaller than the slot count drives the engine's preemption
+path.  Its three programs (`steps.graph_ssm_unified_step`,
+`graph_ssm_decode_only_step`, `graph_ssm_commit_state`) are captured and
+replayed like the decoder's.
 """
 
 from __future__ import annotations
@@ -25,21 +34,32 @@ import torch
 from repro_torch.launch import steps
 from repro_torch.models.common import torch_dtype
 from repro_torch.serve.kvcache import NULL_BLOCK, PagedKVCache
-from repro_torch.serve.router import PlanRouter
+from repro_torch.serve.router import PlanRouter, serve_stages
 from repro_torch.serve.sampling import segment_sampling_arrays
 from repro_torch.serve.scheduler import PagedCapacity, ServeRequest
+from repro_torch.serve.statecache import SlotCapacity, SlotStateCache
 
 
 def resolve_family_adapter(model):
-    """The adapter class serving `model`, by capability probe.  Raises
-    TypeError for models without a paged decode path (the state-cache
-    family is not ported yet)."""
-    if getattr(model.cfg, "family", None) == "ssm":
-        raise TypeError("the ssm family's slot-pooled serving path is a later "
-                        "slice of the port")
+    """The adapter class serving `model`, by capability probe: the ssm
+    slot-pooled entry points first (`decode_step_slots`), then the paged
+    decode path.  Raises TypeError for families with neither — they serve
+    through the fixed-batch `ServeEngine`."""
+    if getattr(model.cfg, "family", None) == "ssm" and hasattr(
+            model, "decode_step_slots"):
+        return SSMFamilyAdapter
     if hasattr(model, "decode_step_paged"):
         return DecoderFamilyAdapter
-    raise TypeError(f"{type(model).__name__} has no paged decode path")
+    raise TypeError(
+        f"{type(model).__name__} has no paged decode path; use the "
+        "fixed-batch ServeEngine for this family")
+
+
+def _graph_pool(cfg, device: torch.device):
+    """One CUDA graph memory pool for an adapter's programs (they never run
+    at the same time), or None where nothing is captured."""
+    return (torch.cuda.graph_pool_handle()
+            if cfg.cuda_graphs and device.type == "cuda" else None)
 
 
 class DecoderFamilyAdapter:
@@ -72,8 +92,7 @@ class DecoderFamilyAdapter:
             chunk_matmul_table=router.matmul_table("prefill_chunk"))
         # THE two step programs, with the lanes baked in; they never run at
         # the same time, so their graphs share one memory pool
-        pool = (torch.cuda.graph_pool_handle()
-                if cfg.cuda_graphs and device.type == "cuda" else None)
+        pool = _graph_pool(cfg, device)
         self._unified = steps.graph_unified_step(
             model, device, graphed=cfg.cuda_graphs, pool=pool,
             **self._decode_kw, **self._chunk_kw)
@@ -229,6 +248,151 @@ class DecoderFamilyAdapter:
                 pools, (*dec, *self._chunk_inputs(chunks), dec_sampling,
                         dec_keys, seg_sp, seg_ks))
             return nxt.cpu().numpy(), seg_next.cpu().numpy()
+        nxt = self._decode_only(pools, (*dec, dec_sampling, dec_keys))
+        return nxt.cpu().numpy(), None
+
+    def occupancy(self) -> float:
+        return self.cache.alloc.occupancy()
+
+
+class SSMFamilyAdapter:
+    """State-cache family: slot-pooled conv / SSM state + the ssm programs.
+
+    The lane width is `cfg.chunk_width` rounded up to a multiple of the
+    model's SSD chunk (`ssm_chunk`), so every non-final prompt chunk cuts
+    the scan on a chunk boundary — the condition under which chunked
+    prefill equals the whole-prompt prefill.  Packing is 1: the SSD
+    recurrence threads one request's carry through the lane."""
+
+    family = "ssm"
+
+    def __init__(self, model, cfg, router: PlanRouter, device: torch.device):
+        mcfg = model.cfg
+        self.model = model
+        self.device = device
+        q = max(1, mcfg.ssm_chunk)
+        self.chunk_width = -(-cfg.chunk_width // q) * q
+        self.chunk_segments = 1
+        # state rows are disjoint scatter targets, so one commit carries
+        # several swap-ins although the chunk lane packs one segment
+        self.resume_segments = max(1, cfg.chunk_segments)
+        self.state_cfg = cfg.state_config()
+        self.cache = SlotStateCache.for_model(self.state_cfg, mcfg, device=device)
+        chunk_stage, decode_stage = "ssm_prefill_chunk", "ssm_decode"
+        assert chunk_stage in serve_stages(self.family)
+        self._decode_kw = dict(decode_matmul_table=router.matmul_table(decode_stage))
+        self._chunk_kw = dict(chunk_matmul_table=router.matmul_table(chunk_stage))
+        pool = _graph_pool(cfg, device)
+        self._unified = steps.graph_ssm_unified_step(
+            model, device, graphed=cfg.cuda_graphs, pool=pool,
+            **self._decode_kw, **self._chunk_kw)
+        self._decode_only = steps.graph_ssm_decode_only_step(
+            model, device, graphed=cfg.cuda_graphs, pool=pool, **self._decode_kw)
+        self._commit = steps.graph_ssm_commit_state(
+            device, graphed=cfg.cuda_graphs, pool=pool)
+        # the commit program's inputs, (resume_segments, L, ...) device
+        # buffers allocated at the first commit and filled in place (one
+        # request's rows contiguous), bound as (L, resume_segments, ...)
+        # views; and the bytes the last commit copied from the host
+        self._commit_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.last_commit_h2d_bytes = 0
+        # the last unified step's chunk logits (1, V): the program's output
+        # buffer, valid until its next step
+        self.last_seg_logits: Optional[torch.Tensor] = None
+
+    # ------------------------------------------------------------- capacity
+    @property
+    def alloc(self):
+        return self.cache.alloc
+
+    def capacity(self) -> SlotCapacity:
+        return SlotCapacity(self.cache.alloc)
+
+    @property
+    def victim_eligible(self):
+        # a resident that has not dispatched its first chunk owns no row:
+        # evicting it frees nothing, so victims are row holders only
+        return lambda r: self.cache.alloc.holds(r.rid)
+
+    def grow_for_decode(self, req: ServeRequest, need_rows: int) -> bool:
+        # fixed-size state: nothing grows during decode
+        return True
+
+    def claim_chunk(self, req: ServeRequest, start: int, n: int) -> bool:
+        """Claim req's state row at its first chunk's dispatch; False when
+        the pool is dry (the engine preempts a row holder and retries)."""
+        if self.cache.alloc.holds(req.rid):
+            return True
+        if not self.cache.alloc.can_allocate(1):
+            return False
+        self.cache.alloc.allocate(req.rid)
+        return True
+
+    def register_prefix(self, req: ServeRequest) -> None:
+        # a recurrent state summarises its whole prefix and is owned by one
+        # request: there is no prefix index to feed
+        return None
+
+    # ------------------------------------------------------------- swapping
+    def is_swapped(self, rid: int) -> bool:
+        return self.cache.is_swapped(rid)
+
+    def swap_out(self, rid: int) -> int:
+        return self.cache.swap_out(rid)
+
+    def resume_commit(self, group: List[ServeRequest]) -> List[int]:
+        """Scatter up to `resume_segments` re-admitted requests' host
+        (conv, ssm) states into their freshly claimed rows with one commit
+        of one signature.  Only the swapped rows cross the bus: each
+        request's pinned buffers are copied into its segment of the
+        program's inputs; padding segments keep what an earlier commit
+        left there and their rows point at the null row.  Returns the
+        bytes moved per request."""
+        assert 0 < len(group) <= self.resume_segments
+        n_seg = self.resume_segments
+        hosts = [self.cache.take_swapped(r.rid) for r in group]
+        if self._commit_state is None:
+            self._commit_state = tuple(
+                torch.zeros((n_seg, pool.shape[0], *pool.shape[2:]), dtype=pool.dtype,
+                            device=self.device).transpose(0, 1)
+                for pool in (self.cache.conv, self.cache.ssm))
+        conv_in, ssm_in = self._commit_state
+        rows = np.zeros((n_seg,), np.int32)            # padding: the null row
+        nbytes: List[int] = []
+        for i, (req, (conv_host, ssm_host)) in enumerate(zip(group, hosts)):
+            for buf, host in ((conv_in, conv_host), (ssm_in, ssm_host)):
+                buf[:, i].copy_(host, non_blocking=True)
+            nbytes.append(conv_host.numel() * conv_host.element_size()
+                          + ssm_host.numel() * ssm_host.element_size())
+            rows[i] = self.cache.alloc.slot_of(req.rid)
+        self._commit((self.cache.conv, self.cache.ssm, conv_in, ssm_in), (rows,))
+        self.last_commit_h2d_bytes = sum(nbytes) + rows.nbytes
+        return nbytes
+
+    # ------------------------------------------------------------- dispatch
+    def dispatch(self, params, dec_rids: List[Optional[int]],
+                 lengths: np.ndarray, last_tok: np.ndarray,
+                 chunks: List[Tuple[ServeRequest, int, int]],
+                 dec_sampling: np.ndarray, dec_keys: np.ndarray):
+        """One ssm step: the decode lane maps each slot to its state row
+        (`index_array`; idle and prefilling slots hit the null row), the
+        chunk lane carries at most one segment.  The scalars go in as
+        int32 arrays, so the program keeps one signature.  Returns the
+        decode lane's next tokens (host, (slots,)) and the segment's next
+        token ((1,) or None)."""
+        del lengths                          # fixed-size state: no positions
+        pools = (params, self.cache.conv, self.cache.ssm)
+        dec = (self.cache.index_array(dec_rids), last_tok[:, None])
+        if chunks:
+            req, start, n = chunks[0]
+            ch_toks = np.zeros((1, self.chunk_width), np.int32)
+            ch_toks[0, :n] = req.prompt[start:start + n]
+            row = self.cache.alloc.slot_of(req.rid)
+            ch_sp, ch_ks = segment_sampling_arrays(chunks, 1)
+            scalars = [np.array([v], np.int32) for v in (row, n, start)]
+            nxt, ch_next, self.last_seg_logits = self._unified(
+                pools, (*dec, ch_toks, *scalars, dec_sampling, dec_keys, ch_sp, ch_ks))
+            return nxt.cpu().numpy(), ch_next.cpu().numpy()
         nxt = self._decode_only(pools, (*dec, dec_sampling, dec_keys))
         return nxt.cpu().numpy(), None
 

@@ -14,7 +14,8 @@ family as distinct stage-qualified nodes —
     prefill.mlp_down    decode.mlp_down    prefill_chunk.mlp_down
     prefill.lm_head     decode.lm_head     prefill_chunk.lm_head
 
-— node for node, name for name and shape for shape the JAX graph, and
+(the ssm family's graph: `ssm_prefill_chunk` and `ssm_decode`, each with
+`in_proj`, `out_proj` and `lm_head`) — node for node, name for name and shape for shape the JAX graph, and
 `build_serve_plan` has `selection.select` race the vendor lane against
 every applicable kernel template for each of them, measured on the card.
 An attention node's kernel lane is the dense flash kernel, which the race
@@ -24,7 +25,7 @@ serving runtime runs the paged kernels, which read the tuned `block_q` and
 
 `PlanRouter` answers the runtime's dispatch questions from such a plan:
 which attention backend each lane runs, how many segments one chunk may
-pack, and each stage's matmul lane table.  Vendor choices (`xla` in plans
+pack, and each stage's matmul lane table (over the stage family's roles).  Vendor choices (`xla` in plans
 tuned by either package, `torch` in hand-built ones) map to the port's
 torch lanes; any other choice maps to the hand-written CUDA lane
 (`cuda_attention` / `cuda_matmul`), so a plan tuned by the JAX package
@@ -45,20 +46,24 @@ from repro_torch.core.plan import InferencePlan, OpChoice
 from repro_torch.core.search.tuner import Tuner
 from repro_torch.core.selection import select
 
-# the serve stages per model family; the port serves the decoder family
+# the serve stages per model family: the ssm family has no attention op
+# and its own matmul roles, so its stages are distinct nodes and a plan
+# may tune both families side by side
 FAMILY_STAGES = {
     "decoder": ("prefill", "decode", "prefill_chunk"),
     "ssm": ("ssm_prefill_chunk", "ssm_decode"),
 }
-STAGES = FAMILY_STAGES["decoder"]
+STAGES = FAMILY_STAGES["decoder"] + FAMILY_STAGES["ssm"]
+
+# the ssm family's routable matmul roles (the decoder's four are
+# kernels.dispatch.MATMUL_ROLES)
+SSM_MATMUL_ROLES = ("in_proj", "out_proj", "lm_head")
 
 # the prefill lane's default width, shared by RuntimeConfig and the plans
 DEFAULT_CHUNK_TOKENS = 32
 
 VENDOR_BACKENDS = ("xla", "torch")
 
-SSM_NOT_PORTED = ("the ssm family's serve graph is not ported yet: ROADMAP.md "
-                  "queue 1, SSM family")
 TP_NOT_PORTED = ("serve_rules (layouts as sharding) is not ported yet: "
                  "ROADMAP.md queue 1, tensor parallelism")
 
@@ -66,6 +71,48 @@ TP_NOT_PORTED = ("serve_rules (layouts as sharding) is not ported yet: "
 def serve_stages(family: str):
     """The serve-plan stages a family's engine dispatches through."""
     return FAMILY_STAGES.get(family, FAMILY_STAGES["decoder"])
+
+
+def _build_ssm_serve_graph(cfg: ModelConfig, *, slots: int,
+                           chunk_tokens: Optional[int], dtype: str) -> Graph:
+    """The ssm family's serve-time operator set: no attention op (the SSD
+    scan is not a raced template), the three projections of each stage at
+    the shapes the slot-pooled step programs run — a chunk-wide prefill
+    segment and a slots-wide decode token.  The chunk width is rounded up
+    to a multiple of `cfg.ssm_chunk`, as `SSMFamilyAdapter` rounds it."""
+    g = Graph("serve_ssm")
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    nh = d_in // cfg.ssm_head_dim
+    proj = 2 * d_in + 2 * cfg.ssm_state + nh
+    q = max(1, cfg.ssm_chunk)
+    ct = min(chunk_tokens or DEFAULT_CHUNK_TOKENS, 4096)
+    ct = -(-ct // q) * q
+
+    xc = g.add_input("x_ssm_chunk", (1, ct, d), dtype)
+    wi = g.add_input("w_in_proj", (d, proj), dtype)
+    in_c = g.add_node("matmul", [xc, wi], (1, ct, proj), out_dtype=dtype,
+                      name="ssm_prefill_chunk.in_proj")
+    yc = g.add_input("y_ssm_chunk", (1, ct, d_in), dtype)
+    wo = g.add_input("w_out_proj", (d_in, d), dtype)
+    out_c = g.add_node("matmul", [yc, wo], (1, ct, d), out_dtype=dtype,
+                       name="ssm_prefill_chunk.out_proj")
+    wl = g.add_input("w_lm_ssm", (d, cfg.vocab), dtype)
+    xl = g.add_input("x_ssm_last", (1, 1, d), dtype)
+    lm_c = g.add_node("matmul", [xl, wl], (1, 1, cfg.vocab), out_dtype=dtype,
+                      name="ssm_prefill_chunk.lm_head")
+
+    xd = g.add_input("x_ssm_decode", (slots, 1, d), dtype)
+    in_d = g.add_node("matmul", [xd, wi], (slots, 1, proj), out_dtype=dtype,
+                      name="ssm_decode.in_proj")
+    yd = g.add_input("y_ssm_decode", (slots, 1, d_in), dtype)
+    out_d = g.add_node("matmul", [yd, wo], (slots, 1, d), out_dtype=dtype,
+                       name="ssm_decode.out_proj")
+    lm_d = g.add_node("matmul", [xd, wl], (slots, 1, cfg.vocab),
+                      out_dtype=dtype, name="ssm_decode.lm_head")
+
+    g.set_outputs([in_c, out_c, lm_c, in_d, out_d, lm_d])
+    return g
 
 
 def build_serve_graph(cfg: ModelConfig, *, prefill_len: int, slots: int,
@@ -78,9 +125,12 @@ def build_serve_graph(cfg: ModelConfig, *, prefill_len: int, slots: int,
     `chunk_tokens` is the unified step's per-step prompt-token budget (the
     width of the prefill_chunk stage's query); pass the engine's resolved
     `RuntimeConfig.chunk_width`.  None falls back to DEFAULT_CHUNK_TOKENS,
-    the width of an engine built with a default RuntimeConfig."""
+    the width of an engine built with a default RuntimeConfig.
+    `family="ssm"` builds the state-cache family's stages instead
+    (`ssm_prefill_chunk` / `ssm_decode`; see `FAMILY_STAGES`)."""
     if family == "ssm":
-        raise NotImplementedError(SSM_NOT_PORTED)
+        return _build_ssm_serve_graph(cfg, slots=slots,
+                                      chunk_tokens=chunk_tokens, dtype=dtype)
     g = Graph("serve")
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     ct = min(chunk_tokens or DEFAULT_CHUNK_TOKENS, max_seq)
@@ -162,6 +212,12 @@ def build_serve_plan(cfg: ModelConfig, *, prefill_len: int, slots: int,
                   model_parallel=model_parallel)
 
 
+def _roles(stage: str) -> Tuple[str, ...]:
+    """The routable matmul roles of a stage's family."""
+    from repro_torch.kernels.dispatch import MATMUL_ROLES
+    return SSM_MATMUL_ROLES if stage.startswith("ssm_") else tuple(MATMUL_ROLES)
+
+
 class PlanRouter:
     """Answers serve-time dispatch questions from a stage-qualified plan."""
 
@@ -217,9 +273,8 @@ class PlanRouter:
     def matmul_table(self, stage: str) -> Dict[str, Tuple[str, Dict[str, Any]]]:
         """Every stage matmul's (backend, config) keyed by role — the table
         `kernels.dispatch.matmul_dispatch` installs around the stage's
-        lane."""
-        from repro_torch.kernels.dispatch import MATMUL_ROLES
-        return {role: self.matmul_config(stage, role) for role in MATMUL_ROLES}
+        lane.  ssm stages take the ssm family's roles."""
+        return {role: self.matmul_config(stage, role) for role in _roles(stage)}
 
     # -------------------------------------------------------------- layouts
     def layout(self, stage: str, which: str) -> str:
@@ -232,11 +287,12 @@ class PlanRouter:
         return getattr(c, "layout", "replicated")
 
     def layout_table(self, stage: str) -> Dict[str, str]:
-        """Every stage op's layout verdict keyed by role (the matmul roles
-        plus 'attention')."""
-        from repro_torch.kernels.dispatch import MATMUL_ROLES
-        return {role: self.layout(stage, role)
-                for role in tuple(MATMUL_ROLES) + ("attention",)}
+        """Every stage op's layout verdict keyed by role (the matmul roles,
+        plus 'attention' for decoder stages)."""
+        roles = _roles(stage)
+        if not stage.startswith("ssm_"):
+            roles = roles + ("attention",)
+        return {role: self.layout(stage, role) for role in roles}
 
     def serve_rules(self, *args, **kwargs):
         """Folding layout verdicts into sharding rules needs the port's

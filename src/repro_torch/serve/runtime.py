@@ -16,7 +16,8 @@ Request lifecycle (the JAX package's, unchanged):
 
 `step()` is orchestration only — admit -> schedule chunks -> grow-or-preempt
 -> dispatch -> retire — and every family question goes through the
-adapter (`repro_torch.serve.family`).  A step runs the unified step
+adapter (`repro_torch.serve.family`): paged KV blocks for the decoder
+family, slot-pooled state rows for the ssm family.  A step runs the unified step
 program when prompt work is pending and the decode-only program otherwise:
 exactly two step programs, at fixed shapes, each captured in a CUDA graph
 at its first step on the GPU (`RuntimeConfig.cuda_graphs`) and replayed by
@@ -33,8 +34,9 @@ The engine takes the `device` where the JAX engine takes a mesh and
 sharding rules; `device=None` means the GPU and raises without one.  The
 plan (`PlanRouter`) picks each lane's attention backend and matmul table:
 with no plan every lane is the torch lane; a plan whose choices name the
-kernels sends attention through the paged CUDA kernels and the four
-role-tagged matmuls through the tiled GEMM.  A `TraceRecorder` passed as
+kernels sends attention through the paged CUDA kernels and the
+role-tagged matmuls (the decoder's four, the ssm family's three) through
+the tiled GEMM.  A `TraceRecorder` passed as
 `trace=` records the same typed events as the JAX engine, on the engine
 clock.
 """
@@ -55,6 +57,7 @@ from repro_torch.serve.router import DEFAULT_CHUNK_TOKENS, PlanRouter
 from repro_torch.serve.sampling import (SamplingParams, slot_sampling_arrays,
                                         truncate_at_eos)
 from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
+from repro_torch.serve.statecache import StateCacheConfig
 from repro_torch.serve.trace import NULL_RECORDER, TraceRecorder
 
 
@@ -70,8 +73,13 @@ class RuntimeConfig:
     chunk_tokens: Optional[int] = DEFAULT_CHUNK_TOKENS
     # prompt segments one step's chunk may pack (a plan may narrow it)
     chunk_segments: int = 4
-    # prefix sharing: admission may adopt committed full-block prefixes
-    # (refcounted, copy-on-write); off by default
+    # state-row pool of the slot-pooled (ssm) family, including the null
+    # row; None = max_slots + 1 (every slot can hold state at once).  A
+    # smaller pool drives the grow-or-preempt path at first-chunk claim.
+    # The paged family ignores it.
+    state_slots: Optional[int] = None
+    # prefix sharing (paged family): admission may adopt committed
+    # full-block prefixes (refcounted, copy-on-write); off by default
     prefix_sharing: bool = False
     # on a CUDA device, capture each step program in a CUDA graph at its
     # first step and replay it after; False runs every step eagerly, kept
@@ -95,6 +103,12 @@ class RuntimeConfig:
         return KVCacheConfig(num_blocks=nb, block_size=self.block_size,
                              max_blocks_per_seq=self.max_blocks_per_seq,
                              prefix_sharing=self.prefix_sharing)
+
+    def state_config(self) -> StateCacheConfig:
+        ns = self.state_slots
+        if ns is None:
+            ns = self.max_slots + 1
+        return StateCacheConfig(num_slots=ns)
 
 
 class ContinuousEngine:
@@ -367,7 +381,10 @@ class ContinuousEngine:
                                token=int(nxt[slot]))
                 if self._finished(req):
                     self._retire(req, now)
-        copied = self.adapter.alloc.drain_cow_copies()
-        if copied:
-            self.metrics.record_cow(copied)
+        # copy-on-write exists in the paged family only
+        drain = getattr(self.adapter.alloc, "drain_cow_copies", None)
+        if drain is not None:
+            copied = drain()
+            if copied:
+                self.metrics.record_cow(copied)
         return True

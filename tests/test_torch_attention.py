@@ -328,8 +328,9 @@ def test_build_serve_plan_with_an_injected_fitness_covers_every_node(monkeypatch
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_serve_plan(cfg, **SERVE, tuner=Tuner(fitness=FakeWallClock()),
                          model_parallel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_serve_graph(cfg, **SERVE, family="ssm")
+    # the ssm family's graph (its own stages, no attention) is ported too
+    assert len(build_serve_graph(get_config("mamba2-2.7b"), **SERVE,
+                                 family="ssm").nodes) == 6
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         router.serve_rules(None, None, cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

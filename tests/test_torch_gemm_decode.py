@@ -42,8 +42,18 @@ def _serving_shapes():
 
 
 # ------------------------------------------------------------ GEMM geometry
+def _ssm_shapes():
+    """(role, K, N) of mamba2-2.7b's serving GEMMs: N 10,576 (82.6 tiles of
+    128) and 50,280 (392.8 tiles, not a multiple of 16) are ragged."""
+    cfg = get_config("mamba2-2.7b")
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    return [("in_proj", d, 2 * d_in + 2 * cfg.ssm_state + d_in // cfg.ssm_head_dim),
+            ("out_proj", d_in, d), ("lm_head", d, cfg.vocab)]
+
+
 GEOMETRY_SHAPES = [(m, k, n) for m in (1, 4, 8, 16, 17, 64, 255, 256, 700)
-                   for _, k, n in _serving_shapes()] + \
+                   for _, k, n in _serving_shapes() + _ssm_shapes()] + \
     [(37, 70, 53), (8, 2056, 1000), (255, 2000, 1000), (8, 6144, 2047),
      (1, 1000, 260), (255, 6200, 1020), (3, 4096, 50), (1, 512, 1000)]
 
@@ -338,3 +348,45 @@ def test_split_k_emulation_applies_the_epilogue_once(m, k, n, activation):
     # an activation applied per partial is another function
     wrong = split_k_emulation(x, w, b, activation, geo, per_partial=True)
     assert (wrong - want).abs().max().item() > 1e-2 * scale
+
+
+# ----------------------------------------- the ssm serving shapes (ragged N)
+def test_ssm_gemm_geometry_at_the_serving_shapes():
+    """mamba2-2.7b's GEMMs on the H100: at M = 8, in_proj splits K 3 ways
+    over 83 column tiles and out_proj 12 ways over 20; lm_head (393 tiles)
+    never splits; the chunk lane's M = 256 takes 64-row tiles."""
+    (_, ki, ni), (_, ko, no), (_, kl, nl) = _ssm_shapes()
+    assert (ni, no, nl) == (10576, 2560, 50280)
+    bf16 = torch.bfloat16
+    assert KM.gemm_geometry(8, ni, ki, bf16) == KM.GemmGeometry(16, 128, 64, 4, 3)
+    assert KM.gemm_geometry(8, no, ko, bf16) == KM.GemmGeometry(16, 128, 64, 4, 12)
+    for m in (1, 8):
+        assert KM.gemm_geometry(m, nl, kl, bf16).split == 1
+        assert KM.gemm_geometry(m, nl, kl, bf16).ctas(m, nl) == 393
+    assert KM.gemm_geometry(256, ni, ki, bf16) == KM.GemmGeometry(64, 128, 64, 4, 1)
+    assert KM.gemm_geometry(256, no, ko, bf16) == KM.GemmGeometry(64, 128, 64, 4, 3)
+
+
+# K cut to a few k-steps a split (CPU time), N as served
+SSM_CUT_K = {"in_proj": 640, "out_proj": 1280, "lm_head": 128}
+
+
+@pytest.mark.parametrize("m", [1, 8, 256])
+@pytest.mark.parametrize("role,n", [(r, n) for r, _, n in _ssm_shapes()])
+def test_split_k_emulation_at_the_ssm_shapes_matches_ref_and_pallas(role, n, m):
+    """The split-K emulation with the geometry `gemm_geometry` picks at each
+    ssm N (K cut), against the plain version and the Pallas kernel in
+    interpret mode."""
+    k = SSM_CUT_K[role]
+    geo = KM.gemm_geometry(m, n, k, torch.bfloat16)
+    rng = np.random.default_rng(m + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    want = ref.matmul_ref(_t(x), _t(w), None, None)
+    got = split_k_emulation(_t(x), _t(w), None, None, geo)
+    scale = max(1.0, want.abs().max().item())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5 * scale)
+    pallas = np.asarray(jops.matmul(jnp.asarray(x), jnp.asarray(w)))
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=0, atol=1e-5 * scale)
+    if m == 8 and role != "lm_head":
+        assert geo.split > 1                      # split-K over ragged tiles
