@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--profile] [--skip-serve]
 
-Phases, each of which must pass (any failure raises and exits nonzero):
+Phases, each of which must pass (any failure raises and exits nonzero),
+each with its seconds logged:
 
   1. environment: the card's name and power limit, torch/CUDA versions, the
      sm_90 check, and the build of every CUDA kernel from the sources in
@@ -55,7 +56,12 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      phase 7, the GEMM at mamba2-2.7b's six serving shapes (in_proj N
      10,576, out_proj N 2,560, lm_head N 50,280; M 256 / 1 in the chunk
      lane, 8 in the decode lane: ragged N, split-K over ragged tiles) and
-     the draw kernel at (8, 50280) and (1, 50280);
+     the draw kernel at (8, 50280) and (1, 50280); then the GEMM's tuned
+     knobs: every (tile_m, split_k) the template admits at qwen3's lm_head
+     (M = 256), qkv (M = 8) and mamba2's chunk-lane in_proj (M = 256)
+     against the plain version (split calls twice, bitwise equal), and at
+     the 16 serving shapes the default geometry, the fastest admitted pair
+     (a device-time sweep over them all) and torch.matmul, by device time;
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
      role-tagged matmuls through the kernels: 16 requests, chunked and
@@ -77,7 +83,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      logged;
   4. the paper's pipeline on ResNet-18 (batch 1, 224 x 224, f32):
      `optimize_graph`, `select` on wall-clock fitness with and without the
-     vendor lane (the §3.4 ablation), the per-operator race, both plans run
+     vendor lane (the §3.4 ablation), each operator searched by GA and
+     RL-search (each one's best, evals and wall seconds, and the winner),
+     the per-operator race, both plans run
      graphed (the engine's forward captured in a CUDA graph) and eagerly,
      each graphed forward bitwise equal to its eager one and each held to
      the vendor lane by `Engine.verify_against_reference` and bitwise
@@ -91,12 +99,15 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      product, the call serving's torch lane makes) held against the f32
      upcast it replaced at the 10 serving GEMM shapes; qwen3-1.7b's serve
      graph (prefill 700, 8 slots, max_seq 1024, chunk 256, bf16) tuned by
-     `build_serve_plan` on wall-clock fitness on the card (the flash kernel
-     against the vendor lane for the three attention nodes, the GEMM for
-     the twelve matmuls, with the count of matmul nodes the GEMM wins), the
-     per-node race, then phase 3's 16 requests served under
-     `PlanRouter(plan)` (every request finishes, the pool drains, the
-     plan's kernel lanes launch, first tokens match the torch lanes), and
+     `build_serve_plan` on wall-clock fitness on the card (GA and
+     RL-search per node, as in phase 4; the flash kernel against the
+     vendor lane for the three attention nodes, the GEMM at its tuned
+     (tile_m, split_k) for the twelve matmuls, with the count of matmul
+     nodes the GEMM wins), the per-node race, then phase 3's 16 requests
+     served under `PlanRouter(plan)`, graphed (every request finishes,
+     the pool drains, the plan's kernel lanes launch, first tokens match
+     the torch lanes; tokens/s beside phase 3's kernel and torch lanes),
+     and
      `ops.attention_decode` called once at the decode stage's shape;
   6. sampled serving (run right after phase 3): phase 3's 16 prompts on
      the graphed kernel lanes with the bench's mixed cycle (greedy / T 0.8
@@ -130,13 +141,15 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      commit program's ms; the mixed sampling cycle graphed = eager, its
      greedy requests equal to the first run; `FixedBatchEngine` at batch 1
      on 4 prompts (<= 256 tokens or 512) by first tokens; the ssm serve
-     plan raced on the card (6 matmul nodes) and 16 requests served under
-     it; the phase's peak device memory and seconds (--profile: each
+     plan raced on the card (6 matmul nodes, GA and RL-search) and 16
+     requests served under it (tokens/s beside the kernel and torch
+     lanes'); the phase's peak device memory and seconds (--profile: each
      serving run's device-time breakdown and busy share);
   8. one JSON line `{"kernels": [...]}` with each kernel's launches on each
-     path (the eager and the graphed forward are separate paths, as are the serve plan's race, its serving run and the
-     decode wrapper's call; a replayed CUDA graph counts the launches it
-     captured), error and times;
+     path (the eager and the graphed forward are separate paths, as are
+     the knob sweep, the races of phases 4, 5 and 7, their serving runs
+     and the decode wrapper's call; a replayed CUDA graph counts the
+     launches it captured), error and times;
   9. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
@@ -805,6 +818,114 @@ def check_matmul_ssm(torch, chk, cfg):
                   [lambda wq=wq: R.matmul_ref(x, wq, None, None) for wq in ws],
                   [lambda wq=wq: torch.matmul(x, wq) for wq in ws],
                   2 * (m * k + k * n + m * n), 2 * m * n * k, device=True)
+
+
+# The GEMM's tuned knobs (tile_m, split_k).  KNOB_CHECKS: the shapes at
+# which every pair the template admits runs against the plain version
+# (qwen3's lm_head at M = 256: the largest N, splits capped by the
+# partials; qkv at M = 8: every split of the ladder; mamba2's chunk-lane
+# in_proj: ragged N at M = 256).  Then at the 16 serving shapes, the
+# default geometry, the fastest admitted pair (a device-time sweep over
+# them all) and torch.matmul, each by device time (CUDA-graph replay).
+KNOB_CHECKS = (("qwen3", "lm_head", 256), ("qwen3", "qkv_proj", 8),
+               ("mamba2", "in_proj", 256))
+KNOB_SWEEP_CALLS, KNOB_SWEEP_REPLAYS = 10, 2
+
+
+def knob_gemms(qcfg, scfg):
+    """(model, role, M, K, N, activation) of the 16 serving GEMM shapes:
+    qwen3-1.7b's five roles at M = 8 and 256, mamba2-2.7b's six."""
+    out = [("qwen3", role, m, k, n, act) for m in (8, 256)
+           for role, k, n, act in serving_gemms(qcfg)]
+    return out + [("mamba2", f"{lane} {role}", m, k, n, None)
+                  for lane, role, m, k, n in ssm_gemms(scfg)]
+
+
+def check_matmul_knobs(torch, chk, qcfg, scfg):
+    """The GEMM at every (tile_m, split_k) its template admits (see
+    KNOB_CHECKS), then default vs best-tuned vs torch.matmul device times
+    at the 16 serving shapes.  -> the GEMM's launches here."""
+    from repro_torch.core import TEMPLATES, OpDesc
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as R
+
+    tmpl = TEMPLATES["pallas_matmul"]
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    KM.matmul_fused.launches = 0
+    t0 = time.perf_counter()
+    summary = []
+    for model, role, m, k, n, act in knob_gemms(qcfg, scfg):
+        x = torch.randn((m, k), generator=g, device=DEVICE).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device=DEVICE) / math.sqrt(k)
+             ).to(torch.bfloat16)
+        want = R.matmul_ref(x, w, None, act)
+        tol = MM_RTOL_BF16 * max(1.0, want.float().abs().max().item())
+        configs = list(tmpl.enumerate_configs(OpDesc.matmul(m, n, k)))
+        default = KM.gemm_geometry(m, n, k, torch.bfloat16)
+        label = f"{model} {role} M={m} K={k} N={n} bf16"
+        checked = any(model == km and role.endswith(kr) and m == kmm
+                      for km, kr, kmm in KNOB_CHECKS)
+        for cfg in configs if checked else ():
+            out = kops.matmul(x, w, config=cfg, activation=act)
+            chk.err = max(chk.err, chk.compare(
+                f"{label} tile_m {cfg['tile_m']} split_k {cfg['split_k']} vs plain",
+                out, want, tol, "f32 summation order, one bf16 rounding"))
+            if cfg["split_k"] > 1:
+                _bitwise(chk, f"{label} {cfg}", out,
+                         kops.matmul(x, w, config=cfg, activation=act))
+        ws = [w] + [w.clone() for _ in range(copies_for(w.numel() * 2) - 1)]
+
+        def fns(cfg):
+            return [lambda wq=wq: kops.matmul(x, wq, config=cfg, activation=act)
+                    for wq in ws]
+
+        sweep = {(c["tile_m"], c["split_k"]): graph_ms(
+            torch, fns(c), calls=KNOB_SWEEP_CALLS, replays=KNOB_SWEEP_REPLAYS)
+            for c in configs}
+        best = min(sweep, key=sweep.get)
+        best_cfg = {"tile_m": best[0], "split_k": best[1]}
+        chk.err = max(chk.err, chk.compare(
+            f"{label} best pair {best_cfg} vs plain",
+            kops.matmul(x, w, config=best_cfg, activation=act), want, tol,
+            "f32 summation order, one bf16 rounding"))
+        if act == "silu":
+            lib = [lambda wq=wq: torch.nn.functional.silu(torch.matmul(x, wq)) for wq in ws]
+        else:
+            lib = [lambda wq=wq: torch.matmul(x, wq) for wq in ws]
+        # in turns: default, best, library, library, best, default
+        lanes = {"default": fns(None), "best": fns(best_cfg), "library": lib}
+        times = {lane: [] for lane in lanes}
+        for lane in ("default", "best", "library", "library", "best", "default"):
+            times[lane].append(graph_ms(torch, lanes[lane]))
+        t = {lane: min(v) for lane, v in times.items()}
+        summary.append((label, m, t))
+        chk.shapes.append({"shape": f"{label} (knob sweep)", "weight": 0,
+                           "default": [default.bm, default.split],
+                           "best": list(best), "pairs": len(configs),
+                           "default_device_ms": t["default"],
+                           "best_device_ms": t["best"],
+                           "library_device_ms": t["library"]})
+        log(f"  matmul_fused {label}: {len(configs)} admitted pairs"
+            f"{' (each checked)' if checked else ''}; device ms (CUDA graph): default "
+            f"(tile_m {default.bm}, split_k {default.split}) {t['default']:.4f}, best "
+            f"(tile_m {best[0]}, split_k {best[1]}) {t['best']:.4f}, torch.matmul"
+            f"{' + silu' if act == 'silu' else ''} {t['library']:.4f}; default / library "
+            f"{t['default'] / t['library']:.2f}x, best / library "
+            f"{t['best'] / t['library']:.2f}x; sweep "
+            + " ".join(f"{a}/{b}:{v:.4f}" for (a, b), v in sorted(sweep.items())))
+    for m in (8, 256):
+        rows = [t for _, mm, t in summary if (mm == m or (m == 8 and mm == 1))]
+        log(f"  matmul_fused knob sweep, M {'<= 8' if m == 8 else '= 256'} "
+            f"({len(rows)} shapes): sum of device ms default "
+            f"{sum(t['default'] for t in rows):.4f}, best "
+            f"{sum(t['best'] for t in rows):.4f}, torch.matmul "
+            f"{sum(t['library'] for t in rows):.4f}; per shape best / library "
+            f"{[round(t['best'] / t['library'], 2) for t in rows]}")
+    launches = KM.matmul_fused.launches
+    log(f"  matmul_fused knob checks and sweep: {launches} launches, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"gemm_knob_sweep": {"matmul_fused": launches}}
 
 
 # Conv and elementwise tolerances.  The conv's plain version has the
@@ -1851,6 +1972,7 @@ def phase_serve(torch, served, block_q, profile=False):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the serving path")
+    med = {}
     if not profile:
         med = {graphs: _lane_stats(f"kernel lanes, {'graphed' if graphs else 'eager'}",
                                    [r[3] for r in runs if r[0] == graphs])
@@ -1863,7 +1985,7 @@ def phase_serve(torch, served, block_q, profile=False):
               graphs=False)
     compare_first_tokens(torch, "kernel lanes", out_k, first_k, *torch_run[:2])
     phase_identities(torch, served, router)
-    return launches, torch_run, router, out_k
+    return launches, torch_run, router, out_k, med.get(True)
 
 
 # ------------------------------------------------------------ phase 6
@@ -2141,7 +2263,34 @@ def _log_race(graph, plan, tuner):
             f"bound {1e3 * roofline_bound(op):.4f}{note}")
 
 
-def phase_serve_plan(torch, served, counters, torch_run):
+def _log_search(tuner, label):
+    """Each searched operator's genetic and RL results (best us, evals,
+    wall s) and the winner (the faster; a tie where both found the same
+    time, cached under the first method), then the wins and the summed
+    evals and wall seconds per method."""
+    by_op = {}
+    for r in tuner.log:
+        by_op.setdefault((r.op.signature(), r.template), []).append(r)
+    wins, evals, secs = {}, {}, {}
+    log(f"[{label}] search per operator: method best us (evals, wall s); winner")
+    for (_, template), results in by_op.items():
+        best = min(results, key=lambda r: r.runtime_s)
+        tied = sum(r.runtime_s == best.runtime_s for r in results) > 1
+        winner = "tie" if tied else best.method
+        wins[winner] = wins.get(winner, 0) + 1
+        for r in results:
+            evals[r.method] = evals.get(r.method, 0) + r.evals
+            secs[r.method] = secs.get(r.method, 0.0) + r.wall_s
+        log(f"  {results[0].op.label:28s} {template:16s} " + "; ".join(
+            f"{r.method} {1e6 * r.runtime_s:.2f} ({r.evals}, {r.wall_s:.2f} s) {r.config}"
+            for r in results) + f"; winner {winner}")
+    log(f"[{label}] search over {len(by_op)} operators: wins {wins}; evals {evals}; "
+        f"wall s {({k: round(v, 2) for k, v in secs.items()})}")
+    if set(evals) != {"genetic", "rl"}:
+        raise AssertionError(f"[{label}] searches run: {sorted(evals)}")
+
+
+def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
     from repro_torch.core import Tuner, WallClockFitness, ref_ops
     from repro_torch.kernels import ops as kops
     from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
@@ -2166,7 +2315,7 @@ def phase_serve_plan(torch, served, counters, torch_run):
             if not err <= tol:
                 raise AssertionError(f"vendor matmul lane {role} M={m}: {err} > {tol}")
     fitness = WallClockFitness(device=DEVICE)
-    tuner = Tuner(fitness=fitness, methods=("genetic",))
+    tuner = Tuner(fitness=fitness)                      # genetic and RL-search
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2182,6 +2331,7 @@ def phase_serve_plan(torch, served, counters, torch_run):
             raise AssertionError(f"{name} never launched in the race")
 
     graph = build_serve_graph(cfg, **SERVE_PLAN, dtype="bfloat16")
+    _log_search(tuner, "serve plan")
     _log_race(graph, plan, tuner)
 
     router = PlanRouter(plan)
@@ -2195,9 +2345,12 @@ def phase_serve_plan(torch, served, counters, torch_run):
         fn.launches = 0
     packs = min(SERVE_RUNTIME["chunk_segments"],
                 router.chunk_segments(default=SERVE_RUNTIME["chunk_segments"])) > 1
-    out, first, _ = serve(torch, served, router, "tuned plan", require_packing=packs)
+    out, first, s_plan = serve(torch, served, router, "tuned plan", require_packing=packs)
     serving = {fn.__name__: fn.launches for fn in counters if fn.launches}
     log(f"launches serving under the tuned plan: {serving}")
+    log(f"tokens/s, graphed, this call: tuned plan {s_plan['tokens_per_s']:.1f}, kernel "
+        f"lanes {'n/a' if kernel_tps is None else f'{kernel_tps:.1f}'} (phase 3 "
+        f"median), torch lanes {torch_run[2]['tokens_per_s']:.1f} (phase 3)")
     want = {"sample_draw"}          # every step draws, greedy rows too
     for stage, kernel in (("decode", "paged_decode_attention"),
                           ("prefill_chunk", "paged_prefill_attention")):
@@ -2376,7 +2529,7 @@ def phase_ssm(torch, cfg, profile=False):
     del engines[:]
 
     # 2. torch lanes, graphed: first tokens at the margin
-    out_t, first_t, _ = serve(torch, served, PlanRouter(None), "ssm torch lanes, graphed",
+    out_t, first_t, s_t = serve(torch, served, PlanRouter(None), "ssm torch lanes, graphed",
                               profile, require_packing=False)
     div = _first_divergence(out_t, out_k)
     log(f"[ssm] kernel vs torch lanes: first diverging token "
@@ -2505,7 +2658,7 @@ def phase_ssm(torch, cfg, profile=False):
 
     # 6. the ssm serve plan, raced on the card, then serving under it
     fitness = WallClockFitness(device=DEVICE)
-    tuner = Tuner(fitness=fitness, methods=("genetic",))
+    tuner = Tuner(fitness=fitness)                      # genetic and RL-search
     ssm_plan = dict(SERVE_PLAN, family="ssm")
     zero()
     t0 = time.perf_counter()
@@ -2518,14 +2671,19 @@ def phase_ssm(torch, cfg, profile=False):
     graph = build_serve_graph(cfg, **ssm_plan, dtype="bfloat16")
     if len(graph.toposort()) != 6 or not race.get("matmul_fused"):
         raise AssertionError(f"ssm serve plan: {len(graph.toposort())} nodes, race {race}")
+    _log_search(tuner, "ssm serve plan")
     _log_race(graph, tuned, tuner)
     prouter = PlanRouter(tuned)
     log(f"[ssm] lanes: chunk matmuls {prouter.matmul_table('ssm_prefill_chunk')}, "
         f"decode matmuls {prouter.matmul_table('ssm_decode')}")
     zero()
-    out_pl, first_pl, _ = serve(torch, served, prouter, "ssm tuned plan",
-                                require_packing=False)
+    out_pl, first_pl, s_pl = serve(torch, served, prouter, "ssm tuned plan",
+                                   require_packing=False)
     plan_serve = {k: v for k, v in counts().items() if v}
+    log(f"[ssm] tokens/s, graphed, this call: tuned plan {s_pl['tokens_per_s']:.1f}, "
+        f"kernel lanes {runs[0][3]['tokens_per_s']:.1f} (first run; median "
+        f"{'n/a' if profile else f'{med[True]:.1f}'}), torch lanes "
+        f"{s_t['tokens_per_s']:.1f}")
     want = {"sample_draw"}
     if any(b == "cuda_matmul" for st in ("ssm_prefill_chunk", "ssm_decode")
            for b, _ in prouter.matmul_table(st).values()):
@@ -2596,7 +2754,10 @@ def phase_wpk(torch, profile=False):
     gopt = optimize_graph(g)
     log(f"optimize_graph: {time.perf_counter() - t0:.2f} s; {gopt.op_histogram()}")
     fitness = WallClockFitness(device=DEVICE)
-    tuner = Tuner(fitness=fitness, methods=("genetic",))
+    tuner = Tuner(fitness=fitness)                      # genetic and RL-search
+    counters = (KC.conv2d_direct, KM.matmul_fused, KF.fused_elementwise)
+    for fn in counters:
+        fn.launches = 0
     plans = {}
     for label, third_party in (("race", True), ("wpk_only", False)):
         t0 = time.perf_counter()
@@ -2604,6 +2765,9 @@ def phase_wpk(torch, profile=False):
         log(f"select third_party={third_party}: {time.perf_counter() - t0:.2f} s wall; "
             f"backends {plans[label].backend_histogram()}; fitness calls "
             f"{fitness.evals}, distinct measurements {fitness.measured} so far")
+    race = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    log(f"launches in the race (both selects): {race}")
+    _log_search(tuner, "resnet18")
 
     # the per-group race (paper Figure 2b): one row per distinct operator
     groups = {op.dims: name for name, op, _ in resnet_conv_shapes()}
@@ -2691,7 +2855,6 @@ def phase_wpk(torch, profile=False):
     # the main path: one forward under the WPK-only plan (the convs and the
     # fc on the conv kernel and the GEMM, the 8 residual chains on the
     # fused kernel), eagerly and replayed from its CUDA graph
-    counters = (KC.conv2d_direct, KM.matmul_fused, KF.fused_elementwise)
     for fn in counters:
         fn.launches = 0
     env = engines["WPK-only plan, eager"].run_env(x)
@@ -2733,7 +2896,8 @@ def phase_wpk(torch, profile=False):
                 wall = time.perf_counter() - t0
             _log_device_profile(prof, wall, f"{label}, {FORWARD_REPEATS} forwards",
                                 calls=FORWARD_REPEATS)
-    return {"wpk_resnet18_forward": forward, "wpk_resnet18_forward_graphed": graphed}
+    return {"wpk_resnet18_race": race, "wpk_resnet18_forward": forward,
+            "wpk_resnet18_forward_graphed": graphed}
 
 
 def _log_device_profile(prof, wall_s, label, calls=None):
@@ -2797,7 +2961,10 @@ def main() -> int:
     # JAX reference's vendor lane and the GEMM kernel do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    t_phase = time.perf_counter()
     smi = phase_environment(torch)
+    log(f"== phase 1 seconds: {time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
 
     checks = [
         Check("paged_decode_attention", "src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -2830,25 +2997,38 @@ def main() -> int:
     check_sampling(torch, checks[7], get_config("qwen3-1.7b").vocab)
     check_matmul_ssm(torch, checks[2], get_config("mamba2-2.7b"))
     check_sampling(torch, checks[7], get_config("mamba2-2.7b").vocab, SSM_SAMPLE_SHAPES)
+    knob_paths = check_matmul_knobs(torch, checks[2], get_config("qwen3-1.7b"),
+                                    get_config("mamba2-2.7b"))
     torch.cuda.synchronize()
+    log(f"== phase 2 seconds: {time.perf_counter() - t_phase:.1f}")
     if args.skip_serve:
         log("--skip-serve: stopping after the kernel checks")
         return 3
 
-    log("== serving qwen3-1.7b through ContinuousEngine")
+    def timed_phase(n, title, fn, *a):
+        log(f"== {title}")
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"== phase {n} seconds: {time.perf_counter() - t0:.1f}")
+        return out
+
     served = serving_setup(torch, get_config("qwen3-1.7b"))
-    serve_launches, torch_run, router, greedy_out = phase_serve(
+    serve_launches, torch_run, router, greedy_out, kernel_tps = timed_phase(
+        3, "serving qwen3-1.7b through ContinuousEngine", phase_serve,
         torch, served, PREFILL_BLOCK_Q, args.profile)
-    log("== sampled serving: the mixed cycle through the step programs")
-    sampled_launches = phase_sampled(torch, served, router, greedy_out, args.profile)
-    log("== the paper's pipeline on ResNet-18 (optimize_graph, select, Engine)")
-    wpk = phase_wpk(torch, args.profile)
-    log("== the serve plan: build_serve_plan on the card, then serving under it")
-    plan_paths = phase_serve_plan(torch, served, [c.fn for c in checks], torch_run)
-    log("== serving mamba2-2.7b through ContinuousEngine (the slot-pooled state cache)")
-    ssm_paths = phase_ssm(torch, get_config("mamba2-2.7b"), args.profile)
-    paths = {"serve_qwen3_1_7b": serve_launches, "serve_sampled": sampled_launches,
-             **wpk, **plan_paths, **ssm_paths}
+    sampled_launches = timed_phase(
+        6, "sampled serving: the mixed cycle through the step programs",
+        phase_sampled, torch, served, router, greedy_out, args.profile)
+    wpk = timed_phase(4, "the paper's pipeline on ResNet-18 (optimize_graph, select, "
+                      "Engine)", phase_wpk, torch, args.profile)
+    plan_paths = timed_phase(
+        5, "the serve plan: build_serve_plan on the card, then serving under it",
+        phase_serve_plan, torch, served, [c.fn for c in checks], torch_run, kernel_tps)
+    ssm_paths = timed_phase(
+        7, "serving mamba2-2.7b through ContinuousEngine (the slot-pooled state cache)",
+        phase_ssm, torch, get_config("mamba2-2.7b"), args.profile)
+    paths = {**knob_paths, "serve_qwen3_1_7b": serve_launches,
+             "serve_sampled": sampled_launches, **wpk, **plan_paths, **ssm_paths}
     kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
                          if c.fn.__name__ in n}) for c in checks]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

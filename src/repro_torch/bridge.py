@@ -7,6 +7,8 @@ ml_dtypes' bfloat16, so bf16 leaves travel as their raw 16-bit patterns:
 `a.view(np.uint16).astype(np.int16)` (a bit-preserving reinterpretation of
 the same 16 bits) and then `.view(torch.bfloat16)` — the round trip is
 exact.  Call as `params_from_jax(jax.tree.map(np.asarray, params))`.
+`load_ppo_params` carries the RL-search's PPO parameters into the port's
+policy and value modules.
 """
 
 from __future__ import annotations
@@ -33,3 +35,19 @@ def params_from_jax(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v) for v in tree)
     return leaf_from_numpy(tree)
+
+
+def load_ppo_params(policy, value, tree: Any) -> None:
+    """Copy the JAX PPO parameters (`repro.core.search.ppo.init_params`'s
+    tree as numpy: {"policy": [{"w", "b"}, ...], "value": [...]}) into a
+    PPO agent's two modules (`PolicyNet`, `ValueNet`), layer by layer.  A
+    JAX weight is (fan_in, fan_out); `nn.Linear.weight` is (out, in)."""
+    params = params_from_jax(tree)
+    for module, layers in ((policy, params["policy"]), (value, params["value"])):
+        if len(module.layers) != len(layers):
+            raise ValueError(f"{len(layers)} JAX layers for {len(module.layers)} "
+                             "linear layers")
+        with torch.no_grad():
+            for linear, p in zip(module.layers, layers):
+                linear.weight.copy_(p["w"].T)
+                linear.bias.copy_(p["b"])

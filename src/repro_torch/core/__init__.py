@@ -17,11 +17,13 @@ from repro_torch.core.schedules import OpDesc, TEMPLATES, templates_for
 from repro_torch.core.costmodel import WallClockFitness, roofline_bound
 from repro_torch.core.search import (
     GeneticSearch,
+    RLSearch,
     SearchCache,
     SearchTask,
     Tuner,
     genetic_search,
     random_search,
+    rl_search,
 )
 from repro_torch.core.selection import select, op_desc_of
 from repro_torch.core.plan import InferencePlan, OpChoice
@@ -31,8 +33,8 @@ __all__ = [
     "Graph", "Node", "TensorSpec", "optimize_graph",
     "OpDesc", "TEMPLATES", "templates_for",
     "WallClockFitness", "roofline_bound",
-    "GeneticSearch", "SearchCache", "SearchTask", "Tuner",
-    "genetic_search", "random_search",
+    "GeneticSearch", "RLSearch", "SearchCache", "SearchTask", "Tuner",
+    "genetic_search", "random_search", "rl_search",
     "select", "op_desc_of", "InferencePlan", "OpChoice",
     "Engine", "default_registry",
 ]

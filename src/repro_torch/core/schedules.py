@@ -6,7 +6,8 @@ hyper-parameters ... and finally exploits automated search in the tunable
 parameter space".  A template here names the knobs one hand-written CUDA
 kernel reads at launch, and nothing else: the paper's CUDA thread-block
 and per-thread tile dims become the conv kernel's output-channel tile `bn`
-and its output rows per tile `row_block`.
+and its output rows per tile `row_block`, and the GEMM's tile height
+`tile_m` and split-K count `split_k`.
 
 The validity constraint is the paper's own kind ("total threads per block
 <= 1024"): `Template.validate` checks a configuration against the kernel's
@@ -31,10 +32,12 @@ import json
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import hw
 from repro_torch.kernels import attention as attn_kernel
 from repro_torch.kernels import conv2d as conv_kernel
+from repro_torch.kernels import matmul as mm_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +136,10 @@ class OpDesc:
 Config = Dict[str, Any]
 
 
+def _torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
 class Template:
     """Base schedule template: a named, finite tunable-parameter space."""
 
@@ -180,18 +187,39 @@ class Template:
 
 
 class MatmulTemplate(Template):
-    """The tiled GEMM with fused epilogue (`kernels/csrc/matmul.cu`).  The
-    kernel picks its tile from M and reads no knob, so the space is empty:
-    one configuration, `{}`, which the search measures once."""
+    """The tiled GEMM with fused epilogue (`kernels/csrc/matmul.cu`):
+    `tile_m` output rows per CTA — one of the heights the library is built
+    with for the op's dtype (bf16 16 / 64 / 128, f32 64) — and `split_k`,
+    the number of CTAs that split K, from SPLIT_K_LADDER plus the split
+    `kernels.matmul.gemm_geometry` picks for the op, so its default
+    geometry is always in the space.  Valid when `kernels.matmul.geometry`
+    can launch the pair.
+
+    The knobs are named apart from the reference template's TPU tile (bm /
+    bn / bk / order / k_unroll, VMEM-sized blocks): a plan tuned by the JAX
+    package keeps those keys, which the GEMM ignores and runs on its
+    default geometry."""
 
     name = "pallas_matmul"
     kinds = ("matmul",)
 
+    SPLIT_K_LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+
     def space(self, op: OpDesc) -> Dict[str, List[Any]]:
-        return {}
+        m, n, k = op.gemm_view()
+        dtype = _torch_dtype(op.dtype)
+        default = mm_kernel.gemm_geometry(m, n, k, dtype).split
+        return {
+            "tile_m": list(mm_kernel.tile_heights(dtype)),
+            "split_k": sorted(set(self.SPLIT_K_LADDER) | {default}),
+        }
 
     def validate(self, op: OpDesc, cfg: Config, chip: hw.Chip = hw.H100) -> bool:
-        return not cfg
+        if "tile_m" not in cfg or "split_k" not in cfg:
+            return False
+        m, n, k = op.gemm_view()
+        return mm_kernel.geometry(m, n, k, _torch_dtype(op.dtype), cfg["tile_m"],
+                                  cfg["split_k"]) is not None
 
 
 class Conv2dTemplate(Template):

@@ -4,10 +4,13 @@
 Mirrors the paper's end-to-end usage (§3): "given an operator, we used both
 genetic search and RL-search to identify optimal code generation
 configurations and single out the best for use", with the §3.3 cache
-checked first.  The port runs the genetic search (default) and random
-search; RL-search (PPO) is not ported yet.  With no `fitness` the tuner
-measures wall-clock time on the GPU (`WallClockFitness`), and raises where
-there is none.
+checked first.  The tuner runs both by default (`methods=("genetic",
+"rl")`; "random" is the baseline), keeps the fastest configuration any of
+them found, and caches it under the method that found it.  With no
+`fitness` the tuner measures wall-clock time on the GPU
+(`WallClockFitness`), and raises where there is none.  Without an `rl`
+search the PPO agent runs on the fitness's device (the GPU for a fitness
+that names none).
 """
 
 from __future__ import annotations
@@ -21,9 +24,7 @@ from repro_torch.core.search.base import SearchResult, SearchTask
 from repro_torch.core.search.cache import MODEL_FITNESS, SearchCache
 from repro_torch.core.search.genetic import GeneticSearch
 from repro_torch.core.search.random_search import random_search
-
-RL_NOT_PORTED = ("RL-search (PPO, repro/core/search/ppo.py) is not ported yet: "
-                 "ROADMAP.md queue 1, 'RL-search (PPO) in torch'")
+from repro_torch.core.search.rl_search import RLSearch
 
 
 class Tuner:
@@ -32,18 +33,18 @@ class Tuner:
         chip: hw.Chip = hw.H100,
         fitness: Optional[Fitness] = None,
         cache: Optional[SearchCache] = None,
-        methods: Sequence[str] = ("genetic",),
+        methods: Sequence[str] = ("genetic", "rl"),
         genetic: Optional[GeneticSearch] = None,
+        rl: Optional[RLSearch] = None,
         random_budget: int = 64,
         seed: int = 0,
     ):
-        if "rl" in methods:
-            raise NotImplementedError(RL_NOT_PORTED)
         self.chip = chip
         self.fitness = fitness if fitness is not None else WallClockFitness()
         self.cache = cache if cache is not None else SearchCache()
         self.methods = tuple(methods)
         self.genetic = genetic or GeneticSearch()
+        self.rl = rl or RLSearch(seed=seed, device=getattr(self.fitness, "device", None))
         self.random_budget = random_budget
         self.seed = seed
         self.log: List[SearchResult] = []
@@ -75,6 +76,8 @@ class Tuner:
             task = self._make_task(op, template)
             if method == "genetic":
                 results.append(self.genetic.run(task))
+            elif method == "rl":
+                results.append(self.rl.run(task))
             elif method == "random":
                 results.append(random_search(task, self.random_budget))
             else:

@@ -8,10 +8,12 @@ attribute `matmul_fused.launches` (`build.counted`; a replayed CUDA graph
 adds the launches it captured).
 
 The launch geometry — the tile and the split-K count — is a function of
-the host integers (M, N, K) and the dtype alone (`gemm_geometry`), so a
-call reads nothing back from the device and stays capturable in a CUDA
-graph.  A split launch takes an f32 workspace (`torch.empty` per call) and
-one int32 counter per output tile from a per-device buffer that is zeroed
+host integers alone, so a call reads nothing back from the device and
+stays capturable in a CUDA graph: by default of (M, N, K) and the dtype
+(`gemm_geometry`); a tuned plan's (tile_m, split_k) pair goes through
+`geometry`, which returns None for a pair the kernel cannot launch.  A
+split launch takes an f32 workspace (`torch.empty` per call) and one
+int32 counter per output tile from a per-device buffer that is zeroed
 once when it is allocated: the kernel leaves every counter at zero.
 """
 
@@ -88,14 +90,43 @@ def gemm_geometry(m: int, n: int, k: int, dtype: torch.dtype) -> GemmGeometry:
     return GemmGeometry(bm, bn, bk, stages, split)
 
 
+def tile_heights(dtype: torch.dtype) -> tuple:
+    """The tile heights the library is built with for `dtype`."""
+    return tuple(sorted(GEMM_TILES)) if dtype.itemsize == 2 else (GEMM_TILE_F32[0],)
+
+
+def geometry(m: int, n: int, k: int, dtype: torch.dtype, tile_m: int,
+             split_k: int) -> Optional[GemmGeometry]:
+    """The launch geometry of an (M, K) @ (K, N) product at a chosen tile
+    height and split count, or None where the kernel cannot launch the
+    pair: a height the library is not built with for `dtype`, a split
+    outside 1 .. the k-steps of that tile, an empty split, f32 partials
+    (S x M x N x 4 bytes) past the weights' K x N x itemsize (the cap
+    `gemm_geometry` applies), or more column tiles than a grid's y
+    dimension holds."""
+    if tile_m not in tile_heights(dtype):
+        return None
+    bm, bn, bk, stages = GEMM_TILES[tile_m] if dtype.itemsize == 2 else GEMM_TILE_F32
+    steps = -(-k // bk)
+    if not 1 <= split_k <= steps or -(-steps // -(-steps // split_k)) != split_k:
+        return None
+    if split_k > 1 and split_k * m * 4 > k * dtype.itemsize:
+        return None
+    if -(-n // bn) > hw.H100.max_grid_y:
+        return None
+    return GemmGeometry(bm, bn, bk, stages, split_k)
+
+
 @build.counted
 def matmul_fused(x: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor] = None,
                  activation: Optional[str] = None,
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 geometry: Optional[GemmGeometry] = None) -> torch.Tensor:
     """act(x (M, K) @ w (K, N) + bias (N,)) with an f32 accumulator and one
     rounding to `out_dtype` (default, and on the GPU the only choice:
-    x's dtype)."""
+    x's dtype).  `geometry` (from `geometry`) launches that tile and
+    split; without it, `gemm_geometry`'s."""
     if x.device.type == "cpu":
         return _ref.matmul_ref(x, w, bias, activation, out_dtype)
     if x.dtype not in _DTYPES:
@@ -120,7 +151,7 @@ def matmul_fused(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    geo = gemm_geometry(m, n, k, x.dtype)
+    geo = geometry or gemm_geometry(m, n, k, x.dtype)
     ws = counters = None
     if geo.split > 1:
         ws = torch.empty((geo.split, m, n), dtype=torch.float32, device=x.device)

@@ -7,13 +7,15 @@ kernel or the call raises — there is no fallback.  The tuned `config` dicts
 of the JAX plans are accepted: `block_q` sizes the prefill and flash
 kernels' query tiles, `block_kv` the flash kernel's key tiles (TPU-sized
 blocks are clamped to the largest Hopper tile that fits), `bn` /
-`row_block` the conv kernel's tile; keys the Hopper kernels do not read
-(the matmul's TPU tile bm / bn / bk / order / k_unroll — the GEMM picks
-its tile from M — the conv's bm / bk / order / k_unroll, the dense and
-paged decode kernels' block_kv — both run the split-KV body, whose splits
-and chunks follow from the cache's shape — the elementwise chain's
-block_rows, the chunk lane's max_segments, which the scheduler reads) are
-ignored.
+`row_block` the conv kernel's tile, and the port's own GEMM knobs
+`tile_m` / `split_k` the GEMM's tile height and split-K count (both or
+neither: without them the GEMM takes `gemm_geometry`'s rule from the
+shape).  Keys the Hopper kernels do not read (the matmul's TPU tile bm /
+bn / bk / order / k_unroll, the conv's bm / bk / order / k_unroll, the
+dense and paged decode kernels' block_kv — both run the split-KV body,
+whose splits and chunks follow from the cache's shape — the elementwise
+chain's block_rows, the chunk lane's max_segments, which the scheduler
+reads) are ignored.
 """
 
 from __future__ import annotations
@@ -28,21 +30,45 @@ from repro_torch.kernels.attention import (dense_decode_attention,
                                            paged_prefill_attention)
 from repro_torch.kernels import conv2d as _conv
 from repro_torch.kernels.fused import fused_elementwise as _fused_elementwise
-from repro_torch.kernels.matmul import matmul_fused
+from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels.ref import same_pads
 
 Config = Optional[Dict[str, Any]]
+
+# the GEMM's tuned knobs, named apart from the JAX plans' TPU tile keys
+GEMM_KNOBS = ("tile_m", "split_k")
+
+
+def _tuned_geometry(m: int, n: int, k: int, dtype: torch.dtype,
+                    config: Config) -> Optional[_mm.GemmGeometry]:
+    """The geometry a matmul config asks for: None (the default rule)
+    without the GEMM knobs; ValueError for one knob alone or a pair the
+    kernel cannot launch."""
+    cfg = config or {}
+    given = [key for key in GEMM_KNOBS if key in cfg]
+    if not given:
+        return None
+    if len(given) == 1:
+        raise ValueError(f"matmul config {cfg}: tile_m and split_k come together")
+    geo = _mm.geometry(m, n, k, dtype, cfg["tile_m"], cfg["split_k"])
+    if geo is None:
+        raise ValueError(f"matmul config {cfg}: the GEMM cannot launch tile_m "
+                         f"{cfg['tile_m']}, split_k {cfg['split_k']} at M={m} "
+                         f"N={n} K={k} {dtype}")
+    return geo
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *, config: Config = None,
            activation: Optional[str] = None,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(..., K) @ (K, N) [+ bias] -> activation, f32 accumulation."""
-    del config
+    """(..., K) @ (K, N) [+ bias] -> activation, f32 accumulation, at the
+    config's (tile_m, split_k) where it gives them."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    out = matmul_fused(x2.contiguous(), w, bias, activation, out_dtype)
+    geo = _tuned_geometry(x2.shape[0], w.shape[-1], x2.shape[1], x.dtype, config)
+    out = _mm.matmul_fused(x2.contiguous(), w, bias, activation, out_dtype,
+                           geometry=geo)
     return out.reshape(*lead, w.shape[-1])
 
 

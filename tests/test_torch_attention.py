@@ -306,9 +306,15 @@ class FakeWallClock(Fitness):
         return roofline_bound(op) * (2.5 if op.kind == "attention" else 3.5)
 
 
+def _ga_tuner(fitness):
+    """The genetic search alone: the serve plan's structure does not depend
+    on the method (RL-search: tests/test_torch_search_rl.py)."""
+    return Tuner(fitness=fitness, methods=("genetic",))
+
+
 def test_build_serve_plan_with_an_injected_fitness_covers_every_node(monkeypatch):
     cfg = get_config("qwen3-1.7b")
-    plan = build_serve_plan(cfg, **SERVE, tuner=Tuner(fitness=FakeWallClock()))
+    plan = build_serve_plan(cfg, **SERVE, tuner=_ga_tuner(FakeWallClock()))
     graph = build_serve_graph(cfg, **SERVE, dtype="bfloat16")
     assert sorted(plan.choices) == sorted(n.name for n in graph.nodes)
     assert plan.chip == hw.H100.name
@@ -321,12 +327,15 @@ def test_build_serve_plan_with_an_injected_fitness_covers_every_node(monkeypatch
     assert chunk.config == {}
     router = PlanRouter(plan)
     assert router.attention_backend("decode") == ("torch", {})
-    assert router.matmul_table("decode")["mlp_up"] == ("cuda_matmul", {})
+    backend, mm_cfg = router.matmul_table("decode")["mlp_up"]
+    assert backend == "cuda_matmul" and set(mm_cfg) == {"tile_m", "split_k"}
+    assert TEMPLATES["pallas_matmul"].validate(
+        OpDesc.matmul(SERVE["slots"], cfg.d_ff, cfg.d_model), mm_cfg)
     assert router.layout_table("decode") == dict.fromkeys(
         ("qkv_proj", "mlp_up", "mlp_down", "lm_head", "attention"), "replicated")
     assert len(router.describe()) == 15
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_serve_plan(cfg, **SERVE, tuner=Tuner(fitness=FakeWallClock()),
+        build_serve_plan(cfg, **SERVE, tuner=_ga_tuner(FakeWallClock()),
                          model_parallel=2)
     # the ssm family's graph (its own stages, no attention) is ported too
     assert len(build_serve_graph(get_config("mamba2-2.7b"), **SERVE,
@@ -344,7 +353,7 @@ def test_serve_plan_kernel_choices_carry_the_tuned_tile_and_packing():
             return roofline_bound(op) * 10.0
 
     plan = build_serve_plan(get_config("qwen3-1.7b"), **SERVE,
-                            tuner=Tuner(fitness=KernelWins()))
+                            tuner=_ga_tuner(KernelWins()))
     assert set(plan.backend_histogram()) == {"pallas_attention", "pallas_matmul"}
     for stage in ("prefill", "decode", "prefill_chunk"):
         cfg = plan.choices[f"{stage}.attention"].config

@@ -463,7 +463,8 @@ def test_build_serve_plan_races_the_six_ssm_nodes():
     cfg = get_config("mamba2-2.7b")
     plan = build_serve_plan(cfg, prefill_len=700, slots=8, max_seq=1024,
                             chunk_tokens=256, family="ssm",
-                            tuner=Tuner(fitness=KernelWinsDecode()))
+                            tuner=Tuner(fitness=KernelWinsDecode(),
+                                        methods=("genetic",)))
     assert sorted(plan.choices) == sorted(
         f"{s}.{r}" for s in FAMILY_STAGES["ssm"] for r in SSM_MATMUL_ROLES)
     router = PlanRouter(plan)

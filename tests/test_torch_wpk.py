@@ -45,7 +45,7 @@ from repro_torch.core import (Engine, Graph, InferencePlan, OpDesc, SearchCache,
 from repro_torch.core import ref_ops
 from repro_torch.core.costmodel import Fitness
 from repro_torch.core.schedules import Template
-from repro_torch.core.search import GeneticSearch
+from repro_torch.core.search import GeneticSearch, RLSearch
 from repro_torch.core.selection import VENDOR
 from repro_torch.kernels import conv2d as KC
 from repro_torch.kernels import ops
@@ -332,7 +332,8 @@ def test_conv_template_space_is_what_the_kernel_launches():
     # row_block 8
     tall = (64, 2048, 8, 4, 16, 3, 3, 1, "SAME", 16)
     assert KC.geometry(*tall, 4) is None and KC.geometry(*tall, 8) is not None
-    assert TEMPLATES["pallas_matmul"].space(OpDesc.matmul(1, 1000, 512)) == {}
+    assert TEMPLATES["pallas_matmul"].space(OpDesc.matmul(1, 1000, 512, "float32")) == \
+        {"tile_m": [64], "split_k": [1, 2, 3, 4, 6, 8, 12, 16, 24, 32]}
     assert set(TEMPLATES) == {"pallas_matmul", "pallas_conv2d", "pallas_attention"}
     assert TEMPLATES["pallas_attention"].kinds == ("attention",)
 
@@ -486,8 +487,18 @@ def test_tuner_cache_hit_skips_the_search():
 
 
 def test_rl_search_and_model_parallel_name_the_roadmap(resnet_opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Tuner(fitness=FakeWallClock(), methods=("genetic", "rl"))
+    # RL-search is ported: both methods run, the faster wins and is cached
+    tuner = Tuner(fitness=FakeWallClock(), methods=("genetic", "rl"),
+                  rl=RLSearch(episodes=2, steps_per_episode=8, device="cpu"))
+    op = OpDesc.make("conv2d", conv_groups(1, 32)[1][1].d, "float32")
+    first = tuner.tune(op)
+    assert [r.method for r in tuner.log] == ["genetic", "rl"]
+    assert first.runtime_s == min(r.runtime_s for r in tuner.log)
+    assert first.method == min(tuner.log, key=lambda r: r.runtime_s).method
+    evals = tuner.fitness.evals
+    again = tuner.tune(op)
+    assert again.method == first.method + "+cache" and again.config == first.config
+    assert tuner.fitness.evals == evals
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         select(resnet_opt, tuner=_tuner(), model_parallel=2)
 
