@@ -62,6 +62,18 @@ each with its seconds logged:
      against the plain version (split calls twice, bitwise equal), and at
      the 16 serving shapes the default geometry, the fastest admitted pair
      (a device-time sweep over them all) and torch.matmul, by device time;
+     and, for phases 8 and 9: paged decode and paged prefill at the
+     serving shapes of qwen2-moe (H = Hkv = 16, G = 1) and granite (32 /
+     8, G = 4) in bf16, timed beside SDPA (block_q 16 launches 16 rows at
+     G = 1, half the tile's 32 vectors, and 8 at G = 4; logged); the GEMM
+     at granite's five serving shapes (qkv 4096 -> 4096 / 1024, mlp_up
+     4096 -> 12800, mlp_down 12800 -> 4096, lm_head 4096 -> 49155) and
+     qwen2-moe's four (qkv 2048 -> 2048, the shared expert's 2048 -> 5632
+     and 5632 -> 2048, lm_head 2048 -> 151936) at M = 8 and 256, timed
+     beside torch.matmul; granite's lm_head (N % 8 = 3: the scalar load
+     path) at every (tile_m, split_k > 1) the template admits, each split
+     call twice and bitwise equal; and the draw kernel at (8, 49155) and
+     (4, 49155), whose bf16 logit rows are not 16-byte aligned;
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
      role-tagged matmuls through the kernels: 16 requests, chunked and
@@ -145,12 +157,39 @@ each with its seconds logged:
      requests served under it (tokens/s beside the kernel and torch
      lanes'); the phase's peak device memory and seconds (--profile: each
      serving run's device-time breakdown and busy share);
-  8. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+  8. qwen2-moe-a2.7b at full width and depth (24 layers, d_model 2048,
+     16 / 16 heads x 128, 60 experts top-4 of width 1408 and 4 shared,
+     norm_topk off, vocab 151,936, bf16, random weights from seed 0
+     drawn on the card one layer at a time by `init_serving`, after every
+     earlier model is freed) served through `ContinuousEngine` on the
+     paged programs with phase 3's 16 prompts and runtime: the kernel
+     lanes (paged attention, the GEMM for qkv, the shared expert and
+     lm_head; the router and the routed experts stay torch ops, as the
+     reference's einsums) graphed and eager in two alternating pairs,
+     streams, first-token logits and launches bitwise equal, one
+     signature per program, captured once, nothing at submit(), every
+     request finished and the pool drained; tokens/s and TTFT; the
+     captured decode-only step's device ms against its bytes bound
+     (`decoder_decode_bound`: all 60 experts' weights, as capacity
+     dispatch reads them, and the slots' KV rows); the torch lanes by
+     first tokens at the 0.25 margin; a 120-block pool preempting against
+     the unconstrained run, logged and not gated (capacity grouping takes
+     in the idle slots' rows, so the MoE's streams depend on the batch,
+     in the reference too); the serve plan raced on the card (GA and
+     RL-search) and the 16 requests served under it; peak device memory
+     and the phase's seconds;
+  9. granite-3-8b at full width and depth (40 layers, d_model 4096, 32 /
+     8 heads x 128, d_ff 12800, vocab 49,155, bf16, seed 0, the same
+     init): the first 8 of phase 3's prompts, the kernel lanes graphed
+     and eager in one pair (bitwise), the torch lanes by first tokens at
+     the margin, tokens/s, the decode-only step against its bytes bound,
+     peak device memory;
+ 10. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
-     the knob sweep, the races of phases 4, 5 and 7, their serving runs
+     the knob sweep, the races of phases 4, 5, 7 and 8, their serving runs
      and the decode wrapper's call; a replayed CUDA graph counts the
      launches it captured), error and times;
-  9. the last line `{"ok": true, "device": {...}}`.
+ 11. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -159,6 +198,7 @@ nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -401,17 +441,25 @@ def _gather_kv(torch, k_pool, v_pool, tables):
     return k.contiguous(), v.contiguous()
 
 
-def check_decode(torch, chk):
+# the decode and chunk lanes' head geometries: (model, H, Hkv); qwen3's
+# runs in phase 3, qwen2-moe's (G = 1, MHA) in phase 8, granite's (G = 4)
+# in phase 9
+SERVE_HEADS = (("qwen3-1.7b", 16, 8), ("qwen2-moe-a2.7b", 16, 16),
+               ("granite-3-8b", 32, 8))
+
+
+def _decode_serving_shape(torch, chk, g, model, h, hkv):
+    """Paged decode at a model's serving shape in bf16: 8 slots, block_size
+    16, 64-block tables over the serving pool (8 x 64 + 1 blocks); slot 4
+    is an inactive slot (all-null table, length 1, as the serving path
+    passes it).  Against the plain version and an f32-math reference,
+    twice bitwise, timed beside SDPA."""
     from repro_torch.kernels import attention as KA
     from repro_torch.kernels import ref as R
 
     F = torch.nn.functional
     dev = DEVICE
-    g = torch.Generator(device=dev).manual_seed(1)
-    # qwen3-1.7b heads, 8 slots, block_size 16, 64-block tables over the
-    # serving pool (8 x 64 + 1 blocks); slot 4 is an inactive slot (all-null
-    # table, length 1, as the serving path passes it)
-    b, h, hkv, d, bs, nbt = 8, 16, 8, 128, 16, 64
+    b, d, bs, nbt = 8, 128, 16, 64
     nb = b * nbt + 1
     lengths = torch.tensor([1, 16, 17, 1000, 1, 250, 513, 1024],
                            dtype=torch.int32, device=dev)
@@ -427,15 +475,16 @@ def check_decode(torch, chk):
         raise AssertionError(f"paged decode at nbt={nbt} bs={bs}: no split-KV")
     out = KA.paged_decode_attention(q, kp, vp, lengths, tables)
     want = R.paged_decode_attention_ref(q, kp, vp, lengths, tables)
+    tag = f"{model} G={h // hkv} bf16"
     chk.err = max(chk.err, chk.compare(
-        f"bf16 vs plain (real slots; grid {b} x {hkv} x {nsplit} splits of "
+        f"{tag} vs plain (real slots; grid {b} x {hkv} x {nsplit} splits of "
         f"{kps} keys)", out[real], want[real],
         ATT_TOL_PLAIN_BF16, "f32 vs bf16 Q·Kᵀ rounding"))
     exact = R.paged_decode_attention_ref(q.float(), kp.float(), vp.float(),
                                          lengths, tables)
-    chk.compare("bf16 vs f32-math reference", out[real], exact[real],
+    chk.compare(f"{tag} vs f32-math reference", out[real], exact[real],
                 ATT_TOL_F32MATH_BF16, "p and output rounded to bf16")
-    _bitwise(chk, "bf16 serving shape", out,
+    _bitwise(chk, f"{tag} serving shape", out,
              KA.paged_decode_attention(q, kp, vp, lengths, tables))
 
     n_copy = copies_for(2 * kp.numel() * 2)
@@ -453,10 +502,20 @@ def check_decode(torch, chk):
     rows = int(lengths.sum())
     nbytes = 2 * q.numel() * 2 + 2 * rows * hkv * d * 2 + (tables.numel() + b) * 4
     flops = 4 * rows * h * d
-    chk.timed(f"B={b} H={h} Hkv={hkv} D={d} bs={bs} nbt={nbt} bf16 "
+    chk.timed(f"{model} B={b} H={h} Hkv={hkv} D={d} bs={bs} nbt={nbt} bf16 "
               "(library: SDPA over pre-gathered K/V, gather excluded)",
               kfns, pfns, libs, nbytes, flops, device=True)
 
+
+def check_decode(torch, chk):
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import ref as R
+
+    dev = DEVICE
+    g = torch.Generator(device=dev).manual_seed(1)
+    for model, h, hkv in SERVE_HEADS:
+        _decode_serving_shape(torch, chk, g, model, h, hkv)
+    h, hkv, d, bs = 16, 8, 128, 16
     # split edges in bf16: lengths that leave whole splits empty, one block
     # short of a split edge, at it and one past it, a length of 0 (zeros),
     # an inactive slot (all-null table, length 1); 64-block and 1-block
@@ -594,21 +653,26 @@ def _check_prefill_bf16(torch, chk, label, q, kp, vp, tables, info, block_q):
         raise AssertionError(f"prefill {label}: rows past the fill are not zeros")
 
 
-def check_prefill(torch, chk, block_q):
+def _prefill_serving_shape(torch, chk, g, model, h, hkv, block_q):
+    """Paged prefill at a model's chunk-lane shape in bf16: chunk 256, a
+    fresh segment, a resumed one (kv_start 544 > 0), a mid-prompt
+    continuation, an idle segment, and 6 padding rows past the fill;
+    `block_q` as the serving plan passes it (the kernel clamps it to
+    32 / G rows, `kernels.attention.prefill_block_q`)."""
     from repro_torch.kernels import attention as KA
     from repro_torch.kernels import ref as R
 
-    dev = DEVICE
-    g = torch.Generator(device=dev).manual_seed(2)
-    # chunk 256 of qwen3-1.7b heads: a fresh segment, a resumed one
-    # (kv_start 544 > 0), a mid-prompt continuation, an idle segment, and
-    # 6 padding rows past the fill
-    c, h, hkv, d, bs, nbt = 256, 16, 8, 128, 16, 64
+    c, d, bs, nbt = 256, 128, 16, 64
     nb = 8 * nbt + 1
     segs = [(120, 0), (100, 544), (30, 16), (0, 0)]
     q, kp, vp, tables, info = _prefill_case(torch, g, c, h, hkv, d, bs, nbt, nb,
                                             segs, torch.bfloat16)
-    _check_prefill_bf16(torch, chk, "bf16", q, kp, vp, tables, info, block_q)
+    rows = KA.prefill_block_q(block_q, c, h // hkv)
+    tag = f"{model} G={h // hkv} bf16"
+    log(f"  paged_prefill_attention {tag}: block_q {block_q} launches {rows} query "
+        f"rows x {h // hkv} heads = {rows * (h // hkv)} of the tile's "
+        f"{KA.PREFILL_MAX_VECTORS} vectors a CTA")
+    _check_prefill_bf16(torch, chk, tag, q, kp, vp, tables, info, block_q)
 
     n_copy = copies_for(2 * kp.numel() * 2)
     pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(n_copy - 1)]
@@ -618,10 +682,19 @@ def check_prefill(torch, chk, block_q):
         q, kq, vq, tables, info) for kq, vq in pools]
     libs, nbytes, flops = _prefill_yardsticks(torch, q, kp, vp, tables, info,
                                               rotate=True)
-    chk.timed(f"C={c} S=4 (fill {len(_real_rows(info))}, kv_start 544 resumed, "
-              f"1 idle) H={h} Hkv={hkv} D={d} block_q={block_q} bf16 (library: "
-              "SDPA over pre-gathered, padded K/V, gather excluded)",
-              kfns, pfns, libs, nbytes, flops, device=True)
+    chk.timed(f"{model} C={c} S=4 (fill {len(_real_rows(info))}, kv_start 544 "
+              f"resumed, 1 idle) H={h} Hkv={hkv} D={d} block_q={block_q} ({rows} "
+              "rows launched) bf16 (library: SDPA over pre-gathered, padded K/V, "
+              "gather excluded)", kfns, pfns, libs, nbytes, flops, device=True)
+
+
+def check_prefill(torch, chk, block_q):
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    for model, h, hkv in SERVE_HEADS:
+        _prefill_serving_shape(torch, chk, g, model, h, hkv, block_q)
 
     for h, hkv, d, bs, segs, pad, bq in PREFILL_BF16_CASES:
         c = sum(n for n, _ in segs) + pad
@@ -687,14 +760,27 @@ def serving_gemms(cfg):
             ("lm_head", d, cfg.vocab, None)]
 
 
-def check_matmul(torch, chk, cfg):
+def moe_gemms(cfg):
+    """(role, K, N, activation) of the MoE serving path's GEMM shapes: the
+    four projections of MHA attention are one shape, and the MLP roles run
+    the shared expert, n_shared_experts x d_expert wide (the routed
+    experts are batched matmuls, not the GEMM)."""
+    d, hd, wide = cfg.d_model, cfg.hd, cfg.n_shared_experts * cfg.d_expert
+    return [("qkv_proj", d, cfg.n_heads * hd, None),
+            ("shared mlp_up", d, wide, "silu"),
+            ("shared mlp_down", wide, d, None),
+            ("lm_head", d, cfg.vocab, None)]
+
+
+def _matmul_serving_shapes(torch, chk, g, name, gemms):
+    """The GEMM at a model's serving shapes (bf16, M = 8 and 256) against
+    the plain version, twice bitwise, timed beside torch.matmul."""
     from repro_torch.kernels import matmul as KM
     from repro_torch.kernels import ref as R
 
     dev = DEVICE
-    g = torch.Generator(device=dev).manual_seed(3)
     for m in (8, 256):
-        for role, k, n, act in serving_gemms(cfg):
+        for role, k, n, act in gemms:
             x = (torch.randn((m, k), generator=g, device=dev)).to(torch.bfloat16)
             w = (torch.randn((k, n), generator=g, device=dev)
                  / math.sqrt(k)).to(torch.bfloat16)
@@ -707,7 +793,7 @@ def check_matmul(torch, chk, cfg):
                 raise AssertionError(f"{role} M=8: no split-K ({geo})")
             want = R.matmul_ref(x, w, None, act)
             tol = MM_RTOL_BF16 * max(1.0, want.float().abs().max().item())
-            label = f"{role} M={m} K={k} N={n} act={act} bf16"
+            label = f"{name}{role} M={m} K={k} N={n} act={act} bf16"
             chk.err = max(chk.err, chk.compare(
                 f"{label} vs plain ({geo.ctas(m, n)} CTAs, bm {geo.bm}, "
                 f"split {geo.split})", out, want,
@@ -724,6 +810,15 @@ def check_matmul(torch, chk, cfg):
             nbytes = 2 * (m * k + k * n + m * n)
             chk.timed(f"{label} (library: torch.matmul + activation)",
                       kfns, pfns, lfns, nbytes, 2 * m * n * k, device=True)
+
+
+def check_matmul(torch, chk, cfg):
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import ref as R
+
+    dev = DEVICE
+    g = torch.Generator(device=dev).manual_seed(3)
+    _matmul_serving_shapes(torch, chk, g, "", serving_gemms(cfg))
     # f32 at small ragged and aligned shapes (the JAX kernel tests' scale)
     for (m, k, n) in ((37, 70, 53), (64, 128, 256)):
         for act in (None, "silu", "gelu"):
@@ -818,6 +913,42 @@ def check_matmul_ssm(torch, chk, cfg):
                   [lambda wq=wq: R.matmul_ref(x, wq, None, None) for wq in ws],
                   [lambda wq=wq: torch.matmul(x, wq) for wq in ws],
                   2 * (m * k + k * n + m * n), 2 * m * n * k, device=True)
+
+
+def check_matmul_models(torch, chk, granite, moe):
+    """The GEMM at granite-3-8b's five serving shapes (N = 49,155 at
+    lm_head: not a multiple of 8, so the 16-byte cp.async loads of w and
+    the vector stores give way to the scalar path) and at qwen2-moe's
+    four (the shared expert's 2048 -> 5632 -> 2048, lm_head N 151,936);
+    then the odd-N path split: granite's lm_head at M = 8 and 256 at every
+    (tile_m, split_k) with split_k > 1 the template admits, against the
+    plain version, each call twice and bitwise equal."""
+    from repro_torch.core import TEMPLATES, OpDesc
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    _matmul_serving_shapes(torch, chk, g, "granite ", serving_gemms(granite))
+    _matmul_serving_shapes(torch, chk, g, "qwen2-moe ", moe_gemms(moe))
+    tmpl = TEMPLATES["pallas_matmul"]
+    k, n = granite.d_model, granite.vocab
+    for m in (8, 256):
+        x = torch.randn((m, k), generator=g, device=DEVICE).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device=DEVICE) / math.sqrt(k)
+             ).to(torch.bfloat16)
+        want = R.matmul_ref(x, w, None, None)
+        tol = MM_RTOL_BF16 * max(1.0, want.float().abs().max().item())
+        splits = [c for c in tmpl.enumerate_configs(OpDesc.matmul(m, n, k))
+                  if c["split_k"] > 1]
+        if not splits:
+            raise AssertionError(f"granite lm_head M={m}: no split pair admitted")
+        for cfg in splits:
+            label = (f"granite lm_head M={m} K={k} N={n} (N % 8 = {n % 8}) bf16 "
+                     f"tile_m {cfg['tile_m']} split_k {cfg['split_k']}")
+            out = kops.matmul(x, w, config=cfg)
+            chk.err = max(chk.err, chk.compare(f"{label} vs plain", out, want, tol,
+                                               "f32 summation order, one bf16 rounding"))
+            _bitwise(chk, label, out, kops.matmul(x, w, config=cfg))
 
 
 # The GEMM's tuned knobs (tile_m, split_k).  KNOB_CHECKS: the shapes at
@@ -1663,20 +1794,25 @@ SERVE_RUNTIME = dict(max_slots=8, block_size=16, max_blocks_per_seq=64,
 
 
 def serving_setup(torch, cfg):
-    """qwen3-1.7b at full width (random weights from seed 0) and the 16
-    prompts every serving run takes."""
+    """A decoder at full width and depth (random weights from seed 0, drawn
+    on the card one layer at a time by `init_serving`: the f32 model is
+    never held) and the 16 prompts every serving run takes, over its
+    vocabulary."""
     import numpy as np
 
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import build_model
 
-    model = DecoderLM(cfg)
+    model = build_model(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    params = model.serving_params(model.init(gen), DEVICE)
+    params = model.init_serving(gen)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
+    moe = (f"{cfg.n_experts} experts top-{cfg.top_k} x {cfg.d_expert}, "
+           f"{cfg.n_shared_experts} shared, norm_topk {cfg.norm_topk}, "
+           if cfg.family == "moe" else "")
     log(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, d_ff {cfg.d_ff}, {moe}"
         f"vocab {cfg.vocab}; {n_params / 1e9:.3f} G params "
         f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB) "
         f"initialised in {time.perf_counter() - t0:.1f} s")
@@ -1705,6 +1841,9 @@ def serve(torch, served, router, label, profile=False, require_packing=True,
     model, params, all_prompts = served
     prompts = all_prompts if prompts is None else prompts
     cfg = model.cfg
+    # an engine is freed only by a collection (the first-token spy makes a
+    # cycle through it): collect the last runs' before this one allocates
+    gc.collect()
     rcfg = RuntimeConfig(**{**SERVE_RUNTIME, **runtime}, cuda_graphs=graphs)
     eng = ContinuousEngine(model, params, rcfg, router=router, device=DEVICE)
     firsts = _spy_first_logits(eng)
@@ -1929,11 +2068,11 @@ def phase_identities(torch, served, router):
             raise AssertionError(f"{name}: no first-token margin to compare")
 
 
-def phase_serve(torch, served, block_q, profile=False):
+def kernel_lane_router(block_q):
+    """The hand-built all-kernel plan: both decoder lanes' attention on the
+    paged kernels (`block_q`, 4 segments a chunk) and every role-tagged
+    matmul on the GEMM at its default geometry."""
     from repro_torch.core.plan import InferencePlan, OpChoice
-    from repro_torch.kernels import attention as KA
-    from repro_torch.kernels import matmul as KM
-    from repro_torch.kernels import sampling as KS
     from repro_torch.kernels.dispatch import MATMUL_ROLES
     from repro_torch.serve.router import PlanRouter
 
@@ -1943,41 +2082,71 @@ def phase_serve(torch, served, block_q, profile=False):
             "cuda_attention", {"block_q": block_q, "max_segments": 4}, 0.0)
         for role in MATMUL_ROLES:
             plan.choices[f"{stage}.{role}"] = OpChoice("cuda_matmul", {}, 0.0)
-    router = PlanRouter(plan)
+    return PlanRouter(plan)
 
-    # the kernel lanes graphed and eager in alternating pairs: the same
-    # streams, first-token logits and kernel launches, bit for bit
-    counters = (KA.paged_decode_attention, KA.paged_prefill_attention,
-                KM.matmul_fused, KS.sample_draw)
-    runs = []
-    for graphs in KERNEL_LANE_RUNS:
+
+def _serve_counters():
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import sampling as KS
+
+    return (KA.paged_decode_attention, KA.paged_prefill_attention,
+            KM.matmul_fused, KS.sample_draw)
+
+
+def _kernel_lane_pairs(torch, served, router, label, order, profile, counters,
+                       **serve_kw):
+    """Serve on the kernel lanes graphed and eager in `order` (`serve_kw`
+    go to `serve`): streams, first-token logits and launches bitwise equal
+    across the runs, every counter launched (a replay counting what it
+    captured).  -> (the first run's streams, first-token logits, summary
+    and launches, the first graphed engine, median tokens/s per lane).
+    Only that engine is kept: the others, their pools and captured graphs
+    are freed as their runs end."""
+    runs, engines = [], []
+
+    def keep_first(eng):
+        if not engines:
+            engines.append(eng)
+
+    for graphs in order:
         for fn in counters:
             fn.launches = 0
         lane = "graphed" if graphs else "eager"
-        out, first, s = serve(torch, served, router, f"kernel lanes, {lane}",
-                              profile, graphs=graphs)
+        out, first, s = serve(torch, served, router, f"{label} kernel lanes, {lane}",
+                              profile, graphs=graphs, setup=keep_first,
+                              **serve_kw)
         runs.append((graphs, out, first, s, {fn.__name__: fn.launches
                                               for fn in counters}))
-    _, out_k, first_k, _, launches = runs[0]
+    _, out_k, first_k, s_k, launches = runs[0]
     for graphs, out, first, _, n in runs[1:]:
         if out != out_k or not _same_firsts(first, first_k) or n != launches:
             raise AssertionError(
-                f"kernel lanes ({'graphed' if graphs else 'eager'}) differ from "
-                f"the first graphed run: streams {out == out_k}, launches {n} vs "
-                f"{launches}, first divergence {_first_divergence(out_k, out)}")
-    log(f"kernel lanes: {len(runs)} runs, graphed and eager, give the same token "
-        "streams, first-token logits (bitwise) and kernel launches")
-    log(f"launches on the serving path (one run; graphed: the warm-up's plus "
-        f"each replay's): {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the serving path")
+                f"{label} kernel lanes ({'graphed' if graphs else 'eager'}) differ "
+                f"from the first graphed run: streams {out == out_k}, launches {n} "
+                f"vs {launches}, first divergence {_first_divergence(out_k, out)}")
+    log(f"[{label}] kernel lanes: {len(runs)} runs, graphed and eager, give the same "
+        f"token streams, first-token logits (bitwise) and launches {launches}")
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched on the serving path")
     med = {}
     if not profile:
-        med = {graphs: _lane_stats(f"kernel lanes, {'graphed' if graphs else 'eager'}",
-                                   [r[3] for r in runs if r[0] == graphs])
-               for graphs in (True, False)}
-        log(f"kernel lanes: graphed / eager median tokens/s {med[True] / med[False]:.2f}x")
+        med = {g: _lane_stats(f"{label} kernel lanes, {'graphed' if g else 'eager'}",
+                              [r[3] for r in runs if r[0] == g]) for g in (True, False)}
+        log(f"[{label}] kernel lanes: graphed / eager median tokens/s "
+            f"{med[True] / med[False]:.2f}x")
+    return out_k, first_k, s_k, launches, engines[0], med
+
+
+def phase_serve(torch, served, block_q, profile=False):
+    from repro_torch.serve.router import PlanRouter
+
+    router = kernel_lane_router(block_q)
+    # the kernel lanes graphed and eager in alternating pairs: the same
+    # streams, first-token logits and kernel launches, bit for bit
+    out_k, first_k, _, launches, _, med = _kernel_lane_pairs(
+        torch, served, router, "qwen3", KERNEL_LANE_RUNS, profile, _serve_counters())
 
     torch_run = serve(torch, served, PlanRouter(None), "torch lanes, graphed", profile)
     if profile:
@@ -2290,10 +2459,72 @@ def _log_search(tuner, label):
         raise AssertionError(f"[{label}] searches run: {sorted(evals)}")
 
 
-def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
-    from repro_torch.core import Tuner, WallClockFitness, ref_ops
-    from repro_torch.kernels import ops as kops
+def race_and_serve(torch, served, counters, label, torch_run, kernel_tps=None):
+    """A decoder's serve plan tuned by `build_serve_plan` on wall-clock
+    fitness (GA and RL-search) on the card: the flash kernel and the GEMM
+    must launch in the race, which is logged per node; then the prompts
+    served under `PlanRouter(plan)`, graphed: exactly the plan's kernel
+    lanes launch and first tokens match `torch_run`'s (the torch lanes)
+    at the margin.  -> (launches in the race, launches serving)."""
+    from repro_torch.core import Tuner, WallClockFitness
     from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
+
+    cfg = served[0].cfg
+    fitness = WallClockFitness(device=DEVICE)
+    tuner = Tuner(fitness=fitness)                      # genetic and RL-search
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    plan = build_serve_plan(cfg, **SERVE_PLAN, tuner=tuner, dtype="bfloat16")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    race = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    log(f"build_serve_plan {cfg.name} {SERVE_PLAN} bf16: {wall:.2f} s wall; fitness "
+        f"calls {fitness.evals}, distinct measurements {fitness.measured}; backends "
+        f"{plan.backend_histogram()}; launches in the race {race}")
+    for name in ("flash_attention", "matmul_fused"):
+        if not race.get(name):
+            raise AssertionError(f"{name} never launched in the race")
+
+    graph = build_serve_graph(cfg, **SERVE_PLAN, dtype="bfloat16")
+    _log_search(tuner, f"{label} serve plan")
+    _log_race(graph, plan, tuner)
+
+    router = PlanRouter(plan)
+    log(f"[{label}] PlanRouter(plan).describe(): {router.describe()}")
+    log(f"[{label}] lanes: decode attention {router.attention_backend('decode')}, "
+        f"chunk attention {router.attention_backend('prefill_chunk')}, chunk_segments "
+        f"{router.chunk_segments(default=SERVE_RUNTIME['chunk_segments'])}, "
+        f"decode matmuls {router.matmul_table('decode')}, chunk matmuls "
+        f"{router.matmul_table('prefill_chunk')}")
+    for fn in counters:
+        fn.launches = 0
+    packs = min(SERVE_RUNTIME["chunk_segments"],
+                router.chunk_segments(default=SERVE_RUNTIME["chunk_segments"])) > 1
+    out, first, s_plan = serve(torch, served, router, f"{label} tuned plan",
+                               require_packing=packs)
+    serving = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    log(f"[{label}] launches serving under the tuned plan: {serving}")
+    log(f"[{label}] tokens/s, graphed, this call: tuned plan "
+        f"{s_plan['tokens_per_s']:.1f}, kernel lanes "
+        f"{'n/a' if kernel_tps is None else f'{kernel_tps:.1f}'} (median), torch "
+        f"lanes {torch_run[2]['tokens_per_s']:.1f}")
+    want = {"sample_draw"}          # every step draws, greedy rows too
+    for stage, kernel in (("decode", "paged_decode_attention"),
+                          ("prefill_chunk", "paged_prefill_attention")):
+        if router.attention_backend(stage)[0] == "cuda_attention":
+            want.add(kernel)
+        if any(b == "cuda_matmul" for b, _ in router.matmul_table(stage).values()):
+            want.add("matmul_fused")
+    if set(serving) != want:
+        raise AssertionError(f"launches {serving}: the plan's kernel lanes are {want}")
+    compare_first_tokens(torch, f"{label} tuned plan", out, first, *torch_run[:2])
+    return race, serving
+
+
+def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
+    from repro_torch.core import ref_ops
+    from repro_torch.kernels import ops as kops
 
     cfg = served[0].cfg
     # the race's vendor lane of a bf16 matmul is the lane serving runs: one
@@ -2314,53 +2545,8 @@ def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
                 f"{'ok' if err <= tol else 'FAIL'}")
             if not err <= tol:
                 raise AssertionError(f"vendor matmul lane {role} M={m}: {err} > {tol}")
-    fitness = WallClockFitness(device=DEVICE)
-    tuner = Tuner(fitness=fitness)                      # genetic and RL-search
-    for fn in counters:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    plan = build_serve_plan(cfg, **SERVE_PLAN, tuner=tuner, dtype="bfloat16")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    race = {fn.__name__: fn.launches for fn in counters if fn.launches}
-    log(f"build_serve_plan {SERVE_PLAN} bf16: {wall:.2f} s wall; fitness calls "
-        f"{fitness.evals}, distinct measurements {fitness.measured}; backends "
-        f"{plan.backend_histogram()}; launches in the race {race}")
-    for name in ("flash_attention", "matmul_fused"):
-        if not race.get(name):
-            raise AssertionError(f"{name} never launched in the race")
-
-    graph = build_serve_graph(cfg, **SERVE_PLAN, dtype="bfloat16")
-    _log_search(tuner, "serve plan")
-    _log_race(graph, plan, tuner)
-
-    router = PlanRouter(plan)
-    log(f"PlanRouter(plan).describe(): {router.describe()}")
-    log(f"lanes: decode attention {router.attention_backend('decode')}, chunk "
-        f"attention {router.attention_backend('prefill_chunk')}, chunk_segments "
-        f"{router.chunk_segments(default=SERVE_RUNTIME['chunk_segments'])}, "
-        f"decode matmuls {router.matmul_table('decode')}, chunk matmuls "
-        f"{router.matmul_table('prefill_chunk')}")
-    for fn in counters:
-        fn.launches = 0
-    packs = min(SERVE_RUNTIME["chunk_segments"],
-                router.chunk_segments(default=SERVE_RUNTIME["chunk_segments"])) > 1
-    out, first, s_plan = serve(torch, served, router, "tuned plan", require_packing=packs)
-    serving = {fn.__name__: fn.launches for fn in counters if fn.launches}
-    log(f"launches serving under the tuned plan: {serving}")
-    log(f"tokens/s, graphed, this call: tuned plan {s_plan['tokens_per_s']:.1f}, kernel "
-        f"lanes {'n/a' if kernel_tps is None else f'{kernel_tps:.1f}'} (phase 3 "
-        f"median), torch lanes {torch_run[2]['tokens_per_s']:.1f} (phase 3)")
-    want = {"sample_draw"}          # every step draws, greedy rows too
-    for stage, kernel in (("decode", "paged_decode_attention"),
-                          ("prefill_chunk", "paged_prefill_attention")):
-        if router.attention_backend(stage)[0] == "cuda_attention":
-            want.add(kernel)
-        if any(b == "cuda_matmul" for b, _ in router.matmul_table(stage).values()):
-            want.add("matmul_fused")
-    if set(serving) != want:
-        raise AssertionError(f"launches {serving}: the plan's kernel lanes are {want}")
-    compare_first_tokens(torch, "tuned plan", out, first, *torch_run[:2])
+    race, serving = race_and_serve(torch, served, counters, "qwen3", torch_run,
+                                   kernel_tps)
 
     # the second ported wrapper of the slice, through its public entry point
     # at the decode stage's shape (no JAX path calls flash_decode_padded)
@@ -2400,8 +2586,8 @@ SSM_DECODE_REPLAYS = 20
 
 
 def ssm_setup(torch, cfg):
-    """mamba2-2.7b initialised on the card (f32 from seed 0, then the
-    serving dtypes) and the 16 prompts."""
+    """mamba2-2.7b initialised on the card (seed 0, one f32 layer at a time
+    by `init_serving`) and the 16 prompts."""
     import numpy as np
 
     from repro_torch.models import MambaLM
@@ -2409,7 +2595,7 @@ def ssm_setup(torch, cfg):
     model = MambaLM(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    params = model.serving_params(model.init(gen), DEVICE)
+    params = model.init_serving(gen)
     torch.cuda.synchronize()
     leaves = list(_leaves(params))
     log(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -2489,44 +2675,26 @@ def phase_ssm(torch, cfg, profile=False):
         for role in SSM_MATMUL_ROLES:
             plan.choices[f"{stage}.{role}"] = OpChoice("cuda_matmul", {}, 0.0)
     router = PlanRouter(plan)
-    runs, engines = [], []
-    for graphs in SSM_KERNEL_RUNS:
-        zero()
-        lane = "graphed" if graphs else "eager"
-        out, first, s = serve(torch, served, router, f"ssm kernel lanes, {lane}",
-                              profile, graphs=graphs, require_packing=False,
-                              setup=engines.append)
-        runs.append((graphs, out, first, s, counts()))
-    _, out_k, first_k, s_k, launches = runs[0]
-    for graphs, out, first, _, n in runs[1:]:
-        if out != out_k or not _same_firsts(first, first_k) or n != launches:
-            raise AssertionError(
-                f"ssm kernel lanes ({'graphed' if graphs else 'eager'}) differ from "
-                f"the first graphed run: streams {out == out_k}, launches {n} vs "
-                f"{launches}, first divergence {_first_divergence(out_k, out)}")
+    out_k, first_k, s_k, launches, eng, med = _kernel_lane_pairs(
+        torch, served, router, "ssm", SSM_KERNEL_RUNS, profile, counters,
+        require_packing=False)
     steps = int(s_k["chunk_steps"] + s_k["decode_only_steps"])
     want_mm = 2 * (2 * cfg.n_layers + 1) * int(s_k["chunk_steps"]) + \
         (2 * cfg.n_layers + 1) * int(s_k["decode_only_steps"])
     want_draw = 2 * int(s_k["chunk_steps"]) + int(s_k["decode_only_steps"])
-    log(f"[ssm] kernel lanes: {len(runs)} runs, graphed and eager, give the same "
-        f"token streams, first-token logits (bitwise) and launches {launches} over "
-        f"{steps} steps ({int(s_k['chunk_steps'])} unified, "
-        f"{int(s_k['decode_only_steps'])} decode-only)")
+    log(f"[ssm] kernel lanes: launches {launches} over {steps} steps "
+        f"({int(s_k['chunk_steps'])} unified, {int(s_k['decode_only_steps'])} "
+        "decode-only)")
     if launches != {"matmul_fused": want_mm, "sample_draw": want_draw}:
         raise AssertionError(f"ssm kernel lanes launches {launches}: want GEMM "
                              f"{want_mm}, draw {want_draw}")
-    if not profile:
-        med = {g: _lane_stats(f"ssm kernel lanes, {'graphed' if g else 'eager'}",
-                              [r[3] for r in runs if r[0] == g]) for g in (True, False)}
-        log(f"[ssm] kernel lanes: graphed / eager median tokens/s "
-            f"{med[True] / med[False]:.2f}x")
     bound_ms, bound_bytes = ssm_decode_bound(cfg, SERVE_RUNTIME["max_slots"])
-    dec_ms = _replay_ms(torch, engines[0]._decode_only)
+    dec_ms = _replay_ms(torch, eng._decode_only)
     log(f"[ssm] decode-only step: {dec_ms:.4f} device ms a replay (CUDA events, "
         f"{SSM_DECODE_REPLAYS} replays of the captured graph) against a bytes bound "
         f"of {bound_ms:.4f} ms ({bound_bytes / 1e9:.3f} GB at {HBM_BPS / 1e12:.2f} TB/s); "
         f"{dec_ms / bound_ms:.2f}x the bound")
-    del engines[:]
+    del eng
 
     # 2. torch lanes, graphed: first tokens at the margin
     out_t, first_t, s_t = serve(torch, served, PlanRouter(None), "ssm torch lanes, graphed",
@@ -2681,7 +2849,7 @@ def phase_ssm(torch, cfg, profile=False):
                                    require_packing=False)
     plan_serve = {k: v for k, v in counts().items() if v}
     log(f"[ssm] tokens/s, graphed, this call: tuned plan {s_pl['tokens_per_s']:.1f}, "
-        f"kernel lanes {runs[0][3]['tokens_per_s']:.1f} (first run; median "
+        f"kernel lanes {s_k['tokens_per_s']:.1f} (first run; median "
         f"{'n/a' if profile else f'{med[True]:.1f}'}), torch lanes "
         f"{s_t['tokens_per_s']:.1f}")
     want = {"sample_draw"}
@@ -2700,6 +2868,158 @@ def phase_ssm(torch, cfg, profile=False):
     return {"serve_mamba2_2_7b": launches, "serve_mamba2_preempted": preempt_launches,
             "serve_mamba2_sampled": sampled, "serve_mamba2_plan_race": race,
             "serve_mamba2_plan_serve": plan_serve}
+
+
+# ------------------------------------------------------------ phases 8, 9
+# qwen2-moe-a2.7b (phase 8) and granite-3-8b (phase 9) at full width and
+# depth, bf16, random weights from seed 0 drawn on the card one layer at a
+# time, served through ContinuousEngine on the paged programs with phase
+# 3's runtime (8 slots, 16-token blocks, 256-token chunks of up to 4
+# segments, 32 new tokens): phase 3's 16 prompts over each vocabulary
+# (granite: the first 8).
+MOE_KERNEL_RUNS = (True, False, False, True)      # two alternating pairs
+GRANITE_KERNEL_RUNS = (True, False)               # one pair
+GRANITE_PROMPTS = 8
+DECODE_REPLAYS = 20
+
+
+def decoder_decode_bound(cfg, lengths):
+    """(ms, bytes, weight bytes) of a decode-only step's bytes bound at the
+    slots' `lengths`: every weight the step reads once — the bf16
+    projections, for the MoE the router, all n_experts' three matrices
+    (capacity dispatch runs every expert's (capacity, d) buffer) and the
+    shared expert with its gate, the f32 norm scales — the LM head, each
+    slot's embedding row, K and V rows up to its length read and its new
+    row written, and the bf16 logits written."""
+    d, hd, n_layers = cfg.d_model, cfg.hd, cfg.n_layers
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    if cfg.family == "moe":
+        wide = cfg.n_shared_experts * cfg.d_expert
+        mlp = (d * cfg.n_experts + cfg.n_experts * 3 * d * cfg.d_expert
+               + (3 * d * wide + d if wide else 0))
+    else:
+        mlp = 3 * d * cfg.d_ff
+    weights = 2 * (n_layers * (attn + mlp) + d * cfg.vocab)
+    norms = 4 * (n_layers * (2 * d + (2 * hd if cfg.qk_norm else 0)) + d)
+    slots = len(lengths)
+    row = 2 * 2 * n_layers * cfg.n_kv_heads * hd          # K and V, bf16
+    total = (weights + norms + 2 * slots * d + row * (sum(lengths) + slots)
+             + 2 * slots * cfg.vocab)
+    return 1e3 * total / HBM_BPS, total, weights
+
+
+def _replay_decode(torch, label, cfg, eng):
+    """The captured decode-only step of a finished graphed engine: its
+    device ms a replay (at the last decode-only step's inputs) against its
+    bytes bound there."""
+    sig = next(iter(eng._decode_only._signatures.values()))
+    lengths = sig.static[1].tolist()
+    bound_ms, nbytes, weights = decoder_decode_bound(cfg, lengths)
+    ms = _replay_ms(torch, eng._decode_only, DECODE_REPLAYS)
+    log(f"[{label}] decode-only step: {ms:.4f} device ms a replay (CUDA events, "
+        f"{DECODE_REPLAYS} replays of the captured graph, slot lengths {lengths}) "
+        f"against a bytes bound of {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at "
+        f"{HBM_BPS / 1e12:.2f} TB/s, weights {weights / 1e9:.3f} GB); "
+        f"{ms / bound_ms:.2f}x the bound")
+    return ms, bound_ms
+
+
+def _log_block_q(cfg):
+    from repro_torch.kernels.attention import PREFILL_MAX_VECTORS, prefill_block_q
+
+    group = cfg.n_heads // cfg.n_kv_heads
+    rows = prefill_block_q(PREFILL_BLOCK_Q, SERVE_RUNTIME["chunk_tokens"], group)
+    log(f"[{cfg.name}] chunk lane: block_q {PREFILL_BLOCK_Q} at G = {group} "
+        f"launches {rows} query rows a CTA, {rows * group} of the tile's "
+        f"{PREFILL_MAX_VECTORS} vectors")
+
+
+def phase_moe(torch, cfg, race_counters, profile=False):
+    """qwen2-moe-a2.7b served on the card (see the module docstring, phase
+    8).  -> the kernels' launches on each of its paths."""
+    from repro_torch.serve.router import PlanRouter
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    served = serving_setup(torch, cfg)
+    counters = _serve_counters()
+    _log_block_q(cfg)
+    router = kernel_lane_router(PREFILL_BLOCK_Q)
+    out_k, first_k, _, launches, eng, med = _kernel_lane_pairs(
+        torch, served, router, "moe", MOE_KERNEL_RUNS, profile, counters)
+    _replay_decode(torch, "moe", cfg, eng)
+    del eng
+
+    out_t, first_t, s_t = serve(torch, served, PlanRouter(None), "moe torch lanes, "
+                                "graphed", profile)
+    div = _first_divergence(out_t, out_k)
+    log(f"[moe] kernel vs torch lanes: first diverging token "
+        f"{'none' if div is None else 'request %d token %d: %d vs %d' % div}")
+    compare_first_tokens(torch, "moe kernel lanes", out_k, first_k, out_t, first_t)
+
+    # preempted vs unconstrained: logged, not gated — capacity grouping
+    # takes in the decode batch's idle rows, which preemption changes
+    for fn in counters:
+        fn.launches = 0
+    out_p, first_p, s_p = serve(torch, served, router, "moe preempted",
+                                check_schedule=False, num_blocks=PREEMPT_BLOCKS)
+    preempted = {fn.__name__: fn.launches for fn in counters}
+    div = _first_divergence(out_k, out_p)
+    log(f"[moe] preempted ({PREEMPT_BLOCKS}-block pool, {int(s_p['preemptions'])} "
+        f"preemptions, {int(s_p['resume_commits'])} resume commits) vs unconstrained: "
+        f"whole streams identical for {sum(out_p[r] == out_k[r] for r in out_k)}/"
+        f"{len(out_k)}, first-token logits bitwise equal {_same_firsts(first_p, first_k)}; "
+        f"first diverging token "
+        f"{'none' if div is None else 'request %d token %d: %d vs %d' % div}")
+    if not s_p["preemptions"] > 0:
+        raise AssertionError("moe: the small pool preempted nothing")
+
+    # the serve plan raced on the card, then the 16 requests under it
+    race, plan_serve = race_and_serve(torch, served, race_counters, "moe",
+                                      (out_t, first_t, s_t), med.get(True))
+    log(f"[moe] peak device memory of the phase: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        "(torch.cuda.max_memory_allocated)")
+    log(f"[moe] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    return {"serve_qwen2_moe": launches, "serve_qwen2_moe_preempted": preempted,
+            "serve_qwen2_moe_plan_race": race, "serve_qwen2_moe_plan_serve": plan_serve}
+
+
+def phase_granite(torch, cfg, profile=False):
+    """granite-3-8b served on the card (see the module docstring, phase
+    9).  -> the kernels' launches on its path."""
+    from repro_torch.serve.router import PlanRouter
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    served = serving_setup(torch, cfg)
+    prompts = served[2][:GRANITE_PROMPTS]
+    _log_block_q(cfg)
+    out_k, first_k, _, launches, eng, _ = _kernel_lane_pairs(
+        torch, served, kernel_lane_router(PREFILL_BLOCK_Q), "granite",
+        GRANITE_KERNEL_RUNS, profile, _serve_counters(), prompts=prompts)
+    _replay_decode(torch, "granite", cfg, eng)
+    del eng
+    out_t, first_t, _ = serve(torch, served, PlanRouter(None),
+                              "granite torch lanes, graphed", profile, prompts=prompts)
+    div = _first_divergence(out_t, out_k)
+    log(f"[granite] kernel vs torch lanes: first diverging token "
+        f"{'none' if div is None else 'request %d token %d: %d vs %d' % div}")
+    compare_first_tokens(torch, "granite kernel lanes", out_k, first_k, out_t, first_t)
+    log(f"[granite] peak device memory of the phase: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        "(torch.cuda.max_memory_allocated)")
+    log(f"[granite] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    return {"serve_granite_3_8b": launches}
+
+
+def free_device(torch):
+    """Drop what the last phase left (engines and their captured graphs, a
+    model) before the next one loads a model."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory after freeing: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated")
 
 
 # -------------------------------------------------------------- phase 4
@@ -2937,7 +3257,7 @@ def main() -> int:
                          "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 7")
+                         "skips phases 3 to 9")
     args = ap.parse_args()
 
     import torch
@@ -2997,6 +3317,9 @@ def main() -> int:
     check_sampling(torch, checks[7], get_config("qwen3-1.7b").vocab)
     check_matmul_ssm(torch, checks[2], get_config("mamba2-2.7b"))
     check_sampling(torch, checks[7], get_config("mamba2-2.7b").vocab, SSM_SAMPLE_SHAPES)
+    check_matmul_models(torch, checks[2], get_config("granite-3-8b"),
+                        get_config("qwen2-moe-a2.7b"))
+    check_sampling(torch, checks[7], get_config("granite-3-8b").vocab)
     knob_paths = check_matmul_knobs(torch, checks[2], get_config("qwen3-1.7b"),
                                     get_config("mamba2-2.7b"))
     torch.cuda.synchronize()
@@ -3027,8 +3350,19 @@ def main() -> int:
     ssm_paths = timed_phase(
         7, "serving mamba2-2.7b through ContinuousEngine (the slot-pooled state cache)",
         phase_ssm, torch, get_config("mamba2-2.7b"), args.profile)
+    del served
+    free_device(torch)
+    moe_paths = timed_phase(
+        8, "serving qwen2-moe-a2.7b through ContinuousEngine (the MoE on the paged "
+        "programs)", phase_moe, torch, get_config("qwen2-moe-a2.7b"),
+        [c.fn for c in checks], args.profile)
+    free_device(torch)
+    granite_paths = timed_phase(
+        9, "serving granite-3-8b through ContinuousEngine (G = 4, vocab 49,155)",
+        phase_granite, torch, get_config("granite-3-8b"), args.profile)
     paths = {**knob_paths, "serve_qwen3_1_7b": serve_launches,
-             "serve_sampled": sampled_launches, **wpk, **plan_paths, **ssm_paths}
+             "serve_sampled": sampled_launches, **wpk, **plan_paths, **ssm_paths,
+             **moe_paths, **granite_paths}
     kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
                          if c.fn.__name__ in n}) for c in checks]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -86,3 +86,66 @@ class ModelConfig:
             small.update(mrope_sections=(4, 6, 6))  # head_dim 32 -> 16 pairs
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), used for the
+        MODEL_FLOPS = 6·N·D roofline term."""
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab * d * 2  # in + out (untied)
+        if self.family == "ssm":
+            d_in = self.ssm_expand * d
+            nh = d_in // self.ssm_head_dim
+            conv_dim = d_in + 2 * self.ssm_state
+            per = (d * (2 * d_in + 2 * self.ssm_state + nh)  # in_proj
+                   + self.conv_width * conv_dim + 3 * nh + d_in + d_in * d)
+            return emb + L * per
+        attn = d * (self.n_heads * self.hd) + 2 * d * (self.n_kv_heads * self.hd) \
+            + (self.n_heads * self.hd) * d
+        if self.family in ("dense", "vlm"):
+            return emb + L * (attn + 3 * d * self.d_ff)
+        if self.family == "moe":
+            route = d * self.n_experts
+            experts = self.n_experts * 3 * d * self.d_expert
+            shared = self.n_shared_experts * 3 * d * self.d_expert
+            return emb + L * (attn + route + experts + shared)
+        if self.family == "hybrid":
+            d_in = self.ssm_expand * d
+            nh = d_in // self.ssm_head_dim
+            conv_dim = d_in + 2 * self.ssm_state
+            mamba = (d * (2 * d_in + 2 * self.ssm_state + nh)
+                     + self.conv_width * conv_dim + 3 * nh + d_in + d_in * d)
+            return emb + L * mamba + (attn + 3 * d * self.d_ff + 2 * d * d)
+        if self.family == "encdec":
+            enc = self.n_enc_layers * (attn + 2 * d * self.d_ff)
+            dec = L * (2 * attn + 2 * d * self.d_ff)
+            return emb + enc + dec
+        raise ValueError(self.family)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab * d * 2
+        attn = d * (self.n_heads * self.hd) + 2 * d * (self.n_kv_heads * self.hd) \
+            + (self.n_heads * self.hd) * d
+        active = (self.top_k + self.n_shared_experts) * 3 * d * self.d_expert
+        return emb + L * (attn + d * self.n_experts + active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One benchmark cell: (kind, seq_len, global_batch)."""
+
+    name: str
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}

@@ -19,7 +19,12 @@ Attention backends: `torch` runs the gather lanes (the plain versions in
 The new rows' K/V are written into the pools IN PLACE (`index_put_` on the
 layer's view of the pool), where JAX writes functionally (`.at[].set`) and
 donates the pool buffers to the step program.  Padding rows and inactive
-slots still write into the null sink block 0.
+slots still write into the null sink block 0.  Rows that share a
+destination there all write the values of the last of them (`write_rows`),
+so the sink holds one outcome — the sequential scatter's, last write wins
+— however the device orders the writes: inactive slots read the sink row
+they wrote, and where their outputs matter (an MoE's capacity queue takes
+them in) a race would make a step differ from run to run.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from repro_torch.models.common import (Params, apply_rope, dense, dense_init,
                                        norm_init, rms_norm)
 
 __all__ = ["attn_init", "attn_forward", "init_cache", "attn_decode",
-           "packed_row_map", "attn_prefill_packed", "attn_decode_paged"]
+           "packed_row_map", "attn_prefill_packed", "attn_decode_paged",
+           "decode_write_rows", "packed_write_rows"]
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig,
@@ -133,33 +139,60 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.hd))
 
 
+def write_rows(blk: torch.Tensor, off: torch.Tensor, block_size: int):
+    """(blk, off, src) of a batch of pool-row writes: row i goes to
+    (blk[i], off[i]) with the values of row src[i], the last row writing
+    the same destination (itself where none does)."""
+    dest = blk * block_size + off
+    idx = torch.arange(dest.shape[0], device=dest.device)
+    src = torch.where(dest[:, None] == dest[None, :], idx[None, :], -1).amax(1)
+    return blk, off, src
+
+
+def decode_write_rows(block_tables: torch.Tensor, lengths: torch.Tensor,
+                      block_size: int):
+    """The decode lane's writes: slot b's new row at position lengths[b]
+    of its table (inactive slots: the sink's row 0)."""
+    lengths = lengths.long()
+    bidx = torch.arange(lengths.shape[0], device=lengths.device)
+    blk = block_tables.long()[bidx, lengths // block_size]
+    return write_rows(blk, lengths % block_size, block_size)
+
+
+def packed_write_rows(seg_tables: torch.Tensor, seg_info: torch.Tensor, c: int,
+                      block_size: int):
+    """The chunk lane's writes: row r of segment s at absolute position
+    kv_start_s + r - row_offset_s of its segment's table; padding rows
+    into the sink."""
+    nbt = seg_tables.shape[1]
+    sid, pos, valid = packed_row_map(seg_info, c)
+    row_tables = seg_tables.long()[sid]                          # (C, nbt)
+    rows = torch.arange(c, device=seg_tables.device)
+    blk = row_tables[rows, torch.clamp(pos // block_size, 0, nbt - 1)]
+    blk = torch.where(valid, blk, torch.zeros_like(blk))        # padding -> sink
+    return write_rows(blk, pos % block_size, block_size)
+
+
 def attn_prefill_packed(p: Params, cfg: ModelConfig, x: torch.Tensor,
                         k_pool: torch.Tensor, v_pool: torch.Tensor,
                         seg_tables: torch.Tensor, positions: torch.Tensor,
                         seg_info: torch.Tensor, *, backend: str = "torch",
-                        backend_config: Optional[Dict[str, Any]] = None
-                        ) -> torch.Tensor:
+                        backend_config: Optional[Dict[str, Any]] = None,
+                        rows) -> torch.Tensor:
     """Segment-packed prefill attention against one layer's paged pools.
 
     x (1, C, d) carries contiguous prompt segments from up to S requests;
     each row's K/V is written into its OWN segment's blocks (row r of
     segment s at absolute position kv_start_s + r - row_offset_s; padding
     rows go to the null sink), then every row attends causally to its
-    request's committed rows.  Returns the attention block's output
+    request's committed rows.  `rows`: `packed_write_rows`' result, the
+    same for every layer of a step.  Returns the attention block's output
     (1, C, d); the pools are updated in place."""
     b, c, _ = x.shape
-    block_size = k_pool.shape[1]
-    nbt = seg_tables.shape[1]
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-
-    sid, pos, valid = packed_row_map(seg_info, c)
-    row_tables = seg_tables.long()[sid]                          # (C, nbt)
-    rows = torch.arange(c, device=x.device)
-    blk = row_tables[rows, torch.clamp(pos // block_size, 0, nbt - 1)]
-    blk = torch.where(valid, blk, torch.zeros_like(blk))        # padding -> sink
-    off = pos % block_size
-    k_pool[blk, off] = k_new[0].to(k_pool.dtype)
-    v_pool[blk, off] = v_new[0].to(v_pool.dtype)
+    blk, off, src = rows
+    k_pool[blk, off] = k_new[0, src].to(k_pool.dtype)
+    v_pool[blk, off] = v_new[0, src].to(v_pool.dtype)
 
     if backend == "cuda_attention":
         from repro_torch.kernels import ops
@@ -174,24 +207,21 @@ def attn_prefill_packed(p: Params, cfg: ModelConfig, x: torch.Tensor,
 def attn_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
                       k_pool: torch.Tensor, v_pool: torch.Tensor,
                       block_tables: torch.Tensor, lengths: torch.Tensor, *,
-                      backend: str = "torch") -> torch.Tensor:
+                      backend: str = "torch", rows) -> torch.Tensor:
     """Decode attention against one layer's paged pools.
 
     x (B, 1, d), one new token per slot at position lengths[b]; its K/V row
     is written into the slot's current block (inactive slots carry all-null
     tables and length 0, so they write into the sink block 0), then the
-    token attends to the slot's first lengths[b] + 1 rows.  Returns
-    (B, 1, d); the pools are updated in place."""
+    token attends to the slot's first lengths[b] + 1 rows.  `rows`:
+    `decode_write_rows`' result, the same for every layer of a step.
+    Returns (B, 1, d); the pools are updated in place."""
     b = x.shape[0]
-    block_size = k_pool.shape[1]
     lengths = lengths.long()
     q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None])
-
-    bidx = torch.arange(b, device=x.device)
-    blk = block_tables.long()[bidx, lengths // block_size]
-    off = lengths % block_size
-    k_pool[blk, off] = k_new[:, 0].to(k_pool.dtype)
-    v_pool[blk, off] = v_new[:, 0].to(v_pool.dtype)
+    blk, off, src = rows
+    k_pool[blk, off] = k_new[src, 0].to(k_pool.dtype)
+    v_pool[blk, off] = v_new[src, 0].to(v_pool.dtype)
 
     qh = q.reshape(b, cfg.n_heads, cfg.hd)
     if backend == "cuda_attention":

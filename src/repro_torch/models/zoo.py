@@ -1,17 +1,20 @@
 """Model assembly — the port of the serving halves of
-`repro.models.zoo.DecoderLM` (dense family: the paged path of the
-continuous engine and the dense-cache path, `init_cache` / `prefill` /
+`repro.models.zoo.DecoderLM` (dense and moe families: the paged path of
+the continuous engine and the dense-cache path, `init_cache` / `prefill` /
 `decode_step`, of the fixed-batch engine) and `repro.models.zoo.MambaLM`
 (ssm family: the slot-pooled path of the continuous engine and the same
-fixed-batch path over the conv / SSM carries).
+fixed-batch path over the conv / SSM carries), and `build_model`.
 
 Parameters keep the JAX package's tree: `blocks` leaves are stacked over
-layers (leading dim n_layers), `dense` weights are (d_in, d_out).  `init`
-draws from the same distributions as the JAX init (different numbers: the
-randomness is an explicit `torch.Generator`).  JAX keeps f32 parameters and
-casts each weight to `cfg.dtype` where it is used; `serving_params` casts
-the projection weights and the embedding once instead (the same rounding)
-and keeps the norm scales in f32, where JAX multiplies by them.
+layers (leading dim n_layers), `dense` weights are (d_in, d_out), the MoE's
+expert stacks are bare (E, d, f) / (E, f, d) tensors.  `init` draws from
+the same distributions as the JAX init (different numbers: the randomness
+is an explicit `torch.Generator`).  JAX keeps f32 parameters and casts each
+weight to `cfg.dtype` where it is used; `serving_params` casts the
+projection weights, the expert stacks and the embedding once instead (the
+same rounding) and keeps the norm scales in f32, where JAX multiplies by
+them.  `init_serving` gives `serving_params(init(gen))` without ever
+holding the f32 model: one layer is drawn in f32 at a time.
 """
 
 from __future__ import annotations
@@ -30,6 +33,13 @@ from repro_torch.models.common import (Params, dense_init, embed, embed_init,
 
 ATTN_BACKENDS = ("torch", "cuda_attention")
 
+FAMILY_TODO = ("the {} family is served by a later slice of the port: "
+               "ROADMAP.md, queue 1, 'Remaining families'")
+
+# the leaves `serving_params` casts to the serving dtype: dense weights,
+# the embedding and the MoE's expert stacks (JAX casts each at use)
+CAST_LEAVES = ("w", "emb", "w_in", "w_gate", "w_out")
+
 
 def _check_backend(name: str) -> None:
     if name not in ATTN_BACKENDS:
@@ -37,15 +47,20 @@ def _check_backend(name: str) -> None:
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    if cfg.family != "dense" or cfg.norm != "rms":
-        raise NotImplementedError(
-            f"{cfg.family} family / {cfg.norm} norm is a later slice of the port")
-    return {
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(FAMILY_TODO.format(cfg.family))
+    if cfg.norm != "rms":
+        raise NotImplementedError(f"{cfg.norm} norm: " + FAMILY_TODO.format(cfg.family))
+    p = {
         "attn_norm": norm_init(cfg.d_model, gen.device),
         "attn": A.attn_init(gen, cfg),
         "mlp_norm": norm_init(cfg.d_model, gen.device),
-        "mlp": F.mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.act == "silu"),
     }
+    if cfg.family == "moe":
+        p["moe"] = F.moe_init(gen, cfg)
+    else:
+        p["mlp"] = F.mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.act == "silu")
+    return p
 
 
 def _stack(trees):
@@ -60,6 +75,15 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _copy_into(stacked: Params, layer: Params, i: int) -> None:
+    """Write one layer's tree into row i of the layer-stacked tree."""
+    if isinstance(stacked, dict):
+        for k, v in stacked.items():
+            _copy_into(v, layer[k], i)
+    else:
+        stacked[i].copy_(layer)
+
+
 def layer_params(blocks: Params, layer: int) -> Params:
     """One layer's view of the layer-stacked `blocks` tree."""
     return _map(lambda t: t[layer], blocks)
@@ -67,43 +91,21 @@ def layer_params(blocks: Params, layer: int) -> Params:
 
 class _StackedLM:
     """What the families' models share: the config, parameters whose
-    `blocks` leaves are stacked over layers, and the serving dtypes."""
+    `blocks` leaves are stacked over layers, the serving dtypes and the
+    two inits, which draw the embedding, each layer's block (the family's
+    `_block_init`) and the LM head in that order."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
 
-    def serving_params(self, params: Params, device) -> Params:
-        """`params` on `device`: projection weights and the embedding cast
-        to `cfg.dtype`, every other leaf (norm scales, the SSM's conv
-        weights, A_log, D, dt_bias) in f32, where JAX casts or multiplies
-        at use."""
-        dtype = torch_dtype(self.cfg.dtype)
-
-        def conv(path, t):
-            cast = dtype if path[-1] in ("w", "emb") else torch.float32
-            return t.to(device=device, dtype=cast).contiguous()
-
-        def walk(path, tree):
-            if isinstance(tree, dict):
-                return {k: walk(path + (k,), v) for k, v in tree.items()}
-            return conv(path, tree)
-
-        return walk((), params)
-
-    def _layers(self, params: Params):
-        blocks = params["blocks"]
-        return [layer_params(blocks, i) for i in range(self.cfg.n_layers)]
-
-
-class DecoderLM(_StackedLM):
-    """dense family (qwen3-style: GQA, qk-norm, RoPE, RMSNorm, SiLU-gated
-    MLP)."""
+    def _block_init(self, gen: torch.Generator) -> Params:
+        raise NotImplementedError
 
     def init(self, generator: torch.Generator) -> Params:
         """f32 parameters on `generator.device`."""
         cfg = self.cfg
         emb = embed_init(generator, cfg.vocab, cfg.d_model)
-        blocks = _stack([block_init(generator, cfg) for _ in range(cfg.n_layers)])
+        blocks = _stack([self._block_init(generator) for _ in range(cfg.n_layers)])
         return {
             "embed": emb,
             "blocks": blocks,
@@ -111,9 +113,65 @@ class DecoderLM(_StackedLM):
             "lm_head": dense_init(generator, cfg.d_model, cfg.vocab),
         }
 
+    def init_serving(self, generator: torch.Generator, device=None) -> Params:
+        """`serving_params(init(generator), device)`, bit for bit (the same
+        draws in the same order, each cast as `serving_params` casts it),
+        without the f32 model: each layer is drawn in f32 on
+        `generator.device`, cast, and written into its row of (L, ...)
+        stacks preallocated on `device` (default: the generator's) before
+        the next is drawn.  Peak memory is the served model plus one f32
+        layer and the f32 embedding or LM head."""
+        cfg = self.cfg
+        device = generator.device if device is None else device
+        emb = self.serving_params(
+            {"embed": embed_init(generator, cfg.vocab, cfg.d_model)}, device)
+        blocks = None
+        for i in range(cfg.n_layers):
+            layer = self.serving_params(self._block_init(generator), device)
+            if blocks is None:
+                blocks = _map(lambda t: torch.empty((cfg.n_layers, *t.shape),
+                                                    dtype=t.dtype, device=device),
+                              layer)
+            _copy_into(blocks, layer, i)
+            del layer
+        rest = self.serving_params(
+            {"final_norm": norm_init(cfg.d_model, generator.device),
+             "lm_head": dense_init(generator, cfg.d_model, cfg.vocab)}, device)
+        return {**emb, "blocks": blocks, **rest}
+
+    def serving_params(self, params: Params, device) -> Params:
+        """`params` on `device`: the leaves named in CAST_LEAVES
+        (projection weights, the embedding, the expert stacks) cast to
+        `cfg.dtype`, every other leaf (norm scales, the SSM's conv
+        weights, A_log, D, dt_bias) in f32, where JAX casts or multiplies
+        at use."""
+        dtype = torch_dtype(self.cfg.dtype)
+
+        def walk(key, tree):
+            if isinstance(tree, dict):
+                return {k: walk(k, v) for k, v in tree.items()}
+            cast = dtype if key in CAST_LEAVES else torch.float32
+            return tree.to(device=device, dtype=cast).contiguous()
+
+        return walk(None, params)
+
+    def _layers(self, params: Params):
+        blocks = params["blocks"]
+        return [layer_params(blocks, i) for i in range(self.cfg.n_layers)]
+
+
+class DecoderLM(_StackedLM):
+    """dense and moe families (qwen3-style: GQA, optional qk-norm, RoPE,
+    RMSNorm; a SiLU-gated MLP, or the capacity-dispatched mixture of
+    experts with optional shared experts)."""
+
+    def _block_init(self, gen: torch.Generator) -> Params:
+        return block_init(gen, self.cfg)
 
     def _mlp(self, bp: Params, x: torch.Tensor) -> torch.Tensor:
         h = rms_norm(bp["mlp_norm"], x)
+        if self.cfg.family == "moe":
+            return x + F.moe_apply(bp["moe"], self.cfg, h, self.cfg.act)
         return x + F.mlp_apply(bp["mlp"], h, self.cfg.act)
 
     # -------------------------------------------- dense-cache serving path
@@ -175,11 +233,12 @@ class DecoderLM(_StackedLM):
         _check_backend(attn_backend)
         cfg = self.cfg
         x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+        rows = A.decode_write_rows(block_tables, lengths, k_pool.shape[2])
         for i, bp in enumerate(self._layers(params)):
             h = rms_norm(bp["attn_norm"], x)
             x = x + A.attn_decode_paged(bp["attn"], cfg, h, k_pool[i], v_pool[i],
                                         block_tables, lengths,
-                                        backend=attn_backend)
+                                        backend=attn_backend, rows=rows)
             x = self._mlp(bp, x)
         x = rms_norm(params["final_norm"], x)
         return lm_head_logits(params["lm_head"], x)
@@ -206,12 +265,13 @@ class DecoderLM(_StackedLM):
         _, c, _ = x.shape
         _, pos, _ = A.packed_row_map(seg_info, c)     # pos zeroed on padding
         positions = pos[None]
+        rows = A.packed_write_rows(seg_tables, seg_info, c, k_pool.shape[2])
         for i, bp in enumerate(self._layers(params)):
             h = rms_norm(bp["attn_norm"], x)
             x = x + A.attn_prefill_packed(bp["attn"], cfg, h, k_pool[i],
                                           v_pool[i], seg_tables, positions,
                                           seg_info, backend=attn_backend,
-                                          backend_config=attn_config)
+                                          backend_config=attn_config, rows=rows)
             x = self._mlp(bp, x)
         x = rms_norm(params["final_norm"], x)
         info = seg_info.long()
@@ -229,21 +289,9 @@ class MambaLM(_StackedLM):
     serving methods take may be a device tensor, so a captured step
     program serves every schedule."""
 
-    def init(self, generator: torch.Generator) -> Params:
-        """f32 parameters on `generator.device`."""
-        cfg = self.cfg
-        dev = generator.device
-        emb = embed_init(generator, cfg.vocab, cfg.d_model)
-        blocks = _stack([{"norm": norm_init(cfg.d_model, dev),
-                          "mamba": M.mamba_init(generator, cfg)}
-                         for _ in range(cfg.n_layers)])
-        return {
-            "embed": emb,
-            "blocks": blocks,
-            "final_norm": norm_init(cfg.d_model, dev),
-            "lm_head": dense_init(generator, cfg.d_model, cfg.vocab),
-        }
-
+    def _block_init(self, gen: torch.Generator) -> Params:
+        return {"norm": norm_init(self.cfg.d_model, gen.device),
+                "mamba": M.mamba_init(gen, self.cfg)}
 
     # ------------------------------------------------- fixed-batch serving
     def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
@@ -355,3 +403,17 @@ class MambaLM(_StackedLM):
             ssm_pool[i].index_copy_(0, idx, h)
         x = rms_norm(params["final_norm"], x)
         return lm_head_logits(params["lm_head"], x)
+
+
+# ===================================================================== factory
+def build_model(cfg: ModelConfig):
+    """The model class of `cfg.family`, as `repro.models.build_model`
+    dispatches: dense and moe to DecoderLM, ssm to MambaLM; the vlm,
+    hybrid and encdec families raise until their slice is ported."""
+    if cfg.family in ("dense", "moe"):
+        return DecoderLM(cfg)
+    if cfg.family == "ssm":
+        return MambaLM(cfg)
+    if cfg.family in ("vlm", "hybrid", "encdec"):
+        raise NotImplementedError(FAMILY_TODO.format(cfg.family))
+    raise ValueError(f"unknown family {cfg.family}")
