@@ -94,7 +94,9 @@ each with its seconds logged:
      identity, the first diverging token and the geometry that differs
      logged;
   4. the paper's pipeline on ResNet-18 (batch 1, 224 x 224, f32):
-     `optimize_graph`, `select` on wall-clock fitness with and without the
+     `optimize_graph`, `select` on device-time fitness (`WallClockFitness`:
+     each configuration's calls captured in a CUDA graph and replayed,
+     cycling through input copies that L2 cannot hold) with and without the
      vendor lane (the §3.4 ablation), each operator searched by GA and
      RL-search (each one's best, evals and wall seconds, and the winner),
      the per-operator race, both plans run
@@ -111,7 +113,7 @@ each with its seconds logged:
      product, the call serving's torch lane makes) held against the f32
      upcast it replaced at the 10 serving GEMM shapes; qwen3-1.7b's serve
      graph (prefill 700, 8 slots, max_seq 1024, chunk 256, bf16) tuned by
-     `build_serve_plan` on wall-clock fitness on the card (GA and
+     `build_serve_plan` on device-time fitness on the card (GA and
      RL-search per node, as in phase 4; the flash kernel against the
      vendor lane for the three attention nodes, the GEMM at its tuned
      (tile_m, split_k) for the twelve matmuls, with the count of matmul
@@ -153,7 +155,7 @@ each with its seconds logged:
      commit program's ms; the mixed sampling cycle graphed = eager, its
      greedy requests equal to the first run; `FixedBatchEngine` at batch 1
      on 4 prompts (<= 256 tokens or 512) by first tokens; the ssm serve
-     plan raced on the card (6 matmul nodes, GA and RL-search) and 16
+     plan raced on device time (6 matmul nodes, GA and RL-search) and 16
      requests served under it (tokens/s beside the kernel and torch
      lanes'); the phase's peak device memory and seconds (--profile: each
      serving run's device-time breakdown and busy share);
@@ -184,12 +186,29 @@ each with its seconds logged:
      and eager in one pair (bitwise), the torch lanes by first tokens at
      the margin, tokens/s, the decode-only step against its bytes bound,
      peak device memory;
- 10. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 10. the analytic fitness against the card (run right after phase 5):
+     every valid configuration of each distinct operator of ResNet-18 (16:
+     the convs and the fc, f32), of qwen3-1.7b's serve graph (12 matmul
+     and 3 attention nodes, bf16) and of mamba2-2.7b's (6 matmul nodes)
+     launched and held against its plain version, timed on device time
+     and priced by `ModelFitness`, the vendor lane both ways; per operator
+     Spearman's rho, the regret of the model's pick, the backend agreement
+     and model / measured at the measured best, per graph their median and
+     worst (logged, not gated; gated: every configuration finite and within
+     tolerance, the model at or above `kernel_bound`); then ResNet-18's
+     plan tuned by `Tuner(fitness=ModelFitness())` (its PPO agent on the
+     CPU) run graphed, `verify_against_reference` at 1e-3, ms/image beside
+     phase 4's device-time race plan in turns; qwen3-1.7b served under its
+     model-tuned serve plan (graphed, first tokens against the torch lanes
+     at the 0.25 margin, tokens/s beside phase 5's plan); and qwen3's
+     serve-plan race run again on a fresh device-time fitness, with the
+     matmul nodes whose winner flips against phase 5's counted;
+ 11. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
-     the knob sweep, the races of phases 4, 5, 7 and 8, their serving runs
-     and the decode wrapper's call; a replayed CUDA graph counts the
+     the knob sweep, the races of phases 4, 5, 7, 8 and 10, their serving
+     runs and the decode wrapper's call; a replayed CUDA graph counts the
      launches it captured), error and times;
- 11. the last line `{"ok": true, "device": {...}}`.
+ 12. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -2411,8 +2430,10 @@ def _log_race(graph, plan, tuner):
     won = [n for n in matmuls if plan.choices[n].backend == "pallas_matmul"]
     log(f"the GEMM kernel won {len(won)} of the {len(matmuls)} matmul nodes against "
         f"the vendor lane (one bf16 cuBLAS product): {won}")
-    log("per node: vendor ms, kernel ms (config), winner, bound ms (bf16 peak); "
-        "one call, CUDA events, median of 10")
+    log(f"per node: vendor ms, kernel ms (config), winner, bound ms (bf16 peak); "
+        f"{tuner.fitness.kind} fitness"
+        + (" (device time: calls replayed in a CUDA graph, median of 10 replays)"
+           if tuner.fitness.kind == "wallclock" else ""))
     for node in graph.toposort():
         op = op_desc_of(graph, node, "bfloat16")
         c = plan.choices[node.name]
@@ -2459,19 +2480,22 @@ def _log_search(tuner, label):
         raise AssertionError(f"[{label}] searches run: {sorted(evals)}")
 
 
-def race_and_serve(torch, served, counters, label, torch_run, kernel_tps=None):
-    """A decoder's serve plan tuned by `build_serve_plan` on wall-clock
-    fitness (GA and RL-search) on the card: the flash kernel and the GEMM
-    must launch in the race, which is logged per node; then the prompts
-    served under `PlanRouter(plan)`, graphed: exactly the plan's kernel
-    lanes launch and first tokens match `torch_run`'s (the torch lanes)
-    at the margin.  -> (launches in the race, launches serving)."""
+def race_and_serve(torch, served, counters, label, torch_run, kernel_tps=None,
+                   tuner=None):
+    """A decoder's serve plan tuned by `build_serve_plan` (GA and RL-search)
+    on device-time fitness on the card — the flash kernel and the GEMM must
+    launch in the race, which is logged per node — or on `tuner` (the
+    analytic model: nothing launches); then the prompts served under
+    `PlanRouter(plan)`, graphed: exactly the plan's kernel lanes launch and
+    first tokens match `torch_run`'s (the torch lanes) at the margin.
+    -> (launches in the race, launches serving, the plan, its tokens/s)."""
     from repro_torch.core import Tuner, WallClockFitness
     from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
 
     cfg = served[0].cfg
-    fitness = WallClockFitness(device=DEVICE)
-    tuner = Tuner(fitness=fitness)                      # genetic and RL-search
+    measured = tuner is None
+    tuner = tuner or Tuner(fitness=WallClockFitness(device=DEVICE))  # GA and RL
+    fitness = tuner.fitness
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2479,12 +2503,14 @@ def race_and_serve(torch, served, counters, label, torch_run, kernel_tps=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     race = {fn.__name__: fn.launches for fn in counters if fn.launches}
-    log(f"build_serve_plan {cfg.name} {SERVE_PLAN} bf16: {wall:.2f} s wall; fitness "
-        f"calls {fitness.evals}, distinct measurements {fitness.measured}; backends "
-        f"{plan.backend_histogram()}; launches in the race {race}")
+    log(f"build_serve_plan {cfg.name} {SERVE_PLAN} bf16 on {fitness.kind} fitness: "
+        f"{wall:.2f} s wall; fitness calls {fitness.evals}, distinct measurements "
+        f"{getattr(fitness, 'measured', 0)}; backends {plan.backend_histogram()}; "
+        f"launches in the race {race}")
     for name in ("flash_attention", "matmul_fused"):
-        if not race.get(name):
-            raise AssertionError(f"{name} never launched in the race")
+        if measured != bool(race.get(name)):
+            raise AssertionError(f"{name}: {race.get(name, 0)} launches in the "
+                                 f"{fitness.kind} race")
 
     graph = build_serve_graph(cfg, **SERVE_PLAN, dtype="bfloat16")
     _log_search(tuner, f"{label} serve plan")
@@ -2519,7 +2545,7 @@ def race_and_serve(torch, served, counters, label, torch_run, kernel_tps=None):
     if set(serving) != want:
         raise AssertionError(f"launches {serving}: the plan's kernel lanes are {want}")
     compare_first_tokens(torch, f"{label} tuned plan", out, first, *torch_run[:2])
-    return race, serving
+    return race, serving, plan, s_plan["tokens_per_s"]
 
 
 def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
@@ -2545,8 +2571,8 @@ def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
                 f"{'ok' if err <= tol else 'FAIL'}")
             if not err <= tol:
                 raise AssertionError(f"vendor matmul lane {role} M={m}: {err} > {tol}")
-    race, serving = race_and_serve(torch, served, counters, "qwen3", torch_run,
-                                   kernel_tps)
+    race, serving, plan, plan_tps = race_and_serve(torch, served, counters, "qwen3",
+                                                   torch_run, kernel_tps)
 
     # the second ported wrapper of the slice, through its public entry point
     # at the decode stage's shape (no JAX path calls flash_decode_padded)
@@ -2570,7 +2596,7 @@ def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
         f"D={cfg.hd} lengths {lengths.tolist()}: finite {tuple(out.shape)}; "
         f"launches {decode}")
     return {"serve_plan_race": race, "serve_plan_serve": serving,
-            "ops_attention_decode": decode}
+            "ops_attention_decode": decode}, plan, plan_tps
 
 
 # ------------------------------------------------------------ phase 7
@@ -2975,8 +3001,8 @@ def phase_moe(torch, cfg, race_counters, profile=False):
         raise AssertionError("moe: the small pool preempted nothing")
 
     # the serve plan raced on the card, then the 16 requests under it
-    race, plan_serve = race_and_serve(torch, served, race_counters, "moe",
-                                      (out_t, first_t, s_t), med.get(True))
+    race, plan_serve, _, _ = race_and_serve(torch, served, race_counters, "moe",
+                                            (out_t, first_t, s_t), med.get(True))
     log(f"[moe] peak device memory of the phase: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
         "(torch.cuda.max_memory_allocated)")
@@ -3119,14 +3145,14 @@ def phase_wpk(torch, profile=False):
     for name, op, c, count in rows.values():
         if op.kind != "conv2d":
             continue
-        x, w, b = fitness.inputs(op)
         attrs = {"stride": op.d["stride"], "layout": "NHWC", "activation": op.activation,
                  "padding": "SAME" if op.d["pad"] else "VALID"}
         laid = fitness.time(fitness.vendor_runner(op))
-        hwio = fitness.time(lambda: ref_ops.run_op("fused_conv2d", [x, w, b], attrs))
+        hwio = fitness.time([lambda c=c: ref_ops.run_op("fused_conv2d", list(c), attrs)
+                             for c in fitness.inputs(op)])
         vendor_sum[0] += count * laid
         vendor_sum[1] += count * hwio
-    log(f"vendor lane, 20 convs of a forward, one call each: weights laid out once "
+    log(f"vendor lane, 20 convs of a forward, device time: weights laid out once "
         f"{1e3 * vendor_sum[0]:.4f} ms, HWIO weights converted per call "
         f"{1e3 * vendor_sum[1]:.4f} ms")
 
@@ -3201,8 +3227,10 @@ def phase_wpk(torch, profile=False):
         f"torch lanes: max |diff| {d_unopt:.3e} (max |logit| "
         f"{ref_unopt.abs().max().item():.3f})")
 
+    forward_ms = {}
     if not profile:
-        for label, ms in _forward_ms(torch, engines, x).items():
+        forward_ms = _forward_ms(torch, engines, x)
+        for label, ms in forward_ms.items():
             log(f"[{label}] one forward: {ms:.4f} ms/image (median of {FORWARD_REPEATS}, "
                 "CUDA events, lanes in turn)")
     if profile:
@@ -3217,7 +3245,285 @@ def phase_wpk(torch, profile=False):
             _log_device_profile(prof, wall, f"{label}, {FORWARD_REPEATS} forwards",
                                 calls=FORWARD_REPEATS)
     return {"wpk_resnet18_race": race, "wpk_resnet18_forward": forward,
-            "wpk_resnet18_forward_graphed": graphed}
+            "wpk_resnet18_forward_graphed": graphed}, plans["race"]
+
+
+# ------------------------------------------------------------ phase 10
+# The analytic fitness (`core/costmodel.py::ModelFitness`) against the
+# card, configuration by configuration: every valid configuration of each
+# distinct operator of ResNet-18 (batch 1, 224, f32: its 15 convs' and the
+# fc's), of qwen3-1.7b's serve graph (12 matmul and 3 attention nodes,
+# bf16) and of mamba2-2.7b's (6 matmul nodes), each held against its plain
+# version, timed by device-time fitness (CUDA-graph replay) and priced by
+# the model; the vendor lane both ways.  Logged, not gated: Spearman's rho,
+# the regret of the model's pick, the backend agreement, model / measured at
+# the measured best.  Gated: every configuration launched, finite and
+# within its tolerance; the model at or above `kernel_bound` everywhere.
+def _ranks(xs):
+    order = sorted(range(len(xs)), key=lambda i: xs[i])
+    ranks, i = [0.0] * len(xs), 0
+    while i < len(order):
+        j = i
+        while j + 1 < len(order) and xs[order[j + 1]] == xs[order[i]]:
+            j += 1
+        for t in range(i, j + 1):
+            ranks[order[t]] = (i + j) / 2       # ties share their mean rank
+        i = j + 1
+    return ranks
+
+
+def spearman(a, b):
+    """Spearman's rho of two sequences (nan where either is constant)."""
+    ra, rb = _ranks(a), _ranks(b)
+    n = len(ra)
+    ma, mb = sum(ra) / n, sum(rb) / n
+    cov = sum((x - ma) * (y - mb) for x, y in zip(ra, rb))
+    va, vb = sum((x - ma) ** 2 for x in ra), sum((y - mb) ** 2 for y in rb)
+    return cov / math.sqrt(va * vb) if va > 0 and vb > 0 else float("nan")
+
+
+def _plain_and_tol(op, x, w, b):
+    """The kernel lane's plain version on the fitness's inputs, and its
+    tolerance (phase 2's)."""
+    from repro_torch.kernels import ref as R
+
+    if op.kind == "attention":
+        return R.attention_ref(x, w, b, True), ATT_TOL_F32MATH_BF16
+    if op.kind == "conv2d":
+        want = R.conv2d_ref(x, w, b, op.d["stride"], "SAME" if op.d["pad"] else "VALID",
+                            op.activation)
+        rtol = CONV_RTOL_F32 if op.dtype == "float32" else CONV_RTOL_BF16
+    else:
+        want = R.matmul_ref(x, w, b, op.activation)
+        rtol = MM_RTOL_F32 if op.dtype == "float32" else MM_RTOL_BF16
+    return want, _rel_tol(rtol, want)
+
+
+def _fit_operator(torch, op, fitness, model, chk):
+    """One operator's whole space measured and modeled (see above)."""
+    from repro_torch.core.costmodel import UNPRICED_KEYS, kernel_bound
+    from repro_torch.core.schedules import templates_for
+
+    tmpl = templates_for(op)[0]
+    configs = []
+    for cfg in tmpl.enumerate_configs(op):
+        read = {k: v for k, v in cfg.items() if k not in UNPRICED_KEYS}
+        if read not in configs:
+            configs.append(read)
+    x, w, b = fitness.inputs(op)[0]
+    want, tol = _plain_and_tol(op, x, w, b)
+    bound = kernel_bound(op)
+    measured, modeled = [], []
+    for cfg in configs:
+        out = fitness.kernel_runner(op, cfg)[0]()
+        err = (out.float() - want.float()).abs().max().item()
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"{op.label} {cfg}: error {err} > tol {tol}")
+        chk.err = max(chk.err, err)
+        t = fitness(op, cfg)
+        if not (math.isfinite(t) and t > 0):
+            raise AssertionError(f"{op.label} {cfg}: measured {t}")
+        measured.append(t)
+        modeled.append(model(op, cfg))
+        if modeled[-1] < bound:
+            raise AssertionError(f"{op.label} {cfg}: model {modeled[-1]} < bound {bound}")
+    del want
+    best = min(range(len(configs)), key=lambda i: measured[i])
+    pick = min(range(len(configs)), key=lambda i: modeled[i])
+    vendor, vendor_model = fitness.vendor_time(op), model.vendor_time(op)
+    race = "kernel" if measured[best] < vendor else "vendor"
+    race_model = "kernel" if modeled[pick] < vendor_model else "vendor"
+    row = {"label": op.label, "configs": len(configs),
+           "rho": spearman(modeled, measured) if len(configs) > 1 else float("nan"),
+           "regret": measured[pick] / measured[best],
+           "agree": race == race_model, "race": race, "race_model": race_model,
+           "ratio": modeled[best] / measured[best],
+           "vendor_ratio": vendor_model / vendor}
+    log(f"  {op.label} {op.signature()}: per config, measured / modeled ms: " + "; ".join(
+        f"{json.dumps(c, sort_keys=True)} {1e3 * t:.4f} / {1e3 * mt:.4f}"
+        for c, t, mt in zip(configs, measured, modeled)))
+    log(f"  {op.label:28s} {op.kind:9s} {len(configs):3d} configs: rho {row['rho']:+.3f}; "
+        f"model pick {configs[pick]} {1e3 * measured[pick]:.4f} ms vs measured best "
+        f"{configs[best]} {1e3 * measured[best]:.4f} ms (regret {row['regret']:.3f}); "
+        f"model / measured at the best {row['ratio']:.2f}; vendor measured "
+        f"{1e3 * vendor:.4f} model {1e3 * vendor_model:.4f} ms; race {race}, model "
+        f"{race_model} ({'agree' if row['agree'] else 'DISAGREE'}); bound "
+        f"{1e3 * bound:.4f} ms")
+    return row
+
+
+def _fit_summary(label, rows):
+    def stats(key, worst):
+        vals = sorted(r[key] for r in rows if math.isfinite(r[key]))
+        if not vals:
+            return "n/a"
+        return f"median {_median(vals):.3f} worst {worst(vals):.3f}"
+    ratios = [r["ratio"] for r in rows]
+    log(f"[fitness {label}] {len(rows)} operators, "
+        f"{sum(r['configs'] for r in rows)} configurations: rho {stats('rho', min)}; "
+        f"regret {stats('regret', max)}; backend agreement "
+        f"{sum(r['agree'] for r in rows)}/{len(rows)}; model / measured at the "
+        f"measured best median {_median(sorted(ratios)):.3f} range "
+        f"{min(ratios):.3f}-{max(ratios):.3f}")
+
+
+def _log_model_at_records():
+    """The model at the shapes whose device times phase 2 measures (PERF.md
+    §6 rows 3, 4, 6 and the row-3 table): the GEMM's default geometry and
+    one torch.matmul (+ silu at mlp_up), the conv at each group's
+    fastest modeled configuration and F.conv2d + relu, the flash kernel at
+    its default tile on the race's MHA-shaped K/V."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import costmodel as C
+    from repro_torch.core.schedules import TEMPLATES, OpDesc
+
+    def gemm(m, k, n, act, dtype="bfloat16"):
+        op = OpDesc.matmul(m, n, k, dtype=dtype, activation=act)
+        lib = C.cublas_time(m, n, k, dtype) + (
+            C.elementwise_time(2 * m * n * 2) if act else 0.0)
+        return 1e3 * C.kernel_time(op, {}), 1e3 * lib
+
+    for name, gemms in (("qwen3-1.7b", serving_gemms(get_config("qwen3-1.7b"))),
+                        ("granite-3-8b", serving_gemms(get_config("granite-3-8b"))),
+                        ("qwen2-moe-a2.7b", moe_gemms(get_config("qwen2-moe-a2.7b")))):
+        for m in (8, 256):
+            rows = [(role, *gemm(m, k, n, act)) for role, k, n, act in gemms]
+            log(f"[model at records] {name} GEMM M={m}, kernel / library ms: "
+                + "; ".join(f"{r} {a:.4f} / {b:.4f}" for r, a, b in rows)
+                + f"; sum {sum(a for _, a, _ in rows):.4f} / {sum(b for _, _, b in rows):.4f}")
+    rows = [(f"{lane} {role} M={m}", *gemm(m, k, n, None))
+            for lane, role, m, k, n in ssm_gemms(get_config("mamba2-2.7b"))]
+    log("[model at records] mamba2-2.7b GEMM, kernel / library ms: "
+        + "; ".join(f"{r} {a:.4f} / {b:.4f}" for r, a, b in rows))
+    log("[model at records] ResNet-18 fc (M=1, K=512, N=1000, f32), kernel / library "
+        "ms: %.4f / %.4f" % gemm(1, 512, 1000, None, "float32"))
+    tmpl, kernel, library = TEMPLATES["pallas_conv2d"], 0.0, 0.0
+    for _, op, count in resnet_conv_shapes():
+        op = OpDesc.make("conv2d", op.d, "float32", "relu")
+        kernel += count * min(C.kernel_time(op, c) for c in tmpl.enumerate_configs(op))
+        library += count * (C.cudnn_time(op) + C.elementwise_time(
+            2 * op.d["oh"] * op.d["ow"] * op.d["cout"] * 4))
+    log(f"[model at records] ResNet-18's 20 convs (f32, bias + relu), kernel at each "
+        f"group's fastest modeled config / F.conv2d + relu: {1e3 * kernel:.4f} / "
+        f"{1e3 * library:.4f} ms")
+    log("[model at records] flash attention (H 16, D 128, bf16, default tile): " + "; ".join(
+        f"{label} {1e3 * C.kernel_time(OpDesc.attention(b, sq, skv, 16, 128), {}):.4f} ms"
+        for label, b, sq, skv in SERVE_ATTENTION))
+
+
+def _graph_ops(graph, dtype):
+    from repro_torch.core import op_desc_of
+
+    ops, seen = [], set()
+    for node in graph.toposort():
+        op = op_desc_of(graph, node, dtype)
+        if op is not None and op.signature() not in seen:
+            seen.add(op.signature())
+            ops.append(op)
+    return ops
+
+
+def phase_fitness(torch, served, counters, checks, torch_run, wall_plan, wall_tps,
+                  wpk_plan):
+    """The analytic fitness against the card (module docstring, phase 10).
+    -> the kernels' launches on its paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Engine, ModelFitness, Tuner, WallClockFitness,
+                                  default_registry, optimize_graph, select)
+    from repro_torch.models.resnet import resnet18_graph
+    from repro_torch.serve.router import build_serve_graph, build_serve_plan
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+    chk = {"matmul": checks[2], "conv2d": checks[3], "attention": checks[5]}
+    gopt = optimize_graph(resnet18_graph(batch=1, image=WPK_IMAGE, seed=0))
+    qcfg, scfg = get_config("qwen3-1.7b"), get_config("mamba2-2.7b")
+    graphs = [("resnet18", _graph_ops(gopt, "float32")),
+              ("qwen3-1.7b", _graph_ops(build_serve_graph(
+                  qcfg, **SERVE_PLAN, dtype="bfloat16"), "bfloat16")),
+              ("mamba2-2.7b", _graph_ops(build_serve_graph(
+                  scfg, **SERVE_PLAN, dtype="bfloat16", family="ssm"), "bfloat16"))]
+    zero()
+    t0 = time.perf_counter()
+    model = ModelFitness()
+    for label, ops in graphs:
+        fitness = WallClockFitness(device=DEVICE)
+        log(f"[fitness {label}] per operator: every valid configuration measured "
+            "(device time) and modeled")
+        rows = [_fit_operator(torch, op, fitness, model, chk[op.kind]) for op in ops]
+        _fit_summary(label, rows)
+        del fitness
+        free_device(torch)
+    sweep = counts()
+    log(f"[fitness] sweep: {time.perf_counter() - t0:.1f} s; launches {sweep}")
+    _log_model_at_records()
+    for name in ("matmul_fused", "conv2d_direct", "flash_attention"):
+        if not sweep.get(name):
+            raise AssertionError(f"{name} never launched in the fitness sweep")
+
+    # ResNet-18 on a plan tuned on the host
+    t0 = time.perf_counter()
+    tuner = Tuner(fitness=ModelFitness())            # GA and RL, the agent on the CPU
+    plan = select(gopt, tuner=tuner, dtype="float32")
+    log(f"[fitness] ResNet-18 plan tuned on the model in {time.perf_counter() - t0:.2f} s "
+        f"(PPO agent on {tuner.rl.device}): backends {plan.backend_histogram()} "
+        f"(the device-time race plan: {wpk_plan.backend_histogram()})")
+    x = torch.randn((1, 3, WPK_IMAGE, WPK_IMAGE),
+                    generator=torch.Generator(device=DEVICE).manual_seed(6), device=DEVICE)
+    engines = {"model-tuned plan, graphed": Engine(gopt, plan, default_registry(),
+                                                  device=DEVICE),
+               "device-time race plan, graphed": Engine(gopt, wpk_plan,
+                                                        default_registry(), device=DEVICE)}
+    for eng in engines.values():
+        eng(x)                                       # warm-up, capture
+    zero()
+    engines["model-tuned plan, graphed"](x)
+    forward = counts()
+    err = engines["model-tuned plan, graphed"].verify_against_reference(
+        x, rtol=WPK_TOL, atol=WPK_TOL)
+    log(f"[fitness] model-tuned ResNet-18 plan: verify_against_reference max |err| "
+        f"{err:.3e} (rtol = atol = {WPK_TOL:.0e}) ok; launches of a replayed forward "
+        f"{forward}")
+    for label, ms in _forward_ms(torch, engines, x).items():
+        log(f"[fitness] [{label}] one forward: {ms:.4f} ms/image (median of "
+            f"{FORWARD_REPEATS}, CUDA events, lanes in turn)")
+    del engines
+
+    # qwen3-1.7b served under a plan tuned on the host
+    race, serving, mplan, mtps = race_and_serve(
+        torch, served, counters, "qwen3 model-tuned", torch_run,
+        tuner=Tuner(fitness=ModelFitness()))
+    log(f"[fitness] qwen3 tokens/s graphed, this call: model-tuned plan {mtps:.1f}, "
+        f"device-time plan (phase 5) {wall_tps:.1f}")
+
+    # flips: the serve plan's race again on a fresh device-time fitness
+    zero()
+    t0 = time.perf_counter()
+    again = build_serve_plan(qcfg, **SERVE_PLAN, dtype="bfloat16",
+                             tuner=Tuner(fitness=WallClockFitness(device=DEVICE)))
+    flip_race = counts()
+    graph = build_serve_graph(qcfg, **SERVE_PLAN, dtype="bfloat16")
+    names = [n.name for n in graph.toposort()]
+    mm = [n for n in names if not n.endswith("attention")]
+    flips = [n for n in mm if again.choices[n].backend != wall_plan.choices[n].backend]
+    cfg_moves = [n for n in names if again.choices[n].backend == wall_plan.choices[n].backend
+                 and again.choices[n].config != wall_plan.choices[n].config]
+    log(f"[fitness] serve-plan race twice on device-time fitness (phase 5's and a fresh "
+        f"one, {time.perf_counter() - t0:.1f} s): {len(flips)} of {len(mm)} matmul "
+        f"nodes flip their winner {flips}; attention winners "
+        f"{[(n, wall_plan.choices[n].backend, again.choices[n].backend) for n in names if n.endswith('attention')]}; "
+        f"same winner, other config: {cfg_moves}")
+    model_agree = sum(mplan.choices[n].backend == wall_plan.choices[n].backend for n in names)
+    log(f"[fitness] the model-tuned serve plan picks phase 5's winner at "
+        f"{model_agree} of {len(names)} nodes")
+    return {"fitness_sweep": sweep, "fitness_resnet18_forward": forward,
+            "fitness_serve_model_plan": serving, "fitness_flip_race": flip_race}
 
 
 def _log_device_profile(prof, wall_s, label, calls=None):
@@ -3342,11 +3648,14 @@ def main() -> int:
     sampled_launches = timed_phase(
         6, "sampled serving: the mixed cycle through the step programs",
         phase_sampled, torch, served, router, greedy_out, args.profile)
-    wpk = timed_phase(4, "the paper's pipeline on ResNet-18 (optimize_graph, select, "
-                      "Engine)", phase_wpk, torch, args.profile)
-    plan_paths = timed_phase(
+    wpk, wpk_plan = timed_phase(4, "the paper's pipeline on ResNet-18 (optimize_graph, "
+                                "select, Engine)", phase_wpk, torch, args.profile)
+    plan_paths, wall_plan, wall_tps = timed_phase(
         5, "the serve plan: build_serve_plan on the card, then serving under it",
         phase_serve_plan, torch, served, [c.fn for c in checks], torch_run, kernel_tps)
+    fit_paths = timed_phase(
+        10, "the analytic fitness against the card", phase_fitness, torch, served,
+        [c.fn for c in checks], checks, torch_run, wall_plan, wall_tps, wpk_plan)
     ssm_paths = timed_phase(
         7, "serving mamba2-2.7b through ContinuousEngine (the slot-pooled state cache)",
         phase_ssm, torch, get_config("mamba2-2.7b"), args.profile)
@@ -3361,7 +3670,8 @@ def main() -> int:
         9, "serving granite-3-8b through ContinuousEngine (G = 4, vocab 49,155)",
         phase_granite, torch, get_config("granite-3-8b"), args.profile)
     paths = {**knob_paths, "serve_qwen3_1_7b": serve_launches,
-             "serve_sampled": sampled_launches, **wpk, **plan_paths, **ssm_paths,
+             "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
+             **ssm_paths,
              **moe_paths, **granite_paths}
     kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
                          if c.fn.__name__ in n}) for c in checks]

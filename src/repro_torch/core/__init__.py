@@ -7,6 +7,7 @@ Typical usage (the paper's Figure 1a pipeline):
     g = build_graph(...)                      # model import
     g_opt = optimize_graph(g)                 # §2.1 graph optimization
     plan = select(g_opt, tuner=Tuner())       # §2.2-2.5 search + selection
+    # (Tuner(fitness=ModelFitness()) tunes on the host, with no GPU)
     engine = Engine(g_opt, plan, default_registry())
     outputs = engine(*inputs)                 # runtime engine
 """
@@ -14,7 +15,7 @@ Typical usage (the paper's Figure 1a pipeline):
 from repro_torch.core.graph import Graph, Node, TensorSpec
 from repro_torch.core.passes import optimize_graph
 from repro_torch.core.schedules import OpDesc, TEMPLATES, templates_for
-from repro_torch.core.costmodel import WallClockFitness, roofline_bound
+from repro_torch.core.costmodel import ModelFitness, WallClockFitness, roofline_bound
 from repro_torch.core.search import (
     GeneticSearch,
     RLSearch,
@@ -32,7 +33,7 @@ from repro_torch.core.engine import Engine, default_registry
 __all__ = [
     "Graph", "Node", "TensorSpec", "optimize_graph",
     "OpDesc", "TEMPLATES", "templates_for",
-    "WallClockFitness", "roofline_bound",
+    "ModelFitness", "WallClockFitness", "roofline_bound",
     "GeneticSearch", "RLSearch", "SearchCache", "SearchTask", "Tuner",
     "genetic_search", "random_search", "rl_search",
     "select", "op_desc_of", "InferencePlan", "OpChoice",

@@ -7,10 +7,11 @@ configurations and single out the best for use", with the §3.3 cache
 checked first.  The tuner runs both by default (`methods=("genetic",
 "rl")`; "random" is the baseline), keeps the fastest configuration any of
 them found, and caches it under the method that found it.  With no
-`fitness` the tuner measures wall-clock time on the GPU
-(`WallClockFitness`), and raises where there is none.  Without an `rl`
-search the PPO agent runs on the fitness's device (the GPU for a fitness
-that names none).
+`fitness` the tuner measures device time on the GPU (`WallClockFitness`),
+and raises where there is none; `Tuner(fitness=ModelFitness())` tunes on
+the analytic model of the H100 on any host.  Without an `rl` search the
+PPO agent runs on the fitness's device (the CPU for `ModelFitness`, the
+GPU for a fitness that names none).
 """
 
 from __future__ import annotations

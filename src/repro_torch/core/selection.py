@@ -5,7 +5,9 @@ For every compute operator in an optimized graph, race the available
 implementations — the vendor lane (the port's `ref_ops`: cuDNN / cuBLAS)
 and every applicable tuned kernel template (the hand-written Hopper
 kernels) — and single out the fastest for the inference plan.  Both lanes
-are timed by one wall-clock fitness on the GPU, on the same inputs.
+are priced by the tuner's one fitness: device time on the GPU, on the same
+inputs (`WallClockFitness`, the default), or the analytic model of the
+H100 (`ModelFitness`), which builds a plan on any host.
 
 The vendor lane keeps the JAX plans' backend name, "xla", so that plans
 move between the two packages; on the port it runs PyTorch.
@@ -94,8 +96,8 @@ def select(
     model_parallel: int = 1,
 ) -> InferencePlan:
     """Build the inference plan for `graph`: per tunable node, the backend
-    with the least measured time, its tuned config and that time.  The
-    tuner's fitness times both lanes (shared inputs, warm-up, repeats)."""
+    with the least time under the tuner's fitness (measured on the GPU by
+    default), its tuned config and that time."""
     if model_parallel > 1:
         raise NotImplementedError(
             "model_parallel > 1 (the layout race) is not ported yet: "

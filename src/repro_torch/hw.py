@@ -12,12 +12,16 @@ of NVIDIA's H100 SXM data sheet and the Hopper architecture white paper:
     threads per block;
   * 50 MB of L2;
   * 80 GB of HBM3 at 3.35 TB/s;
-  * 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s FP32 on the
-    CUDA cores.
+  * 989 TFLOP/s dense bf16 on the tensor cores, 495 TFLOP/s dense TF32
+    on the tensor cores, 67 TFLOP/s FP32 on the CUDA cores;
+  * 228 KB (233,472 B) of shared memory an SM can give its blocks, out of
+    its 256 KB of combined L1 and shared memory (the white paper).
 
-Those rates assume the card's full 700 W power limit.  One launch limit
-comes from the CUDA C++ programming guide (compute capability 9.0): a
-grid's y dimension holds at most 65,535 blocks.
+Those rates assume the card's full 700 W power limit.  Launch and
+residency limits come from the CUDA C++ programming guide (compute
+capability 9.0): a grid's y dimension holds at most 65,535 blocks; an SM
+holds at most 2,048 threads and 32 blocks, and the runtime reserves 1 KB
+of shared memory per block.
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ class Chip:
     name: str = "h100_sxm"
     sms: int = 132
     smem_per_block: int = 232_448          # B
+    smem_per_sm: int = 233_472             # B
+    smem_reserved_per_block: int = 1024    # B
+    max_threads_per_sm: int = 2048
+    max_blocks_per_sm: int = 32
     regs_per_sm: int = 65_536
     max_regs_per_thread: int = 255
     max_threads_per_block: int = 1024
@@ -46,12 +54,21 @@ class Chip:
     hbm_bytes: int = 80 * 10**9
     hbm_bw: float = 3.35e12                # B/s
     peak_bf16_flops: float = 989e12        # dense, tensor cores
+    peak_tf32_flops: float = 495e12        # dense, tensor cores
     peak_f32_flops: float = 67e12          # CUDA cores
 
     def peak_flops(self, dtype) -> float:
         """The f32 CUDA-core rate for 4-byte types, the bf16 tensor-core
         rate for narrower ones."""
         return self.peak_f32_flops if itemsize(dtype) >= 4 else self.peak_bf16_flops
+
+    def resident_blocks(self, smem_bytes: int, threads: int) -> int:
+        """Blocks of `threads` threads and `smem_bytes` of shared memory one
+        SM holds at once, by its shared memory, threads and block slots
+        (registers, fixed per kernel at compile time, are not counted)."""
+        by_smem = self.smem_per_sm // (smem_bytes + self.smem_reserved_per_block)
+        return max(1, min(by_smem, self.max_threads_per_sm // threads,
+                          self.max_blocks_per_sm))
 
 
 H100 = Chip()

@@ -36,6 +36,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # F_BK): tile height -> (bm, bn, bk, stages).
 GEMM_TILES = {16: (16, 128, 64, 4), 64: (64, 128, 64, 4), 128: (128, 128, 64, 3)}
 GEMM_TILE_F32 = (64, 64, 16, 1)
+# threads per CTA: WM x WN warps of the bf16 tiles (BF16_TILES), F_THREADS
+GEMM_THREADS = {16: 128, 64: 256, 128: 256}
+GEMM_THREADS_F32 = 256
 SMALL_M = 16             # M <= SMALL_M takes the 16-row tile
 LARGE_BM = 64            # the tile height for larger M, unless 128 fills the chip
 SPLIT_WAVES = 2          # CTAs per SM a grid aims at (two fit: one resident wave)
@@ -88,6 +91,20 @@ def gemm_geometry(m: int, n: int, k: int, dtype: torch.dtype) -> GemmGeometry:
         split = max(1, min(split, (k * dtype.itemsize) // (4 * m), steps))
         split = -(-steps // -(-steps // split))      # none empty
     return GemmGeometry(bm, bn, bk, stages, split)
+
+
+def tile_smem_bytes(geo: GemmGeometry, itemsize: int) -> int:
+    """Shared memory of one CTA: `bf16_smem` of `csrc/matmul.cu` (the
+    ring of `stages` (x, w) slots, rows padded by 8, which the f32 output
+    tile reuses) for bf16; the f32 tile's static F_BM x (F_BN + 4) floats."""
+    if itemsize == 4:
+        return geo.bm * (geo.bn + 4) * 4
+    ring = geo.stages * (geo.bm * (geo.bk + 8) + geo.bk * (geo.bn + 8)) * 2
+    return max(ring, geo.bm * (geo.bn + 4) * 4)
+
+
+def tile_threads(geo: GemmGeometry, itemsize: int) -> int:
+    return GEMM_THREADS_F32 if itemsize == 4 else GEMM_THREADS[geo.bm]
 
 
 def tile_heights(dtype: torch.dtype) -> tuple:

@@ -31,7 +31,6 @@ from repro_torch.kernels.attention import (dense_decode_attention,
 from repro_torch.kernels import conv2d as _conv
 from repro_torch.kernels.fused import fused_elementwise as _fused_elementwise
 from repro_torch.kernels import matmul as _mm
-from repro_torch.kernels.ref import same_pads
 
 Config = Optional[Dict[str, Any]]
 
@@ -75,13 +74,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *, stride: int = 1,
            padding: str = "SAME", layout: str = "NHWC",
-           activation: Optional[str] = None, config: Config = None,
-           vmem_limit: int = 64 * 1024 * 1024) -> torch.Tensor:
+           activation: Optional[str] = None, config: Config = None) -> torch.Tensor:
     """Convolution in NCHW (OIHW weights) or NHWC (HWIO weights) [+ bias]
-    -> activation.  The kernel covers images up to `vmem_limit` bytes
-    (padded H x W x Cin, the JAX wrapper's threshold); past it the
-    convolution runs as patches + the GEMM kernel.  A config without bn /
-    row_block takes `kernels.conv2d.default_config`."""
+    -> activation, on the conv kernel at any image size: it gathers its
+    k-steps from the unpadded image, so the JAX wrapper's whole-image VMEM
+    threshold has no counterpart.  A config without bn / row_block takes
+    `kernels.conv2d.default_config`.  On the GPU a configuration or shape
+    outside the kernel's limits (`kernels.conv2d.geometry`) raises
+    ValueError from `conv2d_direct`, which names them."""
     if layout == "NCHW":
         x = x.permute(0, 2, 3, 1)
         w = w.permute(2, 3, 1, 0)
@@ -92,22 +92,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     cfg = config or {}
     if "bn" not in cfg or "row_block" not in cfg:
         cfg = {**_conv.default_config(*shape), **cfg}
-
-    (pt, pb), (pl, pr) = ((same_pads(h, kh, stride), same_pads(wd, kw, stride))
-                          if padding == "SAME" else ((0, 0), (0, 0)))
-    if (h + pt + pb) * (wd + pl + pr) * cin * x.element_size() <= vmem_limit:
-        out = _conv.conv2d_direct(x, w, bias, stride=stride, padding=padding,
-                                  bn=cfg["bn"], row_block=cfg["row_block"],
-                                  activation=activation)
-    else:
-        # patches (kh, kw, cin order, as w's rows) + the GEMM kernel
-        x = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb))
-        patches = x.unfold(1, kh, stride).unfold(2, kw, stride)  # N,OH,OW,C,kh,kw
-        oh, ow = patches.shape[1], patches.shape[2]
-        patches = patches.permute(0, 1, 2, 4, 5, 3).reshape(-1, kh * kw * cin)
-        out = matmul(patches, w.reshape(kh * kw * cin, cout),
-                     None if bias is None else bias.to(x.dtype),
-                     activation=activation).reshape(n, oh, ow, cout)
+    out = _conv.conv2d_direct(x, w, bias, stride=stride, padding=padding,
+                              bn=cfg["bn"], row_block=cfg["row_block"],
+                              activation=activation)
     if layout == "NCHW":
         out = out.permute(0, 3, 1, 2).contiguous()
     return out

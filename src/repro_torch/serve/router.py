@@ -202,9 +202,11 @@ def build_serve_plan(cfg: ModelConfig, *, prefill_len: int, slots: int,
                      family: str = "decoder",
                      model_parallel: int = 1) -> InferencePlan:
     """Tune the serve graph and return its stage-qualified InferencePlan.
-    With no `tuner`, the genetic search and RL-search on wall-clock
-    fitness on the GPU (`Tuner()`), which raises where there is none.  `model_parallel` > 1
-    (the layout race) raises, as `select` does."""
+    With no `tuner`, the genetic search and RL-search on device time on
+    the GPU (`Tuner()`), which raises where there is none;
+    `tuner=Tuner(fitness=ModelFitness())` tunes on the analytic model of
+    the H100 on any host.  `model_parallel` > 1 (the layout race) raises,
+    as `select` does."""
     g = build_serve_graph(cfg, prefill_len=prefill_len, slots=slots,
                           max_seq=max_seq, chunk_tokens=chunk_tokens,
                           dtype=dtype, family=family)

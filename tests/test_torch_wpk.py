@@ -247,9 +247,10 @@ def test_conv2d_plain_matches_pallas_interpret(k, stride, cin, cout):
 
 
 @pytest.mark.parametrize("path", ["kernel", "patches_gemm"])
-def test_conv2d_nchw_and_the_large_image_path_match_pallas(path):
+def test_conv2d_nchw_and_the_large_image_path_match_pallas(path, monkeypatch):
     # tests/test_kernels.py::test_conv2d_nchw_layout_matches; a vmem_limit of
-    # 1 byte sends both packages down their patches + GEMM path
+    # 1 byte sends the JAX package down its patches + GEMM path, while the
+    # port runs its conv kernel (here its plain version) at every image size
     rng = np.random.default_rng(3)
     x = (rng.standard_normal((1, 8, 12, 12)) * 0.3).astype(np.float32)
     w = (rng.standard_normal((16, 8, 3, 3)) * 0.2).astype(np.float32)
@@ -258,9 +259,37 @@ def test_conv2d_nchw_and_the_large_image_path_match_pallas(path):
     want = np.asarray(jops.conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
                                   stride=2, padding="SAME", layout="NCHW",
                                   activation="silu", vmem_limit=limit))
+    calls = []
+    direct = KC.conv2d_direct
+    monkeypatch.setattr(KC, "conv2d_direct",
+                        lambda *a, **kw: calls.append(kw) or direct(*a, **kw))
     got = ops.conv2d(_t(x), _t(w), _t(b), stride=2, padding="SAME", layout="NCHW",
-                     activation="silu", vmem_limit=limit).numpy()
+                     activation="silu").numpy()
     np.testing.assert_allclose(got, want, **CONV_TOL)
+    assert len(calls) == 1
+
+
+def test_conv2d_past_the_old_vmem_threshold_runs_the_conv_kernel(monkeypatch):
+    """An image whose padded H x W x Cin passes the 64 MiB at which the JAX
+    wrapper switches to patches + GEMM runs `conv2d_direct` (on the CPU
+    its plain version) and matches ref_ops."""
+    rng = np.random.default_rng(5)
+    h = w = 1030                       # padded 1032 x 1032 x 16 f32: 68.2 MB
+    assert (h + 2) * (w + 2) * 16 * 4 > 64 * 1024 * 1024
+    x = _t(rng.standard_normal((1, h, w, 16), dtype=np.float32))
+    wt = _t((rng.standard_normal((3, 3, 16, 4)) * 0.2).astype(np.float32))
+    b = _t((rng.standard_normal((4,)) * 0.1).astype(np.float32))
+    calls = []
+    direct = KC.conv2d_direct
+    monkeypatch.setattr(KC, "conv2d_direct",
+                        lambda *a, **kw: calls.append(kw) or direct(*a, **kw))
+    got = ops.conv2d(x, wt, b, stride=1, padding="SAME", layout="NHWC",
+                     activation="relu")
+    want = ref_ops.run_op("fused_conv2d", [x, wt, b],
+                          {"stride": 1, "padding": "SAME", "layout": "NHWC",
+                           "activation": "relu"})
+    assert len(calls) == 1 and got.shape == (1, h, w, 4)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **CONV_TOL)
 
 
 # the Hopper kernel's edge lengths: 1..17 around its 16-byte vectors and
