@@ -73,7 +73,15 @@ each with its seconds logged:
      beside torch.matmul; granite's lm_head (N % 8 = 3: the scalar load
      path) at every (tile_m, split_k > 1) the template admits, each split
      call twice and bitwise equal; and the draw kernel at (8, 49155) and
-     (4, 49155), whose bf16 logit rows are not 16-byte aligned;
+     (4, 49155), whose bf16 logit rows are not 16-byte aligned; and, for
+     phases 11-13: paged decode and paged prefill at qwen2-vl's serving
+     shape (H = 12, Hkv = 2, G = 6: block_q 16 launches 5 rows, 30 of the
+     prefill tile's 32 vectors) in bf16, each twice bitwise, timed beside
+     SDPA; the GEMM at qwen2-vl's five serving shapes (qkv 1536 -> 1536 /
+     256, mlp_up 1536 -> 8960, mlp_down 8960 -> 1536, lm_head 1536 ->
+     151,936) at M = 8 and 256, timed beside torch.matmul; the draw kernel
+     at (8 / 4, 32000) and (8 / 4, 51865), the latter's rows not 16-byte
+     aligned;
   3. qwen3-1.7b at full width (random weights from seed 0) served through
      `ContinuousEngine` with a plan that sends attention and the four
      role-tagged matmuls through the kernels: 16 requests, chunked and
@@ -203,12 +211,42 @@ each with its seconds logged:
      at the 0.25 margin, tokens/s beside phase 5's plan); and qwen3's
      serve-plan race run again on a fresh device-time fitness, with the
      matmul nodes whose winner flips against phase 5's counted;
- 11. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 11. qwen2-vl-2b at full width and depth (28 layers, d_model 1536, 12 / 2
+     heads x 128, M-RoPE sections (16, 24, 24), d_ff 8960, vocab 151,936,
+     256 vision tokens, bf16, seed 0, drawn on the card by `init_serving`
+     after every earlier model is freed): phase 3's 16 prompts on the
+     kernel lanes graphed and eager in one pair (bitwise, one signature
+     per program, replays = steps - 2, nothing captured at submit()), the
+     decode-only step against its bytes bound, the torch lanes by first
+     tokens at the 0.25 margin, a 120-block pool preempting the first 8
+     prompts bitwise equal to the unconstrained run; then `ServeEngine`
+     with `extras={"vision_embeds": (256, 1536)}` (drawn from the seed),
+     routed to the fixed-batch loop, batch 4, 4 prompts of 300-400 tokens:
+     every request finishes, its tokens agree with the same parameters
+     cast up to f32 (teacher-forced on the bf16 run's tokens: the first
+     tokens and every decode step's) wherever the f32 top-2 margin
+     exceeds 0.25 (at least one token compared; the first tokens' max
+     logit error logged), and the first-token logits differ from the same
+     prompts served without the images;
+ 12. zamba2-1.2b (`HybridLM`, 38 Mamba2 layers, d_model 2048, the shared
+     block used 6 times, 32 / 32 heads x 64, d_ff 8192, state 64, vocab
+     32,000) through `ServeEngine`, routed to the fixed-batch loop: batch
+     4, max_seq 512, 8 prompts of 32-256 tokens, 32 new tokens; every
+     request finishes, tokens agree with the f32 twin as in phase 11;
+     tokens/s (`throughput()`) and prefill seconds;
+ 13. whisper-base (`EncDecLM`, 6 + 6 layers, d_model 512, 8 heads x 64,
+     d_ff 2048, vocab 51,865, layer norm, gelu) with `extras=
+     {"audio_embeds": (1500, 512)}` drawn from the seed, batch 4, 8
+     prompts of 4-64 tokens: phase 12's gates.  Phases 11-13 each log
+     their peak device memory and seconds and free the card for the
+     next;
+ 14. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8 and 10, their serving
-     runs and the decode wrapper's call; a replayed CUDA graph counts the
-     launches it captured), error and times;
- 12. the last line `{"ok": true, "device": {...}}`.
+     runs, the decode wrapper's call and the fixed-batch runs of phases
+     11-13, where only the draw kernel runs; a replayed CUDA graph counts
+     the launches it captured), error and times;
+ 15. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -462,9 +500,10 @@ def _gather_kv(torch, k_pool, v_pool, tables):
 
 # the decode and chunk lanes' head geometries: (model, H, Hkv); qwen3's
 # runs in phase 3, qwen2-moe's (G = 1, MHA) in phase 8, granite's (G = 4)
-# in phase 9
+# in phase 9, qwen2-vl's (G = 6: block_q 16 launches 5 rows, 30 of the
+# prefill tile's 32 vectors) in phase 11
 SERVE_HEADS = (("qwen3-1.7b", 16, 8), ("qwen2-moe-a2.7b", 16, 16),
-               ("granite-3-8b", 32, 8))
+               ("granite-3-8b", 32, 8), ("qwen2-vl-2b", 12, 2))
 
 
 def _decode_serving_shape(torch, chk, g, model, h, hkv):
@@ -692,6 +731,9 @@ def _prefill_serving_shape(torch, chk, g, model, h, hkv, block_q):
         f"rows x {h // hkv} heads = {rows * (h // hkv)} of the tile's "
         f"{KA.PREFILL_MAX_VECTORS} vectors a CTA")
     _check_prefill_bf16(torch, chk, tag, q, kp, vp, tables, info, block_q)
+    _bitwise(chk, f"{tag} serving shape",
+             KA.paged_prefill_attention(q, kp, vp, tables, info, block_q=block_q),
+             KA.paged_prefill_attention(q, kp, vp, tables, info, block_q=block_q))
 
     n_copy = copies_for(2 * kp.numel() * 2)
     pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(n_copy - 1)]
@@ -968,6 +1010,14 @@ def check_matmul_models(torch, chk, granite, moe):
             chk.err = max(chk.err, chk.compare(f"{label} vs plain", out, want, tol,
                                                "f32 summation order, one bf16 rounding"))
             _bitwise(chk, label, out, kops.matmul(x, w, config=cfg))
+
+
+def check_matmul_vlm(torch, chk, cfg):
+    """The GEMM at qwen2-vl-2b's five serving shapes (qkv 1536 -> 1536 /
+    256, mlp_up 1536 -> 8960, mlp_down 8960 -> 1536, lm_head 1536 ->
+    151,936) at M = 8 and 256, as `check_matmul_models` holds granite's."""
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    _matmul_serving_shapes(torch, chk, g, "qwen2-vl ", serving_gemms(cfg))
 
 
 # The GEMM's tuned knobs (tile_m, split_k).  KNOB_CHECKS: the shapes at
@@ -1718,6 +1768,9 @@ def check_counter_growth(torch, chk):
 SAMPLE_SHAPES = ((8, "decode lane"), (4, "chunk lane"))
 # the ssm path's draws: 8 slots, and one chunk segment
 SSM_SAMPLE_SHAPES = ((8, "ssm decode lane"), (1, "ssm chunk lane"))
+# the fixed-batch loop's draws (batch 4) and 8 rows, at zamba2's V 32,000
+# and whisper's 51,865 (bf16 rows not 16-byte aligned)
+FIXED_SAMPLE_SHAPES = ((8, "8 rows"), (4, "fixed-batch loop"))
 SAMPLE_SEEDS = (0, 1, 2**31 - 1)
 SAMPLE_TOKEN_INDICES = (0, 31)
 THREEFRY_INT_OPS = 75
@@ -2213,20 +2266,36 @@ def _draw_margin(torch, logits, sampling, rid):
     return float(top2[0] - top2[1])
 
 
-def _h2d_bytes(prof):
-    """Bytes of the host-to-device copies in a profiler trace (the memcpy
-    events' `bytes`), or None when the trace carries no byte counts."""
+def _h2d_bytes(prof, copies):
+    """Bytes of the host-to-device copies in a profiler trace that holds a
+    commit of `copies` host-to-device copies, read from the device's memcpy
+    records.  -> (bytes, None), or (None, why) when the trace is incomplete:
+    fewer memcpy calls than the commit issues, or a call whose device
+    record (same correlation id) is missing or carries no byte count.  The
+    profiler can drop records from a long process's trace; a partial sum
+    is not a measurement."""
     path = os.path.join(ROOT, "build", f"commit_trace_{os.getpid()}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     os.remove(path)
-    sizes = [e.get("args", {}).get("bytes") for e in events
-             if "HtoD" in str(e.get("name", ""))]
-    if not sizes or any(b is None for b in sizes):
-        return None
-    return sum(sizes)
+    calls = [e.get("args", {}).get("correlation") for e in events
+             if e.get("ph") == "X" and str(e.get("name", "")).startswith("cudaMemcpy")]
+    records = {e.get("args", {}).get("correlation"): e for e in events
+               if e.get("ph") == "X" and str(e.get("name", "")).startswith("Memcpy ")}
+    unmatched = [c for c in calls
+                 if records.get(c, {}).get("args", {}).get("bytes") is None]
+    if len(calls) < copies or unmatched:
+        return None, (f"{len(calls)} memcpy calls for the commit's {copies} copies, "
+                      f"{len(unmatched)} without a device record with bytes")
+    return sum(records[c]["args"]["bytes"] for c in calls
+               if "HtoD" in str(records[c].get("name"))), None
+
+
+def _bytes_note(measured, why):
+    return (f"{measured} bytes measured (profiler memcpy records)" if why is None
+            else f"not measured: the profiler trace is incomplete ({why})")
 
 
 def phase_sampled(torch, served, router, greedy_out, profile=False):
@@ -2303,11 +2372,12 @@ def phase_sampled(torch, served, router, greedy_out, profile=False):
         orig = ad.resume_commit
 
         def resume_commit(group):
+            torch.cuda.synchronize()
             with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
                 nbytes = orig(group)
                 torch.cuda.synchronize()
-            commits.append((sum(nbytes), ad.last_commit_h2d_bytes, _h2d_bytes(prof),
-                            len(group)))
+            commits.append((sum(nbytes), ad.last_commit_h2d_bytes,
+                            _h2d_bytes(prof, 2 * len(group) + 1), len(group)))
             return nbytes
 
         ad.resume_commit = resume_commit
@@ -2333,12 +2403,11 @@ def phase_sampled(torch, served, router, greedy_out, profile=False):
                              f"divergence {_first_divergence(out_u, out_p)}")
     kv = pe.adapter._commit_kv
     padded = 2 * kv[0].numel() * kv[0].element_size()
-    for swapped, counted, measured, n in commits:
+    for swapped, counted, (measured, why), n in commits:
         ids = counted - swapped
         log(f"[sampled] commit of {n} request(s): swapped {swapped} bytes; "
             f"host-to-device {counted} bytes counted (swapped + {ids} of block "
-            f"ids), {'no byte counts in the profiler trace' if measured is None else f'{measured} bytes measured'} "
-            f"(profiler memcpy events); the padded inputs {padded} bytes")
+            f"ids), {_bytes_note(measured, why)}; the padded inputs {padded} bytes")
         if ids != pe.kv_cfg.max_blocks_per_seq * pe.adapter.resume_segments * 4:
             raise AssertionError(f"commit: {counted} bytes != swapped + ids")
         if measured is not None and measured != counted:
@@ -2739,13 +2808,14 @@ def phase_ssm(torch, cfg, profile=False):
         orig = ad.resume_commit
 
         def resume_commit(group):
+            torch.cuda.synchronize()
             with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 nbytes = orig(group)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            commits.append((sum(nbytes), ad.last_commit_h2d_bytes, _h2d_bytes(prof),
-                            len(group), wall))
+            commits.append((sum(nbytes), ad.last_commit_h2d_bytes,
+                            _h2d_bytes(prof, 2 * len(group) + 1), len(group), wall))
             return nbytes
 
         ad.resume_commit = resume_commit
@@ -2771,12 +2841,11 @@ def phase_ssm(torch, cfg, profile=False):
     row_bytes = sum(t.numel() * t.element_size() for t in (pe.cache.conv[:, 0],
                                                             pe.cache.ssm[:, 0]))
     ids_bytes = 4 * pe.adapter.resume_segments
-    for swapped, counted, measured, n, wall in commits:
+    for swapped, counted, (measured, why), n, wall in commits:
         log(f"[ssm] commit of {n} request(s): swapped {swapped} bytes ({n} x "
             f"{row_bytes} a state row); host-to-device {counted} bytes counted "
-            f"(swapped + {counted - swapped} of row ids), "
-            f"{'no byte counts in the profiler trace' if measured is None else f'{measured} bytes measured'}"
-            f" (profiler memcpy events); {1e3 * wall:.2f} ms wall, profiled")
+            f"(swapped + {counted - swapped} of row ids), {_bytes_note(measured, why)}; "
+            f"{1e3 * wall:.2f} ms wall, profiled")
         if swapped != n * row_bytes or counted != swapped + ids_bytes:
             raise AssertionError(f"ssm commit: {counted} bytes != {n} rows + ids")
         if measured is not None and measured != counted:
@@ -3037,6 +3106,289 @@ def phase_granite(torch, cfg, profile=False):
         "(torch.cuda.max_memory_allocated)")
     log(f"[granite] phase seconds: {time.perf_counter() - t_phase:.1f}")
     return {"serve_granite_3_8b": launches}
+
+
+# ------------------------------------------------------------ phases 11-13
+# The three remaining families at full width and depth, bf16, random
+# weights from seed 0 drawn on the card by `init_serving`: qwen2-vl-2b
+# (phase 11) on the paged programs with phase 3's 16 prompts and runtime,
+# then with its 256 vision embeddings on the fixed-batch loop;
+# zamba2-1.2b (phase 12) and whisper-base (phase 13, with 1500 audio
+# frames) on the fixed-batch loop, the only engine their families have,
+# in the reference too.  The loop runs PyTorch ops and the draw kernel: no
+# plan reaches it.  The fixed-batch runs are held against the same
+# parameters cast up to f32 (only the arithmetic differs), token by token
+# on the bf16 run's history, wherever the f32 top-2 margin exceeds
+# FIRST_TOKEN_MARGIN (`f32_check`).
+VLM_KERNEL_RUNS = (True, False)                   # one pair
+FIXED_BATCH = 4
+VLM_FIXED_LENS = (300, 340, 370, 400)
+VLM_FIXED_SEQ = 512
+HYBRID_FIXED_LENS = (32, 64, 96, 128, 160, 192, 224, 256)
+HYBRID_FIXED_SEQ = 512
+ENCDEC_FIXED_LENS = (4, 12, 20, 28, 36, 44, 52, 64)
+ENCDEC_FIXED_SEQ = 128
+
+
+def family_setup(torch, cfg):
+    """A model of the hybrid or encdec family at full width and depth
+    (random weights from seed 0, drawn on the card by `init_serving`)."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_serving(torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    log(f"model {cfg.name} ({type(model).__name__}): {cfg.n_layers} layers"
+        f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.n_enc_layers else ''}, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{sum(t.numel() for t in leaves) / 1e9:.3f} G params "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def fixed_serve(torch, model, params, prompts, label, max_seq, extras=None,
+                loop=False):
+    """Serve `prompts` through `ServeEngine`, which must route them to the
+    fixed-batch loop (the family has no paged path, or extras ride along),
+    or with `loop` through `FixedBatchEngine` itself; batches of
+    FIXED_BATCH, left-padded, 32 new tokens.  Every request must finish
+    with in-vocabulary tokens and finite first-token logits.
+    -> ({rid: tokens}, {rid: first-token logits, f32 on the host},
+    decode tokens/s, prefill seconds)."""
+    from repro_torch.serve.engine import FixedBatchEngine, ServeConfig, ServeEngine
+
+    cfg = model.cfg
+    scfg = ServeConfig(batch_size=FIXED_BATCH, max_seq=max_seq,
+                       max_new_tokens=SERVE_RUNTIME["max_new_tokens"])
+    if loop:
+        eng = FixedBatchEngine(model, params, scfg, device=DEVICE)
+    else:
+        eng = ServeEngine(model, params, scfg, extras=extras, device=DEVICE)
+        if not isinstance(eng._engine, FixedBatchEngine):
+            raise AssertionError(f"[{label}] ServeEngine did not route to the loop")
+    rows = []
+
+    def prefill(p, batch, n):            # records each batch's first logits
+        logits, cache = type(model).prefill(model, p, batch, n)
+        rows.append(logits[:, -1].to("cpu", torch.float32))
+        return logits, cache
+
+    model.prefill = prefill
+    try:
+        for p in prompts:
+            eng.submit(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill
+    firsts = torch.cat(rows)                  # batch after batch, FIXED_BATCH rows
+    out = {r.rid: r.output for r in done}
+    first = {rid: firsts[rid - 1] for rid in out}
+    if len(done) != len(prompts):
+        raise AssertionError(f"[{label}] {len(done)} of {len(prompts)} finished")
+    for rid, toks in out.items():
+        if len(toks) != scfg.max_new_tokens or not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"[{label}] request {rid}: bad stream")
+        if not bool(torch.isfinite(first[rid]).all()):
+            raise AssertionError(f"[{label}] request {rid}: non-finite logits")
+    st = eng.stats
+    tps = eng.throughput()
+    log(f"[{label}] {st['requests']} requests in batches of {FIXED_BATCH}, "
+        f"{st['tokens_out']} tokens: {tps:.1f} tokens/s (throughput(): tokens "
+        f"over decode seconds), prefill {st['prefill_s']:.3f} s, decode "
+        f"{st['decode_s']:.3f} s, wall {wall:.3f} s")
+    return out, first, tps, st["prefill_s"]
+
+
+def f32_check(torch, label, model, params, prompts, max_seq, out, first,
+              extras=None):
+    """The bf16 fixed-batch run `out` (greedy) against the same parameters
+    cast up to f32 (only the arithmetic differs), teacher-forced: each
+    batch's prompts left-padded as the loop pads them, then the bf16 run's
+    own tokens.  Every token the bf16 run drew — its first tokens and
+    each decode step's — must be the f32 twin's argmax on the same history
+    wherever the twin's top-2 margin exceeds FIRST_TOKEN_MARGIN (the
+    random models' margins are often smaller; a run where no token has
+    one fails).  -> the max |logit difference| at the first tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch import steps
+
+    twin = type(model)(dataclasses.replace(model.cfg, dtype="float32"))
+    tparams = twin.serving_params(params, DEVICE)
+    ex = {k: torch.as_tensor(v, device=DEVICE).expand(FIXED_BATCH, *v.shape)
+          for k, v in (extras or {}).items()}
+    n_new = SERVE_RUNTIME["max_new_tokens"]
+    firsts = tokens = n_first = n_all = 0
+    max_err = 0.0
+    t0 = time.perf_counter()
+    for b0 in range(0, len(prompts), FIXED_BATCH):
+        batch = prompts[b0:b0 + FIXED_BATCH]
+        rids = list(range(b0 + 1, b0 + 1 + len(batch)))
+        plen = max(len(p) for p in batch)
+        toks = np.zeros((FIXED_BATCH, plen), np.int32)
+        drawn = np.zeros((FIXED_BATCH, n_new), np.int32)
+        for i, (p, rid) in enumerate(zip(batch, rids)):
+            toks[i, plen - len(p):] = p                   # left-pad
+            drawn[i] = out[rid]
+        logits, cache = steps.prefill_step(twin, tparams,
+                                           torch.as_tensor(toks, device=DEVICE),
+                                           max_seq, ex)
+        for j in range(n_new):
+            rows = logits[:, -1].to("cpu", torch.float32)
+            for i, rid in enumerate(rids):
+                if j == 0:
+                    max_err = max(max_err, (first[rid] - rows[i]).abs().max().item())
+                    firsts += 1
+                tokens += 1
+                top2 = torch.topk(rows[i], 2)
+                margin = float(top2.values[0] - top2.values[1])
+                if margin <= FIRST_TOKEN_MARGIN:
+                    continue
+                n_first += j == 0
+                n_all += 1
+                if int(top2.indices[0]) != out[rid][j]:
+                    raise AssertionError(
+                        f"[{label}] request {rid} token {j}: {out[rid][j]} in bf16 vs "
+                        f"{int(top2.indices[0])} in f32 at margin {margin:.3f}")
+            if j + 1 < n_new:
+                logits, cache = steps.serve_step(
+                    twin, tparams, cache, torch.as_tensor(drawn[:, j:j + 1], device=DEVICE))
+    torch.cuda.synchronize()
+    log(f"[{label}] against the f32 twin (teacher-forced, {time.perf_counter() - t0:.1f} s): "
+        f"first tokens {n_first}/{firsts} compared (top-2 margin > "
+        f"{FIRST_TOKEN_MARGIN}), every token {n_all}/{tokens} compared, all agree; "
+        f"max |logit difference| at the first tokens {max_err:.4f}")
+    if n_all == 0:
+        raise AssertionError(f"[{label}] no token had a margin to compare")
+    return max_err
+
+
+def _fmt_div(div):
+    return "none" if div is None else "request %d token %d: %d vs %d" % div
+
+
+def _zeroed(counters):
+    for fn in counters:
+        fn.launches = 0
+
+
+def _launched(counters):
+    return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+
+def _fixed_and_f32(torch, model, params, prompts, label, max_seq, counters,
+                   extras=None):
+    """The fixed-batch run (its launches counted: the draw kernel only),
+    then `f32_check`.  -> (launches, streams, first-token logits)."""
+    _zeroed(counters)
+    out, first, tps, prefill_s = fixed_serve(torch, model, params, prompts, label,
+                                             max_seq, extras)
+    launches = _launched(counters)
+    if set(launches) != {"sample_draw"}:
+        raise AssertionError(f"[{label}] launches {launches}: want the draw kernel only")
+    f32_check(torch, label, model, params, prompts, max_seq, out, first, extras)
+    log(f"[{label}] launches {launches}; tokens/s {tps:.1f}, prefill {prefill_s:.3f} s")
+    return launches, out, first
+
+
+def _phase_end(label, t_phase):
+    torch = sys.modules["torch"]
+    log(f"[{label}] peak device memory of the phase: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        "(torch.cuda.max_memory_allocated)")
+    log(f"[{label}] phase seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def phase_vlm(torch, cfg, profile=False):
+    """qwen2-vl-2b served on the card (see the module docstring, phase
+    11).  -> the kernels' launches on its two paths."""
+    import numpy as np
+
+    from repro_torch.serve.router import PlanRouter
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    served = serving_setup(torch, cfg)
+    model, params, prompts = served
+    _log_block_q(cfg)
+    router = kernel_lane_router(PREFILL_BLOCK_Q)
+    counters = _serve_counters()
+    out_k, first_k, _, launches, eng, _ = _kernel_lane_pairs(
+        torch, served, router, "qwen2-vl", VLM_KERNEL_RUNS, profile, counters)
+    _replay_decode(torch, "qwen2-vl", cfg, eng)
+    del eng
+    out_t, first_t, _ = serve(torch, served, PlanRouter(None),
+                              "qwen2-vl torch lanes, graphed", profile)
+    log(f"[qwen2-vl] kernel vs torch lanes: first diverging token "
+        f"{_fmt_div(_first_divergence(out_t, out_k))}")
+    compare_first_tokens(torch, "qwen2-vl kernel lanes", out_k, first_k, out_t, first_t)
+
+    few = prompts[:IDENTITY_PROMPTS]
+    out_p, first_p, s_p = serve(torch, served, router, "qwen2-vl preempted",
+                                prompts=few, check_schedule=False,
+                                num_blocks=PREEMPT_BLOCKS)
+    out_u, first_u, _ = serve(torch, served, router, "qwen2-vl unconstrained",
+                              prompts=few, check_schedule=False)
+    if not s_p["preemptions"] > 0:
+        raise AssertionError("qwen2-vl: the small pool preempted nothing")
+    if out_p != out_u or not _same_firsts(first_p, first_u):
+        raise AssertionError(f"qwen2-vl: preempted != unconstrained, first divergence "
+                             f"{_first_divergence(out_u, out_p)}")
+    log(f"[qwen2-vl] preempted ({PREEMPT_BLOCKS}-block pool, {int(s_p['preemptions'])} "
+        f"preemptions) = unconstrained, bitwise (streams, first-token logits)")
+
+    # the fixed-batch loop with the vision embeddings
+    rng = np.random.default_rng(1)
+    vision = rng.standard_normal((cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    fixed_prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+                     for n in VLM_FIXED_LENS]
+    extras = {"vision_embeds": vision}
+    fixed, _, first_v = _fixed_and_f32(
+        torch, model, params, fixed_prompts, "qwen2-vl fixed batch, vision",
+        VLM_FIXED_SEQ, counters, extras)
+    _, first_x, _, _ = fixed_serve(torch, model, params, fixed_prompts,
+                                   "qwen2-vl fixed batch, text only", VLM_FIXED_SEQ,
+                                   loop=True)
+    moved = min((first_v[r] - first_x[r]).abs().max().item() for r in first_v)
+    log(f"[qwen2-vl] the vision embeddings move every request's first-token logits "
+        f"(smallest max |difference| {moved:.4f})")
+    if not moved > 0:
+        raise AssertionError("qwen2-vl: the vision embeddings did not reach the model")
+    _phase_end("qwen2-vl", t_phase)
+    return {"serve_qwen2_vl_2b": launches, "fixed_qwen2_vl_2b_vision": fixed}
+
+
+def phase_fixed_family(torch, cfg, lens, max_seq, label, path, extras_key=None):
+    """zamba2-1.2b (phase 12) or whisper-base (phase 13, with `extras_key`
+    "audio_embeds": enc_seq frames drawn from the seed) served on the
+    fixed-batch loop (see the module docstring). -> the draw kernel's
+    launches on its path."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = family_setup(torch, cfg)
+    rng = np.random.default_rng(2)
+    extras = None
+    if extras_key:
+        extras = {extras_key: rng.standard_normal((cfg.enc_seq, cfg.d_model)
+                                                  ).astype(np.float32)}
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in lens]
+    launches, _, _ = _fixed_and_f32(torch, model, params, prompts,
+                                       f"{label} fixed batch", max_seq,
+                                       _serve_counters(), extras)
+    _phase_end(label, t_phase)
+    return {path: launches}
 
 
 def free_device(torch):
@@ -3563,7 +3915,7 @@ def main() -> int:
                          "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 9")
+                         "skips phases 3 to 13")
     args = ap.parse_args()
 
     import torch
@@ -3626,6 +3978,9 @@ def main() -> int:
     check_matmul_models(torch, checks[2], get_config("granite-3-8b"),
                         get_config("qwen2-moe-a2.7b"))
     check_sampling(torch, checks[7], get_config("granite-3-8b").vocab)
+    check_matmul_vlm(torch, checks[2], get_config("qwen2-vl-2b"))
+    for arch in ("zamba2-1.2b", "whisper-base"):
+        check_sampling(torch, checks[7], get_config(arch).vocab, FIXED_SAMPLE_SHAPES)
     knob_paths = check_matmul_knobs(torch, checks[2], get_config("qwen3-1.7b"),
                                     get_config("mamba2-2.7b"))
     torch.cuda.synchronize()
@@ -3669,10 +4024,26 @@ def main() -> int:
     granite_paths = timed_phase(
         9, "serving granite-3-8b through ContinuousEngine (G = 4, vocab 49,155)",
         phase_granite, torch, get_config("granite-3-8b"), args.profile)
+    free_device(torch)
+    vlm_paths = timed_phase(
+        11, "serving qwen2-vl-2b (M-RoPE, G = 6) through ContinuousEngine, and with "
+        "its vision embeddings through the fixed-batch loop", phase_vlm, torch,
+        get_config("qwen2-vl-2b"), args.profile)
+    free_device(torch)
+    hybrid_paths = timed_phase(
+        12, "serving zamba2-1.2b (HybridLM) through the fixed-batch loop",
+        phase_fixed_family, torch, get_config("zamba2-1.2b"), HYBRID_FIXED_LENS,
+        HYBRID_FIXED_SEQ, "zamba2", "fixed_zamba2_1_2b")
+    free_device(torch)
+    encdec_paths = timed_phase(
+        13, "serving whisper-base (EncDecLM, 1500 audio frames) through the "
+        "fixed-batch loop", phase_fixed_family, torch, get_config("whisper-base"),
+        ENCDEC_FIXED_LENS, ENCDEC_FIXED_SEQ, "whisper", "fixed_whisper_base",
+        "audio_embeds")
     paths = {**knob_paths, "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
-             **ssm_paths,
-             **moe_paths, **granite_paths}
+             **ssm_paths, **moe_paths, **granite_paths, **vlm_paths,
+             **hybrid_paths, **encdec_paths}
     kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
                          if c.fn.__name__ in n}) for c in checks]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

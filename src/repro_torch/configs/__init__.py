@@ -3,8 +3,8 @@ reference's order, with their published numbers.  Pure data.
 
 `get_config(name)` returns the exact published ModelConfig; `runnable(cfg,
 shape)` implements the documented skip matrix (long_500k -> sub-quadratic
-archs only).  The families the port serves are dense, moe (DecoderLM) and
-ssm (MambaLM); `models.build_model` raises for the rest.
+archs only).  `models.build_model` serves all six families: dense, moe and
+vlm (DecoderLM), ssm (MambaLM), hybrid (HybridLM), encdec (EncDecLM).
 """
 
 from __future__ import annotations

@@ -230,11 +230,14 @@ def graph_ssm_commit_state(device, *, graphed: bool = True, pool=None) -> Progra
     return Program(ssm_commit_state, "commit", device, graphed=graphed, pool=pool)
 
 
-def prefill_step(model, params, tokens: torch.Tensor, max_seq: int):
-    """The fixed-batch prefill: tokens (B, S) -> (last-position logits
-    (B, 1, V), the model's fixed-batch cache: dense K/V of `max_seq` rows,
-    or Mamba2's carries)."""
-    return model.prefill(params, {"tokens": tokens}, max_seq)
+def prefill_step(model, params, tokens: torch.Tensor, max_seq: int,
+                 extras: Optional[Dict[str, torch.Tensor]] = None):
+    """The fixed-batch prefill: tokens (B, S) and the batch's modality
+    extras (`vision_embeds` / `audio_embeds`, (B, ...)) -> (last-position
+    logits (B, 1, V), the model's fixed-batch cache: dense K/V of
+    `max_seq` rows, Mamba2's carries, or both, and the encoder's cross
+    K/V)."""
+    return model.prefill(params, {"tokens": tokens, **(extras or {})}, max_seq)
 
 
 def serve_step(model, params, cache, tokens: torch.Tensor):

@@ -1,8 +1,15 @@
-"""GQA attention with RoPE and qk-norm — the port of the serving half of
-`repro.models.attention`: the paged path (`attn_init`, `_project_qkv`,
-`packed_row_map`, `attn_prefill_packed`, `attn_decode_paged`) and the
-dense-cache path of the fixed-batch engine (`attn_forward` with
-`return_kv`, `init_cache`, `attn_decode`).
+"""GQA attention with RoPE / M-RoPE and qk-norm, and cross-attention —
+the port of the serving half of `repro.models.attention`: the paged path
+(`attn_init`, `_project_qkv`, `packed_row_map`, `attn_prefill_packed`,
+`attn_decode_paged`), the dense-cache path of the fixed-batch engine
+(`attn_forward` with `return_kv`, `init_cache`, `attn_decode`) and the
+encoder-decoder's cross-attention (`attn_forward` with `kv_override`,
+`cross_kv`).
+
+With M-RoPE (`cfg.mrope_sections`) positions carry a trailing axis of 3
+(t, h, w); the decode lanes rotate the new token at (len, len, len), as
+the reference does (it projects twice there and drops the first result;
+the port projects once).
 
 The dense path is the reference's XLA lane, outside any Pallas kernel, so
 here it is plain PyTorch: Q·Kᵀ in the working dtype, then cast to f32 and
@@ -30,17 +37,17 @@ them in) a race would make a step differ from run to run.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import packed_row_map
-from repro_torch.models.common import (Params, apply_rope, dense, dense_init,
-                                       norm_init, rms_norm)
+from repro_torch.models.common import (Params, apply_mrope, apply_rope, dense,
+                                       dense_init, norm_init, rms_norm)
 
-__all__ = ["attn_init", "attn_forward", "init_cache", "attn_decode",
+__all__ = ["attn_init", "attn_forward", "cross_kv", "init_cache", "attn_decode",
            "packed_row_map", "attn_prefill_packed", "attn_decode_paged",
            "decode_write_rows", "packed_write_rows"]
 
@@ -63,8 +70,6 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig,
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  positions: Optional[torch.Tensor]):
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE (vlm family) is a later slice")
     b, s, _ = x.shape
     hd = cfg.hd
     # role-tagged: the plan's stage `qkv_proj` choice dispatches these
@@ -75,9 +80,20 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
         q = rms_norm(p["q_norm"], q)
         k = rms_norm(p["k_norm"], k)
     if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope_sections:
+            q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _decode_positions(cfg: ModelConfig, lengths: torch.Tensor) -> torch.Tensor:
+    """The decode token's positions: (B, 1), or (B, 1, 3) = (len, len, len)
+    with M-RoPE."""
+    pos = lengths[:, None]
+    return pos[..., None].expand(-1, 1, 3) if cfg.mrope_sections else pos
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -97,14 +113,36 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                  positions: Optional[torch.Tensor] = None, causal: bool = True,
+                 kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  return_kv: bool = False):
     """Full-sequence attention over x (B, S, d) -> (B, S, d), and with
-    `return_kv` the (K, V) it built, each (B, S, Hkv, hd), for the cache."""
+    `return_kv` the (K, V) it built, each (B, S, Hkv, hd), for the cache.
+    `kv_override` (K, V) makes it cross-attention: only the query is
+    projected (`wq` with no role, q-norm, no RoPE) and every query sees
+    every key."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    if kv_override is not None:
+        q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.hd)
+        if cfg.qk_norm:
+            q = rms_norm(p["q_norm"], q)
+        k, v = kv_override
+        causal = False
+    else:
+        q, k, v = _project_qkv(p, cfg, x, positions)
     out = _sdpa(q, k, v, causal, cfg.q_per_kv)
     y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.hd))
     return (y, (k, v)) if return_kv else y
+
+
+def cross_kv(p: Params, cfg: ModelConfig, enc: torch.Tensor):
+    """The encoder output's K / V (B, S_enc, Hkv, hd) for one decoder
+    layer's cross-attention, computed once per prompt."""
+    b, s, _ = enc.shape
+    k = dense(p["wk"], enc).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = dense(p["wv"], enc).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rms_norm(p["k_norm"], k)
+    return k, v
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, n_layers: int,
@@ -124,7 +162,7 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     then it attends to rows 0..lengths[b].  Returns (B, 1, d)."""
     b = x.shape[0]
     lengths = lengths.long()
-    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None])
+    q, k_new, v_new = _project_qkv(p, cfg, x, _decode_positions(cfg, lengths))
     bidx = torch.arange(b, device=x.device)
     k_cache[bidx, lengths] = k_new[:, 0].to(k_cache.dtype)
     v_cache[bidx, lengths] = v_new[:, 0].to(v_cache.dtype)
@@ -218,7 +256,7 @@ def attn_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     Returns (B, 1, d); the pools are updated in place."""
     b = x.shape[0]
     lengths = lengths.long()
-    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None])
+    q, k_new, v_new = _project_qkv(p, cfg, x, _decode_positions(cfg, lengths))
     blk, off, src = rows
     k_pool[blk, off] = k_new[src, 0].to(k_pool.dtype)
     v_pool[blk, off] = v_new[src, 0].to(v_pool.dtype)

@@ -52,6 +52,20 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layer_norm_init(d: int, device=None) -> Params:
+    return {"scale": torch.ones((d,), device=device),
+            "bias": torch.zeros((d,), device=device)}
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 mean and population variance, then scale and bias."""
+    xf = x.float()
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), -1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
     # theta stays a Python scalar: a device tensor built from it would be a
     # host-to-device copy that waits for the GPU at every layer
@@ -67,6 +81,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(d, theta, x.device)                     # (D/2,)
     angles = positions[..., None].float() * freqs              # (..., S, D/2)
     angles = angles[..., None, :]                              # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                sections, theta: float = 10000.0) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): the head dim's D/2 frequency pairs are
+    split into (temporal, height, width) sections, each rotated by its own
+    position stream.  x: (..., S, H, D); positions_3d (..., S, 3).  Each
+    pair's stream is picked by comparing its index with the sections'
+    Python-int boundaries, so nothing is copied from the host (the decode
+    and chunk programs are captured in CUDA graphs)."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                     # (D/2,)
+    pair = torch.arange(d // 2, device=x.device)
+    first, second = sections[0], sections[0] + sections[1]
+    pos = positions_3d.float()
+    pos = torch.where(pair < first, pos[..., 0:1],
+                      torch.where(pair < second, pos[..., 1:2], pos[..., 2:3]))
+    angles = (pos * freqs)[..., None, :]                       # (..., S, 1, D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)

@@ -1,24 +1,34 @@
-"""Model assembly — the port of the serving halves of
-`repro.models.zoo.DecoderLM` (dense and moe families: the paged path of
-the continuous engine and the dense-cache path, `init_cache` / `prefill` /
-`decode_step`, of the fixed-batch engine) and `repro.models.zoo.MambaLM`
-(ssm family: the slot-pooled path of the continuous engine and the same
-fixed-batch path over the conv / SSM carries), and `build_model`.
+"""Model assembly — the port of the serving halves of the six families of
+`repro.models.zoo`: `DecoderLM` (dense, moe and vlm: the paged path of the
+continuous engine and the dense-cache path, `init_cache` / `prefill` /
+`decode_step`, of the fixed-batch engine; the vlm's M-RoPE positions and
+its vision embeddings), `MambaLM` (ssm: the slot-pooled path of the
+continuous engine and the same fixed-batch path over the conv / SSM
+carries), `HybridLM` (hybrid: Mamba2 layers with one shared attention
+block, fixed-batch path) and `EncDecLM` (encdec: an encoder over audio
+embeddings and a cross-attending decoder, fixed-batch path), and
+`build_model`.
 
-Parameters keep the JAX package's tree: `blocks` leaves are stacked over
+Parameters keep the JAX package's tree: layer leaves are stacked over
 layers (leading dim n_layers), `dense` weights are (d_in, d_out), the MoE's
 expert stacks are bare (E, d, f) / (E, f, d) tensors.  `init` draws from
 the same distributions as the JAX init (different numbers: the randomness
 is an explicit `torch.Generator`).  JAX keeps f32 parameters and casts each
 weight to `cfg.dtype` where it is used; `serving_params` casts the
 projection weights, the expert stacks and the embedding once instead (the
-same rounding) and keeps the norm scales in f32, where JAX multiplies by
-them.  `init_serving` gives `serving_params(init(gen))` without ever
-holding the f32 model: one layer is drawn in f32 at a time.
+same rounding) and keeps the norm scales and biases and the encoder's
+position table in f32, where JAX multiplies or adds them.  `init_serving`
+gives `serving_params(init(gen))` without ever holding the f32 model: one
+layer is drawn in f32 at a time.
+
+The vision patches and audio frames are stubs, as in the reference: the
+batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
+(B, S_enc, d).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -27,14 +37,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
-from repro_torch.models.common import (Params, dense_init, embed, embed_init,
+from repro_torch.models.common import (Params, dense, dense_init, embed,
+                                       embed_init, layer_norm, layer_norm_init,
                                        lm_head_logits, norm_init, rms_norm,
                                        torch_dtype)
 
 ATTN_BACKENDS = ("torch", "cuda_attention")
-
-FAMILY_TODO = ("the {} family is served by a later slice of the port: "
-               "ROADMAP.md, queue 1, 'Remaining families'")
 
 # the leaves `serving_params` casts to the serving dtype: dense weights,
 # the embedding and the MoE's expert stacks (JAX casts each at use)
@@ -46,15 +54,22 @@ def _check_backend(name: str) -> None:
         raise ValueError(f"attention backend {name!r} not in {ATTN_BACKENDS}")
 
 
+def _norm_init(cfg: ModelConfig, d: int, device=None) -> Params:
+    return layer_norm_init(d, device) if cfg.norm == "layer" else norm_init(d, device)
+
+
+def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(p, x) if cfg.norm == "layer" else rms_norm(p, x)
+
+
 def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(FAMILY_TODO.format(cfg.family))
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"{cfg.norm} norm: " + FAMILY_TODO.format(cfg.family))
+    """One decoder block (dense, moe and vlm families)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"no decoder block for the {cfg.family} family")
     p = {
-        "attn_norm": norm_init(cfg.d_model, gen.device),
+        "attn_norm": _norm_init(cfg, cfg.d_model, gen.device),
         "attn": A.attn_init(gen, cfg),
-        "mlp_norm": norm_init(cfg.d_model, gen.device),
+        "mlp_norm": _norm_init(cfg, cfg.d_model, gen.device),
     }
     if cfg.family == "moe":
         p["moe"] = F.moe_init(gen, cfg)
@@ -93,13 +108,19 @@ class _StackedLM:
     """What the families' models share: the config, parameters whose
     `blocks` leaves are stacked over layers, the serving dtypes and the
     two inits, which draw the embedding, each layer's block (the family's
-    `_block_init`) and the LM head in that order."""
+    `_block_init`), the subtrees outside the stack (`_shared_init`) and
+    the LM head in that order."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
 
     def _block_init(self, gen: torch.Generator) -> Params:
         raise NotImplementedError
+
+    def _shared_init(self, gen: torch.Generator) -> Params:
+        """Top-level subtrees drawn after the blocks (HybridLM's shared
+        attention block); none by default."""
+        return {}
 
     def init(self, generator: torch.Generator) -> Params:
         """f32 parameters on `generator.device`."""
@@ -109,7 +130,8 @@ class _StackedLM:
         return {
             "embed": emb,
             "blocks": blocks,
-            "final_norm": norm_init(cfg.d_model, generator.device),
+            **self._shared_init(generator),
+            "final_norm": _norm_init(cfg, cfg.d_model, generator.device),
             "lm_head": dense_init(generator, cfg.d_model, cfg.vocab),
         }
 
@@ -134,17 +156,18 @@ class _StackedLM:
                               layer)
             _copy_into(blocks, layer, i)
             del layer
+        shared = self.serving_params(self._shared_init(generator), device)
         rest = self.serving_params(
-            {"final_norm": norm_init(cfg.d_model, generator.device),
+            {"final_norm": _norm_init(cfg, cfg.d_model, generator.device),
              "lm_head": dense_init(generator, cfg.d_model, cfg.vocab)}, device)
-        return {**emb, "blocks": blocks, **rest}
+        return {**emb, "blocks": blocks, **shared, **rest}
 
     def serving_params(self, params: Params, device) -> Params:
         """`params` on `device`: the leaves named in CAST_LEAVES
         (projection weights, the embedding, the expert stacks) cast to
-        `cfg.dtype`, every other leaf (norm scales, the SSM's conv
-        weights, A_log, D, dt_bias) in f32, where JAX casts or multiplies
-        at use."""
+        `cfg.dtype`, every other leaf (norm scales and biases, the SSM's
+        conv weights, A_log, D, dt_bias, the encoder's position table) in
+        f32, where JAX casts, multiplies or adds at use."""
         dtype = torch_dtype(self.cfg.dtype)
 
         def walk(key, tree):
@@ -161,18 +184,51 @@ class _StackedLM:
 
 
 class DecoderLM(_StackedLM):
-    """dense and moe families (qwen3-style: GQA, optional qk-norm, RoPE,
-    RMSNorm; a SiLU-gated MLP, or the capacity-dispatched mixture of
-    experts with optional shared experts)."""
+    """dense, moe and vlm families (qwen3-style: GQA, optional qk-norm,
+    RoPE, RMSNorm; a SiLU-gated MLP, or the capacity-dispatched mixture of
+    experts with optional shared experts; the vlm's M-RoPE positions and
+    vision embeddings)."""
 
     def _block_init(self, gen: torch.Generator) -> Params:
         return block_init(gen, self.cfg)
 
     def _mlp(self, bp: Params, x: torch.Tensor) -> torch.Tensor:
-        h = rms_norm(bp["mlp_norm"], x)
+        h = _norm(self.cfg, bp["mlp_norm"], x)
         if self.cfg.family == "moe":
             return x + F.moe_apply(bp["moe"], self.cfg, h, self.cfg.act)
         return x + F.mlp_apply(bp["mlp"], h, self.cfg.act)
+
+    # ------------------------------------------------------------ inputs
+    def _position_ids(self, b: int, idx: torch.Tensor) -> torch.Tensor:
+        """RoPE positions of the sequence indices `idx` (S,): (B, S), or
+        with M-RoPE (B, S, 3).  M-RoPE (qwen2-vl): the first nv indices
+        are the vision tokens' (0, h, w) on a grid x grid raster, the text
+        tokens' streams all run max(idx - nv, 0) + grid.  Pure device
+        arithmetic on `idx` (a chunk passes its rows' own positions)."""
+        cfg = self.cfg
+        s = idx.shape[0]
+        if not cfg.mrope_sections:
+            return idx.expand(b, s)
+        nv = cfg.n_vision_tokens
+        grid = max(1, int(math.sqrt(nv)))
+        is_vis = idx < nv
+        t_text = torch.clamp(idx - nv, min=0) + grid
+        pt = torch.where(is_vis, 0, t_text)
+        ph = torch.where(is_vis, torch.clamp(idx // grid, 0, grid - 1), t_text)
+        pw = torch.where(is_vis, idx % grid, t_text)
+        return torch.stack([pt, ph, pw], -1).expand(b, s, 3)
+
+    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """The token embeddings (B, S, d); for the vlm with
+        batch["vision_embeds"] (B, nv, d) those replace the first nv rows
+        (as the reference concatenates them: a batch shorter than nv comes
+        out nv rows long)."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            vis = batch["vision_embeds"]
+            x = torch.cat([vis.to(x.dtype), x[:, vis.shape[1]:]], 1)
+        return x
 
     # -------------------------------------------- dense-cache serving path
     def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
@@ -186,22 +242,22 @@ class DecoderLM(_StackedLM):
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_seq: int):
-        """Run the whole prompt batch["tokens"] (B, S), build a cache of
-        `max_seq` rows holding its K/V; -> (last-position logits (B, 1, V),
-        cache)."""
+        """Run the whole prompt batch["tokens"] (B, S) (with the vlm's
+        batch["vision_embeds"]), build a cache of `max_seq` rows holding
+        its K/V; -> (last-position logits (B, 1, V), cache)."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        x = self._embed_inputs(params, batch)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = self._position_ids(b, torch.arange(s, device=x.device))
         cache = self.init_cache(b, max_seq, x.device)
         for i, bp in enumerate(self._layers(params)):
-            h = rms_norm(bp["attn_norm"], x)
+            h = _norm(cfg, bp["attn_norm"], x)
             y, (k, v) = A.attn_forward(bp["attn"], cfg, h, positions=positions,
                                        causal=True, return_kv=True)
             cache["k"][i, :, :s] = k.to(cache["k"].dtype)
             cache["v"][i, :, :s] = v.to(cache["v"].dtype)
             x = self._mlp(bp, x + y)
-        x = rms_norm(params["final_norm"], x)
+        x = _norm(cfg, params["final_norm"], x)
         cache["lengths"].fill_(s)
         return lm_head_logits(params["lm_head"], x[:, -1:]), cache
 
@@ -213,11 +269,11 @@ class DecoderLM(_StackedLM):
         x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
         lengths = cache["lengths"]
         for i, bp in enumerate(self._layers(params)):
-            h = rms_norm(bp["attn_norm"], x)
+            h = _norm(cfg, bp["attn_norm"], x)
             x = x + A.attn_decode(bp["attn"], cfg, h, cache["k"][i],
                                   cache["v"][i], lengths)
             x = self._mlp(bp, x)
-        x = rms_norm(params["final_norm"], x)
+        x = _norm(cfg, params["final_norm"], x)
         return lm_head_logits(params["lm_head"], x), dict(cache, lengths=lengths + 1)
 
     # ------------------------------------------------- paged serving path
@@ -235,12 +291,12 @@ class DecoderLM(_StackedLM):
         x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
         rows = A.decode_write_rows(block_tables, lengths, k_pool.shape[2])
         for i, bp in enumerate(self._layers(params)):
-            h = rms_norm(bp["attn_norm"], x)
+            h = _norm(cfg, bp["attn_norm"], x)
             x = x + A.attn_decode_paged(bp["attn"], cfg, h, k_pool[i], v_pool[i],
                                         block_tables, lengths,
                                         backend=attn_backend, rows=rows)
             x = self._mlp(bp, x)
-        x = rms_norm(params["final_norm"], x)
+        x = _norm(cfg, params["final_norm"], x)
         return lm_head_logits(params["lm_head"], x)
 
     def prefill_packed_paged(self, params: Params, k_pool: torch.Tensor,
@@ -264,16 +320,16 @@ class DecoderLM(_StackedLM):
         x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
         _, c, _ = x.shape
         _, pos, _ = A.packed_row_map(seg_info, c)     # pos zeroed on padding
-        positions = pos[None]
+        positions = self._position_ids(1, pos)
         rows = A.packed_write_rows(seg_tables, seg_info, c, k_pool.shape[2])
         for i, bp in enumerate(self._layers(params)):
-            h = rms_norm(bp["attn_norm"], x)
+            h = _norm(cfg, bp["attn_norm"], x)
             x = x + A.attn_prefill_packed(bp["attn"], cfg, h, k_pool[i],
                                           v_pool[i], seg_tables, positions,
                                           seg_info, backend=attn_backend,
                                           backend_config=attn_config, rows=rows)
             x = self._mlp(bp, x)
-        x = rms_norm(params["final_norm"], x)
+        x = _norm(cfg, params["final_norm"], x)
         info = seg_info.long()
         last = torch.clamp(info[:, 0] + info[:, 1] - 1, 0, c - 1)   # (S,)
         return lm_head_logits(params["lm_head"], x[:, last])
@@ -405,15 +461,276 @@ class MambaLM(_StackedLM):
         return lm_head_logits(params["lm_head"], x)
 
 
+# ===================================================================== Zamba2
+class HybridLM(_StackedLM):
+    """hybrid family (Zamba2): Mamba2 layers in groups of `attn_every`,
+    each full group followed by ONE shared attention block (its parameters
+    used at every application) that sees concat(hidden, the original
+    embeddings) through a down-projection.  A remainder group gets no
+    shared block.  Served by the fixed-batch loop: per layer a conv / SSM
+    carry, per shared-block use a dense K / V cache."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        self.n_shared_uses = cfg.n_layers // cfg.attn_every
+
+    def _group_sizes(self):
+        cfg = self.cfg
+        sizes = [cfg.attn_every] * (cfg.n_layers // cfg.attn_every)
+        if cfg.n_layers % cfg.attn_every:
+            sizes.append(cfg.n_layers % cfg.attn_every)
+        return sizes
+
+    def _block_init(self, gen: torch.Generator) -> Params:
+        return {"norm": _norm_init(self.cfg, self.cfg.d_model, gen.device),
+                "mamba": M.mamba_init(gen, self.cfg)}
+
+    def _shared_init(self, gen: torch.Generator) -> Params:
+        cfg, d = self.cfg, self.cfg.d_model
+        return {"shared": {
+            "in_proj": dense_init(gen, 2 * d, d),
+            "attn_norm": _norm_init(cfg, d, gen.device),
+            "attn": A.attn_init(gen, cfg),
+            "mlp_norm": _norm_init(cfg, d, gen.device),
+            "mlp": F.mlp_init(gen, d, cfg.d_ff),
+        }}
+
+    def _shared_apply(self, sp: Params, x: torch.Tensor, x0: torch.Tensor,
+                      attend) -> torch.Tensor:
+        """x + xin + mlp(norm(xin)), xin = in_proj(concat(x, x0)) +
+        attend(norm(in_proj(...))); `attend` is the attention call (the
+        whole prompt's or one decode token's)."""
+        cfg = self.cfg
+        xin = dense(sp["in_proj"], torch.cat([x, x0], -1))
+        xin = xin + attend(_norm(cfg, sp["attn_norm"], xin))
+        h = _norm(cfg, sp["mlp_norm"], xin)
+        return x + xin + F.mlp_apply(sp["mlp"], h, cfg.act)
+
+    def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
+        """Zeroed carries conv (L, batch, W-1, conv_dim) / ssm (L, batch,
+        nh, hd, n) f32, dense K / V caches (n_shared_uses, batch, max_seq,
+        Hkv, hd) of `cfg.dtype`, and (batch,) int32 lengths."""
+        cfg = self.cfg
+        conv, h = M.mamba_init_state(cfg, batch, device)
+        kv = A.init_cache(cfg, batch, max_seq, self.n_shared_uses,
+                          torch_dtype(cfg.dtype), device)
+        return {"conv": conv.expand(cfg.n_layers, *conv.shape).clone(),
+                "ssm": h.expand(cfg.n_layers, *h.shape).clone(),
+                "k": kv["k"], "v": kv["v"],
+                "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                max_seq: int):
+        """The whole prompt batch["tokens"] (B, S) (S at most `ssm_chunk` or
+        a multiple of it); -> (last-position logits (B, 1, V), the carries
+        and the shared block's K / V after it)."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        x0 = x
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        kv = A.init_cache(cfg, b, max_seq, self.n_shared_uses,
+                          torch_dtype(cfg.dtype), x.device)
+        layers, sp = self._layers(params), params["shared"]
+        convs, hs = [], []
+
+        def attend(h):
+            y, (k, v) = A.attn_forward(sp["attn"], cfg, h, positions=positions,
+                                       causal=True, return_kv=True)
+            kv["k"][use, :, :s] = k.to(kv["k"].dtype)
+            kv["v"][use, :, :s] = v.to(kv["v"].dtype)
+            return y
+
+        off = use = 0
+        for gsize in self._group_sizes():
+            for bp in layers[off:off + gsize]:
+                h = _norm(cfg, bp["norm"], x)
+                y, (conv, hstate) = M.mamba_forward(bp["mamba"], cfg, h,
+                                                    return_state=True)
+                x = x + y
+                convs.append(conv.float())
+                hs.append(hstate)
+            off += gsize
+            if gsize == cfg.attn_every:
+                x = self._shared_apply(sp, x, x0, attend)
+                use += 1
+        x = _norm(cfg, params["final_norm"], x)
+        cache = {"conv": torch.stack(convs), "ssm": torch.stack(hs),
+                 "k": kv["k"], "v": kv["v"],
+                 "lengths": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+        return lm_head_logits(params["lm_head"], x[:, -1:]), cache
+
+    def decode_step(self, params: Params, cache: Dict[str, Any],
+                    tokens: torch.Tensor):
+        """tokens (B, 1) -> (logits (B, 1, V), the cache with its carries
+        and K / V rows written in place and lengths advanced by one)."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+        x0 = x
+        lengths = cache["lengths"]
+        layers, sp = self._layers(params), params["shared"]
+
+        def attend(h):
+            return A.attn_decode(sp["attn"], cfg, h, cache["k"][use],
+                                 cache["v"][use], lengths)
+
+        off = use = 0
+        for gsize in self._group_sizes():
+            for i in range(off, off + gsize):
+                hin = _norm(cfg, layers[i]["norm"], x)
+                y, conv, h = M.mamba_decode(layers[i]["mamba"], cfg, hin,
+                                            cache["conv"][i], cache["ssm"][i])
+                x = x + y
+                cache["conv"][i] = conv
+                cache["ssm"][i] = h
+            off += gsize
+            if gsize == cfg.attn_every:
+                x = self._shared_apply(sp, x, x0, attend)
+                use += 1
+        x = _norm(cfg, params["final_norm"], x)
+        return (lm_head_logits(params["lm_head"], x),
+                dict(cache, lengths=lengths + 1))
+
+
+# ===================================================================== Whisper
+class EncDecLM(_StackedLM):
+    """encdec family (Whisper): a non-causal encoder over
+    batch["audio_embeds"] plus a learned position table, and a decoder
+    whose layers attend causally to the tokens (dense K / V cache) and
+    across to the encoder output (each layer's K / V computed once, at
+    prefill).  Layer norms, ungated tanh-gelu MLPs.  Served by the
+    fixed-batch loop."""
+
+    def _enc_block_init(self, gen: torch.Generator) -> Params:
+        cfg, d = self.cfg, self.cfg.d_model
+        return {"attn_norm": _norm_init(cfg, d, gen.device),
+                "attn": A.attn_init(gen, cfg),
+                "mlp_norm": _norm_init(cfg, d, gen.device),
+                "mlp": F.mlp_init(gen, d, cfg.d_ff, gated=False)}
+
+    def _dec_block_init(self, gen: torch.Generator) -> Params:
+        cfg, d = self.cfg, self.cfg.d_model
+        return {"self_norm": _norm_init(cfg, d, gen.device),
+                "self_attn": A.attn_init(gen, cfg),
+                "cross_norm": _norm_init(cfg, d, gen.device),
+                "cross_attn": A.attn_init(gen, cfg),
+                "mlp_norm": _norm_init(cfg, d, gen.device),
+                "mlp": F.mlp_init(gen, d, cfg.d_ff, gated=False)}
+
+    def init(self, generator: torch.Generator) -> Params:
+        """f32 parameters on `generator.device` (the reference's tree)."""
+        cfg, d, dev = self.cfg, self.cfg.d_model, generator.device
+        return {
+            "embed": embed_init(generator, cfg.vocab, d),
+            "enc_pos": torch.randn((cfg.enc_seq, d), generator=generator,
+                                   device=dev) * 0.01,
+            "encoder": _stack([self._enc_block_init(generator)
+                               for _ in range(cfg.n_enc_layers)]),
+            "enc_norm": _norm_init(cfg, d, dev),
+            "decoder": _stack([self._dec_block_init(generator)
+                               for _ in range(cfg.n_layers)]),
+            "final_norm": _norm_init(cfg, d, dev),
+            "lm_head": dense_init(generator, d, cfg.vocab),
+        }
+
+    def init_serving(self, generator: torch.Generator, device=None) -> Params:
+        """`serving_params(init(generator), device)` (the f32 model is
+        small enough to hold: whisper-base is ~0.3 GB)."""
+        device = generator.device if device is None else device
+        return self.serving_params(self.init(generator), device)
+
+    def _stack_layers(self, params: Params, key: str, n: int):
+        return [layer_params(params[key], i) for i in range(n)]
+
+    def encode(self, params: Params, audio_embeds: torch.Tensor) -> torch.Tensor:
+        """audio_embeds (B, S_enc, d) -> the encoder output (B, S_enc, d)."""
+        cfg = self.cfg
+        x = audio_embeds.to(torch_dtype(cfg.dtype))
+        x = x + params["enc_pos"].to(x.dtype)[None, :x.shape[1]]
+        for bp in self._stack_layers(params, "encoder", cfg.n_enc_layers):
+            h = _norm(cfg, bp["attn_norm"], x)
+            x = x + A.attn_forward(bp["attn"], cfg, h, positions=None, causal=False)
+            h = _norm(cfg, bp["mlp_norm"], x)
+            x = x + F.mlp_apply(bp["mlp"], h, "gelu")
+        return _norm(cfg, params["enc_norm"], x)
+
+    def _cross_mlp(self, bp: Params, x: torch.Tensor, ek: torch.Tensor,
+                   ev: torch.Tensor) -> torch.Tensor:
+        """A decoder layer after its self-attention: cross-attention over
+        (ek, ev), then the MLP."""
+        cfg = self.cfg
+        h = _norm(cfg, bp["cross_norm"], x)
+        x = x + A.attn_forward(bp["cross_attn"], cfg, h, kv_override=(ek, ev))
+        h = _norm(cfg, bp["mlp_norm"], x)
+        return x + F.mlp_apply(bp["mlp"], h, "gelu")
+
+    def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
+        """Zeroed self-attention caches k / v (L, batch, max_seq, Hkv, hd),
+        cross-attention K / V ek / ev (L, batch, enc_seq, Hkv, hd), both of
+        `cfg.dtype`, and (batch,) int32 lengths."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        kv = A.init_cache(cfg, batch, max_seq, cfg.n_layers, dtype, device)
+        enc = A.init_cache(cfg, batch, cfg.enc_seq, cfg.n_layers, dtype, device)
+        return {"k": kv["k"], "v": kv["v"], "ek": enc["k"], "ev": enc["v"],
+                "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                max_seq: int):
+        """Encode batch["audio_embeds"], then run the whole prompt
+        batch["tokens"] (B, S); -> (last-position logits (B, 1, V), a cache
+        of `max_seq` self-attention rows and each layer's cross K / V)."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        enc = self.encode(params, batch["audio_embeds"])
+        x = embed(params["embed"], batch["tokens"], dtype)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        kv = A.init_cache(cfg, b, max_seq, cfg.n_layers, dtype, x.device)
+        eks, evs = [], []
+        for i, bp in enumerate(self._stack_layers(params, "decoder", cfg.n_layers)):
+            ek, ev = A.cross_kv(bp["cross_attn"], cfg, enc)
+            eks.append(ek.to(dtype))
+            evs.append(ev.to(dtype))
+            h = _norm(cfg, bp["self_norm"], x)
+            y, (k, v) = A.attn_forward(bp["self_attn"], cfg, h, positions=positions,
+                                       causal=True, return_kv=True)
+            kv["k"][i, :, :s] = k.to(dtype)
+            kv["v"][i, :, :s] = v.to(dtype)
+            x = self._cross_mlp(bp, x + y, ek, ev)
+        x = _norm(cfg, params["final_norm"], x)
+        cache = {"k": kv["k"], "v": kv["v"], "ek": torch.stack(eks),
+                 "ev": torch.stack(evs),
+                 "lengths": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+        return lm_head_logits(params["lm_head"], x[:, -1:]), cache
+
+    def decode_step(self, params: Params, cache: Dict[str, Any],
+                    tokens: torch.Tensor):
+        """tokens (B, 1) -> (logits (B, 1, V), the cache with this row
+        written in place and lengths advanced by one)."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+        lengths = cache["lengths"]
+        for i, bp in enumerate(self._stack_layers(params, "decoder", cfg.n_layers)):
+            h = _norm(cfg, bp["self_norm"], x)
+            x = x + A.attn_decode(bp["self_attn"], cfg, h, cache["k"][i],
+                                  cache["v"][i], lengths)
+            x = self._cross_mlp(bp, x, cache["ek"][i], cache["ev"][i])
+        x = _norm(cfg, params["final_norm"], x)
+        return lm_head_logits(params["lm_head"], x), dict(cache, lengths=lengths + 1)
+
+
 # ===================================================================== factory
 def build_model(cfg: ModelConfig):
     """The model class of `cfg.family`, as `repro.models.build_model`
-    dispatches: dense and moe to DecoderLM, ssm to MambaLM; the vlm,
-    hybrid and encdec families raise until their slice is ported."""
-    if cfg.family in ("dense", "moe"):
+    dispatches: dense, moe and vlm to DecoderLM, ssm to MambaLM, hybrid to
+    HybridLM, encdec to EncDecLM."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return MambaLM(cfg)
-    if cfg.family in ("vlm", "hybrid", "encdec"):
-        raise NotImplementedError(FAMILY_TODO.format(cfg.family))
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
     raise ValueError(f"unknown family {cfg.family}")

@@ -1,6 +1,7 @@
 """The port's serving layer (`repro.serve`): the continuous-batching
 runtime over its two families (paged KV for decoders, slot-pooled state
-for Mamba2), the fixed-batch engines, sampling, the paged KV cache and the
+for Mamba2), the fixed-batch engines (every family, with the VLM's and the
+encoder-decoder's modality extras), sampling, the paged KV cache and the
 state cache, the plan router and the trace with its audit."""
 
 from repro_torch.serve.engine import FixedBatchEngine, Request, ServeConfig, ServeEngine

@@ -4,8 +4,11 @@
 
 `FixedBatchEngine` is the synchronous drain loop: fixed-size batches,
 left-padded prompts, one whole-prompt prefill per batch into the model's
-fixed-batch cache (a dense KV cache, or Mamba2's conv / SSM carries;
-`launch.steps.prefill_step`), then every request of the batch decodes the
+fixed-batch cache (a dense KV cache, Mamba2's conv / SSM carries, both
+for the hybrid, and the encoder's cross K/V for the encoder-decoder;
+`launch.steps.prefill_step`, with the modality extras — the VLM's
+`vision_embeds`, the encoder-decoder's `audio_embeds` — broadcast over
+the batch), then every request of the batch decodes the
 full `max_new_tokens` (`launch.steps.serve_step`), each token drawn by the
 step programs' own sampler (`serve.sampling.sample_host`).  It runs
 eagerly: the reference retraces its programs per prompt length.  At
@@ -15,7 +18,8 @@ streams, greedy and sampled, are held against.
 `ServeEngine` keeps the historical API (`submit` / `run` / `stats` /
 `throughput`): a model with a paged decode path and no modality extras is
 served by `ContinuousEngine`, anything else by the fixed-batch loop — the
-reference's routing predicate, so a `MambaLM` drains through the loop (its
+reference's routing predicate, so the VLM with images, `HybridLM`,
+`EncDecLM` and `MambaLM` drain through the loop (the ssm family's
 continuous serving is an explicit `ContinuousEngine`).
 
 The engines take `device` where the JAX engines take a mesh and sharding
@@ -35,10 +39,6 @@ from repro_torch.launch.steps import prefill_step, serve_step
 from repro_torch.platform import DeviceLike, resolve_device
 from repro_torch.serve.sampling import (SamplingParams, batch_sampling_arrays,
                                         sample_host, truncate_at_eos)
-
-EXTRAS_TODO = ("modality extras (the VLM's images) are served by a later slice "
-               "of the port: ROADMAP.md, queue 1, 'Remaining families'")
-
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -64,12 +64,14 @@ class FixedBatchEngine:
     def __init__(self, model, params, cfg: ServeConfig,
                  extras: Optional[Dict[str, Any]] = None,
                  device: DeviceLike = None):
-        if extras:
-            raise NotImplementedError(EXTRAS_TODO)
         self.device = resolve_device(device)
         self.model = model
         self.params = model.serving_params(params, self.device)
         self.cfg = cfg
+        # each extra (one request's, e.g. (nv, d)) broadcast over the batch
+        self.extras = {k: torch.as_tensor(v, device=self.device)
+                      .expand(cfg.batch_size, *v.shape)
+                      for k, v in (extras or {}).items()}
         self.queue: List[Request] = []
         self._rid = 0
         self.stats = {"requests": 0, "tokens_out": 0, "decode_s": 0.0,
@@ -109,7 +111,8 @@ class FixedBatchEngine:
             t_batch0 = time.perf_counter()
             logits, cache = prefill_step(
                 self.model, self.params,
-                torch.as_tensor(toks, device=self.device), cfg.max_seq)
+                torch.as_tensor(toks, device=self.device), cfg.max_seq,
+                self.extras)
             nxt = sample_host(logits[:, -1], sp, ks)
             outs = [nxt.cpu().numpy()]                     # syncs
             tok_t = [time.perf_counter()]

@@ -4,10 +4,8 @@ All ten configurations of `repro_torch.configs` equal
 `repro.configs.get_config`'s field for field, published and `reduced()`,
 and so do `param_count()` / `active_param_count()` (exact integers),
 `SHAPES`, `runnable` for every (arch, shape) pair and the unknown-arch
-`KeyError`.  `build_model` dispatches each family as
-`repro.models.build_model` does, and raises `NotImplementedError` naming
-the ROADMAP item for the families the port does not serve yet.  Pure
-data: no tolerance.
+`KeyError`.  `build_model` dispatches each of the six families to the
+class `repro.models.build_model` picks.  Pure data: no tolerance.
 """
 
 import dataclasses
@@ -16,7 +14,8 @@ import pytest
 
 from repro import configs as J
 from repro_torch import configs as T
-from repro_torch.models import DecoderLM, MambaLM, build_model
+from repro.models import build_model as build_jax_model
+from repro_torch.models import DecoderLM, EncDecLM, HybridLM, MambaLM, build_model
 
 ARCHS = list(J.REGISTRY)
 
@@ -74,13 +73,11 @@ def test_the_two_new_serving_configs_carry_their_published_numbers():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_build_model_dispatches_as_the_reference(arch):
     cfg = T.get_config(arch)
-    if cfg.family in ("vlm", "hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match="queue 1, 'Remaining families'"):
-            build_model(cfg)
-        return
     model = build_model(cfg)
-    want = {"dense": DecoderLM, "moe": DecoderLM, "ssm": MambaLM}[cfg.family]
+    want = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM, "ssm": MambaLM,
+            "hybrid": HybridLM, "encdec": EncDecLM}[cfg.family]
     assert type(model) is want and model.cfg is cfg
+    assert type(model).__name__ == type(build_jax_model(J.get_config(arch))).__name__
 
 
 def test_build_model_rejects_an_unknown_family():

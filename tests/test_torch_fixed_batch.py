@@ -209,10 +209,35 @@ def test_serve_engine_routes_decoders_to_the_continuous_engine(tiny):
     assert eng.throughput() > 0
 
 
-def test_extras_wait_for_the_families_slice(tiny):
+def test_extras_wait_for_the_families_slice(tiny, monkeypatch):
+    """(The name is kept from when extras were refused.)  Modality extras
+    send ServeEngine to the fixed-batch loop (the reference's predicate),
+    and each batch's prefill_step receives every extra broadcast over the
+    batch, on the engine's device."""
     _, _, model, params = tiny
-    extras = {"vision_embeds": np.zeros((4, 64), np.float32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(model, params, ServeConfig(), extras=extras, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FixedBatchEngine(model, params, ServeConfig(), extras=extras, device="cpu")
+    extras = {"vision_embeds": np.arange(4 * 64, dtype=np.float32).reshape(4, 64)}
+    seen = []
+
+    def prefill_step(model_, params_, tokens, max_seq, extras_=None):
+        seen.append(extras_)
+        return steps.prefill_step(model_, params_, tokens, max_seq)
+
+    monkeypatch.setattr("repro_torch.serve.engine.prefill_step", prefill_step)
+    cfg = ServeConfig(batch_size=2, max_seq=64, max_new_tokens=MAX_NEW)
+    eng = ServeEngine(model, params, cfg, extras=extras, device="cpu")
+    assert isinstance(eng._engine, FixedBatchEngine)
+    for p in _prompts((12, 7, 9)):
+        eng.submit(p)
+    done = eng.run()
+    assert len(done) == 3 and len(seen) == 2
+    for got in seen:
+        assert list(got) == ["vision_embeds"]
+        v = got["vision_embeds"]
+        assert v.shape == (2, 4, 64) and v.device.type == "cpu"
+        assert all(torch.equal(v[i], torch.from_numpy(extras["vision_embeds"]))
+                   for i in range(2))
+    # a dense decoder takes no vision embeddings: the streams are the
+    # extras-free loop's
+    want, _ = _port_fixed(tiny, _prompts((12, 7, 9)), [SamplingParams()] * 3,
+                          batch_size=2)
+    assert {r.rid: r.output for r in done} == want
