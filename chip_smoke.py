@@ -240,13 +240,37 @@ each with its seconds logged:
      prompts of 4-64 tokens: phase 12's gates.  Phases 11-13 each log
      their peak device memory and seconds and free the card for the
      next;
- 14. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 14. training qwen3-1.7b at full width and depth (28 layers, 2.03 G
+     parameters; `remat="full"`) through `launch/steps.py::make_train_step`,
+     the step `Trainer.run` calls: f32 master weights from seed 0 on the
+     card, bf16 compute, `SyntheticLMData` (seq 1024, batch 8), 2
+     microbatches, AdamW (lr 3e-4, warm-up 5, 40 total); step 1's loss and
+     global gradient norm against an f32 twin (the same config in f32, TF32
+     off, same parameters and batch; each leaf's gradient cosine logged);
+     2 warm-up and 20 timed steps: step ms (median, min, max), tokens/s,
+     MFU, the loss every step (its last 5 must average below the first),
+     peak device memory; the AdamW update alone by CUDA events beside its
+     bytes bound; one step under torch.profiler (device events per step,
+     busy share); no hand-written kernel launched;
+ 15. `Trainer` end to end at `examples/train_lm.py`'s configuration (qwen3
+     reduced to 4 layers, d_model 256, vocab 4096; seq 128, batch 8, 2
+     microbatches, 200 steps, a checkpoint every 25): the loss falls, the
+     last checkpoint restores leaf for leaf, and a run stopped by the
+     PREEMPT sentinel at step 100 and resumed by a fresh Trainer ends
+     equal to the uninterrupted run (bitwise, or the differing leaves
+     named and held at 1e-6); then one train step of qwen2-moe-a2.7b,
+     mamba2-2.7b and qwen2-vl-2b at 2 layers, zamba2-1.2b at 6 (one shared
+     block use) and whisper-base whole, at full width (batch 2, seq 1024;
+     whisper 448 with 1500 audio frames; the vlm's 256 vision embeddings),
+     each against its f32 twin as in phase 14, with its peak memory; no
+     hand-written kernel launched;
+ 16. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8 and 10, their serving
      runs, the decode wrapper's call and the fixed-batch runs of phases
      11-13, where only the draw kernel runs; a replayed CUDA graph counts
      the launches it captured), error and times;
- 15. the last line `{"ok": true, "device": {...}}`.
+ 17. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -255,6 +279,7 @@ nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -3878,14 +3903,357 @@ def phase_fitness(torch, served, counters, checks, torch_run, wall_plan, wall_tp
             "fitness_serve_model_plan": serving, "fitness_flip_race": flip_race}
 
 
+# -------------------------------------------------------------- phase 14
+# Training qwen3-1.7b at full width and depth through the port's train
+# step (`launch/steps.py::make_train_step`, the step `Trainer.run` calls):
+# f32 master weights drawn on the card from seed 0, bf16 compute, full
+# remat, AdamW.  Step 1's loss and gradient norm are held against an f32
+# twin (the same config in f32, TF32 off, on the same parameters and
+# batch).  bf16 rounds each product's inputs (2^-9 relative) and the
+# embedding's gradient is accumulated in bf16 in both packages; over 28
+# layers that moves the loss by ~1e-3 and the global norm by ~1 %:
+# TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL leave 5-50x margin and still catch a
+# wrong cast, a lost term or a dropped layer.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES = 1024, 8, 2
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 2, 20
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5, total_steps=40)
+TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL = 0.05, 0.05
+ADAMW_BYTES_PER_PARAM = 28      # read p, g, m, v; write p, m, v (f32)
+ADAMW_REPEATS = 3
+# `examples/train_lm.py`'s configuration, through `Trainer` (phase 15)
+LOOP_STEPS, LOOP_PREEMPT_AT, LOOP_CKPT_EVERY = 200, 100, 25
+LOOP_RESUME_ATOL = 1e-6         # tests/test_fault_tolerance.py's bound
+# one train step of each other family at full width (depth cut as listed)
+FAMILY_TRAIN = (("qwen2-moe-a2.7b", 2, 1024), ("mamba2-2.7b", 2, 1024),
+                ("qwen2-vl-2b", 2, 1024), ("zamba2-1.2b", 6, 1024),
+                ("whisper-base", None, 448))
+FAMILY_TRAIN_BATCH = 2
+
+
+def _matmul_params(params):
+    """Parameters that enter a product (every dense weight and expert
+    stack, the LM head included; not the embedding gather or the norms)."""
+    from repro_torch.tree import tree_flatten_with_paths
+
+    return sum(t.numel() for key, t in tree_flatten_with_paths(params)
+               if key.split("/")[-1] in ("w", "w_in", "w_gate", "w_out"))
+
+
+def _train_batch(torch, data, step, cfg, gen=None):
+    """The pipeline's batch of `step` on the card, with the vlm's vision
+    embeddings / whisper's audio frames drawn from `gen`."""
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(step).items()}
+    b = batch["tokens"].shape[0]
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = 0.02 * torch.randn(
+            (b, cfg.n_vision_tokens, cfg.d_model), generator=gen, device=DEVICE)
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                            generator=gen, device=DEVICE)
+    return batch
+
+
+def _against_f32_twin(torch, label, model, params, batch, microbatches):
+    """Loss and gradients of the bf16 model and of its f32 twin on the
+    same parameters and batch: the loss within TRAIN_LOSS_ATOL, the global
+    norm within TRAIN_GNORM_RTOL, every leaf's cosine logged.
+    -> (bf16 loss, bf16 norm, peak GB)."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_flatten_with_paths
+
+    twin = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss32, _, g32 = loss_and_grads(twin, params, batch, microbatches)
+    loss16, _, g16 = loss_and_grads(model, params, batch, microbatches)
+    n32, n16 = float(global_norm(g32)), float(global_norm(g16))
+    loss32, loss16 = float(loss32), float(loss16)
+    twin_s = time.perf_counter() - t0
+    cosines = []
+    g32 = dict(tree_flatten_with_paths(g32))
+    for key, g in tree_flatten_with_paths(g16):
+        a, b = g.double().flatten(), g32[key].double().flatten()
+        den = float(a.norm() * b.norm())
+        cosines.append((float(a @ b) / den if den > 0 else 1.0, key))
+    del g16, g32
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cosines.sort()
+    log(f"[{label}] step-1 loss bf16 {loss16:.6f} f32 {loss32:.6f} "
+        f"(|d| {abs(loss16 - loss32):.2e}, tol {TRAIN_LOSS_ATOL}); grad norm bf16 "
+        f"{n16:.6f} f32 {n32:.6f} (rel {abs(n16 / n32 - 1):.2e}, tol "
+        f"{TRAIN_GNORM_RTOL}); {twin_s:.1f} s; peak with both gradients held "
+        f"{peak:.2f} GB")
+    log(f"[{label}] gradient cosine bf16 vs f32 per leaf: "
+        + ", ".join(f"{k} {c:.5f}" for c, k in cosines))
+    if not all(math.isfinite(x) for x in (loss16, loss32, n16, n32)):
+        raise AssertionError(f"[{label}] non-finite loss or gradient norm")
+    if abs(loss16 - loss32) > TRAIN_LOSS_ATOL or abs(n16 / n32 - 1) > TRAIN_GNORM_RTOL:
+        raise AssertionError(f"[{label}] bf16 step 1 disagrees with its f32 twin")
+    return loss16, n16, peak
+
+
+def _profile_step(torch, label, fn):
+    """One call of `fn` under torch.profiler: device events (kernels,
+    copies, sets) and the device's busy share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _log_device_profile(prof, wall, label, calls=1)
+    if not rows:
+        log(f"[{label}] profile: no device time in the trace (launches per step "
+            "and busy share not measured)")
+        return None
+    events = sum(count for _, _, count in rows)
+    log(f"[{label}] device events (kernels, copies, sets) per step: {events}")
+    return events
+
+
+def phase_train(torch, cfg, counters):
+    """Phase 14 (see the module docstring)."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.steps import TrainConfig, loss_and_grads, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves
+
+    label = "train qwen3"
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, remat="full")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    state = {"params": params, "opt": adamw_init(params)}
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_mm = _matmul_params(params)
+    log(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, remat {cfg.remat}; {n_params / 1e9:.4f} G parameters "
+        f"({n_mm / 1e9:.4f} G in products), f32 masters + m + v "
+        f"{3 * 4 * n_params / 1e9:.2f} GB, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    tcfg = TrainConfig(microbatches=TRAIN_MICROBATCHES, opt=AdamWConfig(**TRAIN_OPT))
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+
+    _zeroed(counters)
+    loss16, n16, twin_peak = _against_f32_twin(
+        torch, label, model, params, _train_batch(torch, data, 0, cfg),
+        TRAIN_MICROBATCHES)
+    step_fn = make_train_step(model, tcfg)
+    losses, times = [], []
+    for step in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
+        batch = _train_batch(torch, data, step, cfg)
+        if step == TRAIN_WARMUP_STEPS:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state["params"], state["opt"], metrics = step_fn(state["params"],
+                                                         state["opt"], batch)
+        loss = float(metrics["loss"])
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        if step >= TRAIN_WARMUP_STEPS:
+            times.append(dt)
+        log(f"[{label}] step {step + 1:3d} loss {loss:.6f} grad_norm "
+            f"{float(metrics['grad_norm']):.4f} lr {float(metrics['lr']):.3e} "
+            f"{dt * 1e3:.1f} ms" + (" (warm-up)" if step < TRAIN_WARMUP_STEPS else ""))
+        if step == 0:
+            log(f"[{label}] step 1 through the train step: loss - twin check's "
+                f"bf16 loss {loss - loss16:.3e}, grad norm - its norm "
+                f"{float(metrics['grad_norm']) - n16:.3e}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = _median(times)
+    log(f"[{label}] step ms over {len(times)} timed steps: median {med * 1e3:.1f} "
+        f"(min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); tokens/s "
+        f"{tokens / med:.0f}; MFU {6 * n_mm * tokens / med / BF16_FLOPS * 100:.2f} % "
+        f"(6 x {n_mm / 1e9:.4f} G product parameters x {tokens} tokens / step s / "
+        f"989 TFLOP/s; attention's products and the remat recompute not counted); "
+        f"peak device memory over the timed steps {peak:.2f} GB (with the f32 twin's "
+        f"gradients: {twin_peak:.2f} GB)")
+
+    # the AdamW update alone, on real gradients, by CUDA events
+    _, _, grads = loss_and_grads(model, state["params"],
+                                 _train_batch(torch, data, len(losses), cfg),
+                                 TRAIN_MICROBATCHES)
+    ms = []
+    for _ in range(ADAMW_REPEATS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        adamw_update(state["params"], grads, state["opt"], tcfg.opt)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    bound_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BPS * 1e3
+    log(f"[{label}] AdamW update (CUDA events): {', '.join(f'{m:.2f}' for m in ms)} ms; "
+        f"bytes bound {bound_ms:.2f} ms ({ADAMW_BYTES_PER_PARAM} B x "
+        f"{n_params / 1e9:.4f} G / 3.35 TB/s): {_median(ms) / bound_ms:.2f}x")
+    del grads
+    events = _profile_step(torch, f"{label} profile", lambda: step_fn(
+        state["params"], state["opt"], _train_batch(torch, data, len(losses), cfg)))
+
+    first, last = losses[0], sum(losses[-5:]) / 5
+    log(f"[{label}] loss: first {first:.6f}, mean of the last 5 {last:.6f}")
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"[{label}] the loss did not fall: {losses}")
+    if _launched(counters):
+        raise AssertionError(f"[{label}] hand-written kernels launched: "
+                             f"{_launched(counters)}")
+    log(f"[{label}] hand-written kernels launched: none")
+    _phase_end(label, t_phase)
+    return {"step_ms": med * 1e3, "tokens_s": tokens / med, "adamw_ms": _median(ms),
+            "adamw_bound_ms": bound_ms, "peak_gb": peak, "events": events}
+
+
+def _loop_trainer(ckpt_dir):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config("qwen3-1.7b").reduced(n_layers=4, d_model=256, d_ff=1024, n_heads=4,
+                                           n_kv_heads=2, head_dim=64, vocab=4096)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8))
+    return Trainer(build_model(cfg), data, TrainerConfig(
+        steps=LOOP_STEPS, ckpt_every=LOOP_CKPT_EVERY, ckpt_dir=ckpt_dir, log_every=50,
+        train=TrainConfig(microbatches=2, opt=AdamWConfig(lr=1e-3, warmup_steps=20,
+                                                          total_steps=LOOP_STEPS))))
+
+
+def _state_diff(torch, a, b):
+    """{leaf: max |a - b|} over the leaves that differ."""
+    from repro_torch.tree import tree_flatten_with_paths
+
+    fb = dict(tree_flatten_with_paths(b))
+    return {k: float((t.double() - fb[k].double()).abs().max())
+            for k, t in tree_flatten_with_paths(a) if not torch.equal(t, fb[k])}
+
+
+def phase_train_loop(torch, counters):
+    """Phase 15 (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.steps import TrainConfig, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    label = "train loop"
+    t_phase = time.perf_counter()
+    _zeroed(counters)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = _loop_trainer(os.path.join(tmp, "full"))
+        t0 = time.perf_counter()
+        step, s_full, info = full.run()
+        wall = time.perf_counter() - t0
+        if step != LOOP_STEPS or info["preempted"]:
+            raise AssertionError(f"[{label}] uninterrupted run ended at {step}: {info}")
+        losses = [r["loss"] for r in full.metrics_log]
+        med = _median(full.step_times)
+        log(f"[{label}] {LOOP_STEPS} steps in {wall:.1f} s: median step "
+            f"{med * 1e3:.2f} ms ({8 * 128 / med:.0f} tokens/s), stragglers "
+            f"{info['stragglers']}; loss {losses[0]:.4f} -> mean of the last 10 "
+            f"{sum(losses[-10:]) / 10:.4f}")
+        if not sum(losses[-10:]) / 10 < losses[0]:
+            raise AssertionError(f"[{label}] the loss did not fall")
+        restored = full.ckpt.restore(LOOP_STEPS, full.state_template(), full.device)
+        if _state_diff(torch, restored, s_full):
+            raise AssertionError(f"[{label}] checkpoint {LOOP_STEPS} differs from the "
+                                 f"state: {_state_diff(torch, restored, s_full)}")
+        log(f"[{label}] checkpoint of step {LOOP_STEPS} restores leaf for leaf, bitwise")
+
+        part = _loop_trainer(os.path.join(tmp, "resumed"))
+
+        def preempt(step, row):
+            if step == LOOP_PREEMPT_AT:
+                open(part.preempt_file, "w").close()
+
+        step, _, info = part.run(on_step=preempt)
+        if not info["preempted"] or step != LOOP_PREEMPT_AT or \
+                not part.ckpt.meta(step).get("preempted"):
+            raise AssertionError(f"[{label}] preemption: step {step}, {info}")
+        os.remove(part.preempt_file)
+        again = _loop_trainer(os.path.join(tmp, "resumed"))
+        start, state = again.restore_or_init()
+        if start != LOOP_PREEMPT_AT:
+            raise AssertionError(f"[{label}] resumed at {start}")
+        step, s_res, _ = again.run(start_step=start, state=state)
+        diff = _state_diff(torch, s_res, s_full)
+        worst = max(diff.values(), default=0.0)
+        log(f"[{label}] preempted at {LOOP_PREEMPT_AT}, resumed by a fresh Trainer to "
+            f"{step}: " + ("bitwise equal to the uninterrupted run" if not diff else
+                           f"{len(diff)} leaves differ, max |d| {worst:.3e}: {diff}"))
+        if step != LOOP_STEPS or worst > LOOP_RESUME_ATOL:
+            raise AssertionError(f"[{label}] resumed run differs from the "
+                                 f"uninterrupted one beyond {LOOP_RESUME_ATOL}")
+    del full, part, again, s_full, s_res, state, restored
+    free_device(torch)
+
+    peaks = {}
+    for arch, layers, seq in FAMILY_TRAIN:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        flabel = f"train {arch}"
+        model = build_model(cfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        params = model.init(gen)
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=FAMILY_TRAIN_BATCH))
+        batch = _train_batch(torch, data, 0, cfg, gen)
+        log(f"[{flabel}] {cfg.n_layers} layers"
+            f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.n_enc_layers else ''}, "
+            f"d_model {cfg.d_model}, vocab {cfg.vocab}; "
+            f"{sum(t.numel() for t in _leaves(params)) / 1e9:.4f} G parameters; batch "
+            + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()))
+        loss16, n16, twin_peak = _against_f32_twin(torch, flabel, model, params, batch, 1)
+        state = {"params": params, "opt": adamw_init(params)}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state["params"], state["opt"], metrics = make_train_step(model, TrainConfig())(
+            state["params"], state["opt"], batch)
+        loss = float(metrics["loss"])
+        dt = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(t).all()) for t in _leaves(state["params"]))
+        peaks[arch] = max(twin_peak, torch.cuda.max_memory_allocated() / 1e9)
+        log(f"[{flabel}] one train step: loss {loss:.6f} grad_norm "
+            f"{float(metrics['grad_norm']):.4f} in {dt:.2f} s; parameters finite "
+            f"{finite}; peak device memory {peaks[arch]:.2f} GB")
+        if not (math.isfinite(loss) and finite):
+            raise AssertionError(f"[{flabel}] non-finite step")
+        del model, params, state, batch, metrics
+        free_device(torch)
+    if _launched(counters):
+        raise AssertionError(f"[{label}] hand-written kernels launched: "
+                             f"{_launched(counters)}")
+    log(f"[{label}] hand-written kernels launched: none")
+    _phase_end(label, t_phase)
+    return peaks
+
+
 def _log_device_profile(prof, wall_s, label, calls=None):
     """Device time by kernel over a traced run (torch.profiler, CUDA
     activity only), and the device's busy share of the run's wall time
     (and the device ms per call, given the run's number of `calls`)."""
+    from torch.autograd import DeviceType
+
     rows = []
     for e in prof.key_averages():
+        # device-side events only: an eager run's host ops (aten::mm, ...)
+        # also carry their kernels' device time, which would count it twice
         t_us = getattr(e, "self_device_time_total", 0) or 0
-        if t_us > 0:
+        if t_us > 0 and e.device_type == DeviceType.CUDA:
             rows.append((t_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_s = sum(t for t, _, _ in rows) / 1e6
@@ -3915,7 +4283,7 @@ def main() -> int:
                          "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 13")
+                         "skips phases 3 to 15")
     args = ap.parse_args()
 
     import torch
@@ -4040,6 +4408,14 @@ def main() -> int:
         "fixed-batch loop", phase_fixed_family, torch, get_config("whisper-base"),
         ENCDEC_FIXED_LENS, ENCDEC_FIXED_SEQ, "whisper", "fixed_whisper_base",
         "audio_embeds")
+    free_device(torch)
+    timed_phase(14, "training qwen3-1.7b at full width and depth through the port's "
+                "train step", phase_train, torch, get_config("qwen3-1.7b"),
+                [c.fn for c in checks])
+    free_device(torch)
+    timed_phase(15, "the Trainer end to end (checkpoints, preemption, resume) and one "
+                "train step of each other family", phase_train_loop, torch,
+                [c.fn for c in checks])
     paths = {**knob_paths, "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
              **ssm_paths, **moe_paths, **granite_paths, **vlm_paths,

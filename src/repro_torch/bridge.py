@@ -8,7 +8,8 @@ ml_dtypes' bfloat16, so bf16 leaves travel as their raw 16-bit patterns:
 the same 16 bits) and then `.view(torch.bfloat16)` — the round trip is
 exact.  Call as `params_from_jax(jax.tree.map(np.asarray, params))`.
 `load_ppo_params` carries the RL-search's PPO parameters into the port's
-policy and value modules.
+policy and value modules.  `train_state_from_jax` / `train_state_to_numpy`
+carry a train state {"params", "opt": {"m", "v", "step"}} across.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.checkpoint.manager import leaf_to_numpy
 
 
 def leaf_from_numpy(a) -> torch.Tensor:
@@ -51,3 +54,23 @@ def load_ppo_params(policy, value, tree: Any) -> None:
             for linear, p in zip(module.layers, layers):
                 linear.weight.copy_(p["w"].T)
                 linear.bias.copy_(p["b"])
+
+
+def train_state_from_jax(tree: Any) -> Any:
+    """A JAX train state {"params", "opt": {"m", "v", "step"}} as numpy
+    (`jax.tree.map(np.asarray, state)`) -> the port's state: CPU tensors
+    of the same dtypes (f32 leaves, an int32 0-d step)."""
+    return {"params": params_from_jax(tree["params"]),
+            "opt": params_from_jax(tree["opt"])}
+
+
+def train_state_to_numpy(state: Any) -> Any:
+    """The port's train state -> the same tree of host numpy copies (the
+    checkpoint's leaf conversion: a bfloat16 leaf raises, naming it)."""
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, prefix + (k,)) for k, v in tree.items()}
+        return leaf_to_numpy("/".join(prefix), tree)
+
+    return walk(state, ())

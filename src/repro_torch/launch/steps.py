@@ -31,10 +31,18 @@ capture nothing.
 `prefill_step` and `serve_step` (`make_prefill_step`, `make_serve_step`)
 are the fixed-batch engine's dense-cache steps.  They run eagerly: the
 reference retraces them per prompt length.
+
+`TrainConfig` and `make_train_step` are the training step (`jit_train_step`
+in the reference, which jits it with sharded, donated state): value and
+gradient of `model.loss` with microbatched accumulation
+(`loss_and_grads`), then `optim.adamw_update` in place.  It runs eagerly
+on one device; ZeRO-1 sharding of the moments waits for the port's mesh
+(ROADMAP.md queue 1, item 8), as it changes nothing on one device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional
 
@@ -43,6 +51,79 @@ import torch
 from repro_torch.kernels.dispatch import MatmulTable, matmul_dispatch
 from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.launch.program import Program
+from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1
+    zero1: bool = True
+    compress_pod_grads: bool = False
+    opt: AdamWConfig = AdamWConfig()
+
+
+def loss_and_grads(model, params, batch: Dict[str, torch.Tensor],
+                   microbatches: int = 1):
+    """-> (loss, metrics, grads) of `model.loss` at `params` (a tree of f32
+    master tensors, left without gradients afterwards).
+
+    With k = `microbatches` > 1 the batch's rows split into k consecutive
+    slices (microbatch i holds rows i*B/k ... (i+1)*B/k - 1, as the
+    reference's reshape to (k, B/k, ...)); each backward adds into the
+    leaves' `.grad` (0 + g_1 + g_2 + ..., the reference's f32 sum from
+    zeros) and the sum is divided by k after; the loss is the sum of the
+    k losses over k and the metrics {"loss"}.  With k = 1 the metrics are
+    the model's own dict.  A leaf the loss does not reach gets zeros."""
+    leaves = list(tree_leaves(params))
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    try:
+        if microbatches == 1:
+            loss, metrics = model.loss(params, batch)
+            loss.backward()
+            metrics = {name: v.detach() for name, v in metrics.items()}
+            loss = loss.detach()
+        else:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % microbatches:
+                raise ValueError(f"batch of {rows} rows does not split into "
+                                 f"{microbatches} microbatches")
+            n = rows // microbatches
+            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            for i in range(microbatches):
+                l, _ = model.loss(params, {name: v[i * n:(i + 1) * n]
+                                           for name, v in batch.items()})
+                l.backward()
+                loss = loss + l.detach()
+            loss = loss / microbatches
+            metrics = {"loss": loss}
+        grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+                         params)
+        if microbatches > 1:
+            for g in tree_leaves(grads):
+                g.div_(microbatches)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+            p.grad = None
+    return loss, metrics, grads
+
+
+def make_train_step(model, train_cfg: TrainConfig):
+    """(params, opt_state, batch) -> (params, opt_state, metrics): the
+    gradients of `loss_and_grads`, then AdamW (parameters and moments
+    updated in place); metrics add "lr" and "grad_norm" (before
+    clipping).  All tensors stay on the parameters' device."""
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = loss_and_grads(model, params, batch,
+                                              train_cfg.microbatches)
+        params, opt_state, om = adamw_update(params, grads, opt_state, train_cfg.opt)
+        return params, opt_state, dict(metrics, **om)
+
+    return train_step
 
 
 def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,

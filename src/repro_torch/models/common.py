@@ -1,4 +1,6 @@
-"""Shared model building blocks (the port of `repro.models.common`).
+"""Shared model building blocks (the port of `repro.models.common`): norms,
+RoPE / M-RoPE, projections, the embedding, and the training losses
+(`cross_entropy`, `chunked_softmax_xent`).
 
 Parameters are plain dicts of tensors laid out as the JAX package lays
 them out (`dense` weights (d_in, d_out) used as `x @ w`), so a JAX params
@@ -11,6 +13,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -123,3 +126,59 @@ def lm_head_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
     """LM head projection `x @ w` (w: (d_model, vocab)), role-tagged so the
     plan's `lm_head` choice dispatches it."""
     return dense(p, x, role="lm_head")
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits against the (tied) embedding table: x @ emb.T."""
+    return x @ p["emb"].to(x.dtype).T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in f32 (over the mask's ones when given)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _xent_chunk(xb: torch.Tensor, w_lm: torch.Tensor, lb: torch.Tensor,
+                mb: torch.Tensor):
+    """One sequence chunk's (sum of masked NLL, sum of the mask)."""
+    logits = (xb @ w_lm.to(xb.dtype)).float()
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, lb.long()[..., None])[..., 0]
+    nll = (logz - gold) * mb
+    return torch.sum(nll), torch.sum(mb)
+
+
+def chunked_softmax_xent(x: torch.Tensor, w_lm: torch.Tensor,
+                         labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy over sequence chunks WITHOUT materialising the full
+    (B, S, V) logits: each chunk of `chunk` positions (all B rows) runs
+    under `torch.utils.checkpoint`, so its logits are reduced to two
+    scalars and recomputed in backward, as the reference's `jax.checkpoint`
+    scan body is.  The sums run in the reference's order (a carry plus each
+    chunk's sum, then tot / max(cnt, 1)).  When S is not a multiple of
+    `chunk`, or S <= chunk, the logits are made whole (`cross_entropy`)."""
+    b, s, d = x.shape
+    if s % chunk or s <= chunk:
+        return cross_entropy(x @ w_lm.to(x.dtype), labels, mask)
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, d).transpose(0, 1)
+    lc = labels.reshape(b, nc, chunk).transpose(0, 1)
+    mc = (mask.reshape(b, nc, chunk).transpose(0, 1) if mask is not None
+          else torch.ones(lc.shape, dtype=torch.float32, device=x.device))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        nll, m = checkpoint(_xent_chunk, xc[i], w_lm, lc[i], mc[i],
+                            use_reentrant=False, preserve_rng_state=False)
+        tot = tot + nll
+        cnt = cnt + m
+    return tot / torch.clamp(cnt, min=1.0)

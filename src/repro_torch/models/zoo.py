@@ -21,6 +21,12 @@ position table in f32, where JAX multiplies or adds them.  `init_serving`
 gives `serving_params(init(gen))` without ever holding the f32 model: one
 layer is drawn in f32 at a time.
 
+The training halves (`hidden` / `forward` / `loss` of every family) run
+on the f32 parameters under autograd, casting each weight at use as JAX
+does, with the layer bodies wrapped by `_remat` (`cfg.remat`: none, dots,
+full).  Each stacked leaf is split into its layers by one `unbind`
+(`unbind_layers`), whose backward is one `stack` per leaf.
+
 The vision patches and audio frames are stubs, as in the reference: the
 batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
 (B, S_enc, d).
@@ -28,19 +34,23 @@ batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
-from repro_torch.models.common import (Params, dense, dense_init, embed,
-                                       embed_init, layer_norm, layer_norm_init,
-                                       lm_head_logits, norm_init, rms_norm,
-                                       torch_dtype)
+from repro_torch.models.common import (Params, chunked_softmax_xent, dense,
+                                       dense_init, embed, embed_init, layer_norm,
+                                       layer_norm_init, lm_head_logits, norm_init,
+                                       rms_norm, torch_dtype)
+from repro_torch.tree import tree_leaves, tree_map
 
 ATTN_BACKENDS = ("torch", "cuda_attention")
 
@@ -60,6 +70,35 @@ def _norm_init(cfg: ModelConfig, d: int, device=None) -> Params:
 
 def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return layer_norm(p, x) if cfg.norm == "layer" else rms_norm(p, x)
+
+
+# `checkpoint_dots_with_no_batch_dims`: the plain products (x @ w) are
+# saved, the batched ones (attention's and the experts' bmm) recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """`fn` under the config's rematerialisation policy, as
+    `repro.models.zoo._remat`: none saves every activation, dots saves the
+    plain products' outputs, full (any other value) saves nothing and
+    recomputes the layer in backward.  Outside autograd `fn` runs as is."""
+    if cfg.remat == "none":
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if cfg.remat == "dots" else None)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {"context_fn": context_fn} if context_fn else {}
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return run
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -84,12 +123,6 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _copy_into(stacked: Params, layer: Params, i: int) -> None:
     """Write one layer's tree into row i of the layer-stacked tree."""
     if isinstance(stacked, dict):
@@ -101,7 +134,22 @@ def _copy_into(stacked: Params, layer: Params, i: int) -> None:
 
 def layer_params(blocks: Params, layer: int) -> Params:
     """One layer's view of the layer-stacked `blocks` tree."""
-    return _map(lambda t: t[layer], blocks)
+    return tree_map(lambda t: t[layer], blocks)
+
+
+def unbind_layers(blocks: Params) -> list:
+    """Every layer's view of the layer-stacked `blocks` tree, from one
+    `unbind` per leaf: under autograd its backward is one `stack`, where a
+    `t[i]` per layer would add each layer's gradient into a zero tensor of
+    the whole stack."""
+    parts = tree_map(lambda t: t.unbind(0), blocks)
+    n = len(next(tree_leaves(parts)))
+    return [tree_map(lambda p, i=i: p[i], parts) for i in range(n)]
+
+
+def _mamba_layer(cfg: ModelConfig, x: torch.Tensor, bp: Params) -> torch.Tensor:
+    """A Mamba2 layer of the training path: x + mamba(norm(x))."""
+    return x + M.mamba_forward(bp["mamba"], cfg, _norm(cfg, bp["norm"], x))
 
 
 class _StackedLM:
@@ -151,9 +199,9 @@ class _StackedLM:
         for i in range(cfg.n_layers):
             layer = self.serving_params(self._block_init(generator), device)
             if blocks is None:
-                blocks = _map(lambda t: torch.empty((cfg.n_layers, *t.shape),
-                                                    dtype=t.dtype, device=device),
-                              layer)
+                blocks = tree_map(lambda t: torch.empty((cfg.n_layers, *t.shape),
+                                                        dtype=t.dtype, device=device),
+                                  layer)
             _copy_into(blocks, layer, i)
             del layer
         shared = self.serving_params(self._shared_init(generator), device)
@@ -179,8 +227,21 @@ class _StackedLM:
         return walk(None, params)
 
     def _layers(self, params: Params):
-        blocks = params["blocks"]
-        return [layer_params(blocks, i) for i in range(self.cfg.n_layers)]
+        return unbind_layers(params["blocks"])
+
+    # ------------------------------------------------------------ training
+    # each family's `hidden` gives the final-normed states (B, S, d)
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Logits (B, S, V) of the training / prefill path."""
+        return lm_head_logits(params["lm_head"], self.hidden(params, batch))
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """-> (mean next-token NLL over batch["labels"] (and batch["mask"]),
+        {"loss": it}), through `chunked_softmax_xent`."""
+        x = self.hidden(params, batch)
+        l = chunked_softmax_xent(x, params["lm_head"]["w"], batch["labels"],
+                                 batch.get("mask"))
+        return l, {"loss": l}
 
 
 class DecoderLM(_StackedLM):
@@ -229,6 +290,23 @@ class DecoderLM(_StackedLM):
             vis = batch["vision_embeds"]
             x = torch.cat([vis.to(x.dtype), x[:, vis.shape[1]:]], 1)
         return x
+
+    # -------------------------------------------------------- training
+    def _block(self, x: torch.Tensor, bp: Params, positions: torch.Tensor):
+        h = _norm(self.cfg, bp["attn_norm"], x)
+        x = x + A.attn_forward(bp["attn"], self.cfg, h, positions=positions,
+                               causal=True)
+        return self._mlp(bp, x)
+
+    def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        b, s, _ = x.shape
+        positions = self._position_ids(b, torch.arange(s, device=x.device))
+        body = _remat(cfg, self._block)
+        for bp in self._layers(params):
+            x = body(x, bp, positions)
+        return _norm(cfg, params["final_norm"], x)
 
     # -------------------------------------------- dense-cache serving path
     def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
@@ -348,6 +426,15 @@ class MambaLM(_StackedLM):
     def _block_init(self, gen: torch.Generator) -> Params:
         return {"norm": norm_init(self.cfg.d_model, gen.device),
                 "mamba": M.mamba_init(gen, self.cfg)}
+
+    def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The training path (S at most `ssm_chunk` or a multiple of it)."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        body = _remat(cfg, functools.partial(_mamba_layer, cfg))
+        for bp in self._layers(params):
+            x = body(x, bp)
+        return _norm(cfg, params["final_norm"], x)
 
     # ------------------------------------------------- fixed-batch serving
     def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
@@ -506,6 +593,30 @@ class HybridLM(_StackedLM):
         h = _norm(cfg, sp["mlp_norm"], xin)
         return x + xin + F.mlp_apply(sp["mlp"], h, cfg.act)
 
+    def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The training path: each group's Mamba2 layers under `_remat`,
+        the shared block after each full group (not rematerialised, as in
+        the reference)."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        x0 = x
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        layers, sp = self._layers(params), params["shared"]
+        body = _remat(cfg, functools.partial(_mamba_layer, cfg))
+
+        def attend(h):
+            return A.attn_forward(sp["attn"], cfg, h, positions=positions, causal=True)
+
+        off = 0
+        for gsize in self._group_sizes():
+            for bp in layers[off:off + gsize]:
+                x = body(x, bp)
+            off += gsize
+            if gsize == cfg.attn_every:
+                x = self._shared_apply(sp, x, x0, attend)
+        return _norm(cfg, params["final_norm"], x)
+
     def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
         """Zeroed carries conv (L, batch, W-1, conv_dim) / ssm (L, batch,
         nh, hd, n) f32, dense K / V caches (n_shared_uses, batch, max_seq,
@@ -639,20 +750,45 @@ class EncDecLM(_StackedLM):
         device = generator.device if device is None else device
         return self.serving_params(self.init(generator), device)
 
-    def _stack_layers(self, params: Params, key: str, n: int):
-        return [layer_params(params[key], i) for i in range(n)]
+    def _enc_block(self, x: torch.Tensor, bp: Params) -> torch.Tensor:
+        cfg = self.cfg
+        h = _norm(cfg, bp["attn_norm"], x)
+        x = x + A.attn_forward(bp["attn"], cfg, h, positions=None, causal=False)
+        h = _norm(cfg, bp["mlp_norm"], x)
+        return x + F.mlp_apply(bp["mlp"], h, "gelu")
 
     def encode(self, params: Params, audio_embeds: torch.Tensor) -> torch.Tensor:
         """audio_embeds (B, S_enc, d) -> the encoder output (B, S_enc, d)."""
         cfg = self.cfg
         x = audio_embeds.to(torch_dtype(cfg.dtype))
         x = x + params["enc_pos"].to(x.dtype)[None, :x.shape[1]]
-        for bp in self._stack_layers(params, "encoder", cfg.n_enc_layers):
-            h = _norm(cfg, bp["attn_norm"], x)
-            x = x + A.attn_forward(bp["attn"], cfg, h, positions=None, causal=False)
-            h = _norm(cfg, bp["mlp_norm"], x)
-            x = x + F.mlp_apply(bp["mlp"], h, "gelu")
+        body = _remat(cfg, self._enc_block)
+        for bp in unbind_layers(params["encoder"]):
+            x = body(x, bp)
         return _norm(cfg, params["enc_norm"], x)
+
+    def _dec_block(self, x: torch.Tensor, bp: Params, positions: torch.Tensor,
+                   ek: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
+        h = _norm(self.cfg, bp["self_norm"], x)
+        x = x + A.attn_forward(bp["self_attn"], self.cfg, h, positions=positions,
+                               causal=True)
+        return self._cross_mlp(bp, x, ek, ev)
+
+    def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The training path: encode batch["audio_embeds"], every decoder
+        layer's cross K / V from it (outside `_remat`, as the reference
+        computes them before its layer scan), then the decoder layers."""
+        cfg = self.cfg
+        enc = self.encode(params, batch["audio_embeds"])
+        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        layers = unbind_layers(params["decoder"])
+        enc_kv = [A.cross_kv(bp["cross_attn"], cfg, enc) for bp in layers]
+        body = _remat(cfg, self._dec_block)
+        for bp, (ek, ev) in zip(layers, enc_kv):
+            x = body(x, bp, positions, ek, ev)
+        return _norm(cfg, params["final_norm"], x)
 
     def _cross_mlp(self, bp: Params, x: torch.Tensor, ek: torch.Tensor,
                    ev: torch.Tensor) -> torch.Tensor:
@@ -688,7 +824,7 @@ class EncDecLM(_StackedLM):
         positions = torch.arange(s, device=x.device).expand(b, s)
         kv = A.init_cache(cfg, b, max_seq, cfg.n_layers, dtype, x.device)
         eks, evs = [], []
-        for i, bp in enumerate(self._stack_layers(params, "decoder", cfg.n_layers)):
+        for i, bp in enumerate(unbind_layers(params["decoder"])):
             ek, ev = A.cross_kv(bp["cross_attn"], cfg, enc)
             eks.append(ek.to(dtype))
             evs.append(ev.to(dtype))
@@ -711,7 +847,7 @@ class EncDecLM(_StackedLM):
         cfg = self.cfg
         x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
         lengths = cache["lengths"]
-        for i, bp in enumerate(self._stack_layers(params, "decoder", cfg.n_layers)):
+        for i, bp in enumerate(unbind_layers(params["decoder"])):
             h = _norm(cfg, bp["self_norm"], x)
             x = x + A.attn_decode(bp["self_attn"], cfg, h, cache["k"][i],
                                   cache["v"][i], lengths)
