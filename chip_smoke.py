@@ -264,13 +264,41 @@ each with its seconds logged:
      whisper 448 with 1500 audio frames; the vlm's 256 vision embeddings),
      each against its f32 twin as in phase 14, with its peak memory; no
      hand-written kernel launched;
- 16. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 16. long-KV attention (`models/attention.py::_sdpa`, the chunked online
+     softmax from 1024 keys on, as the reference): attention alone at
+     qwen3-1.7b's heads (B 4, S 4096, 16 / 8 x 128, causal, bf16), forward
+     and backward in the direct and the chunked form, each one's ms and
+     peak memory above its inputs, outputs and gradients agreeing at
+     2e-2 x max; qwen3-1.7b trained at seq 4096 x batch 8 (2 microbatches,
+     remat full; 1 warm-up and 3 timed steps: step ms, tokens/s, peak, the
+     loss finite, no hand-written kernel); one 32,768-token prompt through
+     the fixed-batch `prefill_step` with no autograd graph (seconds, peak)
+     and through a one-slot `ContinuousEngine` on the graphed kernel lanes
+     (block tables of 2,050 blocks), first tokens compared at the 0.25
+     margin;
+ 17. internlm2-20b (48 layers, d_model 6144, 48 / 8 heads x 128, d_ff
+     16,384, vocab 92,544; 39.72 GB) and
+ 18. starcoder2-15b (40 layers, 48 / 4 heads: G = 12, d_ff 24,576, vocab
+     49,152; 43.99 GB) at full width and depth, bf16, drawn on the card by
+     `init_serving` after every earlier model is freed, each in phase 9's
+     pattern on the first 8 prompts: the kernel lanes graphed and eager in
+     one pair, bitwise equal, one signature per program; the captured
+     decode-only step against its bytes bound; the torch lanes by first
+     tokens at the 0.25 margin; tokens/s and peak memory (phase 2 first
+     holds paged decode / prefill at G 6 and 12, the GEMM at both models'
+     shapes and the draw at V 92,544 / 49,152);
+ 19. the mesh: `launch/mesh.py::single_device_mesh()` in this process (a
+     world of one on nccl), qwen3-1.7b's `params_shardings` under
+     `rules_for_shape(cfg, SHAPES["decode_32k"], mesh)`, every leaf
+     `Replicate()`, one leaf as a DTensor; the group destroyed after;
+ 20. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8 and 10, their serving
-     runs, the decode wrapper's call and the fixed-batch runs of phases
-     11-13, where only the draw kernel runs; a replayed CUDA graph counts
+     runs, the decode wrapper's call, the fixed-batch runs of phases
+     11-13, where only the draw kernel runs, the 32k engine run of phase
+     16 and the serving runs of phases 17-18; a replayed CUDA graph counts
      the launches it captured), error and times;
- 17. the last line `{"ok": true, "device": {...}}`.
+ 21. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -302,6 +330,7 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 L2_BYTES = 50 * 2**20
+H100_SMS = 132
 DEVICE = "cuda"
 PREFILL_BLOCK_Q = 16     # rows per prefill CTA: 16 rows x G=2 heads fill the
                          # 32-vector tile (2 query warps x 16 vectors)
@@ -526,9 +555,12 @@ def _gather_kv(torch, k_pool, v_pool, tables):
 # the decode and chunk lanes' head geometries: (model, H, Hkv); qwen3's
 # runs in phase 3, qwen2-moe's (G = 1, MHA) in phase 8, granite's (G = 4)
 # in phase 9, qwen2-vl's (G = 6: block_q 16 launches 5 rows, 30 of the
-# prefill tile's 32 vectors) in phase 11
+# prefill tile's 32 vectors) in phase 11, internlm2's (G = 6) in phase 17,
+# starcoder2's (G = 12: decode on the MAXG = 16 instance, prefill 2 rows,
+# 24 of 32 vectors) in phase 18
 SERVE_HEADS = (("qwen3-1.7b", 16, 8), ("qwen2-moe-a2.7b", 16, 16),
-               ("granite-3-8b", 32, 8), ("qwen2-vl-2b", 12, 2))
+               ("granite-3-8b", 32, 8), ("qwen2-vl-2b", 12, 2),
+               ("internlm2-20b", 48, 8), ("starcoder2-15b", 48, 4))
 
 
 def _decode_serving_shape(torch, chk, g, model, h, hkv):
@@ -875,7 +907,10 @@ def _matmul_serving_shapes(torch, chk, g, name, gemms):
             out = KM.matmul_fused(x, w, None, act)
             if KM.matmul_fused.launches != before + 1:
                 raise AssertionError("matmul_fused: one launch per call")
-            if m == 8 and role != "lm_head" and geo.split < 2:
+            # split-K where the column tiles alone leave SMs idle (every
+            # shape but lm_head until starcoder2's mlp_up, 192 tiles)
+            if (m == 8 and role != "lm_head" and -(-n // geo.bn) < H100_SMS
+                    and geo.split < 2):
                 raise AssertionError(f"{role} M=8: no split-K ({geo})")
             want = R.matmul_ref(x, w, None, act)
             tol = MM_RTOL_BF16 * max(1.0, want.float().abs().max().item())
@@ -1043,6 +1078,17 @@ def check_matmul_vlm(torch, chk, cfg):
     151,936) at M = 8 and 256, as `check_matmul_models` holds granite's."""
     g = torch.Generator(device=DEVICE).manual_seed(15)
     _matmul_serving_shapes(torch, chk, g, "qwen2-vl ", serving_gemms(cfg))
+
+
+def check_matmul_large(torch, chk, internlm2, starcoder2):
+    """The GEMM at internlm2-20b's and starcoder2-15b's five serving shapes
+    (d_model 6144; qkv N 6144, k / v N 1024 and 512, mlp_up N 16384 /
+    24576, mlp_down K 16384 / 24576, lm_head N 92544 / 49152, both
+    multiples of 8, so the vector body runs) at M = 8 and 256, as
+    `check_matmul_models` holds granite's."""
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    _matmul_serving_shapes(torch, chk, g, "internlm2 ", serving_gemms(internlm2))
+    _matmul_serving_shapes(torch, chk, g, "starcoder2 ", serving_gemms(starcoder2))
 
 
 # The GEMM's tuned knobs (tile_m, split_k).  KNOB_CHECKS: the shapes at
@@ -2011,9 +2057,10 @@ def serve(torch, served, router, label, profile=False, require_packing=True,
     return {r.rid: r.output for r in done}, firsts, s
 
 
-def compare_first_tokens(torch, label, out_k, first_k, out_t, first_t):
+def compare_first_tokens(torch, label, out_k, first_k, out_t, first_t, require=True):
     """First tokens of a run must match the torch lanes' wherever the
-    torch lanes' top-2 margin exceeds FIRST_TOKEN_MARGIN."""
+    torch lanes' top-2 margin exceeds FIRST_TOKEN_MARGIN; with `require`,
+    at least one must have that margin.  -> the number compared."""
     compared, agree, max_dlogit = 0, 0, 0.0
     for rid, ref_logits in first_t.items():
         max_dlogit = max(max_dlogit,
@@ -2032,8 +2079,51 @@ def compare_first_tokens(torch, label, out_k, first_k, out_t, first_t):
         f"where their top-2 margin > {FIRST_TOKEN_MARGIN} (of {len(first_t)}); "
         f"max |logit difference| {max_dlogit:.4f}; whole 32-token streams "
         f"identical for {same_stream}/{len(out_t)}")
-    if compared == 0:
+    if require and compared == 0:
         raise AssertionError("no request had a first-token margin to compare")
+    return compared
+
+
+def stream_check(torch, label, model, params, prompts, out):
+    """Every token of greedy paged streams `out` against the dense torch
+    path (`launch/steps.py::prefill_step` / `serve_step`: plain PyTorch
+    ops, the same bf16 parameters), teacher-forced one prompt at a time on
+    the stream's own tokens: each must be the dense path's argmax wherever
+    its top-2 margin exceeds FIRST_TOKEN_MARGIN.  -> (tokens compared,
+    tokens)."""
+    from repro_torch.launch import steps
+
+    n_new = SERVE_RUNTIME["max_new_tokens"]
+    compared = total = 0
+    widest = 0.0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for rid, p in zip(sorted(out), prompts):
+            toks = out[rid]
+            logits, cache = steps.prefill_step(
+                model, params, torch.as_tensor(p[None], device=DEVICE), len(p) + n_new)
+            for j in range(n_new):
+                top2 = torch.topk(logits[0, -1].float(), 2)
+                margin = float(top2.values[0] - top2.values[1])
+                total += 1
+                widest = max(widest, margin)
+                if margin > FIRST_TOKEN_MARGIN:
+                    compared += 1
+                    if int(top2.indices[0]) != toks[j]:
+                        raise AssertionError(
+                            f"[{label}] request {rid} token {j}: {toks[j]} on the "
+                            f"kernel lanes vs {int(top2.indices[0])} on the dense torch "
+                            f"path at margin {margin:.3f}")
+                if j + 1 < n_new:
+                    logits, cache = steps.serve_step(
+                        model, params, cache,
+                        torch.tensor([[toks[j]]], dtype=torch.int32, device=DEVICE))
+            del cache
+    torch.cuda.synchronize()
+    log(f"[{label}] every token against the dense torch path (teacher-forced, batch 1, "
+        f"{time.perf_counter() - t0:.1f} s): {compared}/{total} had a top-2 margin > "
+        f"{FIRST_TOKEN_MARGIN}, all agree; the widest margin {widest:.3f}")
+    return compared, total
 
 
 # graphed / eager run order of the kernel lanes: three pairs, alternating
@@ -3105,9 +3195,15 @@ def phase_moe(torch, cfg, race_counters, profile=False):
             "serve_qwen2_moe_plan_race": race, "serve_qwen2_moe_plan_serve": plan_serve}
 
 
-def phase_granite(torch, cfg, profile=False):
-    """granite-3-8b served on the card (see the module docstring, phase
-    9).  -> the kernels' launches on its path."""
+def phase_decoder(torch, cfg, label, path, profile=False, large=False):
+    """A dense decoder served on the card on the first GRANITE_PROMPTS
+    prompts: granite-3-8b (phase 9), internlm2-20b (phase 17),
+    starcoder2-15b (phase 18); see the module docstring.  With `large`
+    (phases 17-18) the kernel lanes' streams are also held token by token
+    against the dense torch path (`stream_check`; a first token with a
+    0.25 margin is not required, at least one token of the two checks is)
+    and the launches come back for the graphed and the eager run as two
+    paths (the pair's launches are equal).  -> {path: launches}."""
     from repro_torch.serve.router import PlanRouter
 
     t_phase = time.perf_counter()
@@ -3116,21 +3212,27 @@ def phase_granite(torch, cfg, profile=False):
     prompts = served[2][:GRANITE_PROMPTS]
     _log_block_q(cfg)
     out_k, first_k, _, launches, eng, _ = _kernel_lane_pairs(
-        torch, served, kernel_lane_router(PREFILL_BLOCK_Q), "granite",
+        torch, served, kernel_lane_router(PREFILL_BLOCK_Q), label,
         GRANITE_KERNEL_RUNS, profile, _serve_counters(), prompts=prompts)
-    _replay_decode(torch, "granite", cfg, eng)
+    _replay_decode(torch, label, cfg, eng)
     del eng
     out_t, first_t, _ = serve(torch, served, PlanRouter(None),
-                              "granite torch lanes, graphed", profile, prompts=prompts)
+                              f"{label} torch lanes, graphed", profile, prompts=prompts)
     div = _first_divergence(out_t, out_k)
-    log(f"[granite] kernel vs torch lanes: first diverging token "
+    log(f"[{label}] kernel vs torch lanes: first diverging token "
         f"{'none' if div is None else 'request %d token %d: %d vs %d' % div}")
-    compare_first_tokens(torch, "granite kernel lanes", out_k, first_k, out_t, first_t)
-    log(f"[granite] peak device memory of the phase: "
+    compared = compare_first_tokens(torch, f"{label} kernel lanes", out_k, first_k,
+                                    out_t, first_t, require=not large)
+    if large and compared + stream_check(torch, label, served[0], served[1], prompts,
+                                         out_k)[0] == 0:
+        raise AssertionError(f"[{label}] no token had a margin to compare")
+    log(f"[{label}] peak device memory of the phase: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
         "(torch.cuda.max_memory_allocated)")
-    log(f"[granite] phase seconds: {time.perf_counter() - t_phase:.1f}")
-    return {"serve_granite_3_8b": launches}
+    log(f"[{label}] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    if large:
+        return {f"{path}_graphed": launches, f"{path}_eager": dict(launches)}
+    return {path: launches}
 
 
 # ------------------------------------------------------------ phases 11-13
@@ -4242,6 +4344,309 @@ def phase_train_loop(torch, counters):
     return peaks
 
 
+# ------------------------------------------------------------ phases 16-19
+# Phase 16, long-KV attention on the dense path (`models/attention.py`):
+# the reference's `_sdpa` runs an online softmax over KV chunks from 1024
+# keys on (`_sdpa_chunked`), which the port follows.  Attention alone at
+# qwen3-1.7b's heads in both forms, forward and backward; a train step at
+# 4096 tokens; one 32,768-token prompt through the fixed-batch prefill,
+# whose direct form would hold 68.7 GB of logits a layer, against the
+# continuous engine's kernel lanes on the same prompt.
+LONG_ATTN = dict(b=4, s=4096, h=16, hkv=8, d=128)
+LONG_ATTN_TOL = 2e-2            # x max |.|: two bf16 forms (the chunked one
+                                # rounds each chunk's P·V product to bf16)
+LONG_TRAIN_SEQ, LONG_TRAIN_BATCH, LONG_TRAIN_MICRO = 4096, 8, 2
+LONG_TRAIN_WARMUP, LONG_TRAIN_TIMED = 1, 3
+LONG_PROMPT = 32_768
+
+
+def _count_chunked():
+    """Wrap `models.attention._sdpa_chunked` with a call counter: -> (the
+    counter list, a function that restores the original)."""
+    from repro_torch.models import attention as A
+
+    calls, orig = [], A._sdpa_chunked
+
+    def spy(*a, **kw):
+        calls.append(kw.get("kv_chunk"))
+        return orig(*a, **kw)
+
+    A._sdpa_chunked = spy
+    return calls, lambda: setattr(A, "_sdpa_chunked", orig)
+
+
+def _long_attention_forms(torch):
+    """Attention alone at qwen3-1.7b's heads (B 4, S 4096, 16 / 8 heads x
+    128, causal, bf16), forward and backward of a seeded cotangent, once in
+    the direct form and once in the chunked form (4 chunks of 1024): each
+    one's device ms (CUDA events, the second of two calls) and peak memory
+    above its inputs; outputs and gradients must agree at LONG_ATTN_TOL x
+    max, and each is logged against the f32 direct form."""
+    from repro_torch.models import attention as A
+
+    b, s, h, hkv, d = (LONG_ATTN[k] for k in ("b", "s", "h", "hkv", "d"))
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    q = torch.randn((b, s, h, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    ct = torch.randn((b, s, h, d), generator=g, device=DEVICE)
+    chunk = A._kv_chunk_for(s)
+    forms = {"direct": A._sdpa_direct,
+             "chunked": lambda *a: A._sdpa_chunked(*a, kv_chunk=chunk)}
+    if chunk != 1024:
+        raise AssertionError(f"S={s}: chunk {chunk}, want 1024")
+    results = {}
+    for name, form in forms.items():
+        for rep in range(2):
+            qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = form(qq, kk, vv, True, h // hkv)
+            (out.float() * ct).sum().backward()
+            end.record()
+            end.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = start.elapsed_time(end)
+        results[name] = (out.detach(), (qq.grad, kk.grad, vv.grad), ms, peak)
+        del out, qq, kk, vv
+    qf, kf, vf = (x.float().requires_grad_(True) for x in (q, k, v))
+    outf = A._sdpa_direct(qf, kf, vf, True, h // hkv)
+    (outf * ct).sum().backward()
+    exact = (outf.detach(), (qf.grad, kf.grad, vf.grad))
+
+    def rel(a, w):
+        return ((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+
+    for name, (out, grads, ms, peak) in results.items():
+        errs = [rel(out, exact[0])] + [rel(gr, w) for gr, w in zip(grads, exact[1])]
+        log(f"[long attention] {name} form B={b} S={s} H={h} Hkv={hkv} D={d} causal "
+            f"bf16, forward + backward: {ms:.3f} ms (CUDA events, second call); peak "
+            f"{peak / 1e9:.3f} GB above the inputs; vs the f32 direct form: out "
+            f"{errs[0]:.2e}, dq {errs[1]:.2e}, dk {errs[2]:.2e}, dv {errs[3]:.2e} x max")
+    d_out, d_grads = results["direct"][:2]
+    c_out, c_grads = results["chunked"][:2]
+    errs = [rel(c_out, d_out)] + [rel(a, w) for a, w in zip(c_grads, d_grads)]
+    log(f"[long attention] chunked vs direct: out {errs[0]:.2e}, dq {errs[1]:.2e}, "
+        f"dk {errs[2]:.2e}, dv {errs[3]:.2e} x max (tolerance {LONG_ATTN_TOL}); "
+        f"peak {results['direct'][3] / results['chunked'][3]:.2f}x less in the "
+        f"chunked form, {results['chunked'][2] / results['direct'][2]:.2f}x the "
+        "direct form's ms")
+    if max(errs) > LONG_ATTN_TOL:
+        raise AssertionError(f"long attention: the two forms disagree ({errs})")
+    return {name: (r[2], r[3]) for name, r in results.items()}
+
+
+def _long_train(torch, counters):
+    """qwen3-1.7b trained at seq 4096 x batch 8 (2 microbatches, remat
+    full, phase 14's optimiser) for 1 warm-up and 3 timed steps: step ms,
+    tokens/s, peak memory, the chunked form's calls a step; the loss must
+    be finite and no hand-written kernel may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.steps import TrainConfig, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    label = "long train"
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), remat="full")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    state = {"params": params, "opt": adamw_init(params)}
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=LONG_TRAIN_SEQ,
+                                      global_batch=LONG_TRAIN_BATCH))
+    step_fn = make_train_step(model, TrainConfig(microbatches=LONG_TRAIN_MICRO,
+                                                 opt=AdamWConfig(**TRAIN_OPT)))
+    tokens = LONG_TRAIN_SEQ * LONG_TRAIN_BATCH
+    _zeroed(counters)
+    calls, restore = _count_chunked()
+    losses, times = [], []
+    try:
+        for step in range(LONG_TRAIN_WARMUP + LONG_TRAIN_TIMED):
+            batch = _train_batch(torch, data, step, cfg)
+            if step == LONG_TRAIN_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+                calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state["params"], state["opt"], metrics = step_fn(state["params"],
+                                                             state["opt"], batch)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            losses.append(loss)
+            if step >= LONG_TRAIN_WARMUP:
+                times.append(dt)
+            log(f"[{label}] step {step + 1} loss {loss:.6f} grad_norm "
+                f"{float(metrics['grad_norm']):.4f} {dt * 1e3:.1f} ms"
+                + (" (warm-up)" if step < LONG_TRAIN_WARMUP else ""))
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = _median(times)
+    per_step = len(calls) // LONG_TRAIN_TIMED
+    log(f"[{label}] qwen3-1.7b seq {LONG_TRAIN_SEQ} x batch {LONG_TRAIN_BATCH}, "
+        f"{LONG_TRAIN_MICRO} microbatches, remat full: step ms median "
+        f"{med * 1e3:.1f} (min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}) "
+        f"over {len(times)} steps; tokens/s {tokens / med:.0f}; peak device memory "
+        f"over the timed steps {peak:.2f} GB; the chunked form ran {per_step} times a "
+        f"step ({cfg.n_layers} layers x {LONG_TRAIN_MICRO} microbatches x forward "
+        "and recompute), chunks of "
+        f"{sorted(set(calls))}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[{label}] non-finite loss: {losses}")
+    if per_step <= 0:
+        raise AssertionError(f"[{label}] the chunked form never ran")
+    if _launched(counters):
+        raise AssertionError(f"[{label}] hand-written kernels launched: "
+                             f"{_launched(counters)}")
+    return {"step_ms": med * 1e3, "tokens_s": tokens / med, "peak_gb": peak}
+
+
+def _long_prefill(torch):
+    """One 32,768-token prompt (seeded) on qwen3-1.7b (bf16, `init_serving`
+    from seed 0): the fixed-batch `prefill_step` with no autograd graph
+    (peak memory above the parameters, seconds, the chunked form's calls),
+    then the same prompt through a one-slot `ContinuousEngine` on the
+    graphed kernel lanes, block tables of (32,768 + 32) / 16 blocks.  The
+    two first tokens must agree where the prefill's top-2 margin exceeds
+    FIRST_TOKEN_MARGIN; the four serving kernels must each launch in the
+    engine run.  -> (the engine run's launches, the prefill's seconds and
+    peak GB)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
+
+    label = "32k prefill"
+    cfg = get_config("qwen3-1.7b")
+    model, params = family_setup(torch, cfg)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, size=LONG_PROMPT
+                                               ).astype(np.int32)
+    n_new = SERVE_RUNTIME["max_new_tokens"]
+    max_seq = LONG_PROMPT + n_new
+    tokens = torch.as_tensor(prompt[None], device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    calls, restore = _count_chunked()
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = steps.prefill_step(model, params, tokens, max_seq)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        restore()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    fixed = logits[0, -1].to("cpu", torch.float32)
+    del logits, cache
+    top2 = torch.topk(fixed, 2)
+    margin = float(top2.values[0] - top2.values[1])
+    log(f"[{label}] fixed-batch prefill_step of one {LONG_PROMPT}-token prompt "
+        f"(max_seq {max_seq}): {secs:.3f} s, peak {peak:.2f} GB above the "
+        f"parameters (the dense cache {cache_gb:.2f} GB of it; the direct form's "
+        f"logits alone would be {16 * LONG_PROMPT ** 2 * 4 / 1e9:.1f} GB a layer); "
+        f"chunked form {len(calls)} calls, chunks {sorted(set(calls))}")
+    if len(calls) != cfg.n_layers or not bool(torch.isfinite(fixed).all()):
+        raise AssertionError(f"[{label}] {len(calls)} chunked calls or non-finite logits")
+
+    gc.collect()
+    blocks = -(-max_seq // SERVE_RUNTIME["block_size"])
+    rcfg = RuntimeConfig(**{**SERVE_RUNTIME, "max_slots": 1,
+                            "max_blocks_per_seq": blocks})
+    eng = ContinuousEngine(model, params, rcfg, router=kernel_lane_router(PREFILL_BLOCK_Q),
+                           device=DEVICE)
+    firsts = _spy_first_logits(eng)
+    serving = _serve_counters()
+    _zeroed(serving)
+    eng.submit(prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in serving}
+    s = eng.metrics.summary()
+    out = done[0].output
+    engine_first = firsts[done[0].rid]
+    log(f"[{label}] ContinuousEngine, kernel lanes graphed, 1 slot, tables of "
+        f"{blocks} blocks: {wall:.3f} s for {len(out)} tokens, TTFT "
+        f"{s['ttft_p50_s']:.3f} s, {int(s['chunk_steps'])} unified and "
+        f"{int(s['decode_only_steps'])} decode-only steps; launches {launches}")
+    log(f"[{label}] first token: fixed-batch {int(top2.indices[0])} (top-2 margin "
+        f"{margin:.3f}), engine {out[0]}; max |logit difference| "
+        f"{(engine_first - fixed).abs().max().item():.4f}")
+    if len(out) != n_new or not all(0 <= t < cfg.vocab for t in out):
+        raise AssertionError(f"[{label}] bad engine stream")
+    if margin > FIRST_TOKEN_MARGIN and out[0] != int(top2.indices[0]):
+        raise AssertionError(f"[{label}] first tokens differ at margin {margin:.3f}")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"[{label}] {missing} never launched")
+    del eng
+    return launches, secs, peak
+
+
+def phase_long_kv(torch, counters):
+    """Phase 16 (see the module docstring and the comment above).  -> the
+    kernels' launches on the 32k engine run's path."""
+    t_phase = time.perf_counter()
+    _long_attention_forms(torch)
+    free_device(torch)
+    _long_train(torch, counters)
+    free_device(torch)
+    launches, _, _ = _long_prefill(torch)
+    _phase_end("long kv", t_phase)
+    return {"prefill_32k_qwen3_engine": launches}
+
+
+def phase_mesh(torch):
+    """Phase 19: `launch/mesh.py::single_device_mesh()` on the card in this
+    process, which holds no process group (it starts a world of one on
+    nccl), then qwen3-1.7b's parameter shardings under
+    `rules_for_shape(cfg, SHAPES["decode_32k"], mesh)`: every leaf must be
+    replicated on the (1, 1) mesh; one leaf distributed as a DTensor must
+    hold the tensor bitwise.  The group is destroyed after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import params_shardings, prune_for_mesh
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.steps import rules_for_shape
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_flatten_with_paths
+
+    t_phase = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("[mesh] a process group is already up")
+    mesh = single_device_mesh()
+    try:
+        cfg = get_config("qwen3-1.7b")
+        rules = prune_for_mesh(rules_for_shape(cfg, SHAPES["decode_32k"], mesh), mesh)
+        shard = list(tree_flatten_with_paths(
+            params_shardings(mesh, rules, build_model(cfg).logical_axes())))
+        odd = [k for k, sh in shard if any(p != Replicate() for p in sh.placements)]
+        log(f"[mesh] {mesh} on backend {dist.get_backend()} (world "
+            f"{dist.get_world_size()}); qwen3-1.7b under decode_32k's rules: "
+            f"{len(shard)} leaves, {len(shard) - len(odd)} with Replicate() on every "
+            f"mesh dim; specs e.g. {shard[0][0]} {tuple(shard[0][1].spec)}")
+        if odd or not shard:
+            raise AssertionError(f"[mesh] leaves not replicated: {odd}")
+        x = torch.randn((64, 128), device=DEVICE)
+        dx = shard[0][1].distribute(x)
+        if not torch.equal(dx.to_local(), x) or dx.to_local().device.type != "cuda":
+            raise AssertionError("[mesh] a distributed leaf differs from its tensor")
+    finally:
+        dist.destroy_process_group()
+    log(f"[mesh] phase seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def _log_device_profile(prof, wall_s, label, calls=None):
     """Device time by kernel over a traced run (torch.profiler, CUDA
     activity only), and the device's busy share of the run's wall time
@@ -4283,7 +4688,7 @@ def main() -> int:
                          "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 15")
+                         "skips phases 3 to 19")
     args = ap.parse_args()
 
     import torch
@@ -4349,6 +4754,10 @@ def main() -> int:
     check_matmul_vlm(torch, checks[2], get_config("qwen2-vl-2b"))
     for arch in ("zamba2-1.2b", "whisper-base"):
         check_sampling(torch, checks[7], get_config(arch).vocab, FIXED_SAMPLE_SHAPES)
+    check_matmul_large(torch, checks[2], get_config("internlm2-20b"),
+                       get_config("starcoder2-15b"))
+    for arch in ("internlm2-20b", "starcoder2-15b"):
+        check_sampling(torch, checks[7], get_config(arch).vocab)
     knob_paths = check_matmul_knobs(torch, checks[2], get_config("qwen3-1.7b"),
                                     get_config("mamba2-2.7b"))
     torch.cuda.synchronize()
@@ -4391,7 +4800,8 @@ def main() -> int:
     free_device(torch)
     granite_paths = timed_phase(
         9, "serving granite-3-8b through ContinuousEngine (G = 4, vocab 49,155)",
-        phase_granite, torch, get_config("granite-3-8b"), args.profile)
+        phase_decoder, torch, get_config("granite-3-8b"), "granite",
+        "serve_granite_3_8b", args.profile)
     free_device(torch)
     vlm_paths = timed_phase(
         11, "serving qwen2-vl-2b (M-RoPE, G = 6) through ContinuousEngine, and with "
@@ -4416,10 +4826,28 @@ def main() -> int:
     timed_phase(15, "the Trainer end to end (checkpoints, preemption, resume) and one "
                 "train step of each other family", phase_train_loop, torch,
                 [c.fn for c in checks])
+    free_device(torch)
+    long_paths = timed_phase(
+        16, "long-KV attention: both forms at S 4096, a train step at 4096 tokens, "
+        "a 32,768-token prefill", phase_long_kv, torch, [c.fn for c in checks])
+    free_device(torch)
+    internlm2_paths = timed_phase(
+        17, "serving internlm2-20b through ContinuousEngine (48 layers, G = 6, "
+        "vocab 92,544)", phase_decoder, torch, get_config("internlm2-20b"),
+        "internlm2", "serve_internlm2_20b", args.profile, True)
+    free_device(torch)
+    starcoder2_paths = timed_phase(
+        18, "serving starcoder2-15b through ContinuousEngine (40 layers, G = 12, "
+        "d_ff 24,576)", phase_decoder, torch, get_config("starcoder2-15b"),
+        "starcoder2", "serve_starcoder2_15b", args.profile, True)
+    free_device(torch)
+    timed_phase(19, "the mesh: single_device_mesh() and the sharding rules on the card",
+                phase_mesh, torch)
     paths = {**knob_paths, "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
              **ssm_paths, **moe_paths, **granite_paths, **vlm_paths,
-             **hybrid_paths, **encdec_paths}
+             **hybrid_paths, **encdec_paths, **long_paths, **internlm2_paths,
+             **starcoder2_paths}
     kernels = [c.record({p: n[c.fn.__name__] for p, n in paths.items()
                          if c.fn.__name__ in n}) for c in checks]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -16,8 +16,8 @@ paths (`params/blocks/attn/wq/w`, `opt/m/...`, `opt/step`), plus
 `meta.json` — the files the JAX `CheckpointManager` writes, so either
 package restores what the other saved.  A leaf numpy cannot hold
 (bfloat16) raises, naming the leaf; the train state has only f32 and int32
-leaves.  Restoring onto another sharding waits for the port's tensor
-parallelism (ROADMAP.md queue 1, item 8).
+leaves.  Restoring onto another sharding waits for TP training (ROADMAP.md
+queue 1, item 8c).
 """
 
 from __future__ import annotations

@@ -101,7 +101,7 @@ def select(
     if model_parallel > 1:
         raise NotImplementedError(
             "model_parallel > 1 (the layout race) is not ported yet: "
-            "ROADMAP.md queue 1, tensor parallelism")
+            "ROADMAP.md queue 1, item 8b (TP serving)")
     tuner = tuner or Tuner(chip=chip)
     plan = InferencePlan(graph.name, chip.name)
 

@@ -1,6 +1,7 @@
 """Public wrappers over the port's kernels, with the signatures of
 `repro.kernels.ops` (`matmul`, `conv2d`, `fused_elementwise`, `attention`,
-`attention_decode`, `attention_decode_paged`, `attention_prefill_packed`).
+`attention_decode`, `attention_decode_paged`, `attention_prefill_packed`,
+`attention_prefill_paged`).
 
 A CPU tensor goes to the kernel's plain version; a CUDA tensor goes to the
 kernel or the call raises — there is no fallback.  The tuned `config` dicts
@@ -156,3 +157,19 @@ def attention_prefill_packed(q: torch.Tensor, k_pool: torch.Tensor,
     block_q = (config or {}).get("block_q")
     return paged_prefill_attention(q.contiguous(), k_pool, v_pool, seg_tables,
                                    seg_info, block_q=block_q, scale=scale)
+
+
+def attention_prefill_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, block_tables: torch.Tensor,
+                            chunk_start, chunk_len, *,
+                            scale: Optional[float] = None,
+                            config: Config = None) -> torch.Tensor:
+    """One request's chunk prefill: q (1, C, H, D) against the rows its
+    table (1, nbt) holds, `chunk_start` rows committed before the chunk and
+    `chunk_len` real rows in it (ints or scalar tensors) -> (1, C, H, D).
+    The S = 1 case of `attention_prefill_packed`, through the one-row
+    descriptor [0, chunk_len, chunk_start]."""
+    as_int = lambda x: torch.as_tensor(x, dtype=torch.int32, device=q.device)
+    seg_info = torch.stack([as_int(0), as_int(chunk_len), as_int(chunk_start)])[None]
+    return attention_prefill_packed(q, k_pool, v_pool, block_tables, seg_info,
+                                    scale=scale, config=config)

@@ -1,1 +1,2 @@
-"""Serving step functions of the port."""
+"""Step functions and programs of the port (`steps`, `program`) and its
+mesh builders (`mesh`)."""

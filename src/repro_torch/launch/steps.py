@@ -36,8 +36,16 @@ reference retraces them per prompt length.
 in the reference, which jits it with sharded, donated state): value and
 gradient of `model.loss` with microbatched accumulation
 (`loss_and_grads`), then `optim.adamw_update` in place.  It runs eagerly
-on one device; ZeRO-1 sharding of the moments waits for the port's mesh
-(ROADMAP.md queue 1, item 8), as it changes nothing on one device.
+on one device; ZeRO-1 sharding of the moments waits for tensor-parallel
+training (ROADMAP.md queue 1, item 8c), as it changes nothing on one
+device.
+
+The shardings (`batch_logical_axes`, `rules_for_shape`,
+`make_batch_shardings`, `cache_shardings`, `paged_pool_sharding`,
+`slot_state_shardings`) are the reference's: the shape- and config-aware
+rule table, and one `distributed.sharding.NamedSharding` (mesh, spec,
+DTensor placements) per leaf.  A mesh is a DeviceMesh, or for the tables
+alone anything with the reference's `shape` mapping.
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
+                                              axis_sizes, map_axes, named_sharding)
 from repro_torch.kernels.dispatch import MatmulTable, matmul_dispatch
 from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.launch.program import Program
@@ -61,6 +72,105 @@ class TrainConfig:
     zero1: bool = True
     compress_pod_grads: bool = False
     opt: AdamWConfig = AdamWConfig()
+
+
+# ---------------------------------------------------------------- shardings
+def batch_logical_axes(batch_specs: Dict[str, Any]) -> Dict[str, Any]:
+    """("batch", None, ...) for each entry of a batch (anything with a
+    `shape`)."""
+    return {k: ("batch",) + (None,) * (len(v.shape) - 1)
+            for k, v in batch_specs.items()}
+
+
+def rules_for_shape(cfg: ModelConfig, shape: ShapeSpec, mesh) -> ShardingRules:
+    """The reference's shape- and config-aware rule overrides (the baseline
+    sharding scheme).  Each sharded dim must divide its mesh axis:
+      * heads / kv_heads / ffn indivisible by |model| -> replicated;
+      * vocab indivisible -> the LM head's d_model dim ('embed_vec') takes
+        the model axis instead;
+      * n_experts indivisible -> TP inside the experts ('expert_ffn');
+      * mamba heads / conv channels indivisible -> replicated.
+    Decode with KV heads indivisible by |model| shards the cache's
+    sequence dim over 'model'; a batch that does not split over data x pod
+    is replicated and the sequence / state dims take 'data' (SP); training
+    at 16k tokens and more shards the sequence over 'data'."""
+    rules = DEFAULT_RULES
+    sizes = axis_sizes(mesh)
+    m = sizes.get("model", 1)
+    dp = sizes.get("data", 1) * sizes.get("pod", 1)
+
+    if cfg.n_heads and cfg.n_heads % m:
+        rules = rules.replace(heads=None)
+    if cfg.n_kv_heads and cfg.n_kv_heads % m:
+        rules = rules.replace(kv_heads=None)
+    if cfg.d_ff and cfg.d_ff % m:
+        rules = rules.replace(ffn=None)
+    if cfg.vocab % m:
+        rules = rules.replace(vocab=None)
+        if cfg.d_model % m == 0:
+            rules = rules.replace(embed_vec="model")
+    if cfg.n_experts:
+        if cfg.n_experts % m:
+            rules = rules.replace(experts=None)
+            if cfg.d_expert % m == 0:
+                rules = rules.replace(expert_ffn="model")
+    if cfg.ssm_state:
+        d_in = cfg.ssm_expand * cfg.d_model
+        nh = d_in // cfg.ssm_head_dim
+        conv_dim = d_in + 2 * cfg.ssm_state
+        if nh % m:
+            rules = rules.replace(ssm_heads=None)
+        if conv_dim % m:
+            rules = rules.replace(conv_dim=None)
+
+    if (shape.kind == "decode" and cfg.n_kv_heads and cfg.n_kv_heads % m
+            and shape.seq_len % m == 0):
+        rules = rules.replace(kv_seq="model")
+
+    if shape.global_batch % dp != 0 or shape.global_batch < dp:
+        d = sizes.get("data", 1)
+        rules = rules.replace(
+            batch=None,
+            kv_seq="data" if shape.seq_len % d == 0 else None,
+            ssm_state="data" if (cfg.ssm_state and cfg.ssm_state % d == 0) else None,
+            seq="data" if shape.seq_len % d == 0 else None,
+        )
+    if shape.kind == "train" and shape.seq_len >= 16_384:
+        rules = rules.replace(seq="data")
+    return rules
+
+
+def make_batch_shardings(mesh, rules: ShardingRules, batch_specs):
+    """One NamedSharding per batch entry: rows over the "batch" axes."""
+    return {k: named_sharding(mesh, rules.spec(axes))
+            for k, axes in batch_logical_axes(batch_specs).items()}
+
+
+def cache_shardings(model, mesh, rules: ShardingRules, batch: int, max_seq: int):
+    """The fixed-batch cache's NamedShardings, its shapes taken from
+    `model.init_cache` on the meta device (no memory); axes past a leaf's
+    logical tuple replicated."""
+    shapes = model.init_cache(batch, max_seq, device="meta")
+
+    def spec_of(axes, leaf):
+        axes = tuple(axes) + (None,) * (leaf.dim() - len(axes))
+        return named_sharding(mesh, rules.spec(axes))
+
+    return map_axes(spec_of, model.cache_logical_axes(), shapes)
+
+
+def paged_pool_sharding(model, mesh, rules: ShardingRules):
+    """The paged KV pools' NamedSharding: blocks replicated, KV heads as
+    the dense cache's head axis."""
+    return named_sharding(mesh, rules.spec(model.paged_cache_logical_axes()["k"]))
+
+
+def slot_state_shardings(model, mesh, rules: ShardingRules):
+    """(conv, ssm) NamedShardings of the slot state pools: pool rows
+    replicated, feature axes per `MambaLM.slot_state_logical_axes`."""
+    axes = model.slot_state_logical_axes()
+    return (named_sharding(mesh, rules.spec(axes["conv"])),
+            named_sharding(mesh, rules.spec(axes["ssm"])))
 
 
 def loss_and_grads(model, params, batch: Dict[str, torch.Tensor],

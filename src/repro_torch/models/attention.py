@@ -4,7 +4,8 @@ the port of the serving half of `repro.models.attention`: the paged path
 `attn_decode_paged`), the dense-cache path of the fixed-batch engine
 (`attn_forward` with `return_kv`, `init_cache`, `attn_decode`) and the
 encoder-decoder's cross-attention (`attn_forward` with `kv_override`,
-`cross_kv`).
+`cross_kv`), and the logical axes of the parameters and the dense caches
+(`attn_logical_axes`, `cache_logical_axes`).
 
 With M-RoPE (`cfg.mrope_sections`) positions carry a trailing axis of 3
 (t, h, w); the decode lanes rotate the new token at (len, len, len), as
@@ -12,11 +13,17 @@ the reference does (it projects twice there and drops the first result;
 the port projects once).
 
 The dense path is the reference's XLA lane, outside any Pallas kernel, so
-here it is plain PyTorch: Q·Kᵀ in the working dtype, then cast to f32 and
-scaled, the softmax in f32, the probabilities rounded to V's dtype before
-P·V.  The reference scans long prompts (>= 1024 keys) in KV chunks with an
-online softmax to bound its memory, equal to the direct form to ~1e-6;
-the port computes every length in the direct form.
+here it is plain PyTorch in the reference's two forms, picked as `_sdpa`
+picks them.  The direct form: Q·Kᵀ in the working dtype, then cast to f32
+and scaled, the softmax in f32, the probabilities rounded to V's dtype
+before P·V.  From 1024 keys on, where a divisor of Skv in [64, 1024] gives
+more than one chunk (`_kv_chunk_for`), the chunked form: an online softmax
+over KV chunks carrying (m, l, acc) in f32, so the largest temporary is
+(B, H, Sq, chunk) where the direct form's is (B, H, Sq, Skv).  Under
+autograd each chunk body runs under `torch.utils.checkpoint`, recomputed
+in backward as the reference's `jax.checkpoint` body is.  The two forms
+round differently in bf16 (the chunked one rounds each chunk's P·V
+product to V's dtype), so each length takes the reference's form.
 
 Attention backends: `torch` runs the gather lanes (the plain versions in
 `repro_torch.kernels.ref`, which mirror the JAX XLA lanes), and
@@ -36,10 +43,12 @@ them in) a race would make a step differ from run to run.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ref as _ref
@@ -47,7 +56,8 @@ from repro_torch.kernels.ref import packed_row_map
 from repro_torch.models.common import (Params, apply_mrope, apply_rope, dense,
                                        dense_init, norm_init, rms_norm)
 
-__all__ = ["attn_init", "attn_forward", "cross_kv", "init_cache", "attn_decode",
+__all__ = ["attn_init", "attn_logical_axes", "attn_forward", "cross_kv",
+           "init_cache", "cache_logical_axes", "attn_decode",
            "packed_row_map", "attn_prefill_packed", "attn_decode_paged",
            "decode_write_rows", "packed_write_rows"]
 
@@ -65,6 +75,19 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig,
     if cfg.qk_norm:
         p["q_norm"] = norm_init(hd, gen.device)
         p["k_norm"] = norm_init(hd, gen.device)
+    return p
+
+
+def attn_logical_axes(cfg: ModelConfig) -> Params:
+    p = {
+        "wq": {"w": ("embed", "heads")},
+        "wk": {"w": ("embed", "kv_heads")},
+        "wv": {"w": ("embed", "kv_heads")},
+        "wo": {"w": ("heads", "embed")},
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": (None,)}
+        p["k_norm"] = {"scale": (None,)}
     return p
 
 
@@ -96,8 +119,12 @@ def _decode_positions(cfg: ModelConfig, lengths: torch.Tensor) -> torch.Tensor:
     return pos[..., None].expand(-1, 1, 3) if cfg.mrope_sections else pos
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-          q_per_kv: int) -> torch.Tensor:
+_CHUNKED_KV_THRESHOLD = 1024
+_KV_CHUNK = 1024
+
+
+def _sdpa_direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                 q_per_kv: int) -> torch.Tensor:
     """`repro.models.attention._sdpa_direct`: (B, Sq, H, D) x (B, Skv, Hkv,
     D), GQA grouped, the causal mask aligned at the bottom right."""
     b, sq, h, d = q.shape
@@ -109,6 +136,80 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         logits = torch.where(mask, logits, torch.full_like(logits, _ref.NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, sq, h, d)
+
+
+def _chunk_body(causal: bool, start: int, qpos: torch.Tensor, qg: torch.Tensor,
+                m_prev: torch.Tensor, l_prev: torch.Tensor, acc: torch.Tensor,
+                k_blk: torch.Tensor, v_blk: torch.Tensor):
+    """One KV chunk of the online softmax: the carry (m, l, acc) advanced
+    over keys start .. start + chunk - 1, in the reference's roundings."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_blk).float() * (
+        1.0 / math.sqrt(qg.shape[-1]))
+    if causal:
+        kpos = start + torch.arange(k_blk.shape[1], device=qg.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        s = torch.where(mask, s, torch.full_like(s, _ref.NEG_INF))
+    m_new = torch.maximum(m_prev, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m_prev - m_new)
+    l_new = l_prev * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhgqk,bkhd->bhgqd", p.to(v_blk.dtype), v_blk)
+    return m_new, l_new, acc
+
+
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  q_per_kv: int, kv_chunk: int = _KV_CHUNK) -> torch.Tensor:
+    """`repro.models.attention._sdpa_chunked`: the online softmax over
+    Skv / kv_chunk KV chunks (a Python loop where the reference scans),
+    the carry in f32, each chunk's P·V product in V's dtype added to the
+    f32 accumulator, the output acc / max(l, 1e-30) in q's dtype.  Under
+    autograd (grad enabled and an input that requires it) each chunk body
+    is checkpointed, its logits recomputed in backward; otherwise it runs
+    as is and holds no graph."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if skv % kv_chunk:
+        raise ValueError(f"Skv={skv} is not a multiple of the chunk {kv_chunk}")
+    qg = q.reshape(b, sq, hkv, q_per_kv, d)
+    qpos = torch.arange(sq, device=q.device) + (skv - sq)
+    m = torch.full((b, hkv, q_per_kv, sq), _ref.NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, q_per_kv, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, q_per_kv, sq, d), dtype=torch.float32, device=q.device)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    for start in range(0, skv, kv_chunk):
+        body = functools.partial(_chunk_body, causal, start, qpos)
+        args = (qg, m, l, acc, k[:, start:start + kv_chunk],
+                v[:, start:start + kv_chunk])
+        if grad:
+            m, l, acc = checkpoint(body, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            m, l, acc = body(*args)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def _kv_chunk_for(skv: int, target: int = _KV_CHUNK) -> int:
+    """Largest divisor of skv that is <= target and >= 64; 0 where none."""
+    for c in range(min(target, skv), 63, -1):
+        if skv % c == 0:
+            return c
+    return 0
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+          q_per_kv: int) -> torch.Tensor:
+    """`repro.models.attention._sdpa`: the chunked form from
+    `_CHUNKED_KV_THRESHOLD` keys on where `_kv_chunk_for` gives more than
+    one chunk, the direct form otherwise."""
+    skv = k.shape[1]
+    if skv >= _CHUNKED_KV_THRESHOLD:
+        chunk = _kv_chunk_for(skv)
+        if chunk and skv // chunk > 1:
+            return _sdpa_chunked(q, k, v, causal, q_per_kv, kv_chunk=chunk)
+    return _sdpa_direct(q, k, v, causal, q_per_kv)
 
 
 def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -151,6 +252,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, n_layers: int,
     shape = (n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_logical_axes() -> Dict[str, Any]:
+    """Logical axes of the dense K / V caches (L, B, max_seq, Hkv, hd)."""
+    ax = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": ax, "v": ax}
 
 
 def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -16,6 +16,9 @@ Decode keeps two carries per layer: the depthwise conv's window (the last
 `conv_width - 1` raw inputs) and the SSM state,
 h' = exp(dt·A) h + dt · x ⊗ B.
 
+`mamba_logical_axes` names each parameter's logical axes, as the
+reference's does.
+
 Softplus is `jax.nn.softplus` as JAX computes it, logaddexp(x, 0) =
 max(x, 0) + log1p(exp(-|x|)), with no threshold branch: the dt of a padded
 row is forced to 0.0 after it (`mamba_chunk_forward`), which is what makes
@@ -59,6 +62,19 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "dt_bias": torch.log(torch.expm1(torch.exp(u))),
         "norm": norm_init(d_in, dev),
         "out_proj": dense_init(gen, d_in, d),
+    }
+
+
+def mamba_logical_axes(cfg: ModelConfig) -> Params:
+    return {
+        "in_proj": {"w": ("embed", "conv_dim")},
+        "conv_w": (None, "conv_dim"),
+        "conv_b": ("conv_dim",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": {"scale": (None,)},
+        "out_proj": {"w": ("conv_dim", "embed")},
     }
 
 

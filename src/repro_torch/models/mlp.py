@@ -1,5 +1,6 @@
 """MLP and mixture-of-experts layers — the port of `repro.models.mlp`
-(`mlp_init` / `mlp_apply`, `moe_init` / `moe_capacity` / `moe_apply`).
+(`mlp_init` / `mlp_apply`, `moe_init` / `moe_capacity` / `moe_apply`, and
+the parameters' logical axes `mlp_logical_axes` / `moe_logical_axes`).
 
 The MoE keeps the reference's capacity-based scatter dispatch
 (GShard-style): each group's (token, choice) pairs queue for their expert
@@ -25,6 +26,13 @@ def mlp_init(gen: torch.Generator, d: int, f: int, gated: bool = True) -> Params
     p = {"w_in": dense_init(gen, d, f), "w_out": dense_init(gen, f, d)}
     if gated:
         p["w_gate"] = dense_init(gen, d, f)
+    return p
+
+
+def mlp_logical_axes(gated: bool = True) -> Params:
+    p = {"w_in": {"w": ("embed", "ffn")}, "w_out": {"w": ("ffn", "embed")}}
+    if gated:
+        p["w_gate"] = {"w": ("embed", "ffn")}
     return p
 
 
@@ -57,6 +65,19 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(gen, d, cfg.n_shared_experts * f)
         p["shared_gate"] = dense_init(gen, d, 1)
+    return p
+
+
+def moe_logical_axes(cfg: ModelConfig) -> Params:
+    p = {
+        "router": {"w": ("embed", None)},
+        "w_in": ("experts", "embed", "expert_ffn"),
+        "w_gate": ("experts", "embed", "expert_ffn"),
+        "w_out": ("experts", "expert_ffn", "embed"),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_logical_axes()
+        p["shared_gate"] = {"w": ("embed", None)}
     return p
 
 

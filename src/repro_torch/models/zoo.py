@@ -27,6 +27,14 @@ does, with the layer bodies wrapped by `_remat` (`cfg.remat`: none, dots,
 full).  Each stacked leaf is split into its layers by one `unbind`
 (`unbind_layers`), whose backward is one `stack` per leaf.
 
+Every family publishes the logical axes of its parameters
+(`logical_axes`, one tuple of axis names per leaf, "layers" leading the
+stacked leaves; `block_logical_axes` for one decoder block) and of its
+fixed-batch cache (`cache_logical_axes`); `DecoderLM` also of its paged
+pools (`paged_cache_logical_axes`) and `MambaLM` of its slot pools
+(`slot_state_logical_axes`), the reference's trees entry for entry.  The
+`distributed.sharding` rules turn them into placements.
+
 The vision patches and audio frames are stubs, as in the reference: the
 batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
 (B, S_enc, d).
@@ -43,6 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import map_axes
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
@@ -115,6 +124,30 @@ def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     else:
         p["mlp"] = F.mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.act == "silu")
     return p
+
+
+def _norm_axes(cfg: ModelConfig) -> Params:
+    return ({"scale": (None,)} if cfg.norm == "rms"
+            else {"scale": (None,), "bias": (None,)})
+
+
+def block_logical_axes(cfg: ModelConfig) -> Params:
+    """Logical axes of one decoder block's parameters (`block_init`)."""
+    p = {
+        "attn_norm": _norm_axes(cfg),
+        "attn": A.attn_logical_axes(cfg),
+        "mlp_norm": _norm_axes(cfg),
+    }
+    if cfg.family == "moe":
+        p["moe"] = F.moe_logical_axes(cfg)
+    else:
+        p["mlp"] = F.mlp_logical_axes(gated=cfg.act == "silu")
+    return p
+
+
+def _layers_axes(block: Params) -> Params:
+    """A block's axes with the leading "layers" dim of the stacked tree."""
+    return map_axes(lambda ax: ("layers",) + ax, block)
 
 
 def _stack(trees):
@@ -253,6 +286,15 @@ class DecoderLM(_StackedLM):
     def _block_init(self, gen: torch.Generator) -> Params:
         return block_init(gen, self.cfg)
 
+    def logical_axes(self) -> Params:
+        """The parameter tree's logical axes, leaf for leaf."""
+        return {
+            "embed": {"emb": ("vocab", "embed_tbl")},
+            "blocks": _layers_axes(block_logical_axes(self.cfg)),
+            "final_norm": _norm_axes(self.cfg),
+            "lm_head": {"w": ("embed_vec", "vocab")},
+        }
+
     def _mlp(self, bp: Params, x: torch.Tensor) -> torch.Tensor:
         h = _norm(self.cfg, bp["mlp_norm"], x)
         if self.cfg.family == "moe":
@@ -317,6 +359,11 @@ class DecoderLM(_StackedLM):
                              torch_dtype(cfg.dtype), device)
         cache["lengths"] = torch.zeros((batch,), dtype=torch.int32, device=device)
         return cache
+
+    def cache_logical_axes(self) -> Dict[str, Any]:
+        ax = A.cache_logical_axes()
+        ax["lengths"] = ("batch",)
+        return ax
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_seq: int):
@@ -412,6 +459,13 @@ class DecoderLM(_StackedLM):
         last = torch.clamp(info[:, 0] + info[:, 1] - 1, 0, c - 1)   # (S,)
         return lm_head_logits(params["lm_head"], x[:, last])
 
+    @staticmethod
+    def paged_cache_logical_axes() -> Dict[str, Any]:
+        """Logical axes of the paged pools (L, num_blocks, block_size, Hkv,
+        hd): blocks replicated, KV heads as the dense cache's."""
+        ax = ("layers", None, None, "kv_heads", None)
+        return {"k": ax, "v": ax}
+
 
 # ===================================================================== Mamba2
 class MambaLM(_StackedLM):
@@ -426,6 +480,15 @@ class MambaLM(_StackedLM):
     def _block_init(self, gen: torch.Generator) -> Params:
         return {"norm": norm_init(self.cfg.d_model, gen.device),
                 "mamba": M.mamba_init(gen, self.cfg)}
+
+    def logical_axes(self) -> Params:
+        block = {"norm": {"scale": (None,)}, "mamba": M.mamba_logical_axes(self.cfg)}
+        return {
+            "embed": {"emb": ("vocab", "embed_tbl")},
+            "blocks": _layers_axes(block),
+            "final_norm": {"scale": (None,)},
+            "lm_head": {"w": ("embed_vec", "vocab")},
+        }
 
     def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The training path (S at most `ssm_chunk` or a multiple of it)."""
@@ -447,6 +510,11 @@ class MambaLM(_StackedLM):
         return {"conv": conv.expand(n_layers, *conv.shape).clone(),
                 "ssm": h.expand(n_layers, *h.shape).clone(),
                 "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def cache_logical_axes(self) -> Dict[str, Any]:
+        return {"conv": ("layers", "batch", None, "conv_dim"),
+                "ssm": ("layers", "batch", "ssm_heads", None, "ssm_state"),
+                "lengths": ("batch",)}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_seq: int):
@@ -547,6 +615,13 @@ class MambaLM(_StackedLM):
         x = rms_norm(params["final_norm"], x)
         return lm_head_logits(params["lm_head"], x)
 
+    @staticmethod
+    def slot_state_logical_axes() -> Dict[str, Any]:
+        """Logical axes of the slot pools conv (L, rows, W-1, conv_dim) and
+        ssm (L, rows, nh, hd, n): pool rows replicated."""
+        return {"conv": ("layers", None, None, "conv_dim"),
+                "ssm": ("layers", None, "ssm_heads", None, "ssm_state")}
+
 
 # ===================================================================== Zamba2
 class HybridLM(_StackedLM):
@@ -581,6 +656,23 @@ class HybridLM(_StackedLM):
             "mlp_norm": _norm_init(cfg, d, gen.device),
             "mlp": F.mlp_init(gen, d, cfg.d_ff),
         }}
+
+    def logical_axes(self) -> Params:
+        cfg = self.cfg
+        block = {"norm": {"scale": (None,)}, "mamba": M.mamba_logical_axes(cfg)}
+        return {
+            "embed": {"emb": ("vocab", "embed_tbl")},
+            "blocks": _layers_axes(block),
+            "shared": {
+                "in_proj": {"w": ("embed", "embed")},
+                "attn_norm": {"scale": (None,)},
+                "attn": A.attn_logical_axes(cfg),
+                "mlp_norm": {"scale": (None,)},
+                "mlp": F.mlp_logical_axes(),
+            },
+            "final_norm": {"scale": (None,)},
+            "lm_head": {"w": ("embed_vec", "vocab")},
+        }
 
     def _shared_apply(self, sp: Params, x: torch.Tensor, x0: torch.Tensor,
                       attend) -> torch.Tensor:
@@ -629,6 +721,12 @@ class HybridLM(_StackedLM):
                 "ssm": h.expand(cfg.n_layers, *h.shape).clone(),
                 "k": kv["k"], "v": kv["v"],
                 "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def cache_logical_axes(self) -> Dict[str, Any]:
+        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+        return {"conv": ("layers", "batch", None, "conv_dim"),
+                "ssm": ("layers", "batch", "ssm_heads", None, "ssm_state"),
+                "k": kv, "v": kv, "lengths": ("batch",)}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_seq: int):
@@ -744,6 +842,27 @@ class EncDecLM(_StackedLM):
             "lm_head": dense_init(generator, d, cfg.vocab),
         }
 
+    def logical_axes(self) -> Params:
+        cfg = self.cfg
+        enc_block = {
+            "attn_norm": _norm_axes(cfg), "attn": A.attn_logical_axes(cfg),
+            "mlp_norm": _norm_axes(cfg), "mlp": F.mlp_logical_axes(gated=False),
+        }
+        dec_block = {
+            "self_norm": _norm_axes(cfg), "self_attn": A.attn_logical_axes(cfg),
+            "cross_norm": _norm_axes(cfg), "cross_attn": A.attn_logical_axes(cfg),
+            "mlp_norm": _norm_axes(cfg), "mlp": F.mlp_logical_axes(gated=False),
+        }
+        return {
+            "embed": {"emb": ("vocab", "embed_tbl")},
+            "enc_pos": (None, "embed"),
+            "encoder": _layers_axes(enc_block),
+            "enc_norm": _norm_axes(cfg),
+            "decoder": _layers_axes(dec_block),
+            "final_norm": _norm_axes(cfg),
+            "lm_head": {"w": ("embed_vec", "vocab")},
+        }
+
     def init_serving(self, generator: torch.Generator, device=None) -> Params:
         """`serving_params(init(generator), device)` (the f32 model is
         small enough to hold: whisper-base is ~0.3 GB)."""
@@ -810,6 +929,10 @@ class EncDecLM(_StackedLM):
         enc = A.init_cache(cfg, batch, cfg.enc_seq, cfg.n_layers, dtype, device)
         return {"k": kv["k"], "v": kv["v"], "ek": enc["k"], "ev": enc["v"],
                 "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def cache_logical_axes(self) -> Dict[str, Any]:
+        ax = ("layers", "batch", "kv_seq", "kv_heads", None)
+        return {"k": ax, "v": ax, "ek": ax, "ev": ax, "lengths": ("batch",)}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_seq: int):

@@ -15,7 +15,7 @@ import torch
 
 COLLECTIVES_NOT_PORTED = ("compressed_allgather_mean needs a collective over "
                           "a mesh axis, which is not ported yet: ROADMAP.md "
-                          "queue 1, item 8 (tensor parallelism)")
+                          "queue 1, item 8c (TP training)")
 
 
 def int8_compress(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -31,8 +31,8 @@ torch lanes; any other choice maps to the hand-written CUDA lane
 (`cuda_attention` / `cuda_matmul`), so a plan tuned by the JAX package
 selects the same lanes here.  With no plan every query answers the torch
 lane.  Layout verdicts answer `replicated`: the tensor-parallel half
-(`serve_rules`, `model_parallel > 1`) waits for ROADMAP queue 1's tensor
-parallelism item.
+(`serve_rules`, `model_parallel > 1`) waits for TP serving (ROADMAP.md
+queue 1, item 8b).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ DEFAULT_CHUNK_TOKENS = 32
 VENDOR_BACKENDS = ("xla", "torch")
 
 TP_NOT_PORTED = ("serve_rules (layouts as sharding) is not ported yet: "
-                 "ROADMAP.md queue 1, tensor parallelism")
+                 "ROADMAP.md queue 1, item 8b (TP serving)")
 
 
 def serve_stages(family: str):
@@ -297,8 +297,8 @@ class PlanRouter:
         return {role: self.layout(stage, role) for role in roles}
 
     def serve_rules(self, *args, **kwargs):
-        """Folding layout verdicts into sharding rules needs the port's
-        tensor parallelism, which does not exist yet."""
+        """Folding layout verdicts into sharding rules needs TP serving
+        (item 8b), which does not exist yet."""
         raise NotImplementedError(TP_NOT_PORTED)
 
     def describe(self) -> Dict[str, str]:

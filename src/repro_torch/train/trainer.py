@@ -12,9 +12,9 @@
 The state is {"params": f32 master tensors, "opt": {"m", "v", "step"}} on
 the trainer's device (the GPU unless the caller passes `device="cpu"`);
 the train step (`launch.steps.make_train_step`) runs eagerly and updates
-it in place.  Restoring onto another mesh waits for the port's tensor
-parallelism (ROADMAP.md queue 1, item 8); the reference's `mesh` and
-`rules` arguments have no counterpart yet.
+it in place.  Restoring onto another mesh waits for TP training (ROADMAP.md queue
+1, item 8c); the reference's `mesh` and `rules` arguments have no
+counterpart yet.
 """
 
 from __future__ import annotations
