@@ -291,14 +291,34 @@ each with its seconds logged:
      world of one on nccl), qwen3-1.7b's `params_shardings` under
      `rules_for_shape(cfg, SHAPES["decode_32k"], mesh)`, every leaf
      `Replicate()`, one leaf as a DTensor; the group destroyed after;
- 20. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 20. the layout race: qwen3-1.7b's serve plan tuned with model_parallel
+     2 / 4 / 8 on device time (random search, 4 configurations a
+     template), each stage node's replicated and model-parallel times (the
+     shard shape's race plus the priced collective) and verdict, every
+     divisible node raced and no other, the verdict the faster, the plan
+     through save / load, `serve_rules` of each plan and of none;
+ 21. tensor-parallel serving: (a) qwen3-1.7b's kernel lanes on
+     `tp_mesh(1)` (a world of one on nccl), graphed, bitwise equal to the
+     engine with no mesh (streams, first-token logits, launches, captures
+     and replays), then eagerly on the first 8 prompts; (b) tp = 2 and 4 as
+     2 and 4 processes sharing the card in a gloo world over a FileStore
+     (`--tp-child`), every kernel built before they start, each rank on
+     its shards, eagerly: streams equal on every rank, every token held
+     against the dense torch path where its top-2 margin exceeds 0.25, one
+     signature per program and nothing captured at admission, each rank's
+     launches of paged decode / prefill, the GEMM and the draw, its peak
+     memory and tokens/s (phase 2 first holds paged decode / prefill at the
+     ranks' heads for tp = 2 / 4 / 16 and the GEMM at the shard shapes for
+     tp = 2 / 4);
+ 22. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
-     the knob sweep, the races of phases 4, 5, 7, 8 and 10, their serving
-     runs, the decode wrapper's call, the fixed-batch runs of phases
-     11-13, where only the draw kernel runs, the 32k engine run of phase
-     16 and the serving runs of phases 17-18; a replayed CUDA graph counts
-     the launches it captured), error and times;
- 21. the last line `{"ok": true, "device": {...}}`.
+     the knob sweep, the races of phases 4, 5, 7, 8, 10 and 20, their
+     serving runs, the decode wrapper's call, the fixed-batch runs of
+     phases 11-13, where only the draw kernel runs, the 32k engine run of
+     phase 16, the serving runs of phases 17-18 and 21, each rank's its
+     own path; a replayed CUDA graph counts the launches it captured),
+     error and times;
+ 23. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -1089,6 +1109,63 @@ def check_matmul_large(torch, chk, internlm2, starcoder2):
     g = torch.Generator(device=DEVICE).manual_seed(16)
     _matmul_serving_shapes(torch, chk, g, "internlm2 ", serving_gemms(internlm2))
     _matmul_serving_shapes(torch, chk, g, "starcoder2 ", serving_gemms(starcoder2))
+
+
+# Tensor-parallel serving's rank shapes (phase 21): what one rank of a
+# tp-wide model axis launches for qwen3-1.7b, from the port's own layout
+# (`serve_rules` without a plan, `models.attention.tp_kv_heads`): paged
+# decode and prefill at tp = 2 (H 8 / Hkv 4), 4 (H 4 / Hkv 2) and 16 (H 1;
+# kv_heads do not divide 16, so the rank holds the one KV head its query
+# head reads), the GEMM at tp = 2 and 4 (N / tp for qkv, mlp_up and
+# lm_head, K / tp for mlp_down).
+TP_KERNEL_WIDTHS = (2, 4, 16)
+TP_GEMM_WIDTHS = (2, 4)
+
+
+class _AxisSizes:
+    """A (1, tp) mesh's axis sizes: all `serve_rules` and the layout race
+    read of a mesh."""
+
+    def __init__(self, model):
+        self.shape = {"data": 1, "model": model}
+
+
+def tp_rank_layout(cfg, tp, rank=None):
+    """(rules, local query heads, (first, count) of the local KV heads) of
+    rank `rank` (default: the last) of a tp-wide model axis, no plan."""
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.models.attention import tp_kv_heads
+    from repro_torch.serve.router import PlanRouter
+
+    rules = PlanRouter(None).serve_rules(DEFAULT_RULES, _AxisSizes(tp), cfg)
+    rank = tp - 1 if rank is None else rank
+    h = cfg.n_heads // tp if rules.lookup("heads") == "model" else cfg.n_heads
+    return rules, h, tp_kv_heads(cfg, rules, rank, tp)
+
+
+def tp_gemms(cfg, tp):
+    """`serving_gemms` at one rank's shard shapes."""
+    rules, h, (_, hkv) = tp_rank_layout(cfg, tp)
+    split = lambda axis, n: n // tp if rules.lookup(axis) == "model" else n  # noqa: E731
+    return serving_gemms(dataclasses.replace(
+        cfg, n_heads=h, n_kv_heads=hkv, d_ff=split("ffn", cfg.d_ff),
+        vocab=split("vocab", cfg.vocab)))
+
+
+def check_tp_shapes(torch, checks, cfg, block_q):
+    """Paged decode, paged prefill and the GEMM at qwen3-1.7b's rank shapes
+    (see TP_KERNEL_WIDTHS), each against its plain version, twice bitwise,
+    timed beside the library call."""
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    for tp in TP_KERNEL_WIDTHS:
+        rules, h, (first, hkv) = tp_rank_layout(cfg, tp)
+        label = f"qwen3-1.7b tp={tp} rank {tp - 1}"
+        if rules.lookup("kv_heads") is None:
+            label += f" (kv_heads replicated: its one query head reads KV head {first})"
+        _decode_serving_shape(torch, checks[0], g, label, h, hkv)
+        _prefill_serving_shape(torch, checks[1], g, label, h, hkv, block_q)
+    for tp in TP_GEMM_WIDTHS:
+        _matmul_serving_shapes(torch, checks[2], g, f"qwen3 tp={tp} ", tp_gemms(cfg, tp))
 
 
 # The GEMM's tuned knobs (tile_m, split_k).  KNOB_CHECKS: the shapes at
@@ -1967,7 +2044,7 @@ def serving_setup(torch, cfg):
 
 def serve(torch, served, router, label, profile=False, require_packing=True,
           graphs=True, prompts=None, check_schedule=True, samplings=None,
-          setup=None, **runtime):
+          setup=None, mesh=None, rules=None, **runtime):
     """Serve `prompts` (default: the 16) under `router`, the step programs
     captured in CUDA graphs or (graphs=False) run eagerly; every request
     must finish with its 32 in-vocabulary tokens, the pool must drain,
@@ -1976,7 +2053,8 @@ def serve(torch, served, router, label, profile=False, require_packing=True,
     `check_schedule`) chunked, decode-only and (where the router packs)
     packed steps must all occur.  `samplings`: one SamplingParams per
     prompt (default greedy).  `runtime` overrides SERVE_RUNTIME; `setup`
-    is called on the engine before anything is submitted.
+    is called on the engine before anything is submitted; `mesh` and
+    `rules` go to the engine.
     -> ({rid: tokens}, {rid: first-token logits}, metrics summary with the
     lane's width and segments)."""
     from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
@@ -1988,7 +2066,8 @@ def serve(torch, served, router, label, profile=False, require_packing=True,
     # cycle through it): collect the last runs' before this one allocates
     gc.collect()
     rcfg = RuntimeConfig(**{**SERVE_RUNTIME, **runtime}, cuda_graphs=graphs)
-    eng = ContinuousEngine(model, params, rcfg, router=router, device=DEVICE)
+    eng = ContinuousEngine(model, params, rcfg, router=router, device=DEVICE,
+                           mesh=mesh, rules=rules)
     firsts = _spy_first_logits(eng)
     if setup is not None:
         setup(eng)
@@ -4647,6 +4726,302 @@ def phase_mesh(torch):
     log(f"[mesh] phase seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# ------------------------------------------------------------ phase 20
+# The layout race on the card: qwen3-1.7b's serve plan at full width tuned
+# with model_parallel = 2, 4, 8 on one device-time tuner (random search,
+# 4 configurations a template: the replicated race is the same at every
+# width and comes from the tuner's cache after the first).
+TP_RACE_WIDTHS = (2, 4, 8)
+TP_RACE_BUDGET = 4
+
+
+def phase_layout_race(torch, counters):
+    """Phase 20.  Each tuned plan must carry both layouts' times on every
+    serving node whose shard dim divides (`core.costmodel.sharded_op_desc`)
+    and none on any other, its verdict the faster (ties replicated); it
+    must survive `save` / `load` unchanged; `serve_rules` of each plan and
+    of no plan are logged.  -> the race's launches."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import costmodel
+    from repro_torch.core.plan import InferencePlan
+    from repro_torch.core.search.tuner import Tuner
+    from repro_torch.core.selection import op_desc_of
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
+
+    t_phase = time.perf_counter()
+    for fn in counters:
+        fn.launches = 0
+    cfg = get_config("qwen3-1.7b")
+    graph = build_serve_graph(cfg, **SERVE_PLAN, dtype="bfloat16")
+    tuner = Tuner(methods=("random",), random_budget=TP_RACE_BUDGET)
+    axes = ("heads", "kv_heads", "ffn", "vocab", "embed_vec")
+    tmp = tempfile.mkdtemp(prefix="layout_race_")
+    for tp in TP_RACE_WIDTHS:
+        r = PlanRouter(None).serve_rules(DEFAULT_RULES, _AxisSizes(tp), cfg)
+        log(f"[layout race] tp={tp} serve_rules with no plan: "
+            f"{ {a: r.lookup(a) for a in axes} }")
+    for tp in TP_RACE_WIDTHS:
+        t0 = time.perf_counter()
+        plan = build_serve_plan(cfg, **SERVE_PLAN, tuner=tuner, model_parallel=tp)
+        path = os.path.join(tmp, f"plan_tp{tp}.json")
+        plan.save(path)
+        loaded = InferencePlan.load(path)
+        if loaded.to_json() != plan.to_json():
+            raise AssertionError(f"[layout race] tp={tp}: the plan changed through save / load")
+        log(f"[layout race] tp={tp}: {len(plan.choices)} nodes raced in "
+            f"{time.perf_counter() - t0:.1f} s (device time); per node: replicated ms, "
+            f"model-parallel ms (shard shape + collective), verdict, backend")
+        for node in graph.toposort():
+            op = op_desc_of(graph, node, "bfloat16")
+            role = node.name.rsplit(".", 1)[-1]
+            c = loaded.choices[node.name]
+            lc = c.layout_candidates
+            shard = costmodel.sharded_op_desc(op, role, tp)
+            if shard is None:
+                if lc or c.layout != "replicated":
+                    raise AssertionError(f"[layout race] {node.name} tp={tp}: an "
+                                         f"indivisible shard dim raced {lc}")
+                log(f"  {node.name:24s} not raced (shard dim does not divide {tp})")
+                continue
+            if set(lc) != {"replicated", "model_parallel"}:
+                raise AssertionError(f"[layout race] {node.name} tp={tp}: candidates {lc}")
+            want = ("model_parallel" if lc["model_parallel"] < lc["replicated"]
+                    else "replicated")
+            if c.layout != want or c.modeled_time_s != lc[c.layout]:
+                raise AssertionError(f"[layout race] {node.name} tp={tp}: verdict "
+                                     f"{c.layout} at {c.modeled_time_s} against {lc}")
+            coll = costmodel.layout_collective_time(op, role, tp)
+            log(f"  {node.name:24s} {1e3 * lc['replicated']:.4f} "
+                f"{1e3 * lc['model_parallel']:.4f} (collective {1e3 * coll:.4f}) "
+                f"{c.layout:14s} {c.backend}")
+        router = PlanRouter(loaded)
+        r = router.serve_rules(DEFAULT_RULES, _AxisSizes(tp), cfg)
+        log(f"[layout race] tp={tp} layout table (decode) {router.layout_table('decode')}; "
+            f"(prefill_chunk) {router.layout_table('prefill_chunk')}; serve_rules "
+            f"{ {a: r.lookup(a) for a in axes} }")
+    _phase_end("layout race", t_phase)
+    return {"layout_race_qwen3": {fn.__name__: fn.launches for fn in counters}}
+
+
+# ------------------------------------------------------------ phase 21
+# Tensor-parallel serving.  (a) qwen3-1.7b's kernel lanes on tp_mesh(1)
+# (a world of one on nccl in this process), graphed, against the engine
+# with no mesh: bitwise.  (b) tp = 2 and 4 as 2 and 4 processes sharing
+# the card (cuda:0) in a gloo world over a FileStore, each rank serving
+# the first TP_PROMPTS prompts on its shards, eagerly, every collective
+# staged through the host (gloo): streams equal on every rank, held
+# against the dense torch path (`stream_check`), one signature per
+# program, launches and peak memory per rank.  One card shares its SMs
+# among the ranks and gloo moves every partial through host memory, so
+# the tokens/s logged measure no tensor-parallel speed.
+TP_SERVE_WIDTHS = (2, 4)
+TP_PROMPTS = 8
+TP_CHILD_TIMEOUT_S = 600
+
+
+def tp_child(torch, rank, world, store, out_path):
+    """One rank of phase 21 (b), run as `chip_smoke.py --tp-child RANK
+    WORLD STORE OUT`: qwen3-1.7b drawn from seed 0 on the card, served on
+    its shards of `tp_mesh(world)`; writes its streams, program counts,
+    launches, memory and times to OUT as JSON."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.launch.mesh import init_file_world, tp_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
+
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    init_file_world(store, rank, world, "gloo")
+    try:
+        mesh = tp_mesh(world)
+        cfg = get_config("qwen3-1.7b")
+        model = build_model(cfg)
+        params = model.init_serving(torch.Generator(device=DEVICE).manual_seed(0))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+                   for n in PROMPT_LENS][:TP_PROMPTS]
+        eng = ContinuousEngine(model, params, RuntimeConfig(**SERVE_RUNTIME),
+                               router=kernel_lane_router(PREFILL_BLOCK_Q), device=DEVICE,
+                               mesh=mesh, rules=DEFAULT_RULES)
+        del params                      # the engine holds the rank's shards
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        progs = (eng._unified, eng._decode_only)
+        for p in prompts:
+            eng.submit(p)
+        admission = [p._cache_size() for p in progs]
+        counters = _serve_counters()
+        for fn in counters:
+            fn.launches = 0
+        dist.barrier()
+        done = eng.run()
+        torch.cuda.synchronize()
+        s = eng.metrics.summary()
+        eng.cache.alloc.check_invariants()
+        result = {
+            "rank": rank, "world": world, "mesh": eng.mesh_tag,
+            "rules": {a: eng.rules.lookup(a) for a in
+                      ("heads", "kv_heads", "ffn", "vocab", "embed_vec")},
+            "kv_heads": list(model.tp_kv_heads(eng.tp)),
+            "streams": {str(r.rid): [int(t) for t in r.output] for r in done},
+            "admission": admission, "sizes": [p._cache_size() for p in progs],
+            "captures": sum(p.captures for p in progs),
+            "launches": {fn.__name__: fn.launches for fn in counters},
+            "param_gb": sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9,
+            "pool_gb": 2 * eng.cache.k.numel() * eng.cache.k.element_size() / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tokens_per_s": s["tokens_per_s"], "wall_s": s["wall_s"],
+            "steps": int(s["chunk_steps"] + s["decode_only_steps"]),
+            "drained": eng.cache.alloc.num_used == 0,
+        }
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_world(tp, tmp):
+    """Run phase 21 (b)'s ranks of one width as processes on the card;
+    -> each rank's result.  Any rank that fails or outlives
+    TP_CHILD_TIMEOUT_S fails the phase (the others are killed first)."""
+    store = os.path.join(tmp, f"store{tp}")
+    procs = []
+    for r in range(tp):
+        out, logf = (os.path.join(tmp, f"tp{tp}.{r}{ext}") for ext in (".json", ".log"))
+        with open(logf, "w") as f:
+            procs.append((r, out, logf, subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--tp-child",
+                 str(r), str(tp), store, out], stdout=f, stderr=subprocess.STDOUT,
+                cwd=ROOT)))
+    failed = []
+    deadline = time.perf_counter() + TP_CHILD_TIMEOUT_S
+    try:
+        for r, _, logf, p in procs:
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                with open(logf) as f:
+                    failed.append(f"rank {r}: {rc}\n{f.read()[-4000:]}")
+    finally:
+        for _, _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError(f"[tp={tp}] ranks failed:\n" + "\n".join(failed))
+    results = []
+    for _, out, _, _ in procs:
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_tp_serving(torch, counters):
+    """Phase 21 (see the comment above).  -> launches per path: the
+    tp_mesh(1) run's and each rank's."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import tp_mesh
+
+    t_phase = time.perf_counter()
+    served = serving_setup(torch, get_config("qwen3-1.7b"))
+    model, params, prompts = served
+    router = kernel_lane_router(PREFILL_BLOCK_Q)
+
+    def run(label, **kw):
+        for fn in counters:
+            fn.launches = 0
+        out, first, s = serve(torch, served, router, label, **kw)
+        return out, first, s, {fn.__name__: fn.launches for fn in counters}
+
+    base = run("qwen3 no mesh, graphed")
+    if dist.is_initialized():
+        raise AssertionError("[tp] a process group is already up")
+    mesh = tp_mesh(1)
+    try:
+        one = run("qwen3 tp_mesh(1), graphed", mesh=mesh, rules=DEFAULT_RULES)
+        eager = run("qwen3 tp_mesh(1), eager", mesh=mesh, rules=DEFAULT_RULES,
+                    graphs=False, prompts=prompts[:TP_PROMPTS], check_schedule=False)
+    finally:
+        dist.destroy_process_group()
+    if one[0] != base[0] or not _same_firsts(one[1], base[1]) or one[3] != base[3]:
+        raise AssertionError(
+            f"[tp] tp_mesh(1) differs from no mesh: streams {one[0] == base[0]}, "
+            f"launches {one[3]} vs {base[3]}, first divergence "
+            f"{_first_divergence(base[0], one[0])}")
+    log(f"[tp] tp_mesh(1) (mesh {mesh.shape}) = no mesh: streams, first-token logits "
+        f"(bitwise) and launches {one[3]}; tokens/s {one[2]['tokens_per_s']:.1f} vs "
+        f"{base[2]['tokens_per_s']:.1f}")
+    paths = {"serve_qwen3_tp_mesh1": one[3]}
+    ref = eager[0]
+    checked = {}                               # rid -> streams already checked
+
+    build.build_all()                          # every library in place before spawning
+    tmp = tempfile.mkdtemp(prefix="tp_worlds_")
+    for tp in TP_SERVE_WIDTHS:
+        t0 = time.perf_counter()
+        ranks = _tp_world(tp, tmp)
+        wall = time.perf_counter() - t0
+        for res in ranks[1:]:
+            if res["streams"] != ranks[0]["streams"]:
+                raise AssertionError(f"[tp={tp}] rank {res['rank']}'s streams differ "
+                                     "from rank 0's")
+        for res in ranks:
+            log(f"[tp={tp}] rank {res['rank']} ({res['mesh']}, rules {res['rules']}, KV "
+                f"heads {res['kv_heads']}): {res['steps']} steps, "
+                f"{res['tokens_per_s']:.1f} tokens/s in {res['wall_s']:.2f} s, "
+                f"programs {res['sizes']} (at admission {res['admission']}, "
+                f"captures {res['captures']}), launches {res['launches']}, params "
+                f"{res['param_gb']:.3f} GB, pools {res['pool_gb']:.3f} GB, peak "
+                f"{res['peak_gb']:.2f} GB")
+            if (res["sizes"] != [1, 1] or res["admission"] != [0, 0]
+                    or res["captures"] != 0 or not res["drained"]):
+                raise AssertionError(f"[tp={tp}] rank {res['rank']}: programs "
+                                     f"{res['sizes']}, admission {res['admission']}, "
+                                     f"captures {res['captures']}")
+            missing = [k for k, n in res["launches"].items() if n <= 0]
+            if missing:
+                raise AssertionError(f"[tp={tp}] rank {res['rank']}: {missing} never "
+                                     "launched")
+            # the same host logic on the same requests: the same steps at
+            # the same shapes as the tp = 1 eager run, so the same launches
+            want = {k: eager[3][k] for k in res["launches"]}
+            if res["launches"] != want:
+                raise AssertionError(f"[tp={tp}] rank {res['rank']}: launches "
+                                     f"{res['launches']}, tp = 1 eager {want}")
+            paths[f"serve_qwen3_tp{tp}_rank{res['rank']}"] = res["launches"]
+        out = {int(k): v for k, v in ranks[0]["streams"].items()}
+        if sorted(out) != sorted(ref) or any(len(v) != SERVE_RUNTIME["max_new_tokens"]
+                                             for v in out.values()):
+            raise AssertionError(f"[tp={tp}] requests {sorted(out)} unfinished")
+        same = sum(out[r] == ref[r] for r in ref)
+        log(f"[tp={tp}] {tp} ranks in {wall:.1f} s (start included); streams equal on "
+            f"every rank; {same}/{len(ref)} identical to the tp=1 eager run's, first "
+            f"divergence {_first_divergence(ref, out)}")
+        todo = sorted(r for r in out if checked.get(r) != out[r])
+        stream_check(torch, f"qwen3 tp={tp}", model, params,
+                     [prompts[r - 1] for r in todo], {r: out[r] for r in todo})
+        checked.update({r: out[r] for r in todo})
+    _phase_end("tp serving", t_phase)
+    return paths
+
+
 def _log_device_profile(prof, wall_s, label, calls=None):
     """Device time by kernel over a traced run (torch.profiler, CUDA
     activity only), and the device's busy share of the run's wall time
@@ -4688,7 +5063,9 @@ def main() -> int:
                          "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 19")
+                         "skips phases 3 to 21")
+    ap.add_argument("--tp-child", nargs=4, metavar=("RANK", "WORLD", "STORE", "OUT"),
+                    help=argparse.SUPPRESS)      # one rank of phase 21 (b)
     args = ap.parse_args()
 
     import torch
@@ -4711,6 +5088,10 @@ def main() -> int:
     # bf16 products in cuBLAS accumulate in f32 and round once, as the
     # JAX reference's vendor lane and the GEMM kernel do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if args.tp_child:
+        rank, world, store, out = args.tp_child
+        tp_child(torch, int(rank), int(world), store, out)
+        return 0
 
     t_phase = time.perf_counter()
     smi = phase_environment(torch)
@@ -4758,6 +5139,7 @@ def main() -> int:
                        get_config("starcoder2-15b"))
     for arch in ("internlm2-20b", "starcoder2-15b"):
         check_sampling(torch, checks[7], get_config(arch).vocab)
+    check_tp_shapes(torch, checks, get_config("qwen3-1.7b"), PREFILL_BLOCK_Q)
     knob_paths = check_matmul_knobs(torch, checks[2], get_config("qwen3-1.7b"),
                                     get_config("mamba2-2.7b"))
     torch.cuda.synchronize()
@@ -4843,7 +5225,13 @@ def main() -> int:
     free_device(torch)
     timed_phase(19, "the mesh: single_device_mesh() and the sharding rules on the card",
                 phase_mesh, torch)
-    paths = {**knob_paths, "serve_qwen3_1_7b": serve_launches,
+    race_paths = timed_phase(
+        20, "the layout race: qwen3-1.7b's serve plan with model_parallel 2 / 4 / 8 on "
+        "device time", phase_layout_race, torch, [c.fn for c in checks])
+    tp_paths = timed_phase(
+        21, "tensor-parallel serving: tp_mesh(1) against no mesh, then tp = 2 / 4 as "
+        "processes on the card", phase_tp_serving, torch, [c.fn for c in checks])
+    paths = {**knob_paths, **race_paths, **tp_paths, "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
              **ssm_paths, **moe_paths, **granite_paths, **vlm_paths,
              **hybrid_paths, **encdec_paths, **long_paths, **internlm2_paths,

@@ -67,6 +67,23 @@ where SAME padding is asymmetric, then the bias add and the activation;
 attention is `ref_ops.attention`'s einsum lane (the logits materialized in
 f32, masked at the bottom right, so it reads the whole context).
 
+The layout race (`core.selection.select(model_parallel=n)`) prices
+each stage op's model-parallel layout as the reference does
+(`MATMUL_LAYOUT_ROLES`, `sharded_op_desc`): the op at its per-device
+shard shape plus the collective the layout implies, over `hw.Chip`'s
+link figures (data-sheet NVLink bandwidth, an assumed hop latency;
+neither measured).  `collective_time` is the reference's ring formula for
+each kind.  `layout_collective_time` prices what the port runs: its
+all-reduce (`distributed.collectives.TensorParallel.all_reduce`) is an
+all-gather of the tp ranks' partial outputs, each rank receiving the
+(tp - 1) others, then on the device one cast of the tp buffers to f32,
+tp - 1 adds in rank order and one cast back (each one elementwise
+kernel, its launch included), where the reference prices a ring
+all-reduce moving 2 (tp - 1) / tp of one buffer.  The gather moves tp / 2
+times the ring's bytes and the sum launches tp + 1 kernels: the price of
+rank-identical bits.  The logits' all-gather is the same collective in
+both.
+
 Every efficiency constant below is fitted to an H100 device time recorded
 in PERF.md (NVIDIA H100 80GB HBM3, 700.00 W) and names it; every rate is
 `hw.H100`'s.  `tests/test_torch_costmodel.py` holds the model to those
@@ -81,7 +98,7 @@ import json
 import math
 import statistics
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -204,6 +221,87 @@ def kernel_bound(op: OpDesc, chip: hw.Chip = hw.H100) -> float:
         d = op.d
         op = OpDesc.attention(d["b"], d["q"], d["q"], d["h"], d["d"], op.dtype)
     return roofline_bound(op, chip)
+
+
+# ------------------------------------------------------------- the layouts
+# role -> (sharded GEMM dim, implied collective on the output), the
+# reference's table: column-parallel roles ('n') leave their output split
+# along the dim the next sharded op consumes (no collective); row-parallel
+# roles ('k') leave partial sums (an all-reduce); lm_head splits the vocab,
+# and the sampler needs all of it (an all-gather); attention shards heads.
+MATMUL_LAYOUT_ROLES: Dict[str, tuple] = {
+    "qkv_proj": ("n", None),
+    "mlp_up": ("n", None),
+    "mlp_down": ("k", "all_reduce"),
+    "lm_head": ("n", "all_gather"),
+    "in_proj": ("n", None),
+    "out_proj": ("k", "all_reduce"),
+    "attention": ("h", None),
+}
+
+
+def collective_time(nbytes: float, tp: int, chip: hw.Chip = hw.H100,
+                    kind: str = "all_reduce") -> float:
+    """The reference's ring-collective time over a `tp`-wide model axis:
+    an all-reduce moves 2 (tp - 1) / tp of the buffer per device, an
+    all-gather or reduce-scatter (tp - 1) / tp, over the card's link, and
+    each hop pays the link's latency."""
+    if tp <= 1:
+        return 0.0
+    bw = chip.link_bw
+    phases = {"all_reduce": 2.0, "all_gather": 1.0, "reduce_scatter": 1.0}
+    moved = phases[kind] * (tp - 1) / tp * nbytes
+    return moved / bw + (tp - 1) * chip.link_hop_s
+
+
+def sharded_op_desc(op: OpDesc, role: str, tp: int) -> Optional[OpDesc]:
+    """The per-device OpDesc of `op` under role's model-parallel layout, or
+    None where the sharded dim does not divide `tp` (no legal candidate,
+    as `launch.steps.rules_for_shape` guards it)."""
+    if tp <= 1 or role not in MATMUL_LAYOUT_ROLES:
+        return None
+    dim, _ = MATMUL_LAYOUT_ROLES[role]
+    d = op.d
+    if op.kind == "matmul" and dim in ("n", "k"):
+        if d[dim] % tp:
+            return None
+        m, n, k = d["m"], d["n"], d["k"]
+        if dim == "n":
+            n //= tp
+        else:
+            k //= tp
+        return OpDesc.matmul(m, n, k, dtype=op.dtype, activation=op.activation,
+                             label=op.label)
+    if op.kind == "attention" and dim == "h":
+        if d["h"] % tp:
+            return None
+        return OpDesc.attention(d["b"], d["q"], d["kv"], d["h"] // tp, d["d"],
+                                dtype=op.dtype, label=op.label)
+    return None
+
+
+def layout_collective_time(op: OpDesc, role: str, tp: int,
+                           chip: hw.Chip = hw.H100) -> float:
+    """The collective the model-parallel layout implies for `op`, as the
+    port runs it (`distributed.collectives`; 0.0 for column-parallel roles
+    and attention): the all-reduce as an all-gather of the tp partial
+    outputs, then on the device one cast of them to f32 (none at f32),
+    tp - 1 adds in f32 and one cast back, each one elementwise kernel;
+    the logits' all-gather as the reference prices it."""
+    _, coll = MATMUL_LAYOUT_ROLES[role]
+    if coll is None or tp <= 1:
+        return 0.0
+    m, n, _ = op.gemm_view()
+    item = hw.itemsize(op.dtype)
+    out_bytes, f32_bytes = m * n * item, m * n * 4
+    if coll == "all_gather":
+        return collective_time(out_bytes, tp, chip, "all_gather")
+    t = (collective_time(tp * out_bytes, tp, chip, "all_gather")
+         + (tp - 1) * elementwise_time(3 * f32_bytes, chip))
+    if item != 4:
+        t += (elementwise_time(tp * (out_bytes + f32_bytes), chip)
+              + elementwise_time(f32_bytes + out_bytes, chip))
+    return t
 
 
 @dataclasses.dataclass

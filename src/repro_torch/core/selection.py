@@ -12,6 +12,14 @@ H100 (`ModelFitness`), which builds a plan on any host.
 The vendor lane keeps the JAX plans' backend name, "xla", so that plans
 move between the two packages; on the port it runs PyTorch.
 
+With `model_parallel` > 1 the race gains the reference's LAYOUT axis:
+each node whose role has a model-parallel layout
+(`costmodel.MATMUL_LAYOUT_ROLES`) and whose shard dim divides the width is
+raced again at its per-device shard shape on the same fitness, plus the
+price of the collective that layout implies, and the faster layout is the
+choice's `layout` (`PlanRouter.serve_rules` folds the verdicts into the
+sharding rules of a tensor-parallel engine).
+
 `select` honours `third_party=False` to reproduce the paper's §3.4 ablation
 ("excluding these TensorRT operators incorporated only results in very
 marginal performance loss of 2%"): the vendor lane is then raced only for
@@ -25,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from repro_torch import hw
+from repro_torch.core import costmodel
 from repro_torch.core.graph import Graph, Node
 from repro_torch.core.plan import InferencePlan, OpChoice
 from repro_torch.core.schedules import OpDesc, templates_for
@@ -97,11 +106,16 @@ def select(
 ) -> InferencePlan:
     """Build the inference plan for `graph`: per tunable node, the backend
     with the least time under the tuner's fitness (measured on the GPU by
-    default), its tuned config and that time."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            "model_parallel > 1 (the layout race) is not ported yet: "
-            "ROADMAP.md queue 1, item 8b (TP serving)")
+    default), its tuned config and that time.
+
+    `model_parallel` > 1 opens the LAYOUT axis of the race: a node whose
+    role (the last part of its stage-qualified name) is in
+    `costmodel.MATMUL_LAYOUT_ROLES` is raced again at its per-device shard
+    shape on the same fitness, plus the price of the collective that layout
+    implies (`costmodel.layout_collective_time`); both times land in the
+    choice's `layout_candidates` and the faster layout in `layout`, with
+    its backend.  A shard dim that does not divide `model_parallel` keeps
+    the replicated layout and races nothing (no illegal candidate)."""
     tuner = tuner or Tuner(chip=chip)
     plan = InferencePlan(graph.name, chip.name)
 
@@ -113,6 +127,19 @@ def select(
             continue
         best_backend, best_cfg, best_t, candidates = _race_backends(
             op, tuner, third_party)
-        plan.choices[node.name] = OpChoice(best_backend, best_cfg, best_t,
-                                           candidates)
+        choice = OpChoice(best_backend, best_cfg, best_t, candidates)
+
+        role = node.name.rsplit(".", 1)[-1]
+        sharded = costmodel.sharded_op_desc(op, role, model_parallel)
+        if sharded is not None:
+            mp_backend, mp_cfg, mp_t, mp_cands = _race_backends(
+                sharded, tuner, third_party)
+            mp_t += costmodel.layout_collective_time(op, role, model_parallel, chip)
+            choice.layout_candidates = {"replicated": best_t,
+                                        "model_parallel": mp_t}
+            if mp_backend is not None and mp_t < best_t:
+                choice = OpChoice(mp_backend, mp_cfg, mp_t, mp_cands,
+                                  layout="model_parallel",
+                                  layout_candidates=choice.layout_candidates)
+        plan.choices[node.name] = choice
     return plan

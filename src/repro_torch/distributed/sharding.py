@@ -34,6 +34,8 @@ import dataclasses
 import threading
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
@@ -223,3 +225,50 @@ def params_shardings(mesh, rules: ShardingRules, logical_tree):
 
 def input_shardings(mesh, rules: ShardingRules, logical_tree):
     return params_shardings(mesh, rules, logical_tree)
+
+
+# ---------------------------------------------------------------------------
+# Local shards: what one rank holds of a tensor under a spec, as a plain
+# tensor (the tensor-parallel engine runs its step on these, not on
+# DTensors).
+# ---------------------------------------------------------------------------
+
+def local_shard(tensor, spec: Sequence, sizes: Dict[str, int],
+                coords: Dict[str, int]):
+    """The block of `tensor` that the rank at mesh coordinates `coords`
+    ({axis: index}) holds under `spec` on a mesh of axis `sizes`: each
+    dim whose entry names axes splits into prod(sizes) equal contiguous
+    blocks, the rank's block numbered over those axes major to minor (the
+    DTensor / JAX order).  A dim that does not divide raises.  A split
+    leaf is a fresh contiguous tensor (it keeps no reference to the whole
+    one); an unsplit leaf is `tensor` itself."""
+    out = tensor
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n, idx = 1, 0
+        for a in axes:
+            n *= sizes.get(a, 1)
+            idx = idx * sizes.get(a, 1) + coords.get(a, 0)
+        if n == 1:
+            continue
+        if out.shape[i] % n:
+            raise ValueError(f"dim {i} of {tuple(tensor.shape)} does not split "
+                             f"into {n} blocks over {axes}")
+        step = out.shape[i] // n
+        out = out.narrow(i, idx * step, step)
+    if out is tensor:
+        return tensor
+    return torch.empty_like(out, memory_format=torch.contiguous_format).copy_(out)
+
+
+def local_params(params, logical_tree, rules: ShardingRules,
+                 sizes: Dict[str, int], coords: Dict[str, int]):
+    """`local_shard` of every leaf of `params` under `rules` applied to
+    its logical axes (trailing dims past a leaf's axes replicated)."""
+    def shard(axes, leaf):
+        axes = tuple(axes) + (None,) * (leaf.dim() - len(axes))
+        return local_shard(leaf, rules.spec(axes), sizes, coords)
+
+    return map_axes(shard, logical_tree, params)

@@ -17,7 +17,15 @@ of NVIDIA's H100 SXM data sheet and the Hopper architecture white paper:
   * 228 KB (233,472 B) of shared memory an SM can give its blocks, out of
     its 256 KB of combined L1 and shared memory (the white paper).
 
-Those rates assume the card's full 700 W power limit.  Launch and
+Those rates assume the card's full 700 W power limit.  The interconnect
+of the tensor-parallel layout race (`core.costmodel.collective_time`):
+
+  * NVLink 4 through NVSwitch, 900 GB/s bidirectional per GPU, so 450
+    GB/s in each direction (the data sheet's figure for the SXM part);
+  * a per-hop latency of 3 us, an assumed figure for one NVSwitch hop and
+    the collective's launch (the data sheet states none).
+
+Neither can be measured on one card: both are priced, never timed.  Launch and
 residency limits come from the CUDA C++ programming guide (compute
 capability 9.0): a grid's y dimension holds at most 65,535 blocks; an SM
 holds at most 2,048 threads and 32 blocks, and the runtime reserves 1 KB
@@ -56,6 +64,8 @@ class Chip:
     peak_bf16_flops: float = 989e12        # dense, tensor cores
     peak_tf32_flops: float = 495e12        # dense, tensor cores
     peak_f32_flops: float = 67e12          # CUDA cores
+    link_bw: float = 450e9                 # B/s per direction (NVLink 4)
+    link_hop_s: float = 3e-6               # assumed, see the docstring
 
     def peak_flops(self, dtype) -> float:
         """The f32 CUDA-core rate for 4-byte types, the bf16 tensor-core

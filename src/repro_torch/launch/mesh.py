@@ -70,7 +70,9 @@ def single_device_mesh(device_type: str = "cuda"):
 def tp_mesh(tp: int, device_type: str = "cuda"):
     """A (1, tp) data x model serving mesh over the FIRST `tp` ranks of the
     world: a subset, as the reference's device subset, so tp = 1 / 2 / 4
-    meshes can stand side by side in one world."""
+    meshes can stand side by side in one world.  `mesh.get_group("model")`
+    is the model axis' process group, the one the tensor-parallel
+    collectives run on (`distributed.collectives`)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -83,6 +85,17 @@ def tp_mesh(tp: int, device_type: str = "cuda"):
     _ensure_process_group(device_type)
     return DeviceMesh(device_type, torch.arange(tp).reshape(1, tp),
                       mesh_dim_names=("data", "model"))
+
+
+def init_file_world(path: str, rank: int, world: int, backend: str = "gloo") -> None:
+    """Start this process's default process group: rank `rank` of `world`,
+    rendezvous through the file `path` (`torch.distributed.FileStore`; no
+    port, so worlds started side by side cannot collide).  Every rank
+    passes the same path; the file must not exist before the first."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, store=dist.FileStore(path, world),
+                            rank=rank, world_size=world)
 
 
 def mesh_axis_size(mesh, name: str) -> int:

@@ -14,6 +14,13 @@ at trace time.  A program is called as `program((params, k_pool, v_pool),
 host_arrays)`; the KV pools (L, num_blocks, block_size, Hkv, hd) are
 updated in place, where JAX donates them.
 
+Tensor-parallel serving runs the same two programs on every rank, each
+over the rank's local parameter shards and KV pools (`tp`, a
+`distributed.collectives.TensorParallel`, installed around the model
+calls): one signature each at every width.  At tp > 1 they run eagerly:
+an NCCL world of two ranks cannot share one card, so capturing its
+collectives in a CUDA graph waits for a machine with more cards.
+
 `graph_commit_prefill` and `graph_cow_block` (`jit_commit_prefill`,
 `jit_cow_block`) are two more programs, each with one signature: the
 resume commit's scatter of swapped-in K/V into the pools, at one padded
@@ -57,6 +64,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.distributed.collectives import TensorParallel, tensor_parallel
 from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
                                               axis_sizes, map_axes, named_sharding)
 from repro_torch.kernels.dispatch import MatmulTable, matmul_dispatch
@@ -243,7 +251,8 @@ def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  chunk_attn_backend: str = "torch",
                  chunk_attn_config: Optional[Dict[str, Any]] = None,
                  decode_matmul_table: Optional[MatmulTable] = None,
-                 chunk_matmul_table: Optional[MatmulTable] = None):
+                 chunk_matmul_table: Optional[MatmulTable] = None,
+                 tp: Optional[TensorParallel] = None):
     """-> (dec_next (slots,), seg_next (S,), seg_logits (S, V))
 
     The serving step for steps that carry prompt work: the prefill lane
@@ -254,12 +263,13 @@ def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
     complete their prompt this step; `seg_logits` are the logits it was
     drawn from, returned for callers that inspect them.  Each lane's
     tokens are drawn on the device (`sample_tokens`) from its sampling and
-    key arrays."""
-    with matmul_dispatch(chunk_matmul_table):
+    key arrays.  `tp`: the rank's tensor-parallel context (its local
+    parameters and pools; the logits come out whole on every rank)."""
+    with tensor_parallel(tp), matmul_dispatch(chunk_matmul_table):
         ch_logits = model.prefill_packed_paged(
             params, k_pool, v_pool, seg_tables, ch_tokens, seg_info,
             attn_backend=chunk_attn_backend, attn_config=chunk_attn_config)
-    with matmul_dispatch(decode_matmul_table):
+    with tensor_parallel(tp), matmul_dispatch(decode_matmul_table):
         logits = model.decode_step_paged(
             params, k_pool, v_pool, dec_tables, dec_lengths, dec_tokens,
             attn_backend=decode_attn_backend)
@@ -271,10 +281,11 @@ def unified_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
 def decode_only_step(model, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
                      dec_tables, dec_lengths, dec_tokens, dec_sampling,
                      dec_keys, *, decode_attn_backend: str = "torch",
-                     decode_matmul_table: Optional[MatmulTable] = None):
+                     decode_matmul_table: Optional[MatmulTable] = None,
+                     tp: Optional[TensorParallel] = None):
     """-> dec_next (slots,): the unified step's decode lane without the
     chunk lane, for steps with no prompt work."""
-    with matmul_dispatch(decode_matmul_table):
+    with tensor_parallel(tp), matmul_dispatch(decode_matmul_table):
         logits = model.decode_step_paged(
             params, k_pool, v_pool, dec_tables, dec_lengths, dec_tokens,
             attn_backend=decode_attn_backend)
@@ -285,8 +296,8 @@ def graph_unified_step(model, device, *, graphed: bool = True, pool=None,
                        **lanes) -> Program:
     """The unified step program: `unified_step` with the model and the
     lanes (`decode_attn_backend`, `chunk_attn_backend`,
-    `chunk_attn_config`, `decode_matmul_table`, `chunk_matmul_table`)
-    fixed.  Inputs: dec_tables, dec_lengths, dec_tokens, ch_tokens,
+    `chunk_attn_config`, `decode_matmul_table`, `chunk_matmul_table`,
+    `tp`) fixed.  Inputs: dec_tables, dec_lengths, dec_tokens, ch_tokens,
     seg_tables, seg_info, dec_sampling, dec_keys, seg_sampling, seg_keys."""
     return Program(functools.partial(unified_step, model, **lanes), "unified",
                    device, graphed=graphed, pool=pool)
@@ -295,7 +306,8 @@ def graph_unified_step(model, device, *, graphed: bool = True, pool=None,
 def graph_decode_only_step(model, device, *, graphed: bool = True, pool=None,
                            **lanes) -> Program:
     """The decode-only step program: `decode_only_step` with the model and
-    the decode lane (`decode_attn_backend`, `decode_matmul_table`) fixed.
+    the decode lane (`decode_attn_backend`, `decode_matmul_table`, `tp`)
+    fixed.
     Inputs: dec_tables, dec_lengths, dec_tokens, dec_sampling, dec_keys."""
     return Program(functools.partial(decode_only_step, model, **lanes),
                    "decode_only", device, graphed=graphed, pool=pool)

@@ -30,6 +30,12 @@ Attention backends: `torch` runs the gather lanes (the plain versions in
 `cuda_attention` runs the hand-written paged kernels through
 `repro_torch.kernels.ops`.
 
+Tensor parallelism (the paged path, `distributed.collectives`): a rank
+holds its block of the query heads, of `wo`'s rows and the KV heads its
+query heads read (`tp_kv_heads`; all of them where they split, else the
+ones it needs), so the paged kernels run at the rank's own head counts;
+`wo`'s partial output is summed over the ranks before the residual add.
+
 The new rows' K/V are written into the pools IN PLACE (`index_put_` on the
 layer's view of the pool), where JAX writes functionally (`.at[].set`) and
 donates the pool buffers to the step program.  Padding rows and inactive
@@ -51,12 +57,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import reduce_if_sharded
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import packed_row_map
 from repro_torch.models.common import (Params, apply_mrope, apply_rope, dense,
                                        dense_init, norm_init, rms_norm)
 
-__all__ = ["attn_init", "attn_logical_axes", "attn_forward", "cross_kv",
+__all__ = ["attn_init", "attn_logical_axes", "tp_kv_heads", "attn_forward", "cross_kv",
            "init_cache", "cache_logical_axes", "attn_decode",
            "packed_row_map", "attn_prefill_packed", "attn_decode_paged",
            "decode_write_rows", "packed_write_rows"]
@@ -91,14 +98,45 @@ def attn_logical_axes(cfg: ModelConfig) -> Params:
     return p
 
 
+def tp_kv_heads(cfg: ModelConfig, rules, rank: int, size: int) -> Tuple[int, int]:
+    """(first, count) of the KV heads rank `rank` of a `size`-wide
+    tensor-parallel axis holds under `rules`: its block of them where
+    "kv_heads" is split; where only "heads" is split (the KV heads do not
+    divide the axis), the ones its block of query heads reads, so each
+    local query head j reads local KV head j // (local heads / count), as
+    on one device.  A layout under which the rank's query heads do not
+    read equal groups of its KV heads in order raises."""
+    heads = size > 1 and rules.lookup("heads") == "model"
+    kv = size > 1 and rules.lookup("kv_heads") == "model"
+    if kv and not heads:
+        raise ValueError("kv_heads split over the model axis with heads replicated")
+    if not heads:
+        return 0, cfg.n_kv_heads
+    if kv:
+        n = cfg.n_kv_heads // size
+        return rank * n, n
+    hl, g = cfg.n_heads // size, cfg.q_per_kv
+    first = rank * hl // g
+    n = ((rank + 1) * hl - 1) // g - first + 1
+    if hl % n or any(first + j // (hl // n) != (rank * hl + j) // g
+                     for j in range(hl)):
+        raise ValueError(f"rank {rank} of {size}: query heads {rank * hl}.."
+                         f"{(rank + 1) * hl - 1} (G={g}) do not read equal groups of "
+                         f"KV heads {first}..{first + n - 1}")
+    return first, n
+
+
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  positions: Optional[torch.Tensor]):
+    """q (B, S, Hq, hd), k / v (B, S, Hkv, hd), the head counts those of
+    the projections' weights: the whole model's on one device, a rank's
+    own (`tp_kv_heads`) under tensor parallelism."""
     b, s, _ = x.shape
     hd = cfg.hd
     # role-tagged: the plan's stage `qkv_proj` choice dispatches these
-    q = dense(p["wq"], x, role="qkv_proj").reshape(b, s, cfg.n_heads, hd)
-    k = dense(p["wk"], x, role="qkv_proj").reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], x, role="qkv_proj").reshape(b, s, cfg.n_kv_heads, hd)
+    q = dense(p["wq"], x, role="qkv_proj").reshape(b, s, -1, hd)
+    k = dense(p["wk"], x, role="qkv_proj").reshape(b, s, -1, hd)
+    v = dense(p["wv"], x, role="qkv_proj").reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q)
         k = rms_norm(p["k_norm"], k)
@@ -346,7 +384,7 @@ def attn_prefill_packed(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = _ref.packed_prefill_attention_ref(q, k_pool, v_pool, seg_tables,
                                                 seg_info)
-    return dense(p["wo"], out.reshape(b, c, cfg.n_heads * cfg.hd))
+    return reduce_if_sharded(dense(p["wo"], out.reshape(b, c, -1)), "heads")
 
 
 def attn_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -368,7 +406,7 @@ def attn_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     k_pool[blk, off] = k_new[src, 0].to(k_pool.dtype)
     v_pool[blk, off] = v_new[src, 0].to(v_pool.dtype)
 
-    qh = q.reshape(b, cfg.n_heads, cfg.hd)
+    qh = q.reshape(b, -1, cfg.hd)
     if backend == "cuda_attention":
         from repro_torch.kernels import ops
         out = ops.attention_decode_paged(qh, k_pool, v_pool, lengths + 1,
@@ -376,4 +414,4 @@ def attn_decode_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = _ref.paged_decode_attention_ref(qh, k_pool, v_pool, lengths + 1,
                                               block_tables)
-    return dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.hd))
+    return reduce_if_sharded(dense(p["wo"], out.reshape(b, 1, -1)), "heads")

@@ -1,6 +1,7 @@
 """Shared model building blocks (the port of `repro.models.common`): norms,
 RoPE / M-RoPE, projections, the embedding, and the training losses
-(`cross_entropy`, `chunked_softmax_xent`).
+(`cross_entropy`, `chunked_softmax_xent`).  The embedding lookup and the
+LM head are two of the tensor-parallel sites (`distributed.collectives`).
 
 Parameters are plain dicts of tensors laid out as the JAX package lays
 them out (`dense` weights (d_in, d_out) used as `x @ w`), so a JAX params
@@ -14,6 +15,8 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.collectives import current as current_tp
 
 Params = Dict[str, Any]
 
@@ -119,18 +122,43 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> Params:
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return p["emb"].to(dtype)[tokens.long()]
+    """The rows of the embedding table at `tokens`.  Under a tensor-parallel
+    context whose rules split "vocab", this rank holds a contiguous block
+    of the table's rows: each token outside it reads zeros, and the ranks'
+    lookups are summed (one real row and zeros: exact)."""
+    tp = current_tp()
+    if tp is None or not tp.sharded("vocab"):
+        return p["emb"].to(dtype)[tokens.long()]
+    rows = p["emb"].shape[0]
+    idx = tokens.long() - tp.rank * rows
+    hit = (idx >= 0) & (idx < rows)
+    x = p["emb"].to(dtype)[idx.clamp(0, rows - 1)]
+    return tp.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
 
 
 def lm_head_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
     """LM head projection `x @ w` (w: (d_model, vocab)), role-tagged so the
-    plan's `lm_head` choice dispatches it."""
+    plan's `lm_head` choice dispatches it.  Under a tensor-parallel context
+    this rank holds a block of w's columns ("vocab": the logits are
+    gathered along the vocabulary) or of its rows ("embed_vec", where the
+    vocabulary does not divide the axis: the product of x's matching
+    block is summed over the ranks)."""
+    tp = current_tp()
+    if tp is not None and tp.sharded("vocab"):
+        return tp.all_gather(dense(p, x, role="lm_head"), -1)
+    if tp is not None and tp.sharded("embed_vec"):
+        k = p["w"].shape[0]
+        xs = x[..., tp.rank * k:(tp.rank + 1) * k].contiguous()
+        return tp.all_reduce(dense(p, xs, role="lm_head"))
     return dense(p, x, role="lm_head")
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Logits against the (tied) embedding table: x @ emb.T."""
-    return x @ p["emb"].to(x.dtype).T
+    """Logits against the (tied) embedding table: x @ emb.T (gathered along
+    the vocabulary where the table's rows are split)."""
+    logits = x @ p["emb"].to(x.dtype).T
+    tp = current_tp()
+    return tp.all_gather(logits, -1) if tp is not None and tp.sharded("vocab") else logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

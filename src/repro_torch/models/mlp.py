@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import reduce_if_sharded
 from repro_torch.kernels.ref import apply_activation
 from repro_torch.models.common import Params, dense, dense_init
 
@@ -39,13 +40,15 @@ def mlp_logical_axes(gated: bool = True) -> Params:
 def mlp_apply(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     # role-tagged for the plan's stage matmul dispatch; the gate's
     # activation rides in the hand-written GEMM's epilogue (the torch lane
-    # applies it after the product)
+    # applies it after the product).  Where "ffn" is split over a
+    # tensor-parallel axis, this rank's w_in / w_gate columns and w_out rows
+    # give a partial output, summed over the ranks.
     if "w_gate" in p:
         h = dense(p["w_in"], x, role="mlp_up")
         h = dense(p["w_gate"], x, role="mlp_up", activation=act) * h
     else:
         h = dense(p["w_in"], x, role="mlp_up", activation=act)
-    return dense(p["w_out"], h, role="mlp_down")
+    return reduce_if_sharded(dense(p["w_out"], h, role="mlp_down"), "ffn")
 
 
 # ------------------------------------------------------------------ MoE

@@ -33,7 +33,9 @@ stacked leaves; `block_logical_axes` for one decoder block) and of its
 fixed-batch cache (`cache_logical_axes`); `DecoderLM` also of its paged
 pools (`paged_cache_logical_axes`) and `MambaLM` of its slot pools
 (`slot_state_logical_axes`), the reference's trees entry for entry.  The
-`distributed.sharding` rules turn them into placements.
+`distributed.sharding` rules turn them into placements, and
+`DecoderLM.tp_local_params` into one rank's shards for tensor-parallel
+serving.
 
 The vision patches and audio frames are stubs, as in the reference: the
 batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
@@ -51,7 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import map_axes
+from repro_torch.distributed.sharding import local_params, map_axes
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
@@ -465,6 +467,34 @@ class DecoderLM(_StackedLM):
         hd): blocks replicated, KV heads as the dense cache's."""
         ax = ("layers", None, None, "kv_heads", None)
         return {"k": ax, "v": ax}
+
+    # ------------------------------------------------ tensor parallelism
+    def tp_kv_heads(self, tp) -> tuple:
+        """(first, count) of the KV heads the rank of `tp` (a
+        `distributed.collectives.TensorParallel`) holds in its projections
+        and its paged pools: `attention.tp_kv_heads`."""
+        return A.tp_kv_heads(self.cfg, tp.rules, tp.rank, tp.size)
+
+    def tp_local_params(self, params: Params, tp) -> Params:
+        """The rank's shards of the serving parameters, plain tensors on
+        their device: every leaf split by `tp.rules` over its logical axes
+        (`distributed.sharding.local_params`); where "heads" is split and
+        "kv_heads" is not, wk / wv keep only the KV heads the rank's query
+        heads read (`tp_kv_heads`).  The dense family only: the MoE's
+        expert parallelism and the vlm on a mesh are not ported."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"tensor-parallel serving of the {self.cfg.family} family is not "
+                "ported yet: ROADMAP.md queue 1, item 8b-ii")
+        local = local_params(params, self.logical_axes(), tp.rules,
+                             {"model": tp.size}, {"model": tp.rank})
+        if tp.sharded("heads") and not tp.sharded("kv_heads"):
+            first, n = self.tp_kv_heads(tp)
+            hd = self.cfg.hd
+            attn = local["blocks"]["attn"]
+            for name in ("wk", "wv"):
+                attn[name]["w"] = attn[name]["w"][..., first * hd:(first + n) * hd].contiguous()
+        return local
 
 
 # ===================================================================== Mamba2

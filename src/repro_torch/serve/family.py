@@ -7,7 +7,9 @@ the paged KV pool (`PagedKVCache`), its block tables, the two step
 programs (`_unified` / `_decode_only`, from `steps.graph_unified_step` /
 `steps.graph_decode_only_step`) and the resume-commit and copy-on-write
 programs (`_commit` / `_cow`): on a CUDA device each is captured in a CUDA
-graph at its first call and replayed by every later one.  The adapter
+graph at its first call and replayed by every later one.  Given a
+tensor-parallel context (`tp`), the pool holds the rank's KV heads and the
+programs run the rank's shards eagerly.  The adapter
 protocol is the JAX package's (see `repro.serve.family`): `family`,
 `chunk_width`, `chunk_segments`, `resume_segments`, `cache`, `alloc`,
 `capacity()`, `victim_eligible`, `grow_for_decode`, `claim_chunk`,
@@ -31,6 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.collectives import TensorParallel
 from repro_torch.launch import steps
 from repro_torch.models.common import torch_dtype
 from repro_torch.serve.kvcache import NULL_BLOCK, PagedKVCache
@@ -67,12 +70,17 @@ class DecoderFamilyAdapter:
 
     family = "decoder"
 
-    def __init__(self, model, cfg, router: PlanRouter, device: torch.device):
+    def __init__(self, model, cfg, router: PlanRouter, device: torch.device,
+                 tp: Optional[TensorParallel] = None):
         mcfg = model.cfg
         self.model = model
         self.device = device
         self.kv_cfg = cfg.kv_config()
-        self.cache = PagedKVCache(self.kv_cfg, mcfg.n_layers, mcfg.n_kv_heads,
+        # born sharded: under tensor parallelism the rank's pool holds the
+        # KV heads of its own projections (`DecoderLM.tp_kv_heads`); the
+        # block tables, allocator and scheduler are the same on every rank
+        n_kv = mcfg.n_kv_heads if tp is None else model.tp_kv_heads(tp)[1]
+        self.cache = PagedKVCache(self.kv_cfg, mcfg.n_layers, n_kv,
                                   mcfg.hd, torch_dtype(mcfg.dtype), device=device)
         # the prefill lane's token budget and its packed-segment height: the
         # engine's packing width narrowed by the plan's tuned max_segments
@@ -91,20 +99,21 @@ class DecoderFamilyAdapter:
             chunk_attn_backend=chunk_backend, chunk_attn_config=chunk_config,
             chunk_matmul_table=router.matmul_table("prefill_chunk"))
         # THE two step programs, with the lanes baked in; they never run at
-        # the same time, so their graphs share one memory pool
-        pool = _graph_pool(cfg, device)
+        # the same time, so their graphs share one memory pool.  Under
+        # tensor parallelism the steps run eagerly (see launch/steps.py)
+        graphed = cfg.cuda_graphs and tp is None
+        pool = _graph_pool(cfg, device) if graphed else None
         self._unified = steps.graph_unified_step(
-            model, device, graphed=cfg.cuda_graphs, pool=pool,
+            model, device, graphed=graphed, pool=pool, tp=tp,
             **self._decode_kw, **self._chunk_kw)
         self._decode_only = steps.graph_decode_only_step(
-            model, device, graphed=cfg.cuda_graphs, pool=pool, **self._decode_kw)
+            model, device, graphed=graphed, pool=pool, tp=tp, **self._decode_kw)
         # the resume commit, at one padded shape (see `resume_commit`), and
         # the copy-on-write: two more programs, captured at their first
         # call, never at admission
         self._commit = steps.graph_commit_prefill(
-            device, graphed=cfg.cuda_graphs, pool=pool)
-        self._cow = steps.graph_cow_block(device, graphed=cfg.cuda_graphs,
-                                          pool=pool)
+            device, graphed=graphed, pool=pool)
+        self._cow = steps.graph_cow_block(device, graphed=graphed, pool=pool)
         # the commit program's K / V inputs (L, resume_segments,
         # max_blocks_per_seq * block_size, Hkv, hd), allocated at the first
         # commit and filled in place; and the bytes the last commit copied

@@ -1,5 +1,5 @@
 """Plan-aware backend routing for the serving runtime — the port of
-`repro.serve.router` (everything but the layouts-as-sharding half).
+`repro.serve.router`.
 
 The WPK `InferencePlan` is per-operator *and per-shape*: the matmuls and
 attention of a prefill (long query, batch 1) live at a very different point
@@ -30,9 +30,10 @@ tuned by either package, `torch` in hand-built ones) map to the port's
 torch lanes; any other choice maps to the hand-written CUDA lane
 (`cuda_attention` / `cuda_matmul`), so a plan tuned by the JAX package
 selects the same lanes here.  With no plan every query answers the torch
-lane.  Layout verdicts answer `replicated`: the tensor-parallel half
-(`serve_rules`, `model_parallel > 1`) waits for TP serving (ROADMAP.md
-queue 1, item 8b).
+lane.  A plan tuned with `model_parallel` > 1 also carries each stage
+op's layout verdict (`layout_table`); `serve_rules` folds the verdicts
+and the mesh's divisibility guards into the `ShardingRules` a
+tensor-parallel `ContinuousEngine` shards its parameters and pools by.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from repro_torch.core.graph import Graph
 from repro_torch.core.plan import InferencePlan, OpChoice
 from repro_torch.core.search.tuner import Tuner
 from repro_torch.core.selection import select
+from repro_torch.distributed.sharding import axis_sizes
 
 # the serve stages per model family: the ssm family has no attention op
 # and its own matmul roles, so its stages are distinct nodes and a plan
@@ -63,9 +65,6 @@ SSM_MATMUL_ROLES = ("in_proj", "out_proj", "lm_head")
 DEFAULT_CHUNK_TOKENS = 32
 
 VENDOR_BACKENDS = ("xla", "torch")
-
-TP_NOT_PORTED = ("serve_rules (layouts as sharding) is not ported yet: "
-                 "ROADMAP.md queue 1, item 8b (TP serving)")
 
 
 def serve_stages(family: str):
@@ -205,8 +204,11 @@ def build_serve_plan(cfg: ModelConfig, *, prefill_len: int, slots: int,
     With no `tuner`, the genetic search and RL-search on device time on
     the GPU (`Tuner()`), which raises where there is none;
     `tuner=Tuner(fitness=ModelFitness())` tunes on the analytic model of
-    the H100 on any host.  `model_parallel` > 1 (the layout race) raises,
-    as `select` does."""
+    the H100 on any host.  `model_parallel` > 1 also races each stage op's
+    layout (replicated or model-parallel over that many devices, the
+    collective priced by `core.costmodel`): the plan then carries the
+    per-stage layout table `PlanRouter.serve_rules` folds into the
+    sharding rules."""
     g = build_serve_graph(cfg, prefill_len=prefill_len, slots=slots,
                           max_seq=max_seq, chunk_tokens=chunk_tokens,
                           dtype=dtype, family=family)
@@ -296,10 +298,78 @@ class PlanRouter:
             roles = roles + ("attention",)
         return {role: self.layout(stage, role) for role in roles}
 
-    def serve_rules(self, *args, **kwargs):
-        """Folding layout verdicts into sharding rules needs TP serving
-        (item 8b), which does not exist yet."""
-        raise NotImplementedError(TP_NOT_PORTED)
+    def _raced_replicated(self, stages, roles) -> bool:
+        """True where a stage choice of one of `roles` raced the layouts and
+        chose replicated: the demotion trigger for the roles' logical
+        axes.  Choices that never raced (old plans, indivisible shard
+        dims) do not demote: the guards already govern them."""
+        for s in stages:
+            for r in roles:
+                c = self._lookup(s, r)
+                if c is None:
+                    continue
+                if (getattr(c, "layout_candidates", {})
+                        and getattr(c, "layout", "replicated") == "replicated"):
+                    return True
+        return False
+
+    def serve_rules(self, base_rules, mesh, cfg: ModelConfig,
+                    family: str = "decoder"):
+        """Fold the plan's per-stage layout verdicts into the
+        `ShardingRules` the engine shards by.  It only ever narrows
+        `base_rules` (demotes logical axes to replicated), in three tiers:
+
+          * a model axis of size <= 1: `base_rules` itself, untouched;
+          * no plan: `base_rules` with the divisibility guards of
+            `launch.steps.rules_for_shape` (model-parallel wherever legal;
+            an indivisible vocab moves the lm_head's shard to `embed_vec`);
+          * a plan: the guards, then every coupled role group some serving
+            stage raced and left replicated demotes together (mlp_up and
+            mlp_down share 'ffn'; qkv_proj and attention the head axes;
+            in_proj and out_proj the conv / state dims; lm_head 'vocab'
+            and 'embed_vec').
+
+        `mesh` enters through its axis sizes only (a DeviceMesh or
+        anything with the reference's `shape` mapping)."""
+        m = axis_sizes(mesh).get("model", 1)
+        if m <= 1:
+            return base_rules
+        rules = base_rules
+        if family == "ssm":
+            d_in = cfg.ssm_expand * cfg.d_model
+            nh = d_in // cfg.ssm_head_dim
+            conv_dim = d_in + 2 * cfg.ssm_state
+            if nh % m:
+                rules = rules.replace(ssm_heads=None)
+            if conv_dim % m:
+                rules = rules.replace(conv_dim=None)
+        else:
+            if cfg.n_heads and cfg.n_heads % m:
+                rules = rules.replace(heads=None)
+            if cfg.n_kv_heads and cfg.n_kv_heads % m:
+                rules = rules.replace(kv_heads=None)
+            if cfg.d_ff and cfg.d_ff % m:
+                rules = rules.replace(ffn=None)
+        if cfg.vocab % m:
+            rules = rules.replace(vocab=None)
+            if cfg.d_model % m == 0:
+                rules = rules.replace(embed_vec="model")
+        if self.plan is None:
+            return rules
+        # the stages the engine dispatches through ('prefill' is the
+        # whole-prompt shape family benches tune, not a serve stage)
+        stages = tuple(s for s in serve_stages(family) if s != "prefill")
+        if family == "ssm":
+            if self._raced_replicated(stages, ("in_proj", "out_proj")):
+                rules = rules.replace(conv_dim=None, ssm_heads=None)
+        else:
+            if self._raced_replicated(stages, ("qkv_proj", "attention")):
+                rules = rules.replace(heads=None, kv_heads=None)
+            if self._raced_replicated(stages, ("mlp_up", "mlp_down")):
+                rules = rules.replace(ffn=None)
+        if self._raced_replicated(stages, ("lm_head",)):
+            rules = rules.replace(vocab=None, embed_vec=None)
+        return rules
 
     def describe(self) -> Dict[str, str]:
         """Stage-qualified op -> chosen backend (for logs and benches)."""

@@ -30,8 +30,19 @@ pressure the grow path preempts the scheduler's victim: its KV is copied to
 host buffers, its slot and blocks are freed, and it re-enters ahead of new
 arrivals with its KV scattered back (no token is recomputed).
 
-The engine takes the `device` where the JAX engine takes a mesh and
-sharding rules; `device=None` means the GPU and raises without one.  The
+The engine takes the rank's `device` (`None` means the GPU and raises
+without one) and, like the JAX engine, an optional `mesh` and sharding
+`rules` (DEFAULT_RULES when omitted).  The router folds its plan's
+layout verdicts and the mesh's divisibility guards into the rules
+(`PlanRouter.serve_rules`).  With no mesh, or a 1-wide model axis, the
+engine is the single-device engine.  On a wider model axis (`tp_mesh(tp)`
+in a world of tp ranks, each running the same engine on the same
+requests) every rank serves from its own parameter shards and KV heads
+(`DecoderLM.tp_local_params`), runs its steps eagerly and exchanges
+partial sums and logits through `distributed.collectives`: every rank
+runs the same host logic on the same inputs and draws the same tokens.
+The dense decoder family only (ROADMAP.md queue 1, item 8b-ii for the
+rest).  The
 plan (`PlanRouter`) picks each lane's attention backend and matmul table:
 with no plan every lane is the torch lane; a plan whose choices name the
 kernels sends attention through the paged CUDA kernels and the
@@ -49,11 +60,14 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from repro_torch.distributed.collectives import TensorParallel
+from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
+                                              axis_sizes, prune_for_mesh)
 from repro_torch.platform import DeviceLike, resolve_device
 from repro_torch.serve.family import resolve_family_adapter
 from repro_torch.serve.kvcache import KVCacheConfig
 from repro_torch.serve.metrics import ServeMetrics
-from repro_torch.serve.router import DEFAULT_CHUNK_TOKENS, PlanRouter
+from repro_torch.serve.router import DEFAULT_CHUNK_TOKENS, PlanRouter, serve_stages
 from repro_torch.serve.sampling import (SamplingParams, slot_sampling_arrays,
                                         truncate_at_eos)
 from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
@@ -122,20 +136,42 @@ class ContinuousEngine:
                  router: Optional[PlanRouter] = None,
                  now_fn: Optional[Callable[[], float]] = None,
                  trace: Optional[TraceRecorder] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, *, mesh=None,
+                 rules: Optional[ShardingRules] = None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
         self.router = router or PlanRouter(None)
         self.now_fn = now_fn or time.perf_counter
-        # one device, no mesh: the tag the JAX engine stamps as "<data>x<model>"
-        self.mesh_tag = "1x1"
+        self.mesh = mesh
         self.trace = trace if trace is not None else NULL_RECORDER
         if self.trace.enabled and self.trace.now_fn is None:
             self.trace.now_fn = self.now_fn
         adapter_cls = resolve_family_adapter(model)
+        # the rules the router's layout verdicts and the mesh's divisibility
+        # guards leave (`PlanRouter.serve_rules`: the base rules themselves
+        # on a 1-wide model axis), and the "<data>x<model>" tag the step
+        # events carry ("1x1" with no mesh)
+        self.rules = None
+        self.tp = None
+        self.mesh_tag = "1x1"
+        if mesh is not None:
+            self.rules = self.router.serve_rules(
+                DEFAULT_RULES if rules is None else rules, mesh, model.cfg,
+                adapter_cls.family)
+            sizes = axis_sizes(mesh)
+            self.mesh_tag = f"{sizes.get('data', 1)}x{sizes.get('model', 1)}"
+            self.tp = TensorParallel.from_mesh(mesh, prune_for_mesh(self.rules, mesh))
+        if self.tp is not None and adapter_cls.family != "decoder":
+            raise NotImplementedError(
+                f"tensor-parallel serving of the {adapter_cls.family} family is "
+                "not ported yet: ROADMAP.md queue 1, item 8b-ii")
         self.params = model.serving_params(params, self.device)
-        self.adapter = adapter_cls(model, cfg, self.router, self.device)
+        if self.tp is not None:
+            self.params = model.tp_local_params(self.params, self.tp)
+            self.adapter = adapter_cls(model, cfg, self.router, self.device, self.tp)
+        else:
+            self.adapter = adapter_cls(model, cfg, self.router, self.device)
         self.family = self.adapter.family
         self.adapter.alloc.trace = self.trace
         self.scheduler = ContinuousScheduler(
@@ -185,6 +221,24 @@ class ContinuousEngine:
         self.metrics.end_time = self.now_fn()
         done, self._done = self._done, []
         return done
+
+    def trace_metadata(self) -> dict:
+        """Run metadata for `trace.write_trace` / the traceview audit: the
+        pool, the lane geometry, the mesh tag and the router's per-stage
+        layout table."""
+        stages = serve_stages(self.family)
+        meta = {"family": self.family, "mesh": self.mesh_tag,
+                "max_slots": self.cfg.max_slots,
+                "chunk_width": self._chunk_width,
+                "chunk_segments": self._chunk_segments,
+                "layouts": {st: self.router.layout_table(st) for st in stages
+                            if st != "prefill"}}
+        if self.family == "decoder":
+            meta.update(usable_blocks=self.kv_cfg.num_blocks - 1,
+                        block_size=self.kv_cfg.block_size)
+        else:
+            meta.update(usable_blocks=self.cache.cfg.usable)
+        return meta
 
     def reset_metrics(self) -> None:
         """Fresh metrics (e.g. after a warm-up pass); the programs and the

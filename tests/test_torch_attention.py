@@ -39,6 +39,7 @@ from repro_torch.core import (Engine, Graph, InferencePlan, TEMPLATES, Tuner,
                               roofline_bound)
 from repro_torch.core.schedules import OpDesc
 from repro_torch.core.costmodel import Fitness
+from repro_torch.distributed import DEFAULT_RULES
 from repro_torch.kernels import attention as KA
 from repro_torch.kernels import ops
 from repro_torch.models import DecoderLM
@@ -312,6 +313,10 @@ def _ga_tuner(fitness):
     return Tuner(fitness=fitness, methods=("genetic",))
 
 
+class _OneWide:
+    shape = {"data": 1, "model": 1}
+
+
 def test_build_serve_plan_with_an_injected_fitness_covers_every_node(monkeypatch):
     cfg = get_config("qwen3-1.7b")
     plan = build_serve_plan(cfg, **SERVE, tuner=_ga_tuner(FakeWallClock()))
@@ -334,14 +339,19 @@ def test_build_serve_plan_with_an_injected_fitness_covers_every_node(monkeypatch
     assert router.layout_table("decode") == dict.fromkeys(
         ("qkv_proj", "mlp_up", "mlp_down", "lm_head", "attention"), "replicated")
     assert len(router.describe()) == 15
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_serve_plan(cfg, **SERVE, tuner=_ga_tuner(FakeWallClock()),
-                         model_parallel=2)
+    # the layout race: every serving-stage node of qwen3-1.7b divides 2,
+    # so each carries both layouts' times and the faster one's verdict
+    tp_plan = build_serve_plan(cfg, **SERVE, tuner=_ga_tuner(FakeWallClock()),
+                               model_parallel=2)
+    for name, c in tp_plan.choices.items():
+        assert set(c.layout_candidates) == {"replicated", "model_parallel"}, name
+        lc = c.layout_candidates
+        assert c.layout == min(lc, key=lc.get) or lc["replicated"] == lc[c.layout]
     # the ssm family's graph (its own stages, no attention) is ported too
     assert len(build_serve_graph(get_config("mamba2-2.7b"), **SERVE,
                                  family="ssm").nodes) == 6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        router.serve_rules(None, None, cfg)
+    # serve_rules on a 1-wide model axis hands the base rules back untouched
+    assert router.serve_rules(DEFAULT_RULES, _OneWide(), cfg) is DEFAULT_RULES
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="GPU"):
         build_serve_plan(cfg, **SERVE)

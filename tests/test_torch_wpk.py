@@ -528,8 +528,12 @@ def test_rl_search_and_model_parallel_name_the_roadmap(resnet_opt):
     again = tuner.tune(op)
     assert again.method == first.method + "+cache" and again.config == first.config
     assert tuner.fitness.evals == evals
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select(resnet_opt, tuner=_tuner(), model_parallel=2)
+    # the layout race opens only for the serve graph's layout roles: no
+    # ResNet-18 node is one, so a model-parallel race is the flat plan
+    flat = select(resnet_opt, tuner=_tuner())
+    tp = select(resnet_opt, tuner=_tuner(), model_parallel=2)
+    assert tp.to_json() == flat.to_json()
+    assert all(not c.layout_candidates for c in tp.choices.values())
 
 
 def test_wallclock_fitness_on_the_cpu_measures_each_config_once():
