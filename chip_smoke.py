@@ -310,15 +310,32 @@ each with its seconds logged:
      memory and tokens/s (phase 2 first holds paged decode / prefill at the
      ranks' heads for tp = 2 / 4 / 16 and the GEMM at the shard shapes for
      tp = 2 / 4);
- 22. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 22. tensor-parallel serving of the other ContinuousEngine families:
+     qwen2-vl-2b, mamba2-2.7b and qwen2-moe-a2.7b at full width and depth
+     on their kernel-lane plans and the first 8 prompts: (a) each with no
+     mesh and on `tp_mesh(1)`, graphed, bitwise equal, then on
+     `tp_mesh(1)` eagerly; (b) tp = 2 and 4 as gloo worlds of processes on
+     the card (`--tp-family-child`), each rank serving the three models in
+     turn, each drawn from the seed straight into the rank's shards (the
+     MoE's experts split on E, mamba2's heads and conv channels
+     head-aligned, the vlm's KV heads as its query heads read them):
+     streams equal on every rank, one signature per program, nothing
+     captured, every request drained, launches equal to the tp = 1 eager
+     run's, each rank's peak within its shards plus one full leaf in f32;
+     (c) every stream replayed teacher-forced through the tp = 1 torch
+     lanes (`forced_check`), each token with a top-2 margin > 0.25 its
+     argmax (phase 2 first holds paged decode / prefill at the MoE's and
+     the vlm's rank heads and the GEMM at the three models' shard shapes,
+     tp = 2 / 4);
+ 23. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8, 10 and 20, their
      serving runs, the decode wrapper's call, the fixed-batch runs of
      phases 11-13, where only the draw kernel runs, the 32k engine run of
-     phase 16, the serving runs of phases 17-18 and 21, each rank's its
-     own path; a replayed CUDA graph counts the launches it captured),
+     phase 16, the serving runs of phases 17-18, 21 and 22, each rank's
+     its own path; a replayed CUDA graph counts the launches it captured),
      error and times;
- 23. the last line `{"ok": true, "device": {...}}`.
+ 24. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -1031,11 +1048,17 @@ def check_matmul_ssm(torch, chk, cfg):
     """The GEMM at mamba2-2.7b's six serving shapes (bf16, no activation):
     N = 10,576 (82.6 tiles of 128) and 50,280 (392.8 tiles, not a multiple
     of 16) are ragged, and split-K runs over ragged tiles at M = 8."""
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    _matmul_lane_shapes(torch, chk, g, "mamba2 ", ssm_gemms(cfg))
+
+
+def _matmul_lane_shapes(torch, chk, g, name, shapes):
+    """The GEMM at (lane, role, M, K, N) shapes (bf16, no activation)
+    against the plain version, twice bitwise, timed beside torch.matmul."""
     from repro_torch.kernels import matmul as KM
     from repro_torch.kernels import ref as R
 
-    g = torch.Generator(device=DEVICE).manual_seed(12)
-    for lane, role, m, k, n in ssm_gemms(cfg):
+    for lane, role, m, k, n in shapes:
         x = torch.randn((m, k), generator=g, device=DEVICE).to(torch.bfloat16)
         w = (torch.randn((k, n), generator=g, device=DEVICE) / math.sqrt(k)
              ).to(torch.bfloat16)
@@ -1043,7 +1066,7 @@ def check_matmul_ssm(torch, chk, cfg):
         want = R.matmul_ref(x, w, None, None)
         out = KM.matmul_fused(x, w, None, None)
         tol = MM_RTOL_BF16 * max(1.0, want.float().abs().max().item())
-        label = (f"mamba2 {lane} {role} M={m} K={k} N={n} bf16 ({n / geo.bn:.1f} "
+        label = (f"{name}{lane} {role} M={m} K={k} N={n} bf16 ({n / geo.bn:.1f} "
                  f"column tiles, {geo.ctas(m, n)} CTAs, bm {geo.bm}, split {geo.split})")
         chk.err = max(chk.err, chk.compare(f"{label} vs plain", out, want, tol,
                                            "f32 summation order, one bf16 rounding"))
@@ -1166,6 +1189,62 @@ def check_tp_shapes(torch, checks, cfg, block_q):
         _prefill_serving_shape(torch, checks[1], g, label, h, hkv, block_q)
     for tp in TP_GEMM_WIDTHS:
         _matmul_serving_shapes(torch, checks[2], g, f"qwen3 tp={tp} ", tp_gemms(cfg, tp))
+
+
+# Tensor-parallel serving of the other ContinuousEngine families (phase
+# 22): paged decode and prefill at the ranks' heads of qwen2-moe-a2.7b
+# (H = Hkv 8 / 4, G = 1) and qwen2-vl-2b (H 6 / 3 over 1 KV head: at tp = 4
+# its 2 KV heads do not divide and a rank keeps the one its query heads
+# read), and the GEMM at the three models' shard shapes for tp = 2 / 4:
+# mamba2's head-aligned in_proj (N = 2 d_in / tp + 2n + nh / tp) and its
+# out_proj's K slice, the MoE's attention and shared-expert shards, the
+# vlm's, and each vocabulary slice of lm_head.
+TP_FAMILY_ARCHS = ("qwen2-vl-2b", "mamba2-2.7b", "qwen2-moe-a2.7b")
+
+
+def tp_family_gemms(cfg, tp):
+    """The GEMM shapes one rank of a tp-wide model axis runs, no plan: the
+    ssm family's (lane, role, M, K, N) or a decoder's (role, K, N,
+    activation)."""
+    if cfg.family == "ssm":
+        d = cfg.d_model
+        d_in = cfg.ssm_expand * d // tp
+        proj = 2 * d_in + 2 * cfg.ssm_state + cfg.ssm_expand * d // cfg.ssm_head_dim // tp
+        c, b = SERVE_RUNTIME["chunk_tokens"], SERVE_RUNTIME["max_slots"]
+        v = cfg.vocab // tp
+        return [("chunk", "in_proj", c, d, proj), ("chunk", "out_proj", c, d_in, d),
+                ("chunk", "lm_head", 1, d, v), ("decode", "in_proj", b, d, proj),
+                ("decode", "out_proj", b, d_in, d), ("decode", "lm_head", b, d, v)]
+    if cfg.family == "moe":
+        rules, h, _ = tp_rank_layout(cfg, tp)
+        split = lambda axis, n: n // tp if rules.lookup(axis) == "model" else n  # noqa: E731
+        return moe_gemms(dataclasses.replace(
+            cfg, n_heads=h, d_expert=split("ffn", cfg.d_expert),
+            vocab=split("vocab", cfg.vocab)))
+    return tp_gemms(cfg, tp)
+
+
+def check_tp_family_shapes(torch, checks, block_q):
+    """Rows 1-3 at phase 22's rank shapes (see TP_FAMILY_ARCHS), each
+    against its plain version, twice bitwise, timed beside the library
+    call."""
+    from repro_torch.configs import get_config
+
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    for arch in TP_FAMILY_ARCHS:
+        cfg = get_config(arch)
+        for tp in TP_GEMM_WIDTHS:
+            tag = f"{arch} tp={tp} rank {tp - 1}"
+            if cfg.family == "ssm":
+                _matmul_lane_shapes(torch, checks[2], g, f"{tag} ", tp_family_gemms(cfg, tp))
+                continue
+            rules, h, (first, hkv) = tp_rank_layout(cfg, tp)
+            label = tag
+            if rules.lookup("kv_heads") is None:
+                label += f" (kv_heads replicated: its query heads read KV head {first})"
+            _decode_serving_shape(torch, checks[0], g, label, h, hkv)
+            _prefill_serving_shape(torch, checks[1], g, label, h, hkv, block_q)
+            _matmul_serving_shapes(torch, checks[2], g, f"{tag} ", tp_family_gemms(cfg, tp))
 
 
 # The GEMM's tuned knobs (tile_m, split_k).  KNOB_CHECKS: the shapes at
@@ -2166,40 +2245,54 @@ def compare_first_tokens(torch, label, out_k, first_k, out_t, first_t, require=T
 def stream_check(torch, label, model, params, prompts, out):
     """Every token of greedy paged streams `out` against the dense torch
     path (`launch/steps.py::prefill_step` / `serve_step`: plain PyTorch
-    ops, the same bf16 parameters), teacher-forced one prompt at a time on
-    the stream's own tokens: each must be the dense path's argmax wherever
-    its top-2 margin exceeds FIRST_TOKEN_MARGIN.  -> (tokens compared,
-    tokens)."""
+    ops, the same bf16 parameters), teacher-forced on the streams' own
+    tokens: each prompt is prefilled alone (batch 1) into a cache of one
+    common length, the caches are stacked and the streams' tokens go
+    through `serve_step` together (a dense decoder's rows do not mix).
+    Each token must be the dense path's argmax wherever its top-2 margin
+    exceeds FIRST_TOKEN_MARGIN.  -> (tokens compared, tokens)."""
     from repro_torch.launch import steps
 
     n_new = SERVE_RUNTIME["max_new_tokens"]
+    rids = sorted(out)
+    max_seq = max(len(p) for p in prompts) + n_new
     compared = total = 0
     widest = 0.0
     t0 = time.perf_counter()
     with torch.no_grad():
-        for rid, p in zip(sorted(out), prompts):
-            toks = out[rid]
+        rows, caches = [], []
+        for p in prompts:
             logits, cache = steps.prefill_step(
-                model, params, torch.as_tensor(p[None], device=DEVICE), len(p) + n_new)
-            for j in range(n_new):
-                top2 = torch.topk(logits[0, -1].float(), 2)
-                margin = float(top2.values[0] - top2.values[1])
+                model, params, torch.as_tensor(p[None], device=DEVICE), max_seq)
+            rows.append(logits[:, -1])
+            caches.append(cache)
+        cache = {k: torch.cat([c[k] for c in caches], dim=0 if k == "lengths" else 1)
+                 for k in caches[0]}
+        del caches
+        logits = torch.cat(rows)
+        for j in range(n_new):
+            top2 = torch.topk(logits.float(), 2)
+            margins = (top2.values[:, 0] - top2.values[:, 1]).cpu().tolist()
+            best = top2.indices[:, 0].cpu().tolist()
+            for rid, margin, b in zip(rids, margins, best):
                 total += 1
                 widest = max(widest, margin)
                 if margin > FIRST_TOKEN_MARGIN:
                     compared += 1
-                    if int(top2.indices[0]) != toks[j]:
+                    if b != out[rid][j]:
                         raise AssertionError(
-                            f"[{label}] request {rid} token {j}: {toks[j]} on the "
-                            f"kernel lanes vs {int(top2.indices[0])} on the dense torch "
-                            f"path at margin {margin:.3f}")
-                if j + 1 < n_new:
-                    logits, cache = steps.serve_step(
-                        model, params, cache,
-                        torch.tensor([[toks[j]]], dtype=torch.int32, device=DEVICE))
-            del cache
+                            f"[{label}] request {rid} token {j}: {out[rid][j]} on the "
+                            f"kernel lanes vs {b} on the dense torch path at margin "
+                            f"{margin:.3f}")
+            if j + 1 < n_new:
+                toks = torch.tensor([[out[rid][j]] for rid in rids], dtype=torch.int32,
+                                    device=DEVICE)
+                logits, cache = steps.serve_step(model, params, cache, toks)
+                logits = logits[:, -1]
+        del cache
     torch.cuda.synchronize()
-    log(f"[{label}] every token against the dense torch path (teacher-forced, batch 1, "
+    log(f"[{label}] every token against the dense torch path (teacher-forced, prefills "
+        f"at batch 1, {len(rids)} streams decoded together, "
         f"{time.perf_counter() - t0:.1f} s): {compared}/{total} had a top-2 margin > "
         f"{FIRST_TOKEN_MARGIN}, all agree; the widest margin {widest:.3f}")
     return compared, total
@@ -2930,6 +3023,19 @@ def _replay_ms(torch, prog, replays=SSM_DECODE_REPLAYS):
     return start.elapsed_time(end) / replays
 
 
+def ssm_kernel_router():
+    """The ssm family's all-kernel plan: in_proj, out_proj and lm_head of
+    both ssm stages on the GEMM at its default geometry."""
+    from repro_torch.core.plan import InferencePlan, OpChoice
+    from repro_torch.serve.router import SSM_MATMUL_ROLES, PlanRouter
+
+    plan = InferencePlan("serve_ssm", "h100")
+    for stage in ("ssm_prefill_chunk", "ssm_decode"):
+        for role in SSM_MATMUL_ROLES:
+            plan.choices[f"{stage}.{role}"] = OpChoice("cuda_matmul", {}, 0.0)
+    return PlanRouter(plan)
+
+
 def phase_ssm(torch, cfg, profile=False):
     """mamba2-2.7b served on the card (see the module docstring, phase 7).
     -> the kernels' launches on each of its paths."""
@@ -2937,12 +3043,10 @@ def phase_ssm(torch, cfg, profile=False):
     from torch.profiler import ProfilerActivity
 
     from repro_torch.core import Tuner, WallClockFitness
-    from repro_torch.core.plan import InferencePlan, OpChoice
     from repro_torch.kernels import matmul as KM
     from repro_torch.kernels import sampling as KS
     from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
-    from repro_torch.serve.router import (SSM_MATMUL_ROLES, PlanRouter,
-                                          build_serve_graph, build_serve_plan)
+    from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -2959,11 +3063,7 @@ def phase_ssm(torch, cfg, profile=False):
 
     # 1. kernel lanes (every projection of both ssm stages on the GEMM),
     # graphed and eager in alternating pairs
-    plan = InferencePlan("serve_ssm", "h100")
-    for stage in ("ssm_prefill_chunk", "ssm_decode"):
-        for role in SSM_MATMUL_ROLES:
-            plan.choices[f"{stage}.{role}"] = OpChoice("cuda_matmul", {}, 0.0)
-    router = PlanRouter(plan)
+    router = ssm_kernel_router()
     out_k, first_k, s_k, launches, eng, med = _kernel_lane_pairs(
         torch, served, router, "ssm", SSM_KERNEL_RUNS, profile, counters,
         require_packing=False)
@@ -4889,17 +4989,18 @@ def tp_child(torch, rank, world, store, out_path):
         dist.destroy_process_group()
 
 
-def _tp_world(tp, tmp):
-    """Run phase 21 (b)'s ranks of one width as processes on the card;
-    -> each rank's result.  Any rank that fails or outlives
-    TP_CHILD_TIMEOUT_S fails the phase (the others are killed first)."""
-    store = os.path.join(tmp, f"store{tp}")
+def _tp_world(tp, tmp, flag="--tp-child", tag=""):
+    """Run phase 21 (b)'s ranks of one width (with `flag`
+    "--tp-family-child": phase 22's) as processes on the card; -> each
+    rank's result.  Any rank that fails or outlives TP_CHILD_TIMEOUT_S
+    fails the phase (the others are killed first)."""
+    store = os.path.join(tmp, f"store{tag}{tp}")
     procs = []
     for r in range(tp):
-        out, logf = (os.path.join(tmp, f"tp{tp}.{r}{ext}") for ext in (".json", ".log"))
+        out, logf = (os.path.join(tmp, f"tp{tag}{tp}.{r}{ext}") for ext in (".json", ".log"))
         with open(logf, "w") as f:
             procs.append((r, out, logf, subprocess.Popen(
-                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--tp-child",
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
                  str(r), str(tp), store, out], stdout=f, stderr=subprocess.STDOUT,
                 cwd=ROOT)))
     failed = []
@@ -5022,6 +5123,331 @@ def phase_tp_serving(torch, counters):
     return paths
 
 
+# ------------------------------------------------------------ phase 22
+# Tensor-parallel serving of the other ContinuousEngine families:
+# qwen2-vl-2b, mamba2-2.7b and qwen2-moe-a2.7b at full width and depth
+# (random weights from seed 0), each on its kernel-lane plan and the first
+# TP_PROMPTS prompts.  (a) In this process, for each model: no mesh and
+# tp_mesh(1), graphed, bitwise equal (streams, first-token logits,
+# launches), then tp_mesh(1) eagerly, the run the ranks are held to.
+# (b) tp = 2 and 4 as gloo worlds of processes sharing the card
+# (`--tp-family-child`), each rank serving the three models in turn, each
+# drawn straight into the rank's shards (`init_serving(..., tp=)` through
+# the engine's params callable: the MoE's 28.6 GB never exist whole on a
+# rank): streams equal on every rank, one signature per program, nothing
+# captured, every request drained, launches of paged decode / prefill,
+# the GEMM and the draw equal to the tp = 1 eager run's, and each rank's
+# peak memory within its shards plus one full leaf of the model in f32
+# (the dtype its init draws in).  (c) Each width's streams replayed
+# teacher-forced through the tp = 1 engine on the torch lanes
+# (`forced_check`): every token whose top-2 margin there exceeds 0.25
+# must be its argmax.  Logged, not gated: how many streams equal tp = 1's
+# (cuBLAS may pick another algorithm for an E/tp-batch bmm), params,
+# pools and peaks per rank, tokens/s (a gloo emulation on one card: no TP
+# speed).
+def _family_setup(torch, cfg):
+    """(model, params, the first TP_PROMPTS prompts) of a phase-22 model."""
+    model, params, prompts = (ssm_setup if cfg.family == "ssm" else serving_setup)(
+        torch, cfg)
+    return model, params, prompts[:TP_PROMPTS]
+
+
+def family_router(cfg):
+    """The model's kernel-lane plan: every role-tagged matmul on the GEMM,
+    and a decoder's attention on the paged kernels."""
+    return ssm_kernel_router() if cfg.family == "ssm" else kernel_lane_router(PREFILL_BLOCK_Q)
+
+
+def full_leaf_bytes(cfg):
+    """Bytes of the whole model's largest parameter leaf in f32: a stacked
+    expert, projection or MLP leaf, or the embedding."""
+    d, n = cfg.d_model, cfg.n_layers
+    if cfg.family == "ssm":
+        d_in = cfg.ssm_expand * d
+        proj = 2 * d_in + 2 * cfg.ssm_state + d_in // cfg.ssm_head_dim
+        sizes = [n * d * proj, n * d_in * d]
+    elif cfg.family == "moe":
+        sizes = [n * cfg.n_experts * d * cfg.d_expert,
+                 n * d * cfg.n_shared_experts * cfg.d_expert]
+    else:
+        sizes = [n * d * cfg.d_ff, n * d * cfg.n_heads * cfg.hd]
+    return 4 * max(sizes + [cfg.vocab * d])
+
+
+def tp_family_child(torch, rank, world, store, out_path):
+    """One rank of phase 22 (b), run as `chip_smoke.py --tp-family-child
+    RANK WORLD STORE OUT`: the three models in turn, each drawn from seed 0
+    straight into the rank's shards and served on `tp_mesh(world)`; writes
+    each model's streams, program counts, launches, memory and times to
+    OUT as JSON."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.launch.mesh import init_file_world, tp_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
+
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    init_file_world(store, rank, world, "gloo")
+    results = {}
+    try:
+        mesh = tp_mesh(world)
+        for arch in TP_FAMILY_ARCHS:
+            cfg = get_config(arch)
+            model = build_model(cfg)
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+                       for n in PROMPT_LENS][:TP_PROMPTS]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            t0 = time.perf_counter()
+            eng = ContinuousEngine(model, lambda tp: model.init_serving(gen, tp=tp),
+                                   RuntimeConfig(**SERVE_RUNTIME), router=family_router(cfg),
+                                   device=DEVICE, mesh=mesh, rules=DEFAULT_RULES)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            init_peak = torch.cuda.max_memory_allocated()
+            progs = (eng._unified, eng._decode_only)
+            for p in prompts:
+                eng.submit(p)
+            admission = [p._cache_size() for p in progs]
+            counters = _serve_counters()
+            for fn in counters:
+                fn.launches = 0
+            dist.barrier()
+            done = eng.run()
+            torch.cuda.synchronize()
+            s = eng.metrics.summary()
+            eng.cache.alloc.check_invariants()
+            pools = ((eng.cache.conv, eng.cache.ssm) if eng.family == "ssm"
+                     else (eng.cache.k, eng.cache.v))
+            results[arch] = {
+                "rank": rank, "world": world, "mesh": eng.mesh_tag,
+                "rules": {a: eng.rules.lookup(a) for a in
+                          ("heads", "kv_heads", "ffn", "experts", "vocab", "ssm_heads",
+                           "conv_dim")},
+                "pools": [list(p.shape) for p in pools],
+                "streams": {str(r.rid): [int(t) for t in r.output] for r in done},
+                "admission": admission, "sizes": [p._cache_size() for p in progs],
+                "captures": sum(p.captures for p in progs),
+                "launches": {fn.__name__: fn.launches for fn in counters},
+                "param_gb": sum(t.numel() * t.element_size()
+                                for t in _leaves(eng.params)) / 1e9,
+                "pool_gb": sum(p.numel() * p.element_size() for p in pools) / 1e9,
+                "leaf_gb": full_leaf_bytes(cfg) / 1e9,
+                "init_s": init_s, "init_peak_gb": init_peak / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "tokens_per_s": s["tokens_per_s"], "wall_s": s["wall_s"],
+                "steps": int(s["chunk_steps"] + s["decode_only_steps"]),
+                "drained": eng.cache.alloc.num_used == 0,
+            }
+            # the programs too: they hold their last inputs, this model's
+            # parameters and pools, which the next model's peak must not see
+            del eng, done, progs
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def forced_check(torch, label, served, router, streams):
+    """Teacher-forced replay of greedy `streams` ({rid: tokens}) through
+    the tp = 1 engine on `router`'s lanes, eagerly, on the same prompts
+    and runtime: the same schedule (it depends on lengths alone), every
+    drawn token replaced by the stream's, so each logit row is the one the
+    stream's prefix gives under the engine's own grouping (the MoE's
+    capacity groups are the packed chunk and the slot batch, not a
+    prompt).  Every token must be that row's argmax wherever its top-2
+    margin exceeds FIRST_TOKEN_MARGIN.  -> (tokens compared, tokens)."""
+    from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
+
+    model, params, prompts = served
+    gc.collect()
+    eng = ContinuousEngine(model, params, RuntimeConfig(**SERVE_RUNTIME, cuda_graphs=False),
+                           router=router, device=DEVICE)
+    name = "decode_step_slots" if eng.family == "ssm" else "decode_step_paged"
+    step_fn = getattr(model, name)
+    seen = {}
+
+    def capture(*a, **kw):
+        seen["decode"] = step_fn(*a, **kw)
+        return seen["decode"]
+
+    rows, want = [], []
+    orig = eng.adapter.dispatch
+
+    def dispatch(params_, dec_rids, lengths, last_tok, chunks, dec_sampling, dec_keys):
+        nxt, seg = orig(params_, dec_rids, lengths, last_tok, chunks, dec_sampling,
+                        dec_keys)
+        for slot, rid in enumerate(dec_rids):
+            if rid is not None:
+                j = len(eng.scheduler.slots[slot].output)
+                rows.append(seen["decode"][slot, -1].float())
+                want.append((rid, j))
+                nxt[slot] = streams[rid][j]
+        for i, (req, start, n) in enumerate(chunks):
+            if start + n == req.prompt_len:
+                rows.append(eng.adapter.last_seg_logits[i].float())
+                want.append((req.rid, 0))
+                seg[i] = streams[req.rid][0]
+        return nxt, seg
+
+    setattr(model, name, capture)
+    try:
+        eng.adapter.dispatch = dispatch
+        for p in prompts:
+            eng.submit(p)
+        t0 = time.perf_counter()
+        done = eng.run()
+    finally:
+        delattr(model, name)
+    if {r.rid: r.output for r in done} != streams:
+        raise AssertionError(f"[{label}] the forced replay did not reproduce the streams")
+    top2 = torch.topk(torch.stack(rows), 2)
+    margins = (top2.values[:, 0] - top2.values[:, 1]).cpu().tolist()
+    best = top2.indices[:, 0].cpu().tolist()
+    compared = 0
+    for (rid, j), m, b in zip(want, margins, best):
+        if m > FIRST_TOKEN_MARGIN:
+            compared += 1
+            if b != streams[rid][j]:
+                raise AssertionError(
+                    f"[{label}] request {rid} token {j}: {streams[rid][j]} vs "
+                    f"{b} on the replay at margin {m:.3f}")
+    log(f"[{label}] every token against the tp = 1 torch lanes, teacher-forced "
+        f"({time.perf_counter() - t0:.1f} s, {len(want)} tokens): {compared} had a "
+        f"top-2 margin > {FIRST_TOKEN_MARGIN}, all agree; the widest margin "
+        f"{max(margins):.3f}")
+    return compared, len(want)
+
+
+def phase_tp_families(torch, counters):
+    """Phase 22 (see the comment above).  -> launches per path: each
+    model's tp_mesh(1) run's and each rank's."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import tp_mesh
+    from repro_torch.serve.router import PlanRouter
+
+    t_phase = time.perf_counter()
+    paths, eager = {}, {}
+    for arch in TP_FAMILY_ARCHS:
+        cfg = get_config(arch)
+        served = _family_setup(torch, cfg)
+        router = family_router(cfg)
+        kw = dict(prompts=served[2], require_packing=cfg.family != "ssm")
+
+        def run(label, **more):
+            for fn in counters:
+                fn.launches = 0
+            out, first, s = serve(torch, served, router, f"{arch} {label}", **kw, **more)
+            return out, first, s, {fn.__name__: fn.launches for fn in counters}
+
+        base = run("no mesh, graphed")
+        if dist.is_initialized():
+            raise AssertionError("[tp families] a process group is already up")
+        mesh = tp_mesh(1)
+        try:
+            one = run("tp_mesh(1), graphed", mesh=mesh, rules=DEFAULT_RULES)
+            eager[arch] = run("tp_mesh(1), eager", mesh=mesh, rules=DEFAULT_RULES,
+                              graphs=False)
+        finally:
+            dist.destroy_process_group()
+        if one[0] != base[0] or not _same_firsts(one[1], base[1]) or one[3] != base[3]:
+            raise AssertionError(
+                f"[{arch}] tp_mesh(1) differs from no mesh: streams {one[0] == base[0]}, "
+                f"launches {one[3]} vs {base[3]}, first divergence "
+                f"{_first_divergence(base[0], one[0])}")
+        need = ("matmul_fused", "sample_draw") + (
+            () if cfg.family == "ssm" else ("paged_decode_attention",
+                                            "paged_prefill_attention"))
+        if any(eager[arch][3][k] <= 0 for k in need):
+            raise AssertionError(f"[{arch}] the tp = 1 eager run launched "
+                                 f"{eager[arch][3]}: a kernel of {need} never ran")
+        log(f"[{arch}] tp_mesh(1) = no mesh: streams, first-token logits (bitwise) and "
+            f"launches {one[3]}")
+        paths[f"serve_{arch}_tp_mesh1"] = one[3]
+        del served, base, one
+        free_device(torch)
+
+    build.build_all()                          # every library in place before spawning
+    tmp = tempfile.mkdtemp(prefix="tp_family_worlds_")
+    worlds = {}
+    for tp in TP_SERVE_WIDTHS:
+        t0 = time.perf_counter()
+        worlds[tp] = _tp_world(tp, tmp, "--tp-family-child", "families")
+        log(f"[tp={tp}] {tp} ranks served {len(TP_FAMILY_ARCHS)} models in "
+            f"{time.perf_counter() - t0:.1f} s (start included)")
+
+    # every rank's numbers first, so a failing gate still leaves them all
+    for arch in TP_FAMILY_ARCHS:
+        for tp, ranks in worlds.items():
+            for res in (r[arch] for r in ranks):
+                log(f"[{arch} tp={tp}] rank {res['rank']} ({res['mesh']}, rules "
+                    f"{res['rules']}, pools {res['pools']}): {res['steps']} steps, "
+                    f"{res['tokens_per_s']:.1f} tokens/s in {res['wall_s']:.2f} s, "
+                    f"programs {res['sizes']} (at admission {res['admission']}, captures "
+                    f"{res['captures']}), launches {res['launches']}; params "
+                    f"{res['param_gb']:.3f} GB drawn in {res['init_s']:.1f} s (peak "
+                    f"{res['init_peak_gb']:.2f} GB), pools {res['pool_gb']:.3f} GB, peak "
+                    f"{res['peak_gb']:.2f} GB against shards + one f32 full leaf "
+                    f"{res['param_gb'] + res['leaf_gb']:.2f} GB")
+    for arch in TP_FAMILY_ARCHS:
+        cfg = get_config(arch)
+        ref = eager[arch][0]
+        to_check = {}
+        for tp, ranks in worlds.items():
+            ranks = [res[arch] for res in ranks]
+            for res in ranks[1:]:
+                if res["streams"] != ranks[0]["streams"]:
+                    raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}'s streams "
+                                         "differ from rank 0's")
+            for res in ranks:
+                if (res["sizes"] != [1, 1] or res["admission"] != [0, 0]
+                        or res["captures"] != 0 or not res["drained"]):
+                    raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}: programs "
+                                         f"{res['sizes']}, admission {res['admission']}, "
+                                         f"captures {res['captures']}, drained "
+                                         f"{res['drained']}")
+                # the same host logic on the same requests: the same steps
+                # at the same shapes as the tp = 1 eager run
+                want = {k: eager[arch][3][k] for k in res["launches"]}
+                if res["launches"] != want:
+                    raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}: launches "
+                                         f"{res['launches']}, tp = 1 eager {want}")
+                if res["peak_gb"] > res["param_gb"] + res["leaf_gb"]:
+                    raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}: peak "
+                                         f"{res['peak_gb']:.2f} GB > shards + one full "
+                                         "leaf")
+                paths[f"serve_{arch}_tp{tp}_rank{res['rank']}"] = res["launches"]
+            out = {int(k): v for k, v in ranks[0]["streams"].items()}
+            if sorted(out) != sorted(ref) or any(
+                    len(v) != SERVE_RUNTIME["max_new_tokens"] for v in out.values()):
+                raise AssertionError(f"[{arch} tp={tp}] requests {sorted(out)} unfinished")
+            same = sum(out[r] == ref[r] for r in ref)
+            log(f"[{arch} tp={tp}] streams equal on every rank; {same}/{len(ref)} "
+                f"identical to the tp=1 eager run's, first divergence "
+                f"{_first_divergence(ref, out)}")
+            to_check[tp] = out
+        served = _family_setup(torch, cfg)
+        for tp, out in to_check.items():
+            forced_check(torch, f"{arch} tp={tp}", served, PlanRouter(None), out)
+        del served
+        free_device(torch)
+    _phase_end("tp families", t_phase)
+    return paths
+
+
 def _log_device_profile(prof, wall_s, label, calls=None):
     """Device time by kernel over a traced run (torch.profiler, CUDA
     activity only), and the device's busy share of the run's wall time
@@ -5063,9 +5489,12 @@ def main() -> int:
                          "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 21")
+                         "skips phases 3 to 22")
     ap.add_argument("--tp-child", nargs=4, metavar=("RANK", "WORLD", "STORE", "OUT"),
                     help=argparse.SUPPRESS)      # one rank of phase 21 (b)
+    ap.add_argument("--tp-family-child", nargs=4,
+                    metavar=("RANK", "WORLD", "STORE", "OUT"),
+                    help=argparse.SUPPRESS)      # one rank of phase 22 (b)
     args = ap.parse_args()
 
     import torch
@@ -5088,10 +5517,11 @@ def main() -> int:
     # bf16 products in cuBLAS accumulate in f32 and round once, as the
     # JAX reference's vendor lane and the GEMM kernel do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    if args.tp_child:
-        rank, world, store, out = args.tp_child
-        tp_child(torch, int(rank), int(world), store, out)
-        return 0
+    for flag, child in ((args.tp_child, tp_child), (args.tp_family_child, tp_family_child)):
+        if flag:
+            rank, world, store, out = flag
+            child(torch, int(rank), int(world), store, out)
+            return 0
 
     t_phase = time.perf_counter()
     smi = phase_environment(torch)
@@ -5140,6 +5570,7 @@ def main() -> int:
     for arch in ("internlm2-20b", "starcoder2-15b"):
         check_sampling(torch, checks[7], get_config(arch).vocab)
     check_tp_shapes(torch, checks, get_config("qwen3-1.7b"), PREFILL_BLOCK_Q)
+    check_tp_family_shapes(torch, checks, PREFILL_BLOCK_Q)
     knob_paths = check_matmul_knobs(torch, checks[2], get_config("qwen3-1.7b"),
                                     get_config("mamba2-2.7b"))
     torch.cuda.synchronize()
@@ -5231,7 +5662,12 @@ def main() -> int:
     tp_paths = timed_phase(
         21, "tensor-parallel serving: tp_mesh(1) against no mesh, then tp = 2 / 4 as "
         "processes on the card", phase_tp_serving, torch, [c.fn for c in checks])
-    paths = {**knob_paths, **race_paths, **tp_paths, "serve_qwen3_1_7b": serve_launches,
+    free_device(torch)
+    family_tp_paths = timed_phase(
+        22, "tensor-parallel serving of qwen2-vl-2b, mamba2-2.7b and qwen2-moe-a2.7b: "
+        "tp_mesh(1) against no mesh, then tp = 2 / 4 as processes on the card",
+        phase_tp_families, torch, [c.fn for c in checks])
+    paths = {**knob_paths, **race_paths, **tp_paths, **family_tp_paths, "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
              **ssm_paths, **moe_paths, **granite_paths, **vlm_paths,
              **hybrid_paths, **encdec_paths, **long_paths, **internlm2_paths,

@@ -33,7 +33,8 @@ conv / SSM pools (L, rows, ...); `graph_ssm_unified_step`,
 `graph_ssm_decode_only_step` and `graph_ssm_commit_state` are their
 programs, one signature each.  Every row index and segment scalar is a
 program input, so admission, chunk progress, preemption and resume
-capture nothing.
+capture nothing.  Under tensor parallelism they run over the rank's
+shards and pools as the decoder's programs do, eagerly at tp > 1.
 
 `prefill_step` and `serve_step` (`make_prefill_step`, `make_serve_step`)
 are the fixed-batch engine's dense-cache steps.  They run eagerly: the
@@ -360,7 +361,8 @@ def ssm_unified_step(model, params, conv_pool: torch.Tensor,
                      ch_tokens, ch_state_idx, ch_seg_len, ch_seg_start,
                      dec_sampling, dec_keys, ch_sampling, ch_keys, *,
                      decode_matmul_table: Optional[MatmulTable] = None,
-                     chunk_matmul_table: Optional[MatmulTable] = None):
+                     chunk_matmul_table: Optional[MatmulTable] = None,
+                     tp: Optional[TensorParallel] = None):
     """-> (dec_next (slots,), ch_next (1,), ch_logits (1, V))
 
     The ssm step for steps that carry prompt work: one C-token prompt
@@ -370,12 +372,14 @@ def ssm_unified_step(model, params, conv_pool: torch.Tensor,
     slot (`dec_state_idx` maps slot -> pool row; idle and prefilling slots
     point at the null row).  The lanes touch disjoint rows.  ch_next is
     the segment's next-token draw, read by the host only when the segment
-    completes its prompt; ch_logits are what it was drawn from."""
-    with matmul_dispatch(chunk_matmul_table):
+    completes its prompt; ch_logits are what it was drawn from.  `tp`: the
+    rank's tensor-parallel context (its local parameters and pools; the
+    logits come out whole on every rank)."""
+    with tensor_parallel(tp), matmul_dispatch(chunk_matmul_table):
         ch_logits = model.prefill_chunk_slots(
             params, conv_pool, ssm_pool, ch_state_idx, ch_tokens, ch_seg_len,
             ch_seg_start)
-    with matmul_dispatch(decode_matmul_table):
+    with tensor_parallel(tp), matmul_dispatch(decode_matmul_table):
         logits = model.decode_step_slots(params, conv_pool, ssm_pool,
                                          dec_state_idx, dec_tokens)
     nxt = sample_tokens(logits[:, -1], dec_sampling, dec_keys)
@@ -386,9 +390,10 @@ def ssm_unified_step(model, params, conv_pool: torch.Tensor,
 def ssm_decode_only_step(model, params, conv_pool: torch.Tensor,
                          ssm_pool: torch.Tensor, dec_state_idx, dec_tokens,
                          dec_sampling, dec_keys, *,
-                         decode_matmul_table: Optional[MatmulTable] = None):
+                         decode_matmul_table: Optional[MatmulTable] = None,
+                         tp: Optional[TensorParallel] = None):
     """-> dec_next (slots,): the ssm unified step's decode lane alone."""
-    with matmul_dispatch(decode_matmul_table):
+    with tensor_parallel(tp), matmul_dispatch(decode_matmul_table):
         logits = model.decode_step_slots(params, conv_pool, ssm_pool,
                                          dec_state_idx, dec_tokens)
     return sample_tokens(logits[:, -1], dec_sampling, dec_keys)
@@ -408,7 +413,7 @@ def ssm_commit_state(conv_pool: torch.Tensor, ssm_pool: torch.Tensor,
 def graph_ssm_unified_step(model, device, *, graphed: bool = True, pool=None,
                            **lanes) -> Program:
     """The ssm unified step program (`decode_matmul_table`,
-    `chunk_matmul_table` fixed), called as `program((params, conv_pool,
+    `chunk_matmul_table`, `tp` fixed), called as `program((params, conv_pool,
     ssm_pool), (dec_state_idx, dec_tokens, ch_tokens, ch_state_idx,
     ch_seg_len, ch_seg_start, dec_sampling, dec_keys, ch_sampling,
     ch_keys))`."""
@@ -418,7 +423,8 @@ def graph_ssm_unified_step(model, device, *, graphed: bool = True, pool=None,
 
 def graph_ssm_decode_only_step(model, device, *, graphed: bool = True, pool=None,
                                **lanes) -> Program:
-    """The ssm decode-only program (`decode_matmul_table` fixed), called as
+    """The ssm decode-only program (`decode_matmul_table`, `tp` fixed),
+    called as
     `program((params, conv_pool, ssm_pool), (dec_state_idx, dec_tokens,
     dec_sampling, dec_keys))`."""
     return Program(functools.partial(ssm_decode_only_step, model, **lanes),

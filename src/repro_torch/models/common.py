@@ -30,7 +30,8 @@ def torch_dtype(name: str) -> torch.dtype:
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: Optional[float] = None) -> Params:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale
+    # scaled in place: one f32 copy of the weight, not two, while it is drawn
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device).mul_(scale)
     return {"w": w}
 
 
@@ -118,7 +119,7 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int) -> Params:
-    return {"emb": torch.randn((vocab, d), generator=gen, device=gen.device) * 0.01}
+    return {"emb": torch.randn((vocab, d), generator=gen, device=gen.device).mul_(0.01)}
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

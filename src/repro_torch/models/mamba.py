@@ -19,6 +19,22 @@ h' = exp(dt·A) h + dt · x ⊗ B.
 `mamba_logical_axes` names each parameter's logical axes, as the
 reference's does.
 
+Tensor parallelism over "ssm_heads" / "conv_dim" (the serving engine on a
+mesh; `zoo.MambaLM.tp_local_params` cuts the shards).  Two traps:
+
+  * in_proj's output is the concatenation [z | x | B | C | dt], not one
+    dimension: a contiguous 1/tp block of its columns would mix z, x and
+    dt.  A rank holds a head-aligned slice instead (`tp_columns`): z and
+    x of its heads, ALL of B and C (every head reads them) and dt of its
+    heads; the conv weights take its x channels and all of B and C.  The
+    layer then computes `tp_dims` (d_in / tp, nh / tp, d_in / tp + 2n);
+  * the gated RMSNorm spans all of d_in (its scale's axis is replicated,
+    so the reference's norm reduces across the heads): the rank's gated
+    activations are all-gathered over the heads (exact) and normalised
+    at full width, as on one device.  Where "conv_dim" is split, out_proj
+    then runs on the rank's K slice of them and the partial outputs are
+    summed over the ranks; otherwise it is the whole product.
+
 Softplus is `jax.nn.softplus` as JAX computes it, logaddexp(x, 0) =
 max(x, 0) + log1p(exp(-|x|)), with no threshold branch: the dt of a padded
 row is forced to 0.0 after it (`mamba_chunk_forward`), which is what makes
@@ -27,6 +43,7 @@ a chunked prompt equal the whole-prompt prefill.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -34,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import current
 from repro_torch.models.common import Params, dense, dense_init, norm_init, rms_norm
 
 
@@ -42,6 +60,34 @@ def _dims(cfg: ModelConfig):
     nheads = d_in // cfg.ssm_head_dim
     conv_dim = d_in + 2 * cfg.ssm_state
     return d_in, nheads, conv_dim
+
+
+def tp_dims(cfg: ModelConfig, tp=None):
+    """(d_in, nheads, conv channels) one rank computes: the whole layer's
+    with no `tp` (a `distributed.collectives.TensorParallel`) or where it
+    does not split "ssm_heads"; else its heads' d_in / tp and nh / tp, and
+    its conv channels, its x channels plus all of B and C: d_in / tp + 2n
+    (not conv_dim / tp)."""
+    d_in, nh, conv_dim = _dims(cfg)
+    if tp is None or not tp.sharded("ssm_heads"):
+        return d_in, nh, conv_dim
+    return d_in // tp.size, nh // tp.size, d_in // tp.size + 2 * cfg.ssm_state
+
+
+def tp_columns(cfg: ModelConfig, rank: int, size: int, device=None):
+    """The head-aligned slice of rank `rank` of `size` (see the module
+    docstring): (in_proj's output columns [z_r | x_r | B | C | dt_r],
+    the conv channels [x_r | B | C]), as index tensors."""
+    d_in, nh, _ = _dims(cfg)
+    n = cfg.ssm_state
+    dl, hl = d_in // size, nh // size
+    ar = functools.partial(torch.arange, device=device)
+    z = ar(rank * dl, (rank + 1) * dl)
+    bc = ar(2 * d_in, 2 * d_in + 2 * n)
+    dt = ar(2 * d_in + 2 * n + rank * hl, 2 * d_in + 2 * n + (rank + 1) * hl)
+    cols = torch.cat([z, d_in + z, bc, dt])
+    chans = torch.cat([z, ar(d_in, d_in + 2 * n)])
+    return cols, chans
 
 
 def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -84,7 +130,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    d_in, _, _ = _dims(cfg)
+    d_in, _, _ = tp_dims(cfg, current())
     n = cfg.ssm_state
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in:2 * d_in + 2 * n]
@@ -174,7 +220,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
 
 
 def _ssd_inputs(p: Params, cfg: ModelConfig, xbc: torch.Tensor):
-    d_in, nh, _ = _dims(cfg)
+    d_in, nh, _ = tp_dims(cfg, current())
     n, hd = cfg.ssm_state, cfg.ssm_head_dim
     b, s, _ = xbc.shape
     xs = xbc[..., :d_in].reshape(b, s, nh, hd)
@@ -186,12 +232,19 @@ def _ssd_inputs(p: Params, cfg: ModelConfig, xbc: torch.Tensor):
 
 def _gated_out(p: Params, cfg: ModelConfig, y: torch.Tensor, xs: torch.Tensor,
                z: torch.Tensor, dtype: torch.dtype, role) -> torch.Tensor:
-    """y + D·x, the gated RMSNorm and the output projection."""
-    d_in, _, _ = _dims(cfg)
+    """y + D·x, the gated RMSNorm over all of d_in and the output
+    projection (under tensor parallelism: see the module docstring)."""
     b, s = z.shape[:2]
     y = y + xs.float() * p["D"].float()[:, None]
-    y = y.reshape(b, s, d_in).to(dtype)
-    y = rms_norm(p["norm"], y * F.silu(z))
+    y = y.reshape(b, s, -1).to(dtype) * F.silu(z)
+    tp = current()
+    if tp is not None and tp.sharded("ssm_heads"):
+        y = tp.all_gather(y, -1)
+    y = rms_norm(p["norm"], y)
+    if tp is not None and tp.sharded("conv_dim"):
+        k = y.shape[-1] // tp.size
+        y = y[..., tp.rank * k:(tp.rank + 1) * k].contiguous()
+        return tp.all_reduce(dense(p["out_proj"], y, role=role))
     return dense(p["out_proj"], y, role=role)
 
 
@@ -258,7 +311,7 @@ def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  conv_cache: torch.Tensor, h: torch.Tensor):
     """One token.  x (B, 1, d); conv_cache (B, W-1, conv_dim); h (B, nh,
     hd, n) -> (y (B, 1, d), new conv_cache f32, new h f32)."""
-    d_in, nh, _ = _dims(cfg)
+    d_in, nh, _ = tp_dims(cfg, current())
     n, hd = cfg.ssm_state, cfg.ssm_head_dim
     b = x.shape[0]
     zxbcdt = dense(p["in_proj"], x, role="in_proj")

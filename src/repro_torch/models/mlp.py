@@ -8,6 +8,15 @@ in `t * k + j` order, pairs at or past the capacity are dropped (they add
 exactly zero), and every expert runs on a fixed (capacity, d) buffer.
 Every shape is a function of the input's shape alone and nothing is read
 back to the host, so the layer is capturable in a CUDA graph.
+
+Under tensor parallelism "experts" is split over the model axis (expert
+parallelism, the reference's `experts -> model`): the router is
+replicated, so every rank routes the whole batch the same way, fills the
+capacity buffers of its own E / tp experts, runs their products and
+all-gathers the experts' outputs, concatenated in rank order, before the
+gather and the combine over the k choices.  The combine's sum is then the
+one-device sum; summing per-rank partial outputs instead would
+reassociate it.
 """
 
 from __future__ import annotations
@@ -18,7 +27,7 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import reduce_if_sharded
+from repro_torch.distributed.collectives import current, reduce_if_sharded
 from repro_torch.kernels.ref import apply_activation
 from repro_torch.models.common import Params, dense, dense_init
 
@@ -61,9 +70,9 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     scale = 1.0 / math.sqrt(d)
     p: Params = {
         "router": dense_init(gen, d, e),
-        "w_in": torch.randn((e, d, f), generator=gen, device=dev) * scale,
-        "w_gate": torch.randn((e, d, f), generator=gen, device=dev) * scale,
-        "w_out": torch.randn((e, f, d), generator=gen, device=dev) / math.sqrt(f),
+        "w_in": torch.randn((e, d, f), generator=gen, device=dev).mul_(scale),
+        "w_gate": torch.randn((e, d, f), generator=gen, device=dev).mul_(scale),
+        "w_out": torch.randn((e, f, d), generator=gen, device=dev).div_(math.sqrt(f)),
     }
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(gen, d, cfg.n_shared_experts * f)
@@ -121,28 +130,42 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     the whole batch is one group.  Expert products are batched matmuls
     over (E, B * capacity, d) buffers in x's dtype (the reference runs
     them as einsums outside any kernel); the shared experts go through
-    `mlp_apply`, so a plan's mlp_up / mlp_down lanes run them."""
+    `mlp_apply`, so a plan's mlp_up / mlp_down lanes run them.  Where
+    "experts" is split over a tensor-parallel axis, p's expert stacks are
+    the rank's E / tp experts (see the module docstring)."""
     b, s, d = x.shape
     squeeze = s == 1
     if squeeze:
         x = x.reshape(1, b, d)
         b, s = 1, b
-    e, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
     cap = moe_capacity(cfg, s)
     flat_i, pos, weights = moe_route(p, cfg, x)
     keep = pos < cap
 
+    # the rank's experts [lo, lo + e): all of them on one device
+    tp = current()
+    ep = tp is not None and tp.sharded("experts")
+    e = p["w_in"].shape[0]
+    lo = tp.rank * e if ep else 0
+    local = (flat_i >= lo) & (flat_i < lo + e)
+
     # scatter each kept pair's token into its expert's queue; a dropped
-    # pair is written to a spare row past the capacity, which is cut off
+    # pair (or another rank's) is written to a spare row past the
+    # capacity (of a spare expert), which is cut off
     rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    buf = x.new_zeros((b, e, cap + 1, d))
-    buf[rows, flat_i, torch.where(keep, pos, cap)] = x.repeat_interleave(k, dim=1)
-    xin = buf[:, :, :cap].transpose(0, 1).reshape(e, b * cap, d)
+    buf = x.new_zeros((b, e + 1, cap + 1, d))
+    buf[rows, torch.where(local, flat_i - lo, e), torch.where(keep, pos, cap)] = \
+        x.repeat_interleave(k, dim=1)
+    xin = buf[:, :e, :cap].transpose(0, 1).reshape(e, b * cap, d)
 
     h = torch.bmm(xin, p["w_in"].to(x.dtype))
     g = torch.bmm(xin, p["w_gate"].to(x.dtype))
     h = apply_activation(g, act) * h
-    y = torch.bmm(h, p["w_out"].to(x.dtype)).reshape(e, b, cap, d).transpose(0, 1)
+    y = torch.bmm(h, p["w_out"].to(x.dtype)).reshape(e, b, cap, d)
+    if ep:
+        y = tp.all_gather(y, 0)                          # (E, B, cap, d), exact
+    y = y.transpose(0, 1)
 
     out_tk = y[rows, flat_i, pos.clamp(max=cap - 1)]     # (B, T, d)
     out_tk = out_tk * (weights * keep.to(x.dtype))[..., None]

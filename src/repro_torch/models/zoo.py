@@ -34,8 +34,9 @@ fixed-batch cache (`cache_logical_axes`); `DecoderLM` also of its paged
 pools (`paged_cache_logical_axes`) and `MambaLM` of its slot pools
 (`slot_state_logical_axes`), the reference's trees entry for entry.  The
 `distributed.sharding` rules turn them into placements, and
-`DecoderLM.tp_local_params` into one rank's shards for tensor-parallel
-serving.
+`DecoderLM.tp_local_params` / `MambaLM.tp_local_params` into one rank's
+shards for tensor-parallel serving (`init_serving(..., tp=)` draws the
+model straight into them).
 
 The vision patches and audio frames are stubs, as in the reference: the
 batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
@@ -53,7 +54,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import local_params, map_axes
+from repro_torch.distributed.sharding import local_params, local_shard, map_axes
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
@@ -218,31 +219,45 @@ class _StackedLM:
             "lm_head": dense_init(generator, cfg.d_model, cfg.vocab),
         }
 
-    def init_serving(self, generator: torch.Generator, device=None) -> Params:
+    def init_serving(self, generator: torch.Generator, device=None,
+                     tp=None) -> Params:
         """`serving_params(init(generator), device)`, bit for bit (the same
         draws in the same order, each cast as `serving_params` casts it),
         without the f32 model: each layer is drawn in f32 on
         `generator.device`, cast, and written into its row of (L, ...)
         stacks preallocated on `device` (default: the generator's) before
         the next is drawn.  Peak memory is the served model plus one f32
-        layer and the f32 embedding or LM head."""
+        layer and the f32 embedding or LM head.
+
+        With `tp` (a `distributed.collectives.TensorParallel`), the rank's
+        shards of those parameters, `tp_local_params(init_serving(...))`
+        bit for bit: each part is cut to the rank's blocks as soon as it is
+        drawn, so the rank holds its shards plus one f32 layer (or the f32
+        embedding or LM head) and its f32 shard, never the whole model."""
         cfg = self.cfg
         device = generator.device if device is None else device
-        emb = self.serving_params(
-            {"embed": embed_init(generator, cfg.vocab, cfg.d_model)}, device)
+
+        def draw(tree):
+            # cut in f32, then cast: the same bits as the cast cut
+            if tp is not None:
+                tree = self.tp_local_params(tree, tp)
+            return self.serving_params(tree, device)
+
+        emb = draw({"embed": embed_init(generator, cfg.vocab, cfg.d_model)})
         blocks = None
         for i in range(cfg.n_layers):
-            layer = self.serving_params(self._block_init(generator), device)
+            layer = tree_map(lambda t: t[0], draw(
+                {"blocks": tree_map(lambda t: t[None], self._block_init(generator))}
+            )["blocks"])
             if blocks is None:
                 blocks = tree_map(lambda t: torch.empty((cfg.n_layers, *t.shape),
                                                         dtype=t.dtype, device=device),
                                   layer)
             _copy_into(blocks, layer, i)
             del layer
-        shared = self.serving_params(self._shared_init(generator), device)
-        rest = self.serving_params(
-            {"final_norm": _norm_init(cfg, cfg.d_model, generator.device),
-             "lm_head": dense_init(generator, cfg.d_model, cfg.vocab)}, device)
+        shared = draw(self._shared_init(generator))
+        rest = draw({"final_norm": _norm_init(cfg, cfg.d_model, generator.device),
+                     "lm_head": dense_init(generator, cfg.d_model, cfg.vocab)})
         return {**emb, "blocks": blocks, **shared, **rest}
 
     def serving_params(self, params: Params, device) -> Params:
@@ -263,6 +278,23 @@ class _StackedLM:
 
     def _layers(self, params: Params):
         return unbind_layers(params["blocks"])
+
+    # ------------------------------------------------ tensor parallelism
+    def _tp_split(self, params: Params, rules, tp) -> Params:
+        """`distributed.sharding.local_params` of `params` (the whole tree
+        or some of its top-level subtrees) under `rules`, for the rank of
+        `tp`."""
+        axes = {k: v for k, v in self.logical_axes().items() if k in params}
+        return local_params(params, axes, rules, {"model": tp.size},
+                            {"model": tp.rank})
+
+    def tp_local_params(self, params: Params, tp) -> Params:
+        """The rank's shards of the serving parameters (`DecoderLM` and
+        `MambaLM`).  The fixed-batch families take no mesh."""
+        raise NotImplementedError(
+            f"tensor-parallel serving of the {self.cfg.family} family is not ported "
+            "yet: FixedBatchEngine / ServeEngine on a mesh, ROADMAP.md queue 1, "
+            "item 8b-iii")
 
     # ------------------------------------------------------------ training
     # each family's `hidden` gives the final-normed states (B, S, d)
@@ -476,21 +508,29 @@ class DecoderLM(_StackedLM):
         return A.tp_kv_heads(self.cfg, tp.rules, tp.rank, tp.size)
 
     def tp_local_params(self, params: Params, tp) -> Params:
-        """The rank's shards of the serving parameters, plain tensors on
-        their device: every leaf split by `tp.rules` over its logical axes
-        (`distributed.sharding.local_params`); where "heads" is split and
-        "kv_heads" is not, wk / wv keep only the KV heads the rank's query
-        heads read (`tp_kv_heads`).  The dense family only: the MoE's
-        expert parallelism and the vlm on a mesh are not ported."""
-        if self.cfg.family != "dense":
-            raise NotImplementedError(
-                f"tensor-parallel serving of the {self.cfg.family} family is not "
-                "ported yet: ROADMAP.md queue 1, item 8b-ii")
-        local = local_params(params, self.logical_axes(), tp.rules,
-                             {"model": tp.size}, {"model": tp.rank})
-        if tp.sharded("heads") and not tp.sharded("kv_heads"):
+        """The rank's shards of the serving parameters (the whole tree or
+        some of its top-level subtrees), plain tensors on their device:
+        every leaf split by `tp.rules` over its logical axes
+        (`distributed.sharding.local_params`): the MoE's expert stacks on
+        E (expert parallelism), its shared expert as an MLP on "ffn";
+        where "heads" is split and "kv_heads" is not (the vlm's 2 KV
+        heads at tp = 4), wk / wv keep only the KV heads the rank's query
+        heads read (`tp_kv_heads`).  Where "experts" is split but
+        n_experts does not divide the axis, raises ValueError, as the
+        reference's engine does when it places such a stack."""
+        cfg = self.cfg
+        if cfg.family == "moe":
+            if tp.sharded("experts") and cfg.n_experts % tp.size:
+                raise ValueError(
+                    f"'experts' is split over the model axis but n_experts "
+                    f"{cfg.n_experts} does not divide its {tp.size} ranks")
+            if tp.sharded("expert_ffn"):
+                raise ValueError("'expert_ffn' split over the model axis (TP "
+                                 "inside the experts) is not ported")
+        local = self._tp_split(params, tp.rules, tp)
+        if "blocks" in local and tp.sharded("heads") and not tp.sharded("kv_heads"):
             first, n = self.tp_kv_heads(tp)
-            hd = self.cfg.hd
+            hd = cfg.hd
             attn = local["blocks"]["attn"]
             for name in ("wk", "wv"):
                 attn[name]["w"] = attn[name]["w"][..., first * hd:(first + n) * hd].contiguous()
@@ -648,9 +688,35 @@ class MambaLM(_StackedLM):
     @staticmethod
     def slot_state_logical_axes() -> Dict[str, Any]:
         """Logical axes of the slot pools conv (L, rows, W-1, conv_dim) and
-        ssm (L, rows, nh, hd, n): pool rows replicated."""
+        ssm (L, rows, nh, hd, n): pool rows replicated.  Under tensor
+        parallelism a rank's conv pool holds its own channels,
+        `mamba.tp_dims`: not a contiguous 1/tp block of conv_dim."""
         return {"conv": ("layers", None, None, "conv_dim"),
                 "ssm": ("layers", None, "ssm_heads", None, "ssm_state")}
+
+    def tp_local_params(self, params: Params, tp) -> Params:
+        """The rank's shards of the serving parameters (the whole tree or
+        some of its top-level subtrees): the embedding and LM head, A_log,
+        D and dt_bias as `distributed.sharding.local_params` cuts them;
+        where "ssm_heads" is split, in_proj's columns and the conv weights'
+        channels head-aligned (`mamba.tp_columns`), not the contiguous
+        block their "conv_dim" axis names; where "conv_dim" is split,
+        out_proj's d_in rows in contiguous blocks (the rank's heads' rows
+        when "ssm_heads" is split too)."""
+        local = self._tp_split(params, tp.rules.replace(conv_dim=None), tp)
+        if "blocks" not in params:
+            return local
+        whole, mp = params["blocks"]["mamba"], local["blocks"]["mamba"]
+        if tp.sharded("ssm_heads"):
+            cols, chans = M.tp_columns(self.cfg, tp.rank, tp.size,
+                                       whole["conv_w"].device)
+            mp["in_proj"] = {"w": whole["in_proj"]["w"].index_select(-1, cols)}
+            mp["conv_w"] = whole["conv_w"].index_select(-1, chans)
+            mp["conv_b"] = whole["conv_b"].index_select(-1, chans)
+        if tp.sharded("conv_dim"):
+            mp["out_proj"] = {"w": local_shard(whole["out_proj"]["w"], (None, "model"),
+                                               {"model": tp.size}, {"model": tp.rank})}
+        return local
 
 
 # ===================================================================== Zamba2

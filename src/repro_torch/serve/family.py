@@ -23,7 +23,9 @@ request's row is claimed when its first prompt chunk dispatches — so a
 state pool smaller than the slot count drives the engine's preemption
 path.  Its three programs (`steps.graph_ssm_unified_step`,
 `graph_ssm_decode_only_step`, `graph_ssm_commit_state`) are captured and
-replayed like the decoder's.
+replayed like the decoder's.  Given `tp`, its pools hold the rank's
+state widths (`models.mamba.tp_dims`) and the programs run the rank's
+shards eagerly, as the decoder's do.
 """
 
 from __future__ import annotations
@@ -275,7 +277,8 @@ class SSMFamilyAdapter:
 
     family = "ssm"
 
-    def __init__(self, model, cfg, router: PlanRouter, device: torch.device):
+    def __init__(self, model, cfg, router: PlanRouter, device: torch.device,
+                 tp: Optional[TensorParallel] = None):
         mcfg = model.cfg
         self.model = model
         self.device = device
@@ -286,19 +289,22 @@ class SSMFamilyAdapter:
         # several swap-ins although the chunk lane packs one segment
         self.resume_segments = max(1, cfg.chunk_segments)
         self.state_cfg = cfg.state_config()
-        self.cache = SlotStateCache.for_model(self.state_cfg, mcfg, device=device)
+        # born sharded: the rank's pools hold its heads' state
+        self.cache = SlotStateCache.for_model(self.state_cfg, mcfg, device=device,
+                                              tp=tp)
         chunk_stage, decode_stage = "ssm_prefill_chunk", "ssm_decode"
         assert chunk_stage in serve_stages(self.family)
         self._decode_kw = dict(decode_matmul_table=router.matmul_table(decode_stage))
         self._chunk_kw = dict(chunk_matmul_table=router.matmul_table(chunk_stage))
-        pool = _graph_pool(cfg, device)
+        graphed = cfg.cuda_graphs and tp is None
+        pool = _graph_pool(cfg, device) if graphed else None
         self._unified = steps.graph_ssm_unified_step(
-            model, device, graphed=cfg.cuda_graphs, pool=pool,
+            model, device, graphed=graphed, pool=pool, tp=tp,
             **self._decode_kw, **self._chunk_kw)
         self._decode_only = steps.graph_ssm_decode_only_step(
-            model, device, graphed=cfg.cuda_graphs, pool=pool, **self._decode_kw)
+            model, device, graphed=graphed, pool=pool, tp=tp, **self._decode_kw)
         self._commit = steps.graph_ssm_commit_state(
-            device, graphed=cfg.cuda_graphs, pool=pool)
+            device, graphed=graphed, pool=pool)
         # the commit program's inputs, (resume_segments, L, ...) device
         # buffers allocated at the first commit and filled in place (one
         # request's rows contiguous), bound as (L, resume_segments, ...)

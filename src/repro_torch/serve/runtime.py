@@ -37,12 +37,18 @@ layout verdicts and the mesh's divisibility guards into the rules
 (`PlanRouter.serve_rules`).  With no mesh, or a 1-wide model axis, the
 engine is the single-device engine.  On a wider model axis (`tp_mesh(tp)`
 in a world of tp ranks, each running the same engine on the same
-requests) every rank serves from its own parameter shards and KV heads
-(`DecoderLM.tp_local_params`), runs its steps eagerly and exchanges
-partial sums and logits through `distributed.collectives`: every rank
-runs the same host logic on the same inputs and draws the same tokens.
-The dense decoder family only (ROADMAP.md queue 1, item 8b-ii for the
-rest).  The
+requests) every rank serves from its own parameter shards and state
+(`DecoderLM.tp_local_params`: heads, KV heads, FFN, vocabulary and the
+MoE's experts; `MambaLM.tp_local_params`: SSM heads and conv channels),
+runs its steps eagerly and exchanges partial sums, gathered activations
+and logits through `distributed.collectives`: every rank runs the same
+host logic on the same inputs and draws the same tokens.  The dense, moe,
+vlm and ssm families (TP_FAMILIES); the families only the fixed-batch
+loop serves take no mesh (ROADMAP.md queue 1, item 8b-iii).  `params` may
+be a function of the rank's `TensorParallel` (None with no model axis)
+that gives the rank's serving parameters, e.g. `lambda tp:
+model.init_serving(gen, tp=tp)`: a model too large for one card then
+never exists whole on any rank.  The
 plan (`PlanRouter`) picks each lane's attention backend and matmul table:
 with no plan every lane is the torch lane; a plan whose choices name the
 kernels sends attention through the paged CUDA kernels and the
@@ -125,6 +131,10 @@ class RuntimeConfig:
         return StateCacheConfig(num_slots=ns)
 
 
+# the families ContinuousEngine serves on a mesh
+TP_FAMILIES = ("dense", "moe", "vlm", "ssm")
+
+
 class ContinuousEngine:
     """Slot-based continuous-batching engine over a family state cache."""
 
@@ -147,6 +157,11 @@ class ContinuousEngine:
         self.trace = trace if trace is not None else NULL_RECORDER
         if self.trace.enabled and self.trace.now_fn is None:
             self.trace.now_fn = self.now_fn
+        if mesh is not None and model.cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(
+                f"tensor-parallel serving of the {model.cfg.family} family is not "
+                "ported yet: it is served by FixedBatchEngine / ServeEngine only, "
+                "ROADMAP.md queue 1, item 8b-iii")
         adapter_cls = resolve_family_adapter(model)
         # the rules the router's layout verdicts and the mesh's divisibility
         # guards leave (`PlanRouter.serve_rules`: the base rules themselves
@@ -162,16 +177,13 @@ class ContinuousEngine:
             sizes = axis_sizes(mesh)
             self.mesh_tag = f"{sizes.get('data', 1)}x{sizes.get('model', 1)}"
             self.tp = TensorParallel.from_mesh(mesh, prune_for_mesh(self.rules, mesh))
-        if self.tp is not None and adapter_cls.family != "decoder":
-            raise NotImplementedError(
-                f"tensor-parallel serving of the {adapter_cls.family} family is "
-                "not ported yet: ROADMAP.md queue 1, item 8b-ii")
-        self.params = model.serving_params(params, self.device)
-        if self.tp is not None:
-            self.params = model.tp_local_params(self.params, self.tp)
-            self.adapter = adapter_cls(model, cfg, self.router, self.device, self.tp)
+        if callable(params):
+            self.params = model.serving_params(params(self.tp), self.device)
         else:
-            self.adapter = adapter_cls(model, cfg, self.router, self.device)
+            self.params = model.serving_params(params, self.device)
+            if self.tp is not None:
+                self.params = model.tp_local_params(self.params, self.tp)
+        self.adapter = adapter_cls(model, cfg, self.router, self.device, self.tp)
         self.family = self.adapter.family
         self.adapter.alloc.trace = self.trace
         self.scheduler = ContinuousScheduler(

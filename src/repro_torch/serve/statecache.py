@@ -166,9 +166,13 @@ class SlotStateCache:
 
     @classmethod
     def for_model(cls, cfg: StateCacheConfig, model_cfg,
-                  device: DeviceLike = None) -> "SlotStateCache":
-        from repro_torch.models.mamba import _dims
-        _, nh, conv_dim = _dims(model_cfg)
+                  device: DeviceLike = None, tp=None) -> "SlotStateCache":
+        """The pools of a Mamba2 model; under tensor parallelism (`tp`, a
+        `distributed.collectives.TensorParallel`) the rank's widths,
+        `models.mamba.tp_dims`: conv (L, rows, W-1, d_in / tp + 2n) and
+        ssm (L, rows, nh / tp, hd, n)."""
+        from repro_torch.models.mamba import tp_dims
+        _, nh, conv_dim = tp_dims(model_cfg, tp)
         return cls(cfg, model_cfg.n_layers, model_cfg.conv_width, conv_dim, nh,
                    model_cfg.ssm_head_dim, model_cfg.ssm_state, device=device)
 

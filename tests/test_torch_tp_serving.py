@@ -77,6 +77,7 @@ from repro_torch.core.selection import op_desc_of, select
 from repro_torch.distributed import DEFAULT_RULES
 from repro_torch.kernels.dispatch import MATMUL_ROLES
 from repro_torch.models import DecoderLM
+from repro_torch.models import build_model as port_build_model
 from repro_torch.models import attention as port_attention
 from repro_torch.models import common as port_common
 from repro_torch.models import mlp as port_mlp
@@ -416,9 +417,11 @@ def test_tp_local_params_are_the_blocks_each_rank_holds():
                        params["blocks"]["mlp"]["w_out"]["w"])
     assert all(torch.equal(s["final_norm"]["scale"], params["final_norm"]["scale"])
                for s in shards)
-    moe = DecoderLM(get_config("qwen2-moe-a2.7b").reduced(n_layers=1))
-    with pytest.raises(NotImplementedError, match="8b-ii"):
-        moe.tp_local_params({}, _TP(rules, 0, 4))
+    # the moe and vlm shard too (tests/test_torch_tp_families.py); the
+    # families only the fixed-batch loop serves take no mesh
+    hybrid = port_build_model(get_config("zamba2-1.2b").reduced(n_layers=2))
+    with pytest.raises(NotImplementedError, match="8b-iii"):
+        hybrid.tp_local_params({}, _TP(rules, 0, 4))
 
 
 # ------------------------------------------- the cross-mesh differential
@@ -553,13 +556,13 @@ _CHILD = textwrap.dedent("""
 """)
 
 
-def _worlds(tmp, job, meanwhile, widths=(1, 2, 4)):
-    """Run the child in gloo worlds of each width side by side, and
-    `meanwhile()` here while they run; -> ({width: [each rank's JSON]},
-    meanwhile's result).  A child that fails or outlives CHILD_TIMEOUT_S
-    fails the test (every child is killed first)."""
+def _worlds(tmp, job, meanwhile, widths=(1, 2, 4), child=_CHILD):
+    """Run the `child` script in gloo worlds of each width side by side,
+    and `meanwhile()` here while they run; -> ({width: [each rank's
+    JSON]}, meanwhile's result).  A child that fails or outlives
+    CHILD_TIMEOUT_S fails the test (every child is killed first)."""
     script = tmp / "child.py"
-    script.write_text(_CHILD)
+    script.write_text(child)
     job_path = tmp / "job.json"
     job_path.write_text(json.dumps(job))
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
