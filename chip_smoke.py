@@ -327,15 +327,28 @@ each with its seconds logged:
      argmax (phase 2 first holds paged decode / prefill at the MoE's and
      the vlm's rank heads and the GEMM at the three models' shard shapes,
      tp = 2 / 4);
- 23. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 23. the fixed-batch loop on a mesh: zamba2-1.2b (38 layers) and
+     whisper-base (1500 audio frames) at full size, one batch of 4 prompts
+     each through `FixedBatchEngine` under the guarded rules (whisper's
+     odd vocabulary splits the LM head's rows): (a) no mesh and
+     `tp_mesh(1)` bitwise equal (streams, first-token logits, launches);
+     (b) tp = 2 and 4 as gloo worlds of processes on the card
+     (`--tp-fixed-child`), each rank serving both models, each drawn from
+     the seed straight into the rank's shards: streams equal on every
+     rank, draw-kernel launches equal to tp = 1's, each rank's peak within
+     its shards + its caches + the larger of one full leaf in f32 and the
+     tp = 1 run's activations; (c) every stream
+     replayed teacher-forced through the tp = 1 loop, each token with a
+     top-2 margin > 0.25 its argmax;
+ 24. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8, 10 and 20, their
      serving runs, the decode wrapper's call, the fixed-batch runs of
-     phases 11-13, where only the draw kernel runs, the 32k engine run of
-     phase 16, the serving runs of phases 17-18, 21 and 22, each rank's
-     its own path; a replayed CUDA graph counts the launches it captured),
-     error and times;
- 24. the last line `{"ok": true, "device": {...}}`.
+     phases 11-13 and 23, where only the draw kernel runs, the 32k engine
+     run of phase 16, the serving runs of phases 17-18, 21 and 22, each
+     rank's its own path; a replayed CUDA graph counts the launches it
+     captured), error and times;
+ 25. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -3457,10 +3470,11 @@ def family_setup(torch, cfg):
 
 
 def fixed_serve(torch, model, params, prompts, label, max_seq, extras=None,
-                loop=False):
+                loop=False, mesh=None, rules=None):
     """Serve `prompts` through `ServeEngine`, which must route them to the
     fixed-batch loop (the family has no paged path, or extras ride along),
-    or with `loop` through `FixedBatchEngine` itself; batches of
+    or with `loop` through `FixedBatchEngine` itself (on `mesh` under
+    `rules` where given); batches of
     FIXED_BATCH, left-padded, 32 new tokens.  Every request must finish
     with in-vocabulary tokens and finite first-token logits.
     -> ({rid: tokens}, {rid: first-token logits, f32 on the host},
@@ -3471,7 +3485,8 @@ def fixed_serve(torch, model, params, prompts, label, max_seq, extras=None,
     scfg = ServeConfig(batch_size=FIXED_BATCH, max_seq=max_seq,
                        max_new_tokens=SERVE_RUNTIME["max_new_tokens"])
     if loop:
-        eng = FixedBatchEngine(model, params, scfg, device=DEVICE)
+        eng = FixedBatchEngine(model, params, scfg, extras, device=DEVICE, mesh=mesh,
+                               rules=rules)
     else:
         eng = ServeEngine(model, params, scfg, extras=extras, device=DEVICE)
         if not isinstance(eng._engine, FixedBatchEngine):
@@ -3513,30 +3528,20 @@ def fixed_serve(torch, model, params, prompts, label, max_seq, extras=None,
     return out, first, tps, st["prefill_s"]
 
 
-def f32_check(torch, label, model, params, prompts, max_seq, out, first,
-              extras=None):
-    """The bf16 fixed-batch run `out` (greedy) against the same parameters
-    cast up to f32 (only the arithmetic differs), teacher-forced: each
-    batch's prompts left-padded as the loop pads them, then the bf16 run's
-    own tokens.  Every token the bf16 run drew — its first tokens and
-    each decode step's — must be the f32 twin's argmax on the same history
-    wherever the twin's top-2 margin exceeds FIRST_TOKEN_MARGIN (the
-    random models' margins are often smaller; a run where no token has
-    one fails).  -> the max |logit difference| at the first tokens."""
-    import dataclasses
-
+def teacher_forced_rows(torch, model, params, prompts, max_seq, out, extras=None):
+    """The fixed-batch loop's logit rows on its own greedy tokens `out`
+    ({rid: tokens}), teacher-forced: each batch of FIXED_BATCH prompts
+    left-padded as the loop pads them, then each decode step fed the
+    tokens `out` drew.  -> [(rid, token index, f32 logit row on the
+    host)], batch by batch, step by step."""
     import numpy as np
 
     from repro_torch.launch import steps
 
-    twin = type(model)(dataclasses.replace(model.cfg, dtype="float32"))
-    tparams = twin.serving_params(params, DEVICE)
     ex = {k: torch.as_tensor(v, device=DEVICE).expand(FIXED_BATCH, *v.shape)
           for k, v in (extras or {}).items()}
     n_new = SERVE_RUNTIME["max_new_tokens"]
-    firsts = tokens = n_first = n_all = 0
-    max_err = 0.0
-    t0 = time.perf_counter()
+    rows = []
     for b0 in range(0, len(prompts), FIXED_BATCH):
         batch = prompts[b0:b0 + FIXED_BATCH]
         rids = list(range(b0 + 1, b0 + 1 + len(batch)))
@@ -3546,33 +3551,60 @@ def f32_check(torch, label, model, params, prompts, max_seq, out, first,
         for i, (p, rid) in enumerate(zip(batch, rids)):
             toks[i, plen - len(p):] = p                   # left-pad
             drawn[i] = out[rid]
-        logits, cache = steps.prefill_step(twin, tparams,
+        logits, cache = steps.prefill_step(model, params,
                                            torch.as_tensor(toks, device=DEVICE),
                                            max_seq, ex)
         for j in range(n_new):
-            rows = logits[:, -1].to("cpu", torch.float32)
-            for i, rid in enumerate(rids):
-                if j == 0:
-                    max_err = max(max_err, (first[rid] - rows[i]).abs().max().item())
-                    firsts += 1
-                tokens += 1
-                top2 = torch.topk(rows[i], 2)
-                margin = float(top2.values[0] - top2.values[1])
-                if margin <= FIRST_TOKEN_MARGIN:
-                    continue
-                n_first += j == 0
-                n_all += 1
-                if int(top2.indices[0]) != out[rid][j]:
-                    raise AssertionError(
-                        f"[{label}] request {rid} token {j}: {out[rid][j]} in bf16 vs "
-                        f"{int(top2.indices[0])} in f32 at margin {margin:.3f}")
+            step_rows = logits[:, -1].to("cpu", torch.float32)
+            rows += [(rid, j, step_rows[i]) for i, rid in enumerate(rids)]
             if j + 1 < n_new:
                 logits, cache = steps.serve_step(
-                    twin, tparams, cache, torch.as_tensor(drawn[:, j:j + 1], device=DEVICE))
+                    model, params, cache, torch.as_tensor(drawn[:, j:j + 1], device=DEVICE))
     torch.cuda.synchronize()
+    return rows
+
+
+def margin_agree(label, rows, out, what):
+    """Every token of `out` must be its replayed row's argmax wherever
+    that row's top-2 margin exceeds FIRST_TOKEN_MARGIN.  -> (first tokens
+    compared, tokens compared)."""
+    torch = sys.modules["torch"]
+    n_first = n_all = 0
+    for rid, j, row in rows:
+        top2 = torch.topk(row, 2)
+        margin = float(top2.values[0] - top2.values[1])
+        if margin <= FIRST_TOKEN_MARGIN:
+            continue
+        n_first += j == 0
+        n_all += 1
+        if int(top2.indices[0]) != out[rid][j]:
+            raise AssertionError(
+                f"[{label}] request {rid} token {j}: {out[rid][j]} vs "
+                f"{int(top2.indices[0])} on {what} at margin {margin:.3f}")
+    return n_first, n_all
+
+
+def f32_check(torch, label, model, params, prompts, max_seq, out, first,
+              extras=None):
+    """The bf16 fixed-batch run `out` (greedy) against the same parameters
+    cast up to f32 (only the arithmetic differs), teacher-forced
+    (`teacher_forced_rows`).  Every token the bf16 run drew — its first
+    tokens and each decode step's — must be the f32 twin's argmax on the
+    same history wherever the twin's top-2 margin exceeds
+    FIRST_TOKEN_MARGIN (the random models' margins are often smaller; a
+    run where no token has one fails).  -> the max |logit difference| at
+    the first tokens."""
+    import dataclasses
+
+    twin = type(model)(dataclasses.replace(model.cfg, dtype="float32"))
+    tparams = twin.serving_params(params, DEVICE)
+    t0 = time.perf_counter()
+    rows = teacher_forced_rows(torch, twin, tparams, prompts, max_seq, out, extras)
+    max_err = max((first[rid] - row).abs().max().item() for rid, j, row in rows if j == 0)
+    n_first, n_all = margin_agree(label, rows, out, "the f32 twin")
     log(f"[{label}] against the f32 twin (teacher-forced, {time.perf_counter() - t0:.1f} s): "
-        f"first tokens {n_first}/{firsts} compared (top-2 margin > "
-        f"{FIRST_TOKEN_MARGIN}), every token {n_all}/{tokens} compared, all agree; "
+        f"first tokens {n_first}/{len(out)} compared (top-2 margin > "
+        f"{FIRST_TOKEN_MARGIN}), every token {n_all}/{len(rows)} compared, all agree; "
         f"max |logit difference| at the first tokens {max_err:.4f}")
     if n_all == 0:
         raise AssertionError(f"[{label}] no token had a margin to compare")
@@ -5162,10 +5194,12 @@ def full_leaf_bytes(cfg):
     """Bytes of the whole model's largest parameter leaf in f32: a stacked
     expert, projection or MLP leaf, or the embedding."""
     d, n = cfg.d_model, cfg.n_layers
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         d_in = cfg.ssm_expand * d
         proj = 2 * d_in + 2 * cfg.ssm_state + d_in // cfg.ssm_head_dim
         sizes = [n * d * proj, n * d_in * d]
+        if cfg.family == "hybrid":          # the shared block: one, not stacked
+            sizes += [d * cfg.d_ff, d * cfg.n_heads * cfg.hd]
     elif cfg.family == "moe":
         sizes = [n * cfg.n_experts * d * cfg.d_expert,
                  n * d * cfg.n_shared_experts * cfg.d_expert]
@@ -5448,6 +5482,243 @@ def phase_tp_families(torch, counters):
     return paths
 
 
+# ------------------------------------------------------------ phase 23
+# The fixed-batch loop on a mesh: zamba2-1.2b (38 layers) and whisper-base
+# (1500 audio frames) at full size (random weights from seed 0), each one
+# batch of FIXED_BATCH prompts (the first of HYBRID_FIXED_LENS /
+# ENCDEC_FIXED_LENS) through FixedBatchEngine under the guarded rules
+# (`PlanRouter(None).serve_rules`: whisper's odd vocabulary splits the LM
+# head's rows, "embed_vec").  (a) In this process: no mesh and tp_mesh(1),
+# bitwise equal (streams, first-token logits, launches: the draw kernel
+# only).  (b) tp = 2 and 4 as gloo worlds of processes sharing the card
+# (`--tp-fixed-child`), each rank serving both models in turn, each drawn
+# straight into the rank's shards (`init_serving(..., tp=)` through the
+# engine's params callable): streams equal on every rank, draw-kernel
+# launches equal to the tp = 1 run's, each rank's peak within its shards +
+# its caches + the larger of one f32 full leaf (init draws one part in
+# f32) and the tp = 1 run's transient beyond its caches (the activations:
+# whisper's encoder at 1500 frames outgrows its largest leaf).  (c) Each width's streams replayed
+# teacher-forced through the tp = 1 loop on this process's model
+# (`teacher_forced_rows`): every token whose top-2 margin there exceeds
+# 0.25 must be its argmax.  Logged, not gated: streams equal to tp = 1's,
+# params / caches / peak GB and tokens/s per rank (host-staged gloo on one
+# card: no TP speed).
+TP_FIXED_ARCHS = (("zamba2-1.2b", HYBRID_FIXED_LENS, HYBRID_FIXED_SEQ, None),
+                  ("whisper-base", ENCDEC_FIXED_LENS, ENCDEC_FIXED_SEQ, "audio_embeds"))
+
+
+def fixed_mesh_inputs(cfg, lens, extras_key):
+    """(prompts, extras) of a phase-23 model: the first FIXED_BATCH
+    lengths of `lens` and, with `extras_key`, enc_seq frames, from seed 2
+    (the draws of phases 12 / 13)."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    extras = None
+    if extras_key:
+        extras = {extras_key: rng.standard_normal((cfg.enc_seq, cfg.d_model)
+                                                  ).astype(np.float32)}
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in lens[:FIXED_BATCH]]
+    return prompts, extras
+
+
+def fixed_rules(cfg, mesh):
+    """The guarded rules phase 23 serves under."""
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.serve.router import PlanRouter
+
+    return PlanRouter(None).serve_rules(DEFAULT_RULES, mesh, cfg, "decoder")
+
+
+def tp_fixed_child(torch, rank, world, store, out_path):
+    """One rank of phase 23 (b), run as `chip_smoke.py --tp-fixed-child
+    RANK WORLD STORE OUT`: both models in turn, each drawn from seed 0
+    straight into the rank's shards and served by FixedBatchEngine on
+    `tp_mesh(world)`; writes each model's streams, launches, memory and
+    times to OUT as JSON."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_file_world, tp_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
+
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    init_file_world(store, rank, world, "gloo")
+    results = {}
+    try:
+        mesh = tp_mesh(world)
+        for arch, lens, max_seq, extras_key in TP_FIXED_ARCHS:
+            cfg = get_config(arch)
+            model = build_model(cfg)
+            prompts, extras = fixed_mesh_inputs(cfg, lens, extras_key)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            t0 = time.perf_counter()
+            eng = FixedBatchEngine(
+                model, lambda tp: model.init_serving(gen, tp=tp),
+                ServeConfig(batch_size=FIXED_BATCH, max_seq=max_seq,
+                            max_new_tokens=SERVE_RUNTIME["max_new_tokens"]),
+                extras, device=DEVICE, mesh=mesh, rules=fixed_rules(cfg, mesh))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            init_peak = torch.cuda.max_memory_allocated()
+            caches = model.init_cache(FIXED_BATCH, max_seq, device="meta", tp=eng.tp)
+            for p in prompts:
+                eng.submit(p)
+            counters = _serve_counters()
+            _zeroed(counters)
+            dist.barrier()
+            t0 = time.perf_counter()
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            results[arch] = {
+                "rank": rank, "world": world,
+                "rules": {a: eng.rules.lookup(a) for a in
+                          ("heads", "kv_heads", "ffn", "vocab", "embed_vec", "ssm_heads",
+                           "conv_dim")},
+                "cache_shapes": {k: list(v.shape) for k, v in caches.items()},
+                "streams": {str(r.rid): [int(t) for t in r.output] for r in done},
+                "launches": _launched(counters),
+                "param_gb": sum(t.numel() * t.element_size()
+                                for t in _leaves(eng.params)) / 1e9,
+                "cache_gb": sum(v.numel() * v.element_size()
+                                for v in caches.values()) / 1e9,
+                "leaf_gb": full_leaf_bytes(cfg) / 1e9,
+                "init_s": init_s, "init_peak_gb": init_peak / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "tokens_per_s": eng.throughput(), "prefill_s": eng.stats["prefill_s"],
+                "wall_s": wall,
+            }
+            del eng, done
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_fixed(torch):
+    """Phase 23 (see the comment above).  -> launches per path: each
+    model's tp_mesh(1) run's and each rank's."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import tp_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _serve_counters()
+    paths, served = {}, {}
+    for arch, lens, max_seq, extras_key in TP_FIXED_ARCHS:
+        cfg = get_config(arch)
+        model, params = family_setup(torch, cfg)
+        prompts, extras = fixed_mesh_inputs(cfg, lens, extras_key)
+
+        def run(label, **kw):
+            _zeroed(counters)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            out, first, tps, _ = fixed_serve(torch, model, params, prompts,
+                                             f"{arch} {label}", max_seq, extras,
+                                             loop=True, **kw)
+            return (out, first, tps, _launched(counters),
+                    torch.cuda.max_memory_allocated() - held)
+
+        base = run("no mesh")
+        caches = model.init_cache(FIXED_BATCH, max_seq, device="meta")
+        # what the loop allocates beyond its caches on one device: the
+        # activations, which a rank's (split) run does not exceed
+        act_gb = (base[4] - sum(v.numel() * v.element_size()
+                                for v in caches.values())) / 1e9
+        if dist.is_initialized():
+            raise AssertionError("[tp fixed] a process group is already up")
+        mesh = tp_mesh(1)
+        try:
+            one = run("tp_mesh(1)", mesh=mesh, rules=fixed_rules(cfg, mesh))
+        finally:
+            dist.destroy_process_group()
+        if (one[0] != base[0] or not _same_firsts(one[1], base[1]) or one[3] != base[3]
+                or set(one[3]) != {"sample_draw"}):
+            raise AssertionError(
+                f"[{arch}] tp_mesh(1) differs from no mesh: streams {one[0] == base[0]}, "
+                f"launches {one[3]} vs {base[3]}, first divergence "
+                f"{_first_divergence(base[0], one[0])}")
+        log(f"[{arch}] FixedBatchEngine on tp_mesh(1) = no mesh: streams, first-token "
+            f"logits (bitwise) and launches {one[3]}; tokens/s {one[2]:.1f} vs "
+            f"{base[2]:.1f}; the run's transient beyond its caches {act_gb:.3f} GB")
+        paths[f"fixed_{arch}_tp_mesh1"] = one[3]
+        served[arch] = (model, params, prompts, extras, max_seq, one, act_gb)
+
+    build.build_all()                          # every library in place before spawning
+    tmp = tempfile.mkdtemp(prefix="tp_fixed_worlds_")
+    worlds = {}
+    for tp in TP_SERVE_WIDTHS:
+        t0 = time.perf_counter()
+        worlds[tp] = _tp_world(tp, tmp, "--tp-fixed-child", "fixed")
+        log(f"[tp={tp}] {tp} ranks served {len(TP_FIXED_ARCHS)} models through "
+            f"FixedBatchEngine in {time.perf_counter() - t0:.1f} s (start included)")
+    def allowed(res, act_gb):
+        return res["param_gb"] + res["cache_gb"] + max(res["leaf_gb"], act_gb)
+
+    for arch, *_ in TP_FIXED_ARCHS:           # every rank's numbers first
+        for tp, ranks in worlds.items():
+            for res in (r[arch] for r in ranks):
+                log(f"[{arch} tp={tp}] rank {res['rank']} (rules {res['rules']}, caches "
+                    f"{res['cache_shapes']}): {res['tokens_per_s']:.1f} tokens/s, prefill "
+                    f"{res['prefill_s']:.3f} s, wall {res['wall_s']:.2f} s, launches "
+                    f"{res['launches']}; params {res['param_gb']:.3f} GB drawn in "
+                    f"{res['init_s']:.1f} s (peak {res['init_peak_gb']:.2f} GB), caches "
+                    f"{res['cache_gb']:.3f} GB, peak {res['peak_gb']:.2f} GB against "
+                    f"shards + caches + max(one f32 full leaf {res['leaf_gb']:.3f}, "
+                    f"tp = 1's transient {served[arch][6]:.3f}) = "
+                    f"{allowed(res, served[arch][6]):.2f} GB")
+    for arch, *_ in TP_FIXED_ARCHS:
+        model, params, prompts, extras, max_seq, one, act_gb = served[arch]
+        ref = one[0]
+        for tp, ranks in worlds.items():
+            ranks = [res[arch] for res in ranks]
+            for res in ranks[1:]:
+                if res["streams"] != ranks[0]["streams"]:
+                    raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}'s streams "
+                                         "differ from rank 0's")
+            for res in ranks:
+                if res["launches"] != one[3]:
+                    raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}: launches "
+                                         f"{res['launches']}, tp = 1 {one[3]}")
+                if res["peak_gb"] > allowed(res, act_gb):
+                    raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}: peak "
+                                         f"{res['peak_gb']:.2f} GB > shards + caches + "
+                                         "max(one full leaf, tp = 1's transient)")
+                paths[f"fixed_{arch}_tp{tp}_rank{res['rank']}"] = res["launches"]
+            out = {int(k): v for k, v in ranks[0]["streams"].items()}
+            if sorted(out) != sorted(ref) or any(
+                    len(v) != SERVE_RUNTIME["max_new_tokens"] for v in out.values()):
+                raise AssertionError(f"[{arch} tp={tp}] requests {sorted(out)} unfinished")
+            same = sum(out[r] == ref[r] for r in ref)
+            t0 = time.perf_counter()
+            rows = teacher_forced_rows(torch, model, params, prompts, max_seq, out, extras)
+            n_first, n_all = margin_agree(f"{arch} tp={tp}", rows, out,
+                                          "the tp = 1 replay")
+            log(f"[{arch} tp={tp}] streams equal on every rank; {same}/{len(ref)} "
+                f"identical to tp = 1's, first divergence {_first_divergence(ref, out)}; "
+                f"against the tp = 1 loop teacher-forced ({time.perf_counter() - t0:.1f} s):"
+                f" {n_all}/{len(rows)} tokens ({n_first} first tokens) had a top-2 margin > "
+                f"{FIRST_TOKEN_MARGIN}, all agree")
+        del model, params
+        served[arch] = None
+    _phase_end("tp fixed", t_phase)
+    return paths
+
+
 def _log_device_profile(prof, wall_s, label, calls=None):
     """Device time by kernel over a traced run (torch.profiler, CUDA
     activity only), and the device's busy share of the run's wall time
@@ -5489,12 +5760,15 @@ def main() -> int:
                          "device time by kernel (no timing summaries)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 22")
+                         "skips phases 3 to 23")
     ap.add_argument("--tp-child", nargs=4, metavar=("RANK", "WORLD", "STORE", "OUT"),
                     help=argparse.SUPPRESS)      # one rank of phase 21 (b)
     ap.add_argument("--tp-family-child", nargs=4,
                     metavar=("RANK", "WORLD", "STORE", "OUT"),
                     help=argparse.SUPPRESS)      # one rank of phase 22 (b)
+    ap.add_argument("--tp-fixed-child", nargs=4,
+                    metavar=("RANK", "WORLD", "STORE", "OUT"),
+                    help=argparse.SUPPRESS)      # one rank of phase 23 (b)
     args = ap.parse_args()
 
     import torch
@@ -5517,7 +5791,8 @@ def main() -> int:
     # bf16 products in cuBLAS accumulate in f32 and round once, as the
     # JAX reference's vendor lane and the GEMM kernel do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    for flag, child in ((args.tp_child, tp_child), (args.tp_family_child, tp_family_child)):
+    for flag, child in ((args.tp_child, tp_child), (args.tp_family_child, tp_family_child),
+                        (args.tp_fixed_child, tp_fixed_child)):
         if flag:
             rank, world, store, out = flag
             child(torch, int(rank), int(world), store, out)
@@ -5667,7 +5942,13 @@ def main() -> int:
         22, "tensor-parallel serving of qwen2-vl-2b, mamba2-2.7b and qwen2-moe-a2.7b: "
         "tp_mesh(1) against no mesh, then tp = 2 / 4 as processes on the card",
         phase_tp_families, torch, [c.fn for c in checks])
-    paths = {**knob_paths, **race_paths, **tp_paths, **family_tp_paths, "serve_qwen3_1_7b": serve_launches,
+    free_device(torch)
+    fixed_tp_paths = timed_phase(
+        23, "the fixed-batch loop on a mesh: zamba2-1.2b and whisper-base through "
+        "FixedBatchEngine, tp_mesh(1) against no mesh, then tp = 2 / 4 as processes on "
+        "the card", phase_tp_fixed, torch)
+    paths = {**knob_paths, **race_paths, **tp_paths, **family_tp_paths, **fixed_tp_paths,
+             "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
              **ssm_paths, **moe_paths, **granite_paths, **vlm_paths,
              **hybrid_paths, **encdec_paths, **long_paths, **internlm2_paths,

@@ -266,9 +266,13 @@ def local_shard(tensor, spec: Sequence, sizes: Dict[str, int],
 def local_params(params, logical_tree, rules: ShardingRules,
                  sizes: Dict[str, int], coords: Dict[str, int]):
     """`local_shard` of every leaf of `params` under `rules` applied to
-    its logical axes (trailing dims past a leaf's axes replicated)."""
+    its logical axes (trailing dims past a leaf's axes replicated).  A dim
+    that does not divide raises ValueError naming the leaf's axes."""
     def shard(axes, leaf):
         axes = tuple(axes) + (None,) * (leaf.dim() - len(axes))
-        return local_shard(leaf, rules.spec(axes), sizes, coords)
+        try:
+            return local_shard(leaf, rules.spec(axes), sizes, coords)
+        except ValueError as e:
+            raise ValueError(f"logical axes {axes}: {e}") from None
 
     return map_axes(shard, logical_tree, params)

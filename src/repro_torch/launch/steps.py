@@ -38,7 +38,11 @@ shards and pools as the decoder's programs do, eagerly at tp > 1.
 
 `prefill_step` and `serve_step` (`make_prefill_step`, `make_serve_step`)
 are the fixed-batch engine's dense-cache steps.  They run eagerly: the
-reference retraces them per prompt length.
+reference retraces them per prompt length.  On a mesh the engine runs
+them on every rank over its shards and its cache (`local_cache_shapes`)
+inside the rank's `tensor_parallel` context, under the caller's rules
+pruned for the mesh (`fixed_batch_rules`, which refuses a split this path
+does not run).
 
 `TrainConfig` and `make_train_step` are the training step (`jit_train_step`
 in the reference, which jits it with sharded, donated state): value and
@@ -67,7 +71,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed.collectives import TensorParallel, tensor_parallel
 from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
-                                              axis_sizes, map_axes, named_sharding)
+                                              axis_sizes, map_axes, named_sharding,
+                                              prune_for_mesh)
 from repro_torch.kernels.dispatch import MatmulTable, matmul_dispatch
 from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.launch.program import Program
@@ -166,6 +171,47 @@ def cache_shardings(model, mesh, rules: ShardingRules, batch: int, max_seq: int)
         return named_sharding(mesh, rules.spec(axes))
 
     return map_axes(spec_of, model.cache_logical_axes(), shapes)
+
+
+def local_cache_shapes(model, batch: int, max_seq: int,
+                       tp: Optional[TensorParallel] = None) -> Dict[str, Any]:
+    """{leaf: shape} of the fixed-batch cache one rank holds under `tp`
+    (the whole cache's with none), from `model.init_cache` on the meta
+    device: K / V (and the encoder-decoder's ek / ev) at the rank's KV
+    heads, the conv window at its head-aligned channels (d_in / tp + 2n,
+    not conv_dim / tp), the SSM state at its heads."""
+    shapes = model.init_cache(batch, max_seq, device="meta", tp=tp)
+    return {k: tuple(v.shape) for k, v in shapes.items()}
+
+
+# the logical axes the tensor-parallel serving paths split, over "model"
+# alone; a rule that splits any other axis over a mesh axis wider than 1
+# (the KV sequence, the SSM state, the sequence, the batch over "data", ...)
+# is a layout those paths do not run
+TP_SPLIT_AXES = ("heads", "kv_heads", "ffn", "experts", "vocab", "embed_vec",
+                 "ssm_heads", "conv_dim")
+
+
+def fixed_batch_rules(rules: ShardingRules, mesh) -> ShardingRules:
+    """The caller's `rules` pruned for `mesh` (`prune_for_mesh`, as the
+    reference's `jit_prefill_step` / `jit_serve_step` prune them) for the
+    fixed-batch loop on the mesh's model axis.  A rule that splits an axis
+    this path does not split (see TP_SPLIT_AXES: "kv_seq", "ssm_state",
+    "seq", "batch" over a "data" axis wider than 1, ...) raises
+    NotImplementedError naming the axis; an indivisible split raises
+    ValueError where the rank's shards are cut, as the reference's
+    placement does."""
+    rules = prune_for_mesh(rules, mesh)
+    sizes = axis_sizes(mesh)
+    for name, target in rules.rules:
+        axes = () if target is None else (target,) if isinstance(target, str) else target
+        wide = [a for a in axes if sizes.get(a, 1) > 1]
+        if wide and (name not in TP_SPLIT_AXES or wide != ["model"]):
+            raise NotImplementedError(
+                f"logical axis {name!r} is split over mesh axes {tuple(wide)} of "
+                f"sizes {tuple(sizes[a] for a in wide)}: tensor-parallel serving "
+                f"splits only {', '.join(TP_SPLIT_AXES)} over 'model'")
+    return rules
 
 
 def paged_pool_sharding(model, mesh, rules: ShardingRules):
@@ -445,11 +491,14 @@ def prefill_step(model, params, tokens: torch.Tensor, max_seq: int,
     extras (`vision_embeds` / `audio_embeds`, (B, ...)) -> (last-position
     logits (B, 1, V), the model's fixed-batch cache: dense K/V of
     `max_seq` rows, Mamba2's carries, or both, and the encoder's cross
-    K/V)."""
+    K/V).  Inside a rank's `tensor_parallel` context it runs on the rank's
+    shards, the cache at the rank's widths (`local_cache_shapes`), the
+    logits whole on every rank."""
     return model.prefill(params, {"tokens": tokens, **(extras or {})}, max_seq)
 
 
 def serve_step(model, params, cache, tokens: torch.Tensor):
     """The fixed-batch decode step: tokens (B, 1) -> (logits (B, 1, V),
-    the cache advanced by one row, updated in place)."""
+    the cache advanced by one row, updated in place), on the rank's shards
+    and cache inside its `tensor_parallel` context."""
     return model.decode_step(params, cache, tokens)

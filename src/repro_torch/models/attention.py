@@ -30,10 +30,13 @@ Attention backends: `torch` runs the gather lanes (the plain versions in
 `cuda_attention` runs the hand-written paged kernels through
 `repro_torch.kernels.ops`.
 
-Tensor parallelism (the paged path, `distributed.collectives`): a rank
-holds its block of the query heads, of `wo`'s rows and the KV heads its
-query heads read (`tp_kv_heads`; all of them where they split, else the
-ones it needs), so the paged kernels run at the rank's own head counts;
+Tensor parallelism (`distributed.collectives`): a rank holds its block
+of the query heads, of `wo`'s rows and the KV heads its query heads read
+(`tp_kv_heads`; all of them where they split, else the ones it needs), so
+every path — the paged kernels, the dense-cache path with its caches at
+the rank's KV heads (`init_cache(..., tp=)`), the encoder's non-causal
+and the cross-attention, in either `_sdpa` form — runs at the rank's own
+head counts, each local query head reading local KV head j // G_local;
 `wo`'s partial output is summed over the ranks before the residual add.
 
 The new rows' K/V are written into the pools IN PLACE (`index_put_` on the
@@ -63,8 +66,8 @@ from repro_torch.kernels.ref import packed_row_map
 from repro_torch.models.common import (Params, apply_mrope, apply_rope, dense,
                                        dense_init, norm_init, rms_norm)
 
-__all__ = ["attn_init", "attn_logical_axes", "tp_kv_heads", "attn_forward", "cross_kv",
-           "init_cache", "cache_logical_axes", "attn_decode",
+__all__ = ["attn_init", "attn_logical_axes", "tp_kv_heads", "local_kv_heads",
+           "attn_forward", "cross_kv", "init_cache", "cache_logical_axes", "attn_decode",
            "packed_row_map", "attn_prefill_packed", "attn_decode_paged",
            "decode_write_rows", "packed_write_rows"]
 
@@ -258,36 +261,47 @@ def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     `return_kv` the (K, V) it built, each (B, S, Hkv, hd), for the cache.
     `kv_override` (K, V) makes it cross-attention: only the query is
     projected (`wq` with no role, q-norm, no RoPE) and every query sees
-    every key."""
+    every key.  The head counts are the projections' (a rank's own under
+    tensor parallelism, `wo`'s partial output summed over the ranks)."""
     b, s, _ = x.shape
     if kv_override is not None:
-        q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.hd)
+        q = dense(p["wq"], x).reshape(b, s, -1, cfg.hd)
         if cfg.qk_norm:
             q = rms_norm(p["q_norm"], q)
         k, v = kv_override
         causal = False
     else:
         q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _sdpa(q, k, v, causal, cfg.q_per_kv)
-    y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.hd))
+    out = _sdpa(q, k, v, causal, q.shape[2] // k.shape[2])
+    y = reduce_if_sharded(dense(p["wo"], out.reshape(b, s, -1)), "heads")
     return (y, (k, v)) if return_kv else y
 
 
 def cross_kv(p: Params, cfg: ModelConfig, enc: torch.Tensor):
     """The encoder output's K / V (B, S_enc, Hkv, hd) for one decoder
-    layer's cross-attention, computed once per prompt."""
+    layer's cross-attention, computed once per prompt (a rank's KV heads
+    under tensor parallelism)."""
     b, s, _ = enc.shape
-    k = dense(p["wk"], enc).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = dense(p["wv"], enc).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    k = dense(p["wk"], enc).reshape(b, s, -1, cfg.hd)
+    v = dense(p["wv"], enc).reshape(b, s, -1, cfg.hd)
     if cfg.qk_norm:
         k = rms_norm(p["k_norm"], k)
     return k, v
 
 
+def local_kv_heads(cfg: ModelConfig, tp=None) -> int:
+    """The KV heads one device holds: the whole model's with no `tp` (a
+    `distributed.collectives.TensorParallel`), else the rank's
+    (`tp_kv_heads`)."""
+    return cfg.n_kv_heads if tp is None else tp_kv_heads(cfg, tp.rules, tp.rank,
+                                                         tp.size)[1]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, n_layers: int,
-               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-    """Zeroed dense K / V caches (L, B, max_seq, Hkv, hd)."""
-    shape = (n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+               dtype=torch.bfloat16, device=None, tp=None) -> Dict[str, Any]:
+    """Zeroed dense K / V caches (L, B, max_seq, Hkv, hd), Hkv the rank's
+    under `tp` (`local_kv_heads`)."""
+    shape = (n_layers, batch, max_seq, local_kv_heads(cfg, tp), cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -304,14 +318,17 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """One new token per sequence, x (B, 1, d) at position lengths[b],
     against one layer's dense caches (B, S_max, Hkv, hd): the token's K/V
     row is written at lengths[b] IN PLACE (where JAX returns new caches),
-    then it attends to rows 0..lengths[b].  Returns (B, 1, d)."""
+    then it attends to rows 0..lengths[b].  Returns (B, 1, d).  The head
+    counts are the projections' and the caches' (a rank's own under
+    tensor parallelism, `wo`'s partial output summed over the ranks)."""
     b = x.shape[0]
     lengths = lengths.long()
     q, k_new, v_new = _project_qkv(p, cfg, x, _decode_positions(cfg, lengths))
     bidx = torch.arange(b, device=x.device)
     k_cache[bidx, lengths] = k_new[:, 0].to(k_cache.dtype)
     v_cache[bidx, lengths] = v_new[:, 0].to(v_cache.dtype)
-    qg = q.reshape(b, cfg.n_kv_heads, cfg.q_per_kv, cfg.hd)
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, hkv, q.shape[2] // hkv, cfg.hd)
     logits = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float() * (
         1.0 / math.sqrt(cfg.hd))
     pos = torch.arange(k_cache.shape[1], device=x.device)[None, None, None, :]
@@ -319,7 +336,7 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                          torch.full_like(logits, _ref.NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache)
-    return dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.hd))
+    return reduce_if_sharded(dense(p["wo"], out.reshape(b, 1, -1)), "heads")
 
 
 def write_rows(blk: torch.Tensor, off: torch.Tensor, block_size: int):

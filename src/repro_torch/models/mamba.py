@@ -19,8 +19,9 @@ h' = exp(dt·A) h + dt · x ⊗ B.
 `mamba_logical_axes` names each parameter's logical axes, as the
 reference's does.
 
-Tensor parallelism over "ssm_heads" / "conv_dim" (the serving engine on a
-mesh; `zoo.MambaLM.tp_local_params` cuts the shards).  Two traps:
+Tensor parallelism over "ssm_heads" / "conv_dim" (the serving engines on
+a mesh, the whole-prompt prefill of the fixed-batch loop included;
+`zoo.MambaLM.tp_local_params` cuts the shards).  Two traps:
 
   * in_proj's output is the concatenation [z | x | B | C | dt], not one
     dimension: a contiguous 1/tp block of its columns would mix z, x and
@@ -251,7 +252,9 @@ def _gated_out(p: Params, cfg: ModelConfig, y: torch.Tensor, xs: torch.Tensor,
 def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   return_state: bool = False):
     """x (B, S, d) -> (B, S, d), and with `return_state` the decode carries
-    (conv window (B, W-1, conv_dim), SSM state (B, nh, hd, n) f32)."""
+    (conv window (B, W-1, conv channels), SSM state (B, nh, hd, n) f32).
+    Under tensor parallelism the layer runs at `tp_dims` on the rank's
+    head-aligned slice and the carries are the rank's."""
     zxbcdt = dense(p["in_proj"], x)
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
     xbc = _causal_conv(p["conv_w"], p["conv_b"], xbc_raw)
@@ -299,9 +302,12 @@ def mamba_chunk_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return out, ext.index_select(1, rows).float(), h_final
 
 
-def mamba_init_state(cfg: ModelConfig, batch: int,
-                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    _, nh, conv_dim = _dims(cfg)
+def mamba_init_state(cfg: ModelConfig, batch: int, device=None,
+                     tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed decode carries, conv window (B, W-1, conv channels) and SSM
+    state (B, nh, hd, n), f32, at the widths one device computes
+    (`tp_dims`: the rank's under `tp`)."""
+    _, nh, conv_dim = tp_dims(cfg, tp)
     conv = torch.zeros((batch, cfg.conv_width - 1, conv_dim), device=device)
     h = torch.zeros((batch, nh, cfg.ssm_head_dim, cfg.ssm_state), device=device)
     return conv, h

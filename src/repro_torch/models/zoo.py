@@ -33,10 +33,13 @@ stacked leaves; `block_logical_axes` for one decoder block) and of its
 fixed-batch cache (`cache_logical_axes`); `DecoderLM` also of its paged
 pools (`paged_cache_logical_axes`) and `MambaLM` of its slot pools
 (`slot_state_logical_axes`), the reference's trees entry for entry.  The
-`distributed.sharding` rules turn them into placements, and
-`DecoderLM.tp_local_params` / `MambaLM.tp_local_params` into one rank's
-shards for tensor-parallel serving (`init_serving(..., tp=)` draws the
-model straight into them).
+`distributed.sharding` rules turn them into placements, and each
+family's `tp_local_params` into one rank's shards for tensor-parallel
+serving (`init_serving(..., tp=)` draws the model straight into them).
+On those shards the fixed-batch path (`init_cache` / `prefill` /
+`decode_step`, under the rank's `TensorParallel` context) runs every
+family with its caches at the rank's widths: K / V at its KV heads, the
+conv window at its head-aligned channels, the SSM state at its heads.
 
 The vision patches and audio frames are stubs, as in the reference: the
 batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
@@ -54,6 +57,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import current
 from repro_torch.distributed.sharding import local_params, local_shard, map_axes
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
@@ -188,6 +192,55 @@ def _mamba_layer(cfg: ModelConfig, x: torch.Tensor, bp: Params) -> torch.Tensor:
     return x + M.mamba_forward(bp["mamba"], cfg, _norm(cfg, bp["norm"], x))
 
 
+def _tp_read_kv_heads(cfg: ModelConfig, attn: Params, tp) -> None:
+    """Where "heads" is split and "kv_heads" is not (the KV heads do not
+    divide the axis), cut an attention subtree's wk / wv (stacked or not)
+    to the KV heads the rank's query heads read (`attention.tp_kv_heads`),
+    in place."""
+    if not (tp.sharded("heads") and not tp.sharded("kv_heads")):
+        return
+    first, n = A.tp_kv_heads(cfg, tp.rules, tp.rank, tp.size)
+    hd = cfg.hd
+    for name in ("wk", "wv"):
+        attn[name]["w"] = attn[name]["w"][..., first * hd:(first + n) * hd].contiguous()
+
+
+def _tp_mamba(cfg: ModelConfig, whole: Params, local: Params, tp) -> None:
+    """A Mamba2 block's shards (stacked or not), `local` cut by the rules
+    with "conv_dim" replicated, fixed up in place from the `whole` block:
+    where "ssm_heads" is split, in_proj's columns and the conv weights'
+    channels head-aligned (`mamba.tp_columns`), not the contiguous block
+    their "conv_dim" axis names; where "conv_dim" is split, out_proj's d_in
+    rows in contiguous blocks (the rank's heads' rows when "ssm_heads" is
+    split too)."""
+    if tp.sharded("ssm_heads"):
+        cols, chans = M.tp_columns(cfg, tp.rank, tp.size, whole["conv_w"].device)
+        local["in_proj"] = {"w": whole["in_proj"]["w"].index_select(-1, cols)}
+        local["conv_w"] = whole["conv_w"].index_select(-1, chans)
+        local["conv_b"] = whole["conv_b"].index_select(-1, chans)
+    if tp.sharded("conv_dim"):
+        local["out_proj"] = {"w": local_shard(whole["out_proj"]["w"], (None, "model"),
+                                              {"model": tp.size}, {"model": tp.rank})}
+
+
+def _draw_layers(key: str, block_init, n: int, draw, device) -> Params:
+    """The layer-stacked tree `key` of `n` layers, each drawn by
+    `block_init()`, passed through `draw` as {key: the layer with a leading
+    dim of 1} (`draw` cuts and casts a top-level subtree) and written into
+    its row of (n, ...) stacks preallocated on `device` before the next is
+    drawn."""
+    stack = None
+    for i in range(n):
+        layer = tree_map(lambda t: t[0], draw(
+            {key: tree_map(lambda t: t[None], block_init())})[key])
+        if stack is None:
+            stack = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
+                                                   device=device), layer)
+        _copy_into(stack, layer, i)
+        del layer
+    return stack
+
+
 class _StackedLM:
     """What the families' models share: the config, parameters whose
     `blocks` leaves are stacked over layers, the serving dtypes and the
@@ -244,17 +297,8 @@ class _StackedLM:
             return self.serving_params(tree, device)
 
         emb = draw({"embed": embed_init(generator, cfg.vocab, cfg.d_model)})
-        blocks = None
-        for i in range(cfg.n_layers):
-            layer = tree_map(lambda t: t[0], draw(
-                {"blocks": tree_map(lambda t: t[None], self._block_init(generator))}
-            )["blocks"])
-            if blocks is None:
-                blocks = tree_map(lambda t: torch.empty((cfg.n_layers, *t.shape),
-                                                        dtype=t.dtype, device=device),
-                                  layer)
-            _copy_into(blocks, layer, i)
-            del layer
+        blocks = _draw_layers("blocks", lambda: self._block_init(generator),
+                              cfg.n_layers, draw, device)
         shared = draw(self._shared_init(generator))
         rest = draw({"final_norm": _norm_init(cfg, cfg.d_model, generator.device),
                      "lm_head": dense_init(generator, cfg.d_model, cfg.vocab)})
@@ -289,12 +333,13 @@ class _StackedLM:
                             {"model": tp.rank})
 
     def tp_local_params(self, params: Params, tp) -> Params:
-        """The rank's shards of the serving parameters (`DecoderLM` and
-        `MambaLM`).  The fixed-batch families take no mesh."""
+        """The rank's shards of the serving parameters: each family defines
+        its own (`DecoderLM`, `MambaLM`, `HybridLM`, `EncDecLM`)."""
         raise NotImplementedError(
-            f"tensor-parallel serving of the {self.cfg.family} family is not ported "
-            "yet: FixedBatchEngine / ServeEngine on a mesh, ROADMAP.md queue 1, "
-            "item 8b-iii")
+            f"{type(self).__name__} ({self.cfg.family} family) defines no "
+            "tensor-parallel shards; the six families are served on a mesh by "
+            "FixedBatchEngine / ServeEngine(mesh=, rules=), and dense / moe / vlm / "
+            "ssm also by ContinuousEngine(mesh=, rules=)")
 
     # ------------------------------------------------------------ training
     # each family's `hidden` gives the final-normed states (B, S, d)
@@ -385,12 +430,13 @@ class DecoderLM(_StackedLM):
         return _norm(cfg, params["final_norm"], x)
 
     # -------------------------------------------- dense-cache serving path
-    def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
+    def init_cache(self, batch: int, max_seq: int, device=None,
+                   tp=None) -> Dict[str, Any]:
         """Zeroed dense caches (L, batch, max_seq, Hkv, hd) of `cfg.dtype`
-        and (batch,) int32 lengths."""
+        (Hkv the rank's under `tp`) and (batch,) int32 lengths."""
         cfg = self.cfg
         cache = A.init_cache(cfg, batch, max_seq, cfg.n_layers,
-                             torch_dtype(cfg.dtype), device)
+                             torch_dtype(cfg.dtype), device, tp)
         cache["lengths"] = torch.zeros((batch,), dtype=torch.int32, device=device)
         return cache
 
@@ -408,7 +454,7 @@ class DecoderLM(_StackedLM):
         x = self._embed_inputs(params, batch)
         b, s, _ = x.shape
         positions = self._position_ids(b, torch.arange(s, device=x.device))
-        cache = self.init_cache(b, max_seq, x.device)
+        cache = self.init_cache(b, max_seq, x.device, current())
         for i, bp in enumerate(self._layers(params)):
             h = _norm(cfg, bp["attn_norm"], x)
             y, (k, v) = A.attn_forward(bp["attn"], cfg, h, positions=positions,
@@ -528,12 +574,8 @@ class DecoderLM(_StackedLM):
                 raise ValueError("'expert_ffn' split over the model axis (TP "
                                  "inside the experts) is not ported")
         local = self._tp_split(params, tp.rules, tp)
-        if "blocks" in local and tp.sharded("heads") and not tp.sharded("kv_heads"):
-            first, n = self.tp_kv_heads(tp)
-            hd = cfg.hd
-            attn = local["blocks"]["attn"]
-            for name in ("wk", "wv"):
-                attn[name]["w"] = attn[name]["w"][..., first * hd:(first + n) * hd].contiguous()
+        if "blocks" in local:
+            _tp_read_kv_heads(cfg, local["blocks"]["attn"], tp)
         return local
 
 
@@ -570,12 +612,14 @@ class MambaLM(_StackedLM):
         return _norm(cfg, params["final_norm"], x)
 
     # ------------------------------------------------- fixed-batch serving
-    def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
-        """Zeroed carries: conv (L, batch, W-1, conv_dim) and ssm (L, batch,
-        nh, hd, n), both f32, and (batch,) int32 lengths; `max_seq` is
-        unused (the state does not grow)."""
+    def init_cache(self, batch: int, max_seq: int, device=None,
+                   tp=None) -> Dict[str, Any]:
+        """Zeroed carries: conv (L, batch, W-1, conv channels) and ssm (L,
+        batch, nh, hd, n), both f32 at the rank's widths under `tp`
+        (`mamba.tp_dims`), and (batch,) int32 lengths; `max_seq` is unused
+        (the state does not grow)."""
         del max_seq
-        conv, h = M.mamba_init_state(self.cfg, batch, device)
+        conv, h = M.mamba_init_state(self.cfg, batch, device, tp)
         n_layers = self.cfg.n_layers
         return {"conv": conv.expand(n_layers, *conv.shape).clone(),
                 "ssm": h.expand(n_layers, *h.shape).clone(),
@@ -697,25 +741,12 @@ class MambaLM(_StackedLM):
     def tp_local_params(self, params: Params, tp) -> Params:
         """The rank's shards of the serving parameters (the whole tree or
         some of its top-level subtrees): the embedding and LM head, A_log,
-        D and dt_bias as `distributed.sharding.local_params` cuts them;
-        where "ssm_heads" is split, in_proj's columns and the conv weights'
-        channels head-aligned (`mamba.tp_columns`), not the contiguous
-        block their "conv_dim" axis names; where "conv_dim" is split,
-        out_proj's d_in rows in contiguous blocks (the rank's heads' rows
-        when "ssm_heads" is split too)."""
+        D and dt_bias as `distributed.sharding.local_params` cuts them, the
+        Mamba2 blocks' projections and conv weights as `_tp_mamba` cuts
+        them."""
         local = self._tp_split(params, tp.rules.replace(conv_dim=None), tp)
-        if "blocks" not in params:
-            return local
-        whole, mp = params["blocks"]["mamba"], local["blocks"]["mamba"]
-        if tp.sharded("ssm_heads"):
-            cols, chans = M.tp_columns(self.cfg, tp.rank, tp.size,
-                                       whole["conv_w"].device)
-            mp["in_proj"] = {"w": whole["in_proj"]["w"].index_select(-1, cols)}
-            mp["conv_w"] = whole["conv_w"].index_select(-1, chans)
-            mp["conv_b"] = whole["conv_b"].index_select(-1, chans)
-        if tp.sharded("conv_dim"):
-            mp["out_proj"] = {"w": local_shard(whole["out_proj"]["w"], (None, "model"),
-                                               {"model": tp.size}, {"model": tp.rank})}
+        if "blocks" in params:
+            _tp_mamba(self.cfg, params["blocks"]["mamba"], local["blocks"]["mamba"], tp)
         return local
 
 
@@ -770,6 +801,20 @@ class HybridLM(_StackedLM):
             "lm_head": {"w": ("embed_vec", "vocab")},
         }
 
+    def tp_local_params(self, params: Params, tp) -> Params:
+        """The rank's shards of the serving parameters (the whole tree or
+        some of its top-level subtrees): the Mamba2 blocks as
+        `MambaLM.tp_local_params` cuts them, the shared block's attention
+        on the heads (wk / wv at the KV heads its query heads read) and its
+        MLP on "ffn", its in_proj ("embed", "embed") replicated, the
+        embedding and LM head on the vocabulary."""
+        local = self._tp_split(params, tp.rules.replace(conv_dim=None), tp)
+        if "blocks" in params:
+            _tp_mamba(self.cfg, params["blocks"]["mamba"], local["blocks"]["mamba"], tp)
+        if "shared" in params:
+            _tp_read_kv_heads(self.cfg, local["shared"]["attn"], tp)
+        return local
+
     def _shared_apply(self, sp: Params, x: torch.Tensor, x0: torch.Tensor,
                       attend) -> torch.Tensor:
         """x + xin + mlp(norm(xin)), xin = in_proj(concat(x, x0)) +
@@ -805,14 +850,16 @@ class HybridLM(_StackedLM):
                 x = self._shared_apply(sp, x, x0, attend)
         return _norm(cfg, params["final_norm"], x)
 
-    def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
-        """Zeroed carries conv (L, batch, W-1, conv_dim) / ssm (L, batch,
-        nh, hd, n) f32, dense K / V caches (n_shared_uses, batch, max_seq,
-        Hkv, hd) of `cfg.dtype`, and (batch,) int32 lengths."""
+    def init_cache(self, batch: int, max_seq: int, device=None,
+                   tp=None) -> Dict[str, Any]:
+        """Zeroed carries conv (L, batch, W-1, conv channels) / ssm (L,
+        batch, nh, hd, n) f32, dense K / V caches (n_shared_uses, batch,
+        max_seq, Hkv, hd) of `cfg.dtype`, all at the rank's widths under
+        `tp`, and (batch,) int32 lengths."""
         cfg = self.cfg
-        conv, h = M.mamba_init_state(cfg, batch, device)
+        conv, h = M.mamba_init_state(cfg, batch, device, tp)
         kv = A.init_cache(cfg, batch, max_seq, self.n_shared_uses,
-                          torch_dtype(cfg.dtype), device)
+                          torch_dtype(cfg.dtype), device, tp)
         return {"conv": conv.expand(cfg.n_layers, *conv.shape).clone(),
                 "ssm": h.expand(cfg.n_layers, *h.shape).clone(),
                 "k": kv["k"], "v": kv["v"],
@@ -835,7 +882,7 @@ class HybridLM(_StackedLM):
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         kv = A.init_cache(cfg, b, max_seq, self.n_shared_uses,
-                          torch_dtype(cfg.dtype), x.device)
+                          torch_dtype(cfg.dtype), x.device, current())
         layers, sp = self._layers(params), params["shared"]
         convs, hs = [], []
 
@@ -959,11 +1006,49 @@ class EncDecLM(_StackedLM):
             "lm_head": {"w": ("embed_vec", "vocab")},
         }
 
-    def init_serving(self, generator: torch.Generator, device=None) -> Params:
-        """`serving_params(init(generator), device)` (the f32 model is
-        small enough to hold: whisper-base is ~0.3 GB)."""
-        device = generator.device if device is None else device
-        return self.serving_params(self.init(generator), device)
+    def init_serving(self, generator: torch.Generator, device=None,
+                     tp=None) -> Params:
+        """`serving_params(init(generator), device)`, bit for bit, drawn
+        part by part in `init`'s order (each encoder and decoder layer
+        alone, as `_StackedLM.init_serving` draws its blocks).  With `tp`
+        (a `distributed.collectives.TensorParallel`), the rank's shards,
+        `tp_local_params(init_serving(...))` bit for bit: each part is cut
+        to the rank's blocks as soon as it is drawn."""
+        cfg, d, gdev = self.cfg, self.cfg.d_model, generator.device
+        device = gdev if device is None else device
+
+        def draw(tree):
+            # cut in f32, then cast: the same bits as the cast cut
+            if tp is not None:
+                tree = self.tp_local_params(tree, tp)
+            return self.serving_params(tree, device)
+
+        out = draw({"embed": embed_init(generator, cfg.vocab, d)})
+        out.update(draw({"enc_pos": torch.randn((cfg.enc_seq, d), generator=generator,
+                                                device=gdev) * 0.01}))
+        out["encoder"] = _draw_layers("encoder", lambda: self._enc_block_init(generator),
+                                      cfg.n_enc_layers, draw, device)
+        out.update(draw({"enc_norm": _norm_init(cfg, d, gdev)}))
+        out["decoder"] = _draw_layers("decoder", lambda: self._dec_block_init(generator),
+                                      cfg.n_layers, draw, device)
+        out.update(draw({"final_norm": _norm_init(cfg, d, gdev),
+                         "lm_head": dense_init(generator, d, cfg.vocab)}))
+        return out
+
+    def tp_local_params(self, params: Params, tp) -> Params:
+        """The rank's shards of the serving parameters (the whole tree or
+        some of its top-level subtrees): the encoder's attention, the
+        decoder's self- and cross-attention on the heads (wk / wv at the KV
+        heads their query heads read), both MLPs on "ffn", the embedding
+        and LM head by the rules (whisper's odd vocabulary: the LM head's
+        rows on "embed_vec" under guarded rules), `enc_pos` replicated."""
+        local = self._tp_split(params, tp.rules, tp)
+        if "encoder" in local:
+            _tp_read_kv_heads(self.cfg, local["encoder"]["attn"], tp)
+        if "decoder" in local:
+            for name in ("self_attn", "cross_attn"):
+                _tp_read_kv_heads(self.cfg, local["decoder"][name], tp)
+        return local
 
     def _enc_block(self, x: torch.Tensor, bp: Params) -> torch.Tensor:
         cfg = self.cfg
@@ -1015,14 +1100,16 @@ class EncDecLM(_StackedLM):
         h = _norm(cfg, bp["mlp_norm"], x)
         return x + F.mlp_apply(bp["mlp"], h, "gelu")
 
-    def init_cache(self, batch: int, max_seq: int, device=None) -> Dict[str, Any]:
+    def init_cache(self, batch: int, max_seq: int, device=None,
+                   tp=None) -> Dict[str, Any]:
         """Zeroed self-attention caches k / v (L, batch, max_seq, Hkv, hd),
         cross-attention K / V ek / ev (L, batch, enc_seq, Hkv, hd), both of
-        `cfg.dtype`, and (batch,) int32 lengths."""
+        `cfg.dtype` at the rank's KV heads under `tp`, and (batch,) int32
+        lengths."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
-        kv = A.init_cache(cfg, batch, max_seq, cfg.n_layers, dtype, device)
-        enc = A.init_cache(cfg, batch, cfg.enc_seq, cfg.n_layers, dtype, device)
+        kv = A.init_cache(cfg, batch, max_seq, cfg.n_layers, dtype, device, tp)
+        enc = A.init_cache(cfg, batch, cfg.enc_seq, cfg.n_layers, dtype, device, tp)
         return {"k": kv["k"], "v": kv["v"], "ek": enc["k"], "ev": enc["v"],
                 "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -1041,7 +1128,7 @@ class EncDecLM(_StackedLM):
         x = embed(params["embed"], batch["tokens"], dtype)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        kv = A.init_cache(cfg, b, max_seq, cfg.n_layers, dtype, x.device)
+        kv = A.init_cache(cfg, b, max_seq, cfg.n_layers, dtype, x.device, current())
         eks, evs = [], []
         for i, bp in enumerate(unbind_layers(params["decoder"])):
             ek, ev = A.cross_kv(bp["cross_attn"], cfg, enc)

@@ -22,8 +22,16 @@ reference's routing predicate, so the VLM with images, `HybridLM`,
 `EncDecLM` and `MambaLM` drain through the loop (the ssm family's
 continuous serving is an explicit `ContinuousEngine`).
 
-The engines take `device` where the JAX engines take a mesh and sharding
-rules; `device=None` means the GPU and raises without one.
+The engines take `device` (`None` means the GPU and raises without one)
+and, as the JAX engines do, an optional mesh and sharding rules.  On a
+mesh (`launch.mesh.tp_mesh(tp)` in a world of tp ranks, each running the
+same engine on the same requests) `FixedBatchEngine` serves every family
+from the rank's parameter shards (`tp_local_params`, or drawn straight
+into them through a `params(tp)` callable) and its caches at the rank's
+widths, the steps inside its `TensorParallel` context under the caller's
+rules pruned for the mesh (`launch.steps.fixed_batch_rules`): every rank
+holds the same logits and draws the same tokens.  `ServeEngine` passes
+the mesh and rules to whichever engine it routes to.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.launch.steps import prefill_step, serve_step
+from repro_torch.distributed.collectives import TensorParallel, tensor_parallel
+from repro_torch.distributed.sharding import DEFAULT_RULES, ShardingRules
+from repro_torch.launch.steps import fixed_batch_rules, prefill_step, serve_step
 from repro_torch.platform import DeviceLike, resolve_device
 from repro_torch.serve.sampling import (SamplingParams, batch_sampling_arrays,
                                         sample_host, truncate_at_eos)
@@ -59,14 +69,30 @@ class Request:
 
 
 class FixedBatchEngine:
-    """The fixed-batch drain loop (the baseline engine)."""
+    """The fixed-batch drain loop (the baseline engine).  `params` is the
+    model's tree, or a function of the rank's `TensorParallel` (None with
+    no model axis) giving the rank's serving parameters, e.g. `lambda tp:
+    model.init_serving(gen, tp=tp)`.  `rules` (DEFAULT_RULES when omitted)
+    are taken as given and pruned for `mesh`, as the reference's engine
+    takes them: an indivisible split raises ValueError."""
 
     def __init__(self, model, params, cfg: ServeConfig,
                  extras: Optional[Dict[str, Any]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, *, mesh=None,
+                 rules: Optional[ShardingRules] = None):
         self.device = resolve_device(device)
         self.model = model
-        self.params = model.serving_params(params, self.device)
+        self.mesh = mesh
+        self.rules = self.tp = None
+        if mesh is not None:
+            self.rules = fixed_batch_rules(DEFAULT_RULES if rules is None else rules, mesh)
+            self.tp = TensorParallel.from_mesh(mesh, self.rules)
+        if callable(params):
+            self.params = model.serving_params(params(self.tp), self.device)
+        else:
+            self.params = model.serving_params(params, self.device)
+            if self.tp is not None:
+                self.params = model.tp_local_params(self.params, self.tp)
         self.cfg = cfg
         # each extra (one request's, e.g. (nv, d)) broadcast over the batch
         self.extras = {k: torch.as_tensor(v, device=self.device)
@@ -109,10 +135,11 @@ class FixedBatchEngine:
             sp, ks = batch_sampling_arrays(batch_reqs, cfg.batch_size)
 
             t_batch0 = time.perf_counter()
-            logits, cache = prefill_step(
-                self.model, self.params,
-                torch.as_tensor(toks, device=self.device), cfg.max_seq,
-                self.extras)
+            with tensor_parallel(self.tp):
+                logits, cache = prefill_step(
+                    self.model, self.params,
+                    torch.as_tensor(toks, device=self.device), cfg.max_seq,
+                    self.extras)
             nxt = sample_host(logits[:, -1], sp, ks)
             outs = [nxt.cpu().numpy()]                     # syncs
             tok_t = [time.perf_counter()]
@@ -120,8 +147,9 @@ class FixedBatchEngine:
 
             t0 = time.perf_counter()
             for j in range(1, cfg.max_new_tokens):
-                logits, cache = serve_step(self.model, self.params, cache,
-                                           nxt[:, None])
+                with tensor_parallel(self.tp):
+                    logits, cache = serve_step(self.model, self.params, cache,
+                                               nxt[:, None])
                 ks[:, 2] = j                               # token index advances
                 nxt = sample_host(logits[:, -1], sp, ks)
                 outs.append(nxt.cpu().numpy())
@@ -146,12 +174,13 @@ class FixedBatchEngine:
 
 class ServeEngine:
     """Historical API over the continuous runtime: models with a paged
-    decode path are served by `ContinuousEngine`, other families by the
-    fixed-batch loop."""
+    decode path and no extras are served by `ContinuousEngine`, anything
+    else by the fixed-batch loop, either on `mesh` under `rules`."""
 
     def __init__(self, model, params, cfg: ServeConfig,
                  extras: Optional[Dict[str, Any]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, *, mesh=None,
+                 rules: Optional[ShardingRules] = None):
         self.cfg = cfg
         self._continuous = hasattr(model, "decode_step_paged") and not extras
         if self._continuous:
@@ -164,9 +193,11 @@ class ServeEngine:
                 max_new_tokens=cfg.max_new_tokens,
                 eos_id=cfg.eos_id,
             )
-            self._engine = ContinuousEngine(model, params, rcfg, device=device)
+            self._engine = ContinuousEngine(model, params, rcfg, device=device,
+                                            mesh=mesh, rules=rules)
         else:
-            self._engine = FixedBatchEngine(model, params, cfg, extras, device)
+            self._engine = FixedBatchEngine(model, params, cfg, extras, device,
+                                            mesh=mesh, rules=rules)
         self.stats = {"requests": 0, "tokens_out": 0, "decode_s": 0.0,
                       "prefill_s": 0.0}
 

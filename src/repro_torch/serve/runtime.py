@@ -43,8 +43,9 @@ MoE's experts; `MambaLM.tp_local_params`: SSM heads and conv channels),
 runs its steps eagerly and exchanges partial sums, gathered activations
 and logits through `distributed.collectives`: every rank runs the same
 host logic on the same inputs and draws the same tokens.  The dense, moe,
-vlm and ssm families (TP_FAMILIES); the families only the fixed-batch
-loop serves take no mesh (ROADMAP.md queue 1, item 8b-iii).  `params` may
+vlm and ssm families (TP_FAMILIES); the hybrid and encdec families have
+no state-cache adapter here and are served on a mesh by the fixed-batch
+loop (`serve.engine.FixedBatchEngine` / `ServeEngine`).  `params` may
 be a function of the rank's `TensorParallel` (None with no model axis)
 that gives the rank's serving parameters, e.g. `lambda tp:
 model.init_serving(gen, tp=tp)`: a model too large for one card then
@@ -159,9 +160,10 @@ class ContinuousEngine:
             self.trace.now_fn = self.now_fn
         if mesh is not None and model.cfg.family not in TP_FAMILIES:
             raise NotImplementedError(
-                f"tensor-parallel serving of the {model.cfg.family} family is not "
-                "ported yet: it is served by FixedBatchEngine / ServeEngine only, "
-                "ROADMAP.md queue 1, item 8b-iii")
+                f"ContinuousEngine has no state cache for the {model.cfg.family} "
+                "family (no family adapter): serve it on a mesh with "
+                "FixedBatchEngine(..., mesh=, rules=) or ServeEngine(..., mesh=, "
+                "rules=), which route it to the fixed-batch loop")
         adapter_cls = resolve_family_adapter(model)
         # the rules the router's layout verdicts and the mesh's divisibility
         # guards leave (`PlanRouter.serve_rules`: the base rules themselves

@@ -27,10 +27,14 @@ file pins the other families `ContinuousEngine` serves:
     engine refuses it (a ValueError where it places the expert stacks,
     checked on a 4-device host platform in a subprocess), and so does the
     port's, naming the axis;
-  * the families only the fixed-batch loop serves take no mesh.
+  * (e) the fixed-batch loop on a mesh: each world also drains the three
+    families through `FixedBatchEngine` (the vlm with its vision
+    embeddings), every rank's streams equal to the JAX FixedBatchEngine's;
+    the families only the fixed-batch loop serves are refused by
+    ContinuousEngine on a mesh, pointing at the fixed-batch engines.
 
 One world of each width serves all three families (one module fixture);
-the JAX engine's streams and the JAX layers run while the worlds do.
+the JAX engines' streams and the JAX layers run while the worlds do.
 """
 
 import dataclasses
@@ -55,6 +59,8 @@ from repro.models import build_model as jax_build_model
 from repro.models import mamba as jax_mamba
 from repro.models import mlp as jax_mlp
 from repro.optim import AdamWConfig, adamw_init
+from repro.serve.engine import FixedBatchEngine as JaxFixedBatchEngine
+from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.serve.runtime import ContinuousEngine as JaxEngine
 from repro.serve.runtime import RuntimeConfig as JaxRuntimeConfig
 from repro_torch.bridge import params_from_jax
@@ -64,7 +70,7 @@ from repro_torch.distributed import DEFAULT_RULES
 from repro_torch.models import build_model
 from repro_torch.models import mamba as port_mamba
 from repro_torch.models import mlp as port_mlp
-from repro_torch.serve.engine import FixedBatchEngine, ServeEngine
+from repro_torch.serve.engine import FixedBatchEngine, ServeConfig, ServeEngine
 from repro_torch.serve.router import PlanRouter
 from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
 from repro_torch.serve.statecache import SlotStateCache, StateCacheConfig
@@ -80,6 +86,10 @@ DECODER_RUNTIME = dict(max_slots=3, max_new_tokens=12, chunk_tokens=16, num_bloc
                        prefix_sharing=True)
 # 2 usable state rows for 3 slots: the first-chunk claim preempts
 SSM_RUNTIME = dict(max_slots=3, max_new_tokens=12, chunk_tokens=16, state_slots=3)
+# the fixed-batch loop on the same workload: batches of 3, left-padded (the
+# ssm's batches 64 and 48 long: multiples of ssm_chunk); the vlm's with
+# vision embeddings
+FIXED = dict(batch_size=3, max_seq=80, max_new_tokens=12)
 # family -> (arch, reduction, runtime).  The MoE: 8 experts top-2 x 64, 4
 # shared (256 wide), 4 / 2 heads; the vlm: M-RoPE (4, 6, 6), 4 / 2 heads;
 # the mamba2: d_in 256 = 16 heads x 16, state 16, conv_dim 288
@@ -212,20 +222,29 @@ def test_slot_pools_have_the_rank_widths(tp):
 
 # ---------------------------------------------- the fixed-batch families
 def test_fixed_batch_families_take_no_mesh():
-    """hybrid (zamba2) and encdec (whisper) are served by the fixed-batch
-    loop only, which takes no mesh: ContinuousEngine on a mesh refuses
-    them, pointing at ROADMAP.md's item 8b-iii, and so do their models'
-    tp_local_params."""
+    """(The name is kept from when the fixed-batch engines took no mesh.)
+    hybrid (zamba2) and encdec (whisper) have no state-cache adapter, so
+    ContinuousEngine on a mesh still refuses them, pointing at the
+    fixed-batch engines; FixedBatchEngine and ServeEngine take `mesh` /
+    `rules` as the reference's engines do and serve them there
+    (tests/test_torch_tp_fixed_batch.py), their models cut their shards,
+    and a split the loop does not run raises naming the axis."""
     for arch in ("zamba2-1.2b", "whisper-base"):
         cfg = get_config(arch).reduced(n_layers=2, dtype="float32")
         model = build_model(cfg)
-        with pytest.raises(NotImplementedError, match="8b-iii"):
+        with pytest.raises(NotImplementedError,
+                           match=r"FixedBatchEngine\(\.\.\., mesh=, rules=\)"):
             ContinuousEngine(model, {}, RuntimeConfig(), device="cpu",
                              mesh=FakeMesh(model=2), rules=DEFAULT_RULES)
-        with pytest.raises(NotImplementedError, match="8b-iii"):
-            model.tp_local_params({}, _TP(DEFAULT_RULES, 0, 2))
-    for engine in (FixedBatchEngine, ServeEngine):
-        assert "mesh" not in inspect.signature(engine).parameters
+        params = model.init(torch.Generator().manual_seed(0))
+        local = model.tp_local_params(params, _TP(_rules(cfg, 2), 1, 2))
+        assert local["lm_head"]["w"].shape[-1] == cfg.vocab // 2
+        for engine in (FixedBatchEngine, ServeEngine):
+            sig = inspect.signature(engine).parameters
+            assert sig["mesh"].default is None and sig["rules"].default is None
+            with pytest.raises(NotImplementedError, match="'kv_seq'"):
+                engine(model, params, ServeConfig(), device="cpu", mesh=FakeMesh(model=2),
+                       rules=DEFAULT_RULES.replace(kv_seq="model"))
 
 
 # ------------------------------------------------------ the cross-mesh worlds
@@ -247,6 +266,7 @@ _CHILD = textwrap.dedent("""
     from repro_torch.models import build_model
     from repro_torch.models import mamba as M
     from repro_torch.models import mlp as F
+    from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
     from repro_torch.serve.router import PlanRouter
     from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
     from repro_torch.serve.sampling import SamplingParams
@@ -303,6 +323,17 @@ _CHILD = textwrap.dedent("""
                          {a: eng.rules.lookup(a) for a in AXES},
                 "mesh": eng.mesh_tag, "pools": [list(p.shape) for p in pools]}
 
+    def drain_fixed(fam, model, params, mesh, extras):
+        family = "ssm" if fam == "ssm" else "decoder"
+        rules = (None if mesh is None else
+                 PlanRouter(None).serve_rules(DEFAULT_RULES, mesh, model.cfg, family))
+        eng = FixedBatchEngine(model, params, ServeConfig(**job["fixed"]), extras,
+                               device="cpu", mesh=mesh, rules=rules)
+        prompts, samp = workload(model.cfg.vocab, job["seed"])
+        for p, s in zip(prompts, samp):
+            eng.submit(p, sampling=s)
+        return {str(r.rid): [int(t) for t in r.output] for r in eng.run()}
+
     def layers(fam, model, params, mesh, z):
         cfg = model.cfg
         family = "ssm" if fam == "ssm" else "decoder"
@@ -340,16 +371,19 @@ _CHILD = textwrap.dedent("""
                        decode_conv=c2, decode_h=h2)
         return {k: v.float().numpy().tolist() for k, v in res.items()}
 
-    out = {"runs": {}, "layers": {}}
+    out = {"runs": {}, "layers": {}, "fixed": {}}
     for fam, spec in job["families"].items():
         cfg = get_config(spec["arch"]).reduced(**spec["cfg"])
         model = build_model(cfg)
         params = load(spec["params"])
         rcfg = RuntimeConfig(**spec["runtime"])
+        extras = {"vision_embeds": np.load(spec["vision"])} if "vision" in spec else None
         if world == 1:
             out["runs"][f"{fam}/none"] = serve(model, params, rcfg, None)
+            out["fixed"][f"{fam}/none"] = drain_fixed(fam, model, params, None, extras)
         mesh = tp_mesh(world, "cpu")
         out["runs"][f"{fam}/tp{world}"] = serve(model, params, rcfg, mesh)
+        out["fixed"][f"{fam}/tp{world}"] = drain_fixed(fam, model, params, mesh, extras)
         if world > 1 and fam in ("moe", "ssm"):
             out["layers"][fam] = layers(fam, model, params, mesh, dict(np.load(spec["layers"])))
     if world == 4:
@@ -402,6 +436,25 @@ def _jax_streams(trained, fam):
     models, mesh = trained
     jcfg, model, params, _ = models[fam]
     eng = JaxEngine(model, params, mesh, JAX_RULES, JaxRuntimeConfig(**FAMILIES[fam][2]))
+    prompts, samp = _workload(SEED, jcfg.vocab)
+    for p, s in zip(prompts, samp):
+        eng.submit(p, sampling=s)
+    with mesh:
+        done = eng.run()
+    return {str(r.rid): [int(t) for t in r.output] for r in done}
+
+
+def _vision(jcfg):
+    return np.random.default_rng(4).standard_normal(
+        (jcfg.n_vision_tokens, jcfg.d_model)).astype(np.float32)
+
+
+def _jax_fixed_streams(trained, fam):
+    models, mesh = trained
+    jcfg, model, params, _ = models[fam]
+    extras = {"vision_embeds": _vision(jcfg)} if fam == "vlm" else None
+    eng = JaxFixedBatchEngine(model, params, mesh, JAX_RULES, JaxServeConfig(**FIXED),
+                              extras)
     prompts, samp = _workload(SEED, jcfg.vocab)
     for p, s in zip(prompts, samp):
         eng.submit(p, sampling=s)
@@ -497,30 +550,34 @@ def worlds(trained, tmp_path_factory):
     for an indivisible MoE in a subprocess (test (d))."""
     tmp = tmp_path_factory.mktemp("tp_families_worlds")
     models, _ = trained
-    job = {"seed": SEED, "families": {}}
+    job = {"seed": SEED, "families": {}, "fixed": FIXED}
     inputs = {}
     for fam, (arch, red, runtime) in FAMILIES.items():
         spec = {"arch": arch, "cfg": red, "runtime": runtime, "params": models[fam][3]}
         if fam in ("moe", "ssm"):
             spec["layers"], inputs[fam] = _layer_inputs(models[fam][0], tmp, fam)
+        if fam == "vlm":
+            spec["vision"] = str(tmp / "vision.npy")
+            np.save(spec["vision"], _vision(models[fam][0]))
         job["families"][fam] = spec
 
     def meanwhile():
         streams = {fam: _jax_streams(trained, fam) for fam in FAMILIES}
         refs = {fam: _reference_layers(trained, fam, z) for fam, z in inputs.items()}
-        return streams, refs
+        fixed = {fam: _jax_fixed_streams(trained, fam) for fam in FAMILIES}
+        return streams, refs, fixed
 
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "JAX_PLATFORMS": "cpu"}
     ref = subprocess.Popen([sys.executable, "-c", _JAX_INDIVISIBLE], env=env,
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        outs, (streams, refs) = _worlds(tmp, job, meanwhile, child=_CHILD)
+        outs, (streams, refs, fixed) = _worlds(tmp, job, meanwhile, child=_CHILD)
         ref_out, ref_err = ref.communicate(timeout=CHILD_TIMEOUT_S)
     finally:
         if ref.poll() is None:
             ref.kill()
             ref.wait()
-    return outs, streams, refs, (ref.returncode, ref_out, ref_err)
+    return outs, streams, refs, (ref.returncode, ref_out, ref_err), fixed
 
 
 @pytest.mark.parametrize("fam", list(FAMILIES))
@@ -531,7 +588,7 @@ def test_cross_mesh_streams_equal_the_jax_engine(worlds, fam):
     the decoders); every rank draws the same tokens; one signature per
     program, nothing run at admission; the pools hold the rank's KV heads
     or state widths."""
-    outs, streams, _, _ = worlds
+    outs, streams, _, _, _ = worlds
     for w, ranks in outs.items():
         for r in ranks[1:]:
             assert r["runs"][f"{fam}/tp{w}"] == ranks[0]["runs"][f"{fam}/tp{w}"], \
@@ -574,7 +631,7 @@ def test_tp_layers_match_the_single_device_and_jax_modules(worlds, fam):
     module — bitwise where only the experts split — and 1e-5 x max of the
     JAX module; mamba's carries are the rank's channels and heads of the
     tp = 1 carries."""
-    outs, _, refs, _ = worlds
+    outs, _, refs, _, _ = worlds
     jax_out, port = refs[fam]
     cfg = _cfg(fam)
     for w in (2, 4):
@@ -614,7 +671,7 @@ def test_moe_at_an_indivisible_width_fails_as_the_reference(worlds):
     'experts' on the axis; no fallback to 'expert_ffn'), checked on a
     4-device host platform; the port's engine raises ValueError naming
     the axis, and so does cutting the shards directly."""
-    outs, _, _, (rc, ref_out, ref_err) = worlds
+    outs, _, _, (rc, ref_out, ref_err), _ = worlds
     assert rc == 0, ref_err[-3000:]
     assert ref_out.startswith("VALUEERROR") and "divisible by 4" in ref_out, ref_out
     for res in outs[4]:
@@ -624,3 +681,21 @@ def test_moe_at_an_indivisible_width_fails_as_the_reference(worlds):
     with pytest.raises(ValueError, match="'experts'"):
         model.tp_local_params(model.init(torch.Generator().manual_seed(0)),
                               _TP(_rules(cfg, 4), 0, 4))
+
+
+@pytest.mark.parametrize("fam", list(FAMILIES))
+def test_fixed_batch_engine_streams_equal_the_jax_engine_on_every_mesh(worlds, fam):
+    """FixedBatchEngine (batches of 3, left-padded; the vlm with its vision
+    embeddings broadcast over the batch) with no mesh, on tp_mesh(1) and in
+    the worlds of 2 and 4 ranks under the guarded rules: every rank's
+    greedy and keyed-sampled streams equal the JAX FixedBatchEngine's at
+    tp = 1."""
+    outs, _, _, _, fixed = worlds
+    legs = {f"{leg}@{r}": streams for ranks in outs.values()
+            for r, res in enumerate(ranks) for leg, streams in res["fixed"].items()
+            if leg.startswith(fam + "/")}
+    assert {k.split("@")[0] for k in legs} == {f"{fam}/{w}"
+                                               for w in ("none", "tp1", "tp2", "tp4")}
+    assert len(legs) == 1 + 1 + 2 + 4
+    for leg, streams in legs.items():
+        assert streams == fixed[fam], f"{leg}: fixed-batch stream differs from JAX"

@@ -26,6 +26,8 @@ Four layers of pinning, as `tests/test_tp_serving.py` pins the reference:
     admission.  The multi-seed fuzz is marked slow, as the reference marks
     its own; one world of each width serves the fast differential's seed
     and the fuzz's together, and the JAX side runs while the worlds do.
+    Each world also drains the fast seed's workload through
+    `FixedBatchEngine` on its mesh, held to the JAX FixedBatchEngine.
 
 The JAX engine and trainer run on a mesh built with Auto axis types (under
 jax 0.9 `jax.make_mesh` gives Explicit axes, with which the reference's
@@ -61,6 +63,8 @@ from repro.models import build_model
 from repro.models import common as jax_common
 from repro.models import mlp as jax_mlp
 from repro.optim import AdamWConfig, adamw_init
+from repro.serve.engine import FixedBatchEngine as JaxFixedBatchEngine
+from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.serve.router import PlanRouter as JaxRouter
 from repro.serve.router import build_serve_graph as jax_serve_graph
 from repro.serve.runtime import ContinuousEngine as JaxEngine
@@ -81,6 +85,7 @@ from repro_torch.models import build_model as port_build_model
 from repro_torch.models import attention as port_attention
 from repro_torch.models import common as port_common
 from repro_torch.models import mlp as port_mlp
+from repro_torch.models.zoo import _StackedLM
 from repro_torch.serve.router import PlanRouter, build_serve_graph, build_serve_plan
 from repro_torch.tree import tree_flatten_with_paths
 
@@ -417,11 +422,20 @@ def test_tp_local_params_are_the_blocks_each_rank_holds():
                        params["blocks"]["mlp"]["w_out"]["w"])
     assert all(torch.equal(s["final_norm"]["scale"], params["final_norm"]["scale"])
                for s in shards)
-    # the moe and vlm shard too (tests/test_torch_tp_families.py); the
-    # families only the fixed-batch loop serves take no mesh
+    # the moe and vlm shard too (tests/test_torch_tp_families.py), and so do
+    # the families only the fixed-batch loop serves
+    # (tests/test_torch_tp_fixed_batch.py): the hybrid's shared attention
+    # here; a model class without its own shards points at the engines
     hybrid = port_build_model(get_config("zamba2-1.2b").reduced(n_layers=2))
-    with pytest.raises(NotImplementedError, match="8b-iii"):
-        hybrid.tp_local_params({}, _TP(rules, 0, 4))
+    hp = hybrid.init(torch.Generator().manual_seed(0))
+    hd = hybrid.cfg.hd
+    local = hybrid.tp_local_params(hp, _TP(rules, 1, 4))
+    assert torch.equal(local["shared"]["attn"]["wk"]["w"],
+                       hp["shared"]["attn"]["wk"]["w"][..., :hd])
+    assert torch.equal(local["shared"]["attn"]["wq"]["w"],
+                       hp["shared"]["attn"]["wq"]["w"][..., hd:2 * hd])
+    with pytest.raises(NotImplementedError, match="FixedBatchEngine / ServeEngine"):
+        _StackedLM(hybrid.cfg).tp_local_params({}, _TP(rules, 0, 4))
 
 
 # ------------------------------------------- the cross-mesh differential
@@ -444,6 +458,7 @@ _CHILD = textwrap.dedent("""
     from repro_torch.models import attention as A
     from repro_torch.models import common as C
     from repro_torch.models import mlp as F
+    from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
     from repro_torch.serve.router import PlanRouter
     from repro_torch.serve.runtime import ContinuousEngine, RuntimeConfig
     from repro_torch.serve.sampling import SamplingParams
@@ -500,7 +515,20 @@ _CHILD = textwrap.dedent("""
                 "layouts": meta["layouts"]["decode"],
                 "kv_heads": int(eng.cache.k.shape[3])}
 
-    out = {"runs": {}}
+    def drain_fixed(seed, mesh):
+        rules = (None if mesh is None else
+                 PlanRouter(None).serve_rules(DEFAULT_RULES, mesh, cfg))
+        eng = FixedBatchEngine(model, params, ServeConfig(**job["fixed"]), device="cpu",
+                               mesh=mesh, rules=rules)
+        prompts, samp = workload(seed)
+        for p, s in zip(prompts, samp):
+            eng.submit(p, sampling=s)
+        return {str(r.rid): [int(t) for t in r.output] for r in eng.run()}
+
+    out = {"runs": {}, "fixed": {}}
+    if world == 1:
+        out["fixed"]["none"] = drain_fixed(job["seeds"][0], None)
+    out["fixed"][f"tp{world}"] = drain_fixed(job["seeds"][0], tp_mesh(world, "cpu"))
     tuned = (PlanRouter(InferencePlan.load(job["plan"]))
              if job.get("plan") and world == 4 else None)
     for seed in job["seeds"]:
@@ -612,6 +640,8 @@ def _workload(seed, vocab):
 TINY = dict(n_layers=2, d_model=128, d_ff=256, vocab=192, dtype="float32")
 RUNTIME = dict(max_slots=3, max_new_tokens=12, chunk_tokens=16, num_blocks=8,
                prefix_sharing=True)
+# the fixed-batch loop on the same workload: batches of 3, left-padded
+FIXED = dict(batch_size=3, max_seq=80, max_new_tokens=12)
 
 
 @pytest.fixture(scope="module")
@@ -645,6 +675,17 @@ def trained(tmp_path_factory):
 def _jax_streams(trained, seed):
     jcfg, model, params, mesh, _ = trained
     eng = JaxEngine(model, params, mesh, JAX_RULES, JaxRuntimeConfig(**RUNTIME))
+    prompts, samp = _workload(seed, jcfg.vocab)
+    for p, s in zip(prompts, samp):
+        eng.submit(p, sampling=s)
+    with mesh:
+        done = eng.run()
+    return {str(r.rid): [int(t) for t in r.output] for r in done}
+
+
+def _jax_fixed_streams(trained, seed):
+    jcfg, model, params, mesh, _ = trained
+    eng = JaxFixedBatchEngine(model, params, mesh, JAX_RULES, JaxServeConfig(**FIXED))
     prompts, samp = _workload(seed, jcfg.vocab)
     for p, s in zip(prompts, samp):
         eng.submit(p, sampling=s)
@@ -777,11 +818,11 @@ def worlds(trained, tmp_path_factory):
     layers_path, z = _layer_inputs(trained, tmp)
     seeds = (FAST_SEED,) + FUZZ_SEEDS
     job = {"cfg": TINY, "params": trained[4], "runtime": RUNTIME, "seeds": list(seeds),
-           "plan": plan_path, "layers": layers_path}
-    outs, (streams, jax_layers) = _worlds(
+           "plan": plan_path, "layers": layers_path, "fixed": FIXED}
+    outs, (streams, jax_layers, fixed) = _worlds(
         tmp, job, lambda: ({s: _jax_streams(trained, s) for s in seeds},
-                           _jax_layers(trained, z)))
-    return outs, plan, z, jax_layers, streams
+                           _jax_layers(trained, z), _jax_fixed_streams(trained, FAST_SEED)))
+    return outs, plan, z, jax_layers, streams, fixed
 
 
 def test_cross_mesh_streams_byte_identical_fast(worlds):
@@ -790,7 +831,7 @@ def test_cross_mesh_streams_byte_identical_fast(worlds):
     plan equal the JAX engine's at tp = 1, token for token, under
     preemption and prefix sharing; one signature per program at every
     width, nothing captured at admission."""
-    outs, plan, _, _, streams = worlds
+    outs, plan, _, _, streams, _ = worlds
     runs = _check_runs(outs, streams, [FAST_SEED])
     # the tuned plan's verdicts reach the engine's rules and its trace
     # metadata's layout table
@@ -809,7 +850,7 @@ def test_tp_layers_match_the_single_device_and_jax_modules(trained, worlds):
     and summed) at tp = 2 and 4: every rank's result bitwise equal, within
     1e-6 x max of the tp = 1 module and 1e-5 x max of the JAX module; the
     helper's all-reduce is the f32 sum in rank order, rounded once."""
-    outs, _, z, jax_layers, _ = worlds
+    outs, _, z, jax_layers, _, _ = worlds
     port = _port_layers(trained, z)
     for w in (2, 4):
         ranks = outs[w]
@@ -838,5 +879,23 @@ def test_tp_layers_match_the_single_device_and_jax_modules(trained, worlds):
 def test_cross_mesh_streams_byte_identical_fuzz(worlds):
     """The seeded fuzz: three more workloads (prompt mixes, keys and
     preemption patterns) through the same cross-mesh differential."""
-    outs, _, _, _, streams = worlds
+    outs, _, _, _, streams, _ = worlds
     _check_runs(outs, streams, list(FUZZ_SEEDS))
+
+
+def test_fixed_batch_engine_streams_equal_the_jax_engine_on_every_mesh(worlds):
+    """FixedBatchEngine (batches of 3, left-padded, the fast seed's greedy
+    and keyed-sampled workload) with no mesh, on tp_mesh(1) and in the
+    worlds of 2 and 4 ranks under the guarded rules (at 4 the KV heads
+    replicated, each rank reading its one): every rank's streams equal
+    the JAX FixedBatchEngine's at tp = 1."""
+    outs, _, _, _, _, fixed = worlds
+    legs = {}
+    for w, ranks in outs.items():
+        for r, res in enumerate(ranks):
+            for leg, streams in res["fixed"].items():
+                legs[f"{leg}@{r}"] = streams
+    assert {k.split("@")[0] for k in legs} == {"none", "tp1", "tp2", "tp4"}
+    assert len(legs) == 1 + 1 + 2 + 4
+    for leg, streams in legs.items():
+        assert streams == fixed, f"{leg}: fixed-batch stream differs from JAX"
