@@ -321,12 +321,15 @@ each with its seconds logged:
      head-aligned, the vlm's KV heads as its query heads read them):
      streams equal on every rank, one signature per program, nothing
      captured, every request drained, launches equal to the tp = 1 eager
-     run's, each rank's peak within its shards plus one full leaf in f32;
+     run's, each rank's peak within its shards plus one full leaf in f32
+     and its f32 shard (what `init_serving(tp=)` holds at once);
      (c) every stream replayed teacher-forced through the tp = 1 torch
      lanes (`forced_check`), each token with a top-2 margin > 0.25 its
      argmax (phase 2 first holds paged decode / prefill at the MoE's and
      the vlm's rank heads and the GEMM at the three models' shard shapes,
-     tp = 2 / 4);
+     tp = 2 / 4).  The ranks of (b) serve the three models at full width
+     and a cut depth (TP_FAMILY_CHILD_LAYERS: 4 / 8 / 4 layers), against
+     a tp = 1 eager run and replay at that depth;
  23. the fixed-batch loop on a mesh: zamba2-1.2b (38 layers) and
      whisper-base (1500 audio frames) at full size, one batch of 4 prompts
      each through `FixedBatchEngine` under the guarded rules (whisper's
@@ -340,7 +343,27 @@ each with its seconds logged:
      tp = 1 run's activations; (c) every stream
      replayed teacher-forced through the tp = 1 loop, each token with a
      top-2 margin > 0.25 its argmax;
- 24. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 24. training on a mesh: qwen3-1.7b at phase 14's configuration (full
+     width and depth, remat full, seq 1024 x batch 8, 2 microbatches, seed
+     0) through `Trainer(model, mesh, rules, data, cfg)` and its rank step
+     (`launch/steps.py::mesh_train_step`) on a (data 1, model 2) and a
+     (data 2, model 1) mesh with ZeRO-1, each a gloo world of two
+     processes sharing the card (`--train-tp-child`): every rank draws the
+     single-device state from the seed and keeps its cut, computes the
+     step-1 gradients (loss within 1e-3 of phase 14's, the global norm
+     within 1e-2 relative, every gathered leaf's cosine with phase 14's
+     step-1 gradient >= 0.999) and runs 2 steps: loss and grad_norm the
+     same bits on every rank, the replicated leaves bitwise equal across
+     ranks after step 2, no hand-written kernel launched; each rank's peak
+     memory beside the shards + gradients + moments + activations reckoned
+     before the run, the least free memory on the card during the steps
+     (every process's use), and its step ms (gloo on one card: not a TP
+     speed).
+     Then the elastic restart at phase 15's Trainer configuration: the
+     (data 1, model 2) world trains and saves, and this process, with no
+     mesh, restores the checkpoint bitwise equal to the state the ranks
+     gathered;
+ 25. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8, 10 and 20, their
      serving runs, the decode wrapper's call, the fixed-batch runs of
@@ -348,7 +371,7 @@ each with its seconds logged:
      run of phase 16, the serving runs of phases 17-18, 21 and 22, each
      rank's its own path; a replayed CUDA graph counts the launches it
      captured), error and times;
- 25. the last line `{"ok": true, "device": {...}}`.
+ 26. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -357,6 +380,7 @@ nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
@@ -366,6 +390,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1213,6 +1238,17 @@ def check_tp_shapes(torch, checks, cfg, block_q):
 # out_proj's K slice, the MoE's attention and shared-expert shards, the
 # vlm's, and each vocabulary slice of lm_head.
 TP_FAMILY_ARCHS = ("qwen2-vl-2b", "mamba2-2.7b", "qwen2-moe-a2.7b")
+# phase 22 (b)'s ranks serve each model at full width and this depth (a
+# seventh or an eighth of 28 / 64 / 24), against a tp = 1 eager run and
+# replay at it
+TP_FAMILY_CHILD_LAYERS = {"qwen2-vl-2b": 4, "mamba2-2.7b": 8, "qwen2-moe-a2.7b": 4}
+
+
+def tp_family_cfg(arch):
+    """Phase 22 (b)'s configuration of `arch`: full width, the cut depth."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=TP_FAMILY_CHILD_LAYERS[arch])
 
 
 def tp_family_gemms(cfg, tp):
@@ -4266,10 +4302,12 @@ def _train_batch(torch, data, step, cfg, gen=None):
     return batch
 
 
-def _against_f32_twin(torch, label, model, params, batch, microbatches):
+def _against_f32_twin(torch, label, model, params, batch, microbatches, keep=None):
     """Loss and gradients of the bf16 model and of its f32 twin on the
     same parameters and batch: the loss within TRAIN_LOSS_ATOL, the global
-    norm within TRAIN_GNORM_RTOL, every leaf's cosine logged.
+    norm within TRAIN_GNORM_RTOL, every leaf's cosine logged.  `keep`: a
+    directory where the bf16 model's gradients are left on the host, one
+    `<leaf>.npy` each (`keep_leaf`), for phase 24.
     -> (bf16 loss, bf16 norm, peak GB)."""
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import build_model
@@ -4287,6 +4325,8 @@ def _against_f32_twin(torch, label, model, params, batch, microbatches):
     cosines = []
     g32 = dict(tree_flatten_with_paths(g32))
     for key, g in tree_flatten_with_paths(g16):
+        if keep:
+            keep_leaf(torch, keep, key, g)
         a, b = g.double().flatten(), g32[key].double().flatten()
         den = float(a.norm() * b.norm())
         cosines.append((float(a @ b) / den if den > 0 else 1.0, key))
@@ -4305,6 +4345,24 @@ def _against_f32_twin(torch, label, model, params, batch, microbatches):
     if abs(loss16 - loss32) > TRAIN_LOSS_ATOL or abs(n16 / n32 - 1) > TRAIN_GNORM_RTOL:
         raise AssertionError(f"[{label}] bf16 step 1 disagrees with its f32 twin")
     return loss16, n16, peak
+
+
+def keep_leaf(torch, where, key, g):
+    """Leave gradient leaf `key` on the host as `<where>/<key>.npy`, its
+    bf16 rounding's bits (int16): phase 24 compares cosines, which the
+    rounding (2^-9 relative) moves by ~1e-5, at half the bytes of f32."""
+    import numpy as np
+
+    path = os.path.join(where, key.replace("/", ".") + ".npy")
+    np.save(path, g.to(torch.bfloat16).view(torch.int16).cpu().numpy())
+
+
+def kept_leaf(torch, where, key):
+    """`keep_leaf`'s leaf back, f32 on the card."""
+    import numpy as np
+
+    bits = np.load(os.path.join(where, key.replace("/", ".") + ".npy"))
+    return torch.from_numpy(bits).view(torch.bfloat16).to(DEVICE).float()
 
 
 def _profile_step(torch, label, fn):
@@ -4328,9 +4386,11 @@ def _profile_step(torch, label, fn):
     return events
 
 
-def phase_train(torch, cfg, counters):
-    """Phase 14 (see the module docstring)."""
+def phase_train(torch, cfg, counters, keep=None):
+    """Phase 14 (see the module docstring); `keep`: the directory where
+    step 1's gradients are left for phase 24 (`keep_leaf`)."""
     from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed import DEFAULT_RULES
     from repro_torch.launch.steps import TrainConfig, loss_and_grads, make_train_step
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -4360,8 +4420,8 @@ def phase_train(torch, cfg, counters):
     _zeroed(counters)
     loss16, n16, twin_peak = _against_f32_twin(
         torch, label, model, params, _train_batch(torch, data, 0, cfg),
-        TRAIN_MICROBATCHES)
-    step_fn = make_train_step(model, tcfg)
+        TRAIN_MICROBATCHES, keep=keep)
+    step_fn = make_train_step(model, tcfg, DEFAULT_RULES)
     losses, times = [], []
     for step in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
         batch = _train_batch(torch, data, step, cfg)
@@ -4423,13 +4483,17 @@ def phase_train(torch, cfg, counters):
     log(f"[{label}] hand-written kernels launched: none")
     _phase_end(label, t_phase)
     return {"step_ms": med * 1e3, "tokens_s": tokens / med, "adamw_ms": _median(ms),
-            "adamw_bound_ms": bound_ms, "peak_gb": peak, "events": events}
+            "adamw_bound_ms": bound_ms, "peak_gb": peak, "events": events,
+            "loss1": loss16, "gnorm1": n16}
 
 
-def _loop_trainer(ckpt_dir):
-    from repro_torch.configs import get_config
+def _loop_trainer(ckpt_dir, mesh=None, steps=LOOP_STEPS):
+    """`examples/train_lm.py`'s Trainer (phase 15), `steps` long, with no
+    mesh or on `mesh` (the reference's guarded rules for it)."""
+    from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.data import DataConfig, SyntheticLMData
-    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.launch.steps import TrainConfig, rules_for_shape
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import Trainer, TrainerConfig
@@ -4437,10 +4501,13 @@ def _loop_trainer(ckpt_dir):
     cfg = get_config("qwen3-1.7b").reduced(n_layers=4, d_model=256, d_ff=1024, n_heads=4,
                                            n_kv_heads=2, head_dim=64, vocab=4096)
     data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8))
-    return Trainer(build_model(cfg), data, TrainerConfig(
-        steps=LOOP_STEPS, ckpt_every=LOOP_CKPT_EVERY, ckpt_dir=ckpt_dir, log_every=50,
+    rules = DEFAULT_RULES if mesh is None else rules_for_shape(
+        cfg, ShapeSpec("train", "train", 128, 8), mesh)
+    return Trainer(build_model(cfg), mesh, rules, data, TrainerConfig(
+        steps=steps, ckpt_every=LOOP_CKPT_EVERY, ckpt_dir=ckpt_dir, log_every=50,
         train=TrainConfig(microbatches=2, opt=AdamWConfig(lr=1e-3, warmup_steps=20,
-                                                          total_steps=LOOP_STEPS))))
+                                                          total_steps=LOOP_STEPS))),
+        device=DEVICE if mesh is None else None)
 
 
 def _state_diff(torch, a, b):
@@ -4458,6 +4525,7 @@ def phase_train_loop(torch, counters):
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed import DEFAULT_RULES
     from repro_torch.launch.steps import TrainConfig, make_train_step
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
@@ -4534,8 +4602,8 @@ def phase_train_loop(torch, counters):
         state = {"params": params, "opt": adamw_init(params)}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state["params"], state["opt"], metrics = make_train_step(model, TrainConfig())(
-            state["params"], state["opt"], batch)
+        state["params"], state["opt"], metrics = make_train_step(
+            model, TrainConfig(), DEFAULT_RULES)(state["params"], state["opt"], batch)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
         finite = all(bool(torch.isfinite(t).all()) for t in _leaves(state["params"]))
@@ -4658,6 +4726,7 @@ def _long_train(torch, counters):
     be finite and no hand-written kernel may launch."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed import DEFAULT_RULES
     from repro_torch.launch.steps import TrainConfig, make_train_step
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -4670,7 +4739,8 @@ def _long_train(torch, counters):
     data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=LONG_TRAIN_SEQ,
                                       global_batch=LONG_TRAIN_BATCH))
     step_fn = make_train_step(model, TrainConfig(microbatches=LONG_TRAIN_MICRO,
-                                                 opt=AdamWConfig(**TRAIN_OPT)))
+                                                 opt=AdamWConfig(**TRAIN_OPT)),
+                              DEFAULT_RULES)
     tokens = LONG_TRAIN_SEQ * LONG_TRAIN_BATCH
     _zeroed(counters)
     calls, restore = _count_chunked()
@@ -5021,11 +5091,12 @@ def tp_child(torch, rank, world, store, out_path):
         dist.destroy_process_group()
 
 
-def _tp_world(tp, tmp, flag="--tp-child", tag=""):
+def _tp_world(tp, tmp, flag="--tp-child", tag="", extra=(), env=None):
     """Run phase 21 (b)'s ranks of one width (with `flag`
-    "--tp-family-child": phase 22's) as processes on the card; -> each
-    rank's result.  Any rank that fails or outlives TP_CHILD_TIMEOUT_S
-    fails the phase (the others are killed first)."""
+    "--tp-family-child": phase 22's, and so on; `extra`: more arguments)
+    as processes on the card; -> each rank's result.  Any rank that fails
+    or outlives TP_CHILD_TIMEOUT_S fails the phase (the others are killed
+    first)."""
     store = os.path.join(tmp, f"store{tag}{tp}")
     procs = []
     for r in range(tp):
@@ -5033,7 +5104,8 @@ def _tp_world(tp, tmp, flag="--tp-child", tag=""):
         with open(logf, "w") as f:
             procs.append((r, out, logf, subprocess.Popen(
                 [sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
-                 str(r), str(tp), store, out], stdout=f, stderr=subprocess.STDOUT,
+                 str(r), str(tp), store, out, *extra], stdout=f, stderr=subprocess.STDOUT,
+                env=env,
                 cwd=ROOT)))
     failed = []
     deadline = time.perf_counter() + TP_CHILD_TIMEOUT_S
@@ -5170,7 +5242,8 @@ def phase_tp_serving(torch, counters):
 # captured, every request drained, launches of paged decode / prefill,
 # the GEMM and the draw equal to the tp = 1 eager run's, and each rank's
 # peak memory within its shards plus one full leaf of the model in f32
-# (the dtype its init draws in).  (c) Each width's streams replayed
+# (the dtype its init draws in) and that leaf's f32 shard (what
+# `init_serving(tp=)` holds at once).  (c) Each width's streams replayed
 # teacher-forced through the tp = 1 engine on the torch lanes
 # (`forced_check`): every token whose top-2 margin there exceeds 0.25
 # must be its argmax.  Logged, not gated: how many streams equal tp = 1's
@@ -5230,7 +5303,7 @@ def tp_family_child(torch, rank, world, store, out_path):
     try:
         mesh = tp_mesh(world)
         for arch in TP_FAMILY_ARCHS:
-            cfg = get_config(arch)
+            cfg = tp_family_cfg(arch)
             model = build_model(cfg)
             rng = np.random.default_rng(0)
             prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
@@ -5261,7 +5334,7 @@ def tp_family_child(torch, rank, world, store, out_path):
             pools = ((eng.cache.conv, eng.cache.ssm) if eng.family == "ssm"
                      else (eng.cache.k, eng.cache.v))
             results[arch] = {
-                "rank": rank, "world": world, "mesh": eng.mesh_tag,
+                "rank": rank, "world": world, "mesh": eng.mesh_tag, "layers": cfg.n_layers,
                 "rules": {a: eng.rules.lookup(a) for a in
                           ("heads", "kv_heads", "ffn", "experts", "vocab", "ssm_heads",
                            "conv_dim")},
@@ -5393,8 +5466,15 @@ def phase_tp_families(torch, counters):
         mesh = tp_mesh(1)
         try:
             one = run("tp_mesh(1), graphed", mesh=mesh, rules=DEFAULT_RULES)
-            eager[arch] = run("tp_mesh(1), eager", mesh=mesh, rules=DEFAULT_RULES,
-                              graphs=False)
+            full_eager = run("tp_mesh(1), eager", mesh=mesh, rules=DEFAULT_RULES,
+                             graphs=False)
+            # the ranks' depth: the reference their launches and streams meet
+            del served
+            free_device(torch)
+            served = _family_setup(torch, tp_family_cfg(arch))
+            kw["prompts"] = served[2]
+            eager[arch] = run(f"tp_mesh(1), eager, {TP_FAMILY_CHILD_LAYERS[arch]} layers",
+                              mesh=mesh, rules=DEFAULT_RULES, graphs=False)
         finally:
             dist.destroy_process_group()
         if one[0] != base[0] or not _same_firsts(one[1], base[1]) or one[3] != base[3]:
@@ -5405,13 +5485,14 @@ def phase_tp_families(torch, counters):
         need = ("matmul_fused", "sample_draw") + (
             () if cfg.family == "ssm" else ("paged_decode_attention",
                                             "paged_prefill_attention"))
-        if any(eager[arch][3][k] <= 0 for k in need):
-            raise AssertionError(f"[{arch}] the tp = 1 eager run launched "
-                                 f"{eager[arch][3]}: a kernel of {need} never ran")
+        if any(run_[3][k] <= 0 for k in need for run_ in (full_eager, eager[arch])):
+            raise AssertionError(f"[{arch}] the tp = 1 eager runs launched "
+                                 f"{full_eager[3]} / {eager[arch][3]}: a kernel of {need} "
+                                 "never ran")
         log(f"[{arch}] tp_mesh(1) = no mesh: streams, first-token logits (bitwise) and "
             f"launches {one[3]}")
         paths[f"serve_{arch}_tp_mesh1"] = one[3]
-        del served, base, one
+        del served, base, one, full_eager
         free_device(torch)
 
     build.build_all()                          # every library in place before spawning
@@ -5421,7 +5502,8 @@ def phase_tp_families(torch, counters):
         t0 = time.perf_counter()
         worlds[tp] = _tp_world(tp, tmp, "--tp-family-child", "families")
         log(f"[tp={tp}] {tp} ranks served {len(TP_FAMILY_ARCHS)} models in "
-            f"{time.perf_counter() - t0:.1f} s (start included)")
+            f"{time.perf_counter() - t0:.1f} s (start included), at depths "
+            f"{TP_FAMILY_CHILD_LAYERS}")
 
     # every rank's numbers first, so a failing gate still leaves them all
     for arch in TP_FAMILY_ARCHS:
@@ -5434,10 +5516,10 @@ def phase_tp_families(torch, counters):
                     f"{res['captures']}), launches {res['launches']}; params "
                     f"{res['param_gb']:.3f} GB drawn in {res['init_s']:.1f} s (peak "
                     f"{res['init_peak_gb']:.2f} GB), pools {res['pool_gb']:.3f} GB, peak "
-                    f"{res['peak_gb']:.2f} GB against shards + one f32 full leaf "
-                    f"{res['param_gb'] + res['leaf_gb']:.2f} GB")
+                    f"{res['peak_gb']:.2f} GB against shards + one f32 full leaf and its "
+                    f"f32 shard {res['param_gb'] + res['leaf_gb'] * (1 + 1 / tp):.2f} GB")
     for arch in TP_FAMILY_ARCHS:
-        cfg = get_config(arch)
+        cfg = tp_family_cfg(arch)
         ref = eager[arch][0]
         to_check = {}
         for tp, ranks in worlds.items():
@@ -5459,10 +5541,10 @@ def phase_tp_families(torch, counters):
                 if res["launches"] != want:
                     raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}: launches "
                                          f"{res['launches']}, tp = 1 eager {want}")
-                if res["peak_gb"] > res["param_gb"] + res["leaf_gb"]:
+                if res["peak_gb"] > res["param_gb"] + res["leaf_gb"] * (1 + 1 / tp):
                     raise AssertionError(f"[{arch} tp={tp}] rank {res['rank']}: peak "
                                          f"{res['peak_gb']:.2f} GB > shards + one full "
-                                         "leaf")
+                                         "leaf and its shard in f32")
                 paths[f"serve_{arch}_tp{tp}_rank{res['rank']}"] = res["launches"]
             out = {int(k): v for k, v in ranks[0]["streams"].items()}
             if sorted(out) != sorted(ref) or any(
@@ -5719,6 +5801,393 @@ def phase_tp_fixed(torch):
     return paths
 
 
+# ------------------------------------------------------------ phase 24
+# Training on a mesh (`Trainer(model, mesh, rules, data, cfg)`, the rank
+# step `launch/steps.py::mesh_train_step`): qwen3-1.7b at phase 14's
+# configuration on a (data 1, model 2) and a (data 2, model 1) mesh with
+# ZeRO-1, each a gloo world of two processes sharing the card
+# (`--train-tp-child RANK WORLD STORE OUT JOB`).  Every rank draws the
+# single-device state from seed 0 and keeps its cut, computes the step-1
+# gradients (held against phase 14's, which phase 14 left on the host) and
+# runs TRAIN_TP_STEPS steps; the (data 1, model 2) world then trains phase
+# 15's Trainer configuration for ELASTIC_STEPS steps and saves, and this
+# process restores that checkpoint with no mesh (elastic restart: phase
+# 15's size, as the full 24.4 GB f32 state would take minutes of disk).
+TRAIN_TP_MESHES = ((1, 2), (2, 1))
+TRAIN_TP_STEPS = 2
+TRAIN_TP_LOSS_ATOL, TRAIN_TP_GNORM_RTOL, TRAIN_TP_COSINE = 1e-3, 1e-2, 0.999
+ELASTIC_STEPS = 4
+
+
+def _wrappers():
+    """The eight hand-written kernels' wrappers (their launch counters)."""
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import conv2d as KC
+    from repro_torch.kernels import fused as KF
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import sampling as KS
+
+    return (KA.paged_decode_attention, KA.paged_prefill_attention, KM.matmul_fused,
+            KC.conv2d_direct, KF.fused_elementwise, KA.flash_attention,
+            KA.dense_decode_attention, KS.sample_draw)
+
+
+def train_tp_reckon(cfg, state, rows, tp):
+    """Bytes one rank needs before the run, from its shards: parameters,
+    gradients (the parameters' shapes), moments (as cut, ZeRO-1 blocks
+    included), and activations under remat full: each layer's input kept
+    (rows x seq x d, bf16), one layer recomputed in backward (the f32
+    attention logits and probabilities of its heads, or its MLP's four
+    (rows, seq, d_ff / tp) bf16 tensors, the larger) and one LM-head chunk
+    (512 positions' f32 logits over the rank's vocabulary, three times:
+    logits, exponentials, gradient)."""
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in _leaves(tree))
+    params, moments = nbytes(state["params"]), nbytes(state["opt"]["m"]) * 2
+    seq, d = TRAIN_SEQ, cfg.d_model
+    kept = cfg.n_layers * rows * seq * d * 2
+    layer = max(rows * (cfg.n_heads // tp) * seq * seq * (4 + 4 + 2),
+                4 * rows * seq * (cfg.d_ff // tp) * 2)
+    head = 3 * rows * 512 * (cfg.vocab // tp) * 4
+    return {"params": params, "grads": params, "moments": moments,
+            "activations": kept + layer + head}
+
+
+def _dots(torch, a, b, piece=1 << 24):
+    """(a . b, a . a, b . b) of two f32 tensors, f32 products over pieces
+    of `piece` elements summed in f64 (no f64 copy of either)."""
+    out = torch.zeros(3, dtype=torch.float64, device=a.device)
+    for x, y in zip(a.reshape(-1).split(piece), b.reshape(-1).split(piece)):
+        x, y = x.float(), y.float()
+        out += torch.stack([x @ y, x @ x, y @ y]).double()
+    return out
+
+
+def _sha(torch, t):
+    """sha256 of a tensor's bytes."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def _least_free(torch):
+    """Start a thread that reads the card's free memory
+    (`torch.cuda.mem_get_info`: what every process on it leaves) every 2
+    ms; -> a function that stops it and returns the least free bytes
+    read."""
+    import threading
+
+    least, stop = [float("inf")], threading.Event()
+
+    def poll():
+        torch.cuda.set_device(0)
+        while not stop.is_set():
+            least[0] = min(least[0], torch.cuda.mem_get_info(0)[0])
+            stop.wait(0.002)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+
+    def done():
+        stop.set()
+        thread.join()
+        return least[0]
+
+    return done
+
+
+def train_tp_child(torch, rank, world, store, out_path, job_path):
+    """One rank of phase 24, run as `chip_smoke.py --train-tp-child RANK
+    WORLD STORE OUT JOB`: the mesh of JOB's shape, qwen3-1.7b's state from
+    seed 0 cut to the rank, the step-1 gradients' cosines with phase 14's
+    (on the writing rank), TRAIN_TP_STEPS steps; with JOB's "elastic", the
+    Trainer run that saves.  Writes its numbers to OUT as JSON."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.mesh import init_file_world
+    from repro_torch.launch.steps import TrainConfig, rules_for_shape
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import tree_flatten_with_paths
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    init_file_world(store, rank, world, "gloo")
+    res = {"rank": rank}
+    try:
+        shape = tuple(job["shape"])
+        mesh = DeviceMesh(DEVICE, torch.arange(world).reshape(shape),
+                          mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"), remat="full")
+        rules = rules_for_shape(cfg, ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                                mesh)
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH))
+        tr = Trainer(build_model(cfg), mesh, rules, data, TrainerConfig(
+            steps=TRAIN_TP_STEPS, ckpt_every=10 ** 9, log_every=10 ** 9,
+            ckpt_dir=os.path.join(job["tmp"], f"ckpt_unused_{rank}"),
+            train=TrainConfig(microbatches=TRAIN_MICROBATCHES, zero1=True,
+                              opt=AdamWConfig(**TRAIN_OPT))))
+        step, rm = tr._step_fn, tr.rank_mesh
+        wrappers = _wrappers()
+        _zeroed(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = tr.init_state(0)
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        dp, tp = shape
+        res["reckon"] = train_tp_reckon(cfg, state, TRAIN_BATCH // TRAIN_MICROBATCHES // dp,
+                                        tp)
+        res["rules"] = {a: rm.rules.lookup(a) for a in ("batch", "zero", "heads", "kv_heads",
+                                                       "ffn", "vocab")}
+        cuts, cos = dict(tree_flatten_with_paths(step.layouts["params"])), {}
+
+        def against_phase14(grads):
+            # step 1's gradients against phase 14's, leaf by leaf: each rank
+            # takes the dot product and the squared norms over the positions
+            # it owns of phase 14's leaf cut as its own, summed over the ranks
+            t0 = time.perf_counter()
+            keys, sums = [], []
+            for key, g in tree_flatten_with_paths(grads):
+                cut = cuts[key]
+                ref = cut.model_local(kept_leaf(torch, job["grads"], key))
+                if cut.dim is not None and len(cut.owned()) < len(cut.index):
+                    own = cut.owned().to(g.device)
+                    g, ref = g.index_select(cut.dim, own), ref.index_select(cut.dim, own)
+                part = _dots(torch, g, ref)
+                if cut.dim is None and rm.tp is not None and rm.tp.rank != 0:
+                    part = torch.zeros_like(part)
+                keys.append(key)
+                sums.append(part.float())
+                del ref
+            sums = torch.stack(sums)
+            if rm.tp is not None:
+                sums = rm.tp.all_reduce(sums)
+            for key, (ab, aa, bb) in zip(keys, sums.double().tolist()):
+                cos[key] = ab / math.sqrt(aa * bb)
+            res["compare_s"] = time.perf_counter() - t0
+
+        losses, norms, ms = [], [], []
+        least_free = _least_free(torch)
+        for i in range(TRAIN_TP_STEPS):
+            batch = tr._batch(i)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            state["params"], state["opt"], met = step(
+                state["params"], state["opt"], batch,
+                on_grads=against_phase14 if i == 0 else None)
+            losses.append(float(met["loss"]).hex())
+            norms.append(float(met["grad_norm"]).hex())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 - (res["compare_s"] * 1e3 if i == 0
+                                                         else 0.0))
+        res.update(cosines=cos, n_leaves=len(cuts), losses=losses, norms=norms, step_ms=ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   least_free_gib=least_free() / 2 ** 30,
+                   launches={fn.__name__: fn.launches for fn in wrappers})
+        res["replicated"] = {k: _sha(torch, t)
+                             for k, t in tree_flatten_with_paths(state["params"])
+                             if cuts[k].dim is None}
+        del state, tr, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if job.get("elastic"):
+            etr = _loop_trainer(job["elastic_dir"], mesh=mesh, steps=ELASTIC_STEPS)
+            _, st, _ = etr.run()
+            full = etr.full_state(st)
+            if etr.rank_mesh.writer:
+                np.savez(job["elastic_npz"], **{k: t.cpu().numpy() for k, t in
+                                                tree_flatten_with_paths(full)})
+            res["elastic_loss"] = etr.metrics_log[-1]["loss"]
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_memory_history(torch):
+    """`--train-memory`: one (data 2, model 1) rank's train step alone in
+    this process (qwen3-1.7b at phase 14's configuration, the rank's 4
+    rows, 2 microbatches; `make_train_step`, so AdamW on whole leaves, and
+    no data-parallel sum), run once to warm up, then once under the
+    allocator's history (`torch.cuda.memory._record_memory_history`): the
+    history replayed to its peak, and the blocks live there beyond what
+    was resident before the step, by size and by the innermost frame of
+    this repo (allocations on autograd's device thread have none)."""
+    import collections
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.launch.steps import TrainConfig, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    def where(ev):
+        for f in ev.get("frames") or ():
+            if "repro_torch" in f["filename"] or "chip_smoke" in f["filename"]:
+                return f"{os.path.basename(f['filename'])}:{f['line']}:{f['name']}"
+        return "(no frame of this repo: autograd's thread)"
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), remat="full")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    opt = adamw_init(params)
+    step = make_train_step(model, TrainConfig(microbatches=TRAIN_MICROBATCHES,
+                                              opt=AdamWConfig(**TRAIN_OPT)), DEFAULT_RULES)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH // 2))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(max_entries=3_000_000, stacks="python")
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    events = torch.cuda.memory._snapshot()["device_traces"][0]
+    torch.cuda.memory._record_memory_history(enabled=None)
+    cur, best, best_i = base, base, -1
+    live = {}
+    for i, ev in enumerate(events):
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+        elif ev["action"] == "free_requested" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])["size"]
+        if cur > best:
+            best, best_i = cur, i
+    live = {}
+    for ev in events[:best_i + 1]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+        elif ev["action"] == "free_requested":
+            live.pop(ev["addr"], None)
+    groups = collections.defaultdict(lambda: [0, 0])
+    for ev in live.values():
+        group = groups[(where(ev), ev["size"])]
+        group[0] += 1
+        group[1] += ev["size"]
+    log(f"[train memory] {len(events)} allocator events; resident before the step "
+        f"{base / 1e9:.3f} GB (parameters, moments); the history's peak "
+        f"{best / 1e9:.3f} GB at event {best_i} (max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB); "
+        f"{time.perf_counter() - t0:.1f} s")
+    for (at, size), (n, total) in sorted(groups.items(), key=lambda kv: -kv[1][1])[:20]:
+        log(f"[train memory]   {total / 1e9:8.3f} GB = {n:4d} x {size:12d} B  {at}")
+    log(f"[train memory] live at the peak beyond the resident: {(best - base) / 1e9:.3f} GB "
+        f"in {len(live)} blocks")
+
+
+def phase_train_tp(torch, counters, keep, phase14):
+    """Phase 24 (see the comment above).  `keep`: the directory of phase
+    14's step-1 gradients; `phase14`: its numbers (step-1 loss, norm)."""
+    import numpy as np
+
+    from repro_torch.tree import tree_flatten_with_paths
+
+    label = "train tp"
+    t_phase = time.perf_counter()
+    _zeroed(counters)
+    tmp = tempfile.mkdtemp(prefix="train_tp_")
+    worlds = {}
+    try:
+        for shape in TRAIN_TP_MESHES:
+            tag = f"train{shape[0]}x{shape[1]}_"
+            job = {"shape": shape, "grads": keep, "tmp": tmp, "elastic": shape == (1, 2),
+                   "elastic_dir": os.path.join(tmp, "elastic"),
+                   "elastic_npz": os.path.join(tmp, "elastic.npz")}
+            job_path = os.path.join(tmp, f"{tag}job.json")
+            with open(job_path, "w") as f:
+                json.dump(job, f)
+            t0 = time.perf_counter()
+            # two ranks of 35 GB share the card: segments that grow in place
+            # keep the allocator's cached-but-unusable bytes down
+            worlds[shape] = _tp_world(shape[0] * shape[1], tmp, "--train-tp-child", tag,
+                                      (job_path,), env={
+                                          **os.environ,
+                                          "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+            log(f"[{label} {shape}] {len(worlds[shape])} ranks in "
+                f"{time.perf_counter() - t0:.1f} s (start included)")
+            for r in worlds[shape]:
+                rk = r["reckon"]
+                total = sum(rk.values()) / 1e9
+                log(f"[{label} data {shape[0]} x model {shape[1]}] rank {r['rank']} (rules "
+                    f"{r['rules']}): state drawn and cut in {r['init_s']:.1f} s; step-1 "
+                    f"gradients gathered and compared in {r['compare_s']:.2f} s; "
+                    f"step ms (gloo on one card, not a TP speed) "
+                    + ", ".join(f"{m:.1f}" for m in r["step_ms"])
+                    + f"; peak {r['peak_gb']:.2f} GB beside the reckoning {total:.2f} GB "
+                    f"(params {rk['params'] / 1e9:.2f}, grads {rk['grads'] / 1e9:.2f}, "
+                    f"moments {rk['moments'] / 1e9:.2f}, activations "
+                    f"{rk['activations'] / 1e9:.2f}); least free on the card during the "
+                    f"steps (every process's use) {r['least_free_gib']:.2f} GiB of "
+                    f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f} GiB; "
+                    f"launches {r['launches']}")
+        loss14, gnorm14 = phase14["loss1"], phase14["gnorm1"]
+        for shape, ranks in worlds.items():
+            tag = f"[{label} data {shape[0]} x model {shape[1]}]"
+            first = ranks[0]
+            for r in ranks[1:]:
+                for key in ("losses", "norms", "replicated"):
+                    if r[key] != first[key]:
+                        raise AssertionError(f"{tag} rank {r['rank']}'s {key} differ from "
+                                             "rank 0's")
+            loss, gnorm = float.fromhex(first["losses"][0]), float.fromhex(first["norms"][0])
+            cos = next(r["cosines"] for r in ranks if r["cosines"])
+            worst = sorted((c, k) for k, c in cos.items())
+            log(f"{tag} step 1: loss {loss:.6f} (phase 14 {loss14:.6f}, |d| "
+                f"{abs(loss - loss14):.2e}, tol {TRAIN_TP_LOSS_ATOL}), grad_norm "
+                f"{gnorm:.6f} (phase 14 {gnorm14:.6f}, rel {abs(gnorm / gnorm14 - 1):.2e}, "
+                f"tol {TRAIN_TP_GNORM_RTOL}); losses "
+                + ", ".join(f"{float.fromhex(x):.6f}" for x in first["losses"])
+                + "; the same bits on every rank (loss, grad_norm, "
+                f"{len(first['replicated'])} replicated leaves after step "
+                f"{TRAIN_TP_STEPS})")
+            log(f"{tag} gradient cosine with phase 14 per leaf (its bf16-rounded "
+                "copy): " + ", ".join(f"{k} {c:.6f}" for c, k in worst))
+            if not (abs(loss - loss14) <= TRAIN_TP_LOSS_ATOL
+                    and abs(gnorm / gnorm14 - 1) <= TRAIN_TP_GNORM_RTOL
+                    and len(cos) == first["n_leaves"] and worst[0][0] >= TRAIN_TP_COSINE):
+                raise AssertionError(f"{tag} step 1 disagrees with phase 14")
+            if any(n for r in ranks for n in r["launches"].values()):
+                raise AssertionError(f"{tag} hand-written kernels launched")
+        # the elastic restart: the (1, 2) world saved, this process restores
+        held = dict(np.load(os.path.join(tmp, "elastic.npz")))
+        solo = _loop_trainer(os.path.join(tmp, "elastic"), steps=ELASTIC_STEPS)
+        start, state = solo.restore_or_init()
+        diff = [k for k, t in tree_flatten_with_paths(state)
+                if not np.array_equal(t.cpu().numpy(), held[k])]
+        log(f"[{label}] elastic restart: the (data 1, model 2) world trained phase 15's "
+            f"configuration {ELASTIC_STEPS} steps (loss "
+            f"{worlds[(1, 2)][0]['elastic_loss']:.4f}) and saved; restored here with no "
+            f"mesh at step {start}: {len(held)} leaves, "
+            + ("bitwise equal to the state the ranks gathered" if not diff
+               else f"{len(diff)} differ: {diff[:5]}"))
+        if start != ELASTIC_STEPS or diff or set(held) != {
+                k for k, _ in tree_flatten_with_paths(state)}:
+            raise AssertionError(f"[{label}] the elastic restart differs")
+        del state, solo
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if _launched(counters):
+        raise AssertionError(f"[{label}] hand-written kernels launched: "
+                             f"{_launched(counters)}")
+    log(f"[{label}] hand-written kernels launched: none (this process and every rank)")
+    _phase_end(label, t_phase)
+    return worlds
+
+
 def _log_device_profile(prof, wall_s, label, calls=None):
     """Device time by kernel over a traced run (torch.profiler, CUDA
     activity only), and the device's busy share of the run's wall time
@@ -5758,6 +6227,10 @@ def main() -> int:
                          "graphed and eager) and the ResNet-18 forwards with "
                          "torch.profiler and print the device busy share and "
                          "device time by kernel (no timing summaries)")
+    ap.add_argument("--train-memory", action="store_true",
+                    help="run one (data 2, model 1) rank's train step alone under the "
+                         "allocator's history and print what is live at its peak "
+                         "(no other phase, no result line)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
                          "skips phases 3 to 23")
@@ -5769,6 +6242,9 @@ def main() -> int:
     ap.add_argument("--tp-fixed-child", nargs=4,
                     metavar=("RANK", "WORLD", "STORE", "OUT"),
                     help=argparse.SUPPRESS)      # one rank of phase 23 (b)
+    ap.add_argument("--train-tp-child", nargs=5,
+                    metavar=("RANK", "WORLD", "STORE", "OUT", "JOB"),
+                    help=argparse.SUPPRESS)      # one rank of phase 24
     args = ap.parse_args()
 
     import torch
@@ -5792,11 +6268,19 @@ def main() -> int:
     # JAX reference's vendor lane and the GEMM kernel do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     for flag, child in ((args.tp_child, tp_child), (args.tp_family_child, tp_family_child),
-                        (args.tp_fixed_child, tp_fixed_child)):
+                        (args.tp_fixed_child, tp_fixed_child),
+                        (args.train_tp_child, train_tp_child)):
         if flag:
-            rank, world, store, out = flag
-            child(torch, int(rank), int(world), store, out)
+            rank, world, store, out, *more = flag
+            child(torch, int(rank), int(world), store, out, *more)
             return 0
+
+    if args.train_memory:
+        log("nvidia-smi: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip())
+        train_memory_history(torch)
+        return 0
 
     t_phase = time.perf_counter()
     smi = phase_environment(torch)
@@ -5907,9 +6391,12 @@ def main() -> int:
         ENCDEC_FIXED_LENS, ENCDEC_FIXED_SEQ, "whisper", "fixed_whisper_base",
         "audio_embeds")
     free_device(torch)
-    timed_phase(14, "training qwen3-1.7b at full width and depth through the port's "
-                "train step", phase_train, torch, get_config("qwen3-1.7b"),
-                [c.fn for c in checks])
+    # phase 14's step-1 gradients, left on the host for phase 24
+    keep = tempfile.mkdtemp(prefix="phase14_grads_")
+    atexit.register(shutil.rmtree, keep, True)
+    phase14 = timed_phase(14, "training qwen3-1.7b at full width and depth through the "
+                          "port's train step", phase_train, torch, get_config("qwen3-1.7b"),
+                          [c.fn for c in checks], keep)
     free_device(torch)
     timed_phase(15, "the Trainer end to end (checkpoints, preemption, resume) and one "
                 "train step of each other family", phase_train_loop, torch,
@@ -5947,6 +6434,12 @@ def main() -> int:
         23, "the fixed-batch loop on a mesh: zamba2-1.2b and whisper-base through "
         "FixedBatchEngine, tp_mesh(1) against no mesh, then tp = 2 / 4 as processes on "
         "the card", phase_tp_fixed, torch)
+    free_device(torch)
+    timed_phase(24, "training on a mesh: qwen3-1.7b on (data 1, model 2) and (data 2, "
+                "model 1) with ZeRO-1 as processes on the card, against phase 14; the "
+                "elastic restart", phase_train_tp, torch, [c.fn for c in checks], keep,
+                phase14)
+    shutil.rmtree(keep, ignore_errors=True)
     paths = {**knob_paths, **race_paths, **tp_paths, **family_tp_paths, **fixed_tp_paths,
              "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,

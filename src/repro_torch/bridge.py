@@ -9,7 +9,8 @@ the same 16 bits) and then `.view(torch.bfloat16)` — the round trip is
 exact.  Call as `params_from_jax(jax.tree.map(np.asarray, params))`.
 `load_ppo_params` carries the RL-search's PPO parameters into the port's
 policy and value modules.  `train_state_from_jax` / `train_state_to_numpy`
-carry a train state {"params", "opt": {"m", "v", "step"}} across.
+carry a train state {"params", "opt": {"m", "v", "step"}} across, the
+former also straight into one rank's cut of a mesh.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.manager import leaf_to_numpy
+from repro_torch.checkpoint.manager import leaf_to_numpy, place
+from repro_torch.tree import tree_map
 
 
 def leaf_from_numpy(a) -> torch.Tensor:
@@ -56,12 +58,18 @@ def load_ppo_params(policy, value, tree: Any) -> None:
                 linear.bias.copy_(p["b"])
 
 
-def train_state_from_jax(tree: Any) -> Any:
+def train_state_from_jax(tree: Any, shardings: Any = None) -> Any:
     """A JAX train state {"params", "opt": {"m", "v", "step"}} as numpy
-    (`jax.tree.map(np.asarray, state)`) -> the port's state: CPU tensors
-    of the same dtypes (f32 leaves, an int32 0-d step)."""
-    return {"params": params_from_jax(tree["params"]),
-            "opt": params_from_jax(tree["opt"])}
+    (`jax.tree.map(np.asarray, state)`) -> the port's state: tensors of
+    the same dtypes (f32 leaves, an int32 0-d step), on the CPU, or each
+    leaf placed as `shardings` says (`checkpoint.manager.place`: a device,
+    or a tree such as `launch.steps.state_layouts`' cut of one rank of a
+    mesh, so the exported state lands as the rank's shards)."""
+    state = {"params": params_from_jax(tree["params"]),
+             "opt": params_from_jax(tree["opt"])}
+    if isinstance(shardings, dict):
+        return tree_map(place, state, shardings)
+    return tree_map(lambda t: place(t, shardings), state)
 
 
 def train_state_to_numpy(state: Any) -> Any:

@@ -1,28 +1,46 @@
-"""Tensor-parallel collectives over a mesh's model axis, and the context the
-model's tensor-parallel sites read.
+"""Collectives over the axes of a mesh, differentiable, and the contexts
+the model's tensor-parallel sites and the training loss read.
 
-The reference shards a serving step by constraining activations to
-logical axes and letting XLA insert the collectives.  The port runs each
-rank's step on plain tensors (its local parameter shards and KV heads) and
-calls the collectives itself, at the reference's constrain sites
-(`models.common.embed` / `lm_head_logits` / `unembed`, the attention
-output, `models.mlp.mlp_apply`'s down projection).  A `TensorParallel`
-holds the model axis' process group, this rank's index on it, its size and
-the engine's sharding rules; `tensor_parallel(tp)` installs it around a
-step program's body and `current()` answers the sites.  Outside that
-context (one device, a 1-wide model axis, training) every site is the
-single-device code.
+The reference shards a step by constraining activations to logical axes
+and letting XLA insert the collectives.  The port runs each rank's step
+on plain tensors (its local parameter shards and KV heads) and calls the
+collectives itself, at the reference's constrain sites
+(`models.common.embed` / `lm_head_logits` / `unembed` /
+`chunked_softmax_xent`, the attention output, `models.mlp.mlp_apply`'s
+down projection, the MoE's expert outputs, mamba's gated activations).
+An `AxisGroup` is this rank's view of one mesh axis (or of the axes the
+batch splits over): its process group, its index on the axis and the
+axis' size.  A `TensorParallel` is the model axis' group plus the
+sharding rules that decide which logical axes are split over it;
+`tensor_parallel(tp)` installs it around a step's body and `current()`
+answers the sites.  `data_parallel(dp)` installs the data axis' group,
+which the training loss reduces its sums over (`current_data()`), and
+`mesh_axes(groups)` binds mesh axis names, as `shard_map` does, for
+`optim.compress.compressed_allgather_mean`.  Outside those contexts (one
+device, a 1-wide axis) every site is the single-device code.
 
-Two operations:
+Three operations, each a `torch.autograd.Function`:
 
   * `all_reduce(x)`: the sum of the ranks' partial `x`, computed as an
     all-gather of the partials viewed as raw bytes, then a sum in rank
     order in f32, rounded once to x's dtype.  Every rank gets the same
     bits, as the sampler needs (each rank draws from its own copy of the
     logits), and the result does not depend on the backend, so a gloo
-    world computes what an NCCL world will;
+    world computes what an NCCL world will.  Backward: the identity (the
+    gradient of the replicated sum is the same on every rank);
   * `all_gather(x, dim)`: the ranks' `x` concatenated along `dim` in rank
-    order.
+    order.  Backward: this rank's slice of the gradient;
+  * `enter(x)`, the conjugate of `all_reduce`: the identity forward, and
+    in backward the sum over the ranks of the gradient.  It sits where a
+    replicated activation enters a product split over the axis (the
+    column-split projections): each rank's gradient of it is the partial
+    sum of its own columns' terms.
+
+Each runs its forward bits unchanged with autograd off or on, so serving
+reads the same numbers it always did.  Backward runs where autograd runs
+it, on a worker thread for CUDA tensors, so a recomputed forward
+(`torch.utils.checkpoint`) must see the contexts the first forward saw:
+`bind(fn)` captures them.
 
 On a gloo group a CUDA tensor is always staged through host memory: it is
 copied to the host, gathered there and copied back, on every call (gloo
@@ -34,32 +52,143 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.distributed.sharding import ShardingRules, axis_sizes
 
 
-class TensorParallel:
-    """This rank's view of the model axis: `group` (a torch.distributed
-    process group of the axis' `size` ranks), `rank` (this rank's index on
-    the axis) and the sharding `rules` (pruned for the mesh) that decide
-    which logical axes are split over it."""
+class AxisGroup:
+    """This rank's view of a mesh axis: `group` (a torch.distributed
+    process group of the axis' `size` ranks) and `rank` (this rank's index
+    on the axis)."""
 
-    def __init__(self, group, rank: int, size: int, rules: ShardingRules):
+    def __init__(self, group, rank: int, size: int):
         import torch.distributed as dist
 
         self.group = group
         self.rank = rank
         self.size = size
-        self.rules = rules
         self.backend = str(dist.get_backend(group))
 
     @classmethod
+    def from_mesh(cls, mesh, axes) -> Optional["AxisGroup"]:
+        """The group of DeviceMesh axis `axes` (a name, or a tuple of names
+        of which at most one is wider than 1), or None where it is 1 wide."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        sizes = axis_sizes(mesh)
+        wide = [a for a in axes if sizes.get(a, 1) > 1]
+        if not wide:
+            return None
+        if len(wide) > 1:
+            raise NotImplementedError(
+                f"a group over mesh axes {tuple(wide)} of sizes "
+                f"{tuple(sizes[a] for a in wide)}: the port's groups span one axis")
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        return cls(mesh.get_group(wide[0]), coord[wide[0]], sizes[wide[0]])
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's `x` (same shape and dtype on all) stacked in rank
+        order, (size, *x.shape), on x's device: one all-gather of the raw
+        bytes into one buffer."""
+        import torch.distributed as dist
+
+        # all_gather_single is all_gather_into_tensor's newer name
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        raw = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        staged = raw.cpu() if self.backend == "gloo" and raw.device.type != "cpu" else raw
+        whole = staged.new_empty(self.size * staged.numel())
+        gather(whole, staged, group=self.group)
+        return whole.to(x.device).view(x.dtype).reshape(self.size, *x.shape)
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank-order f32 sum of the gathered partials, rounded once."""
+        whole = self._gather(x).float()
+        acc = whole[0]
+        for i in range(1, self.size):
+            acc = acc + whole[i]
+        return acc.to(x.dtype)
+
+    def sum_in_place(self, x: torch.Tensor, chunk: int = 1 << 26) -> torch.Tensor:
+        """`x` replaced by the rank-order sum over the ranks (`_sum`'s bits),
+        `chunk` elements at a time, so a large tensor (a gradient leaf)
+        needs only a chunk's gathered copies beside it."""
+        flat = x.view(-1)
+        for part in flat.split(chunk):
+            part.copy_(self._sum(part))
+        return x
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of their partial `x`, in rank order in
+        f32, rounded once to x's dtype: the same bits on every rank.  On
+        the device: one cast of the gathered partials to f32 (none for
+        f32), size - 1 adds, one cast back.  Backward: the identity."""
+        return _AllReduce.apply(x, self)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' `x` concatenated along `dim` in rank order.
+        Backward: this rank's slice."""
+        return _AllGather.apply(x, self, dim)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` itself forward; its gradient summed over the ranks."""
+        return _Enter.apply(x, self)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the ranks (no gradient)."""
+        return self._gather(x).amax(0)
+
+    def barrier(self) -> None:
+        """Return once every rank of the axis has reached this call."""
+        self._gather(torch.zeros(1, device="cuda" if self.backend == "nccl" else "cpu"))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis._sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.dim, ctx.rank, ctx.n = dim, axis.rank, x.shape[dim]
+        return torch.cat(axis._gather(x).unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._sum(g), None
+
+
+class TensorParallel(AxisGroup):
+    """This rank's view of the model axis (an `AxisGroup`) and the sharding
+    `rules` (pruned for the mesh) that decide which logical axes are split
+    over it."""
+
+    def __init__(self, group, rank: int, size: int, rules: ShardingRules):
+        super().__init__(group, rank, size)
+        self.rules = rules
+
+    @classmethod
     def from_mesh(cls, mesh, rules: ShardingRules) -> Optional["TensorParallel"]:
-        """The model axis of a DeviceMesh (`launch.mesh.tp_mesh`), or None
-        where the axis is 1 wide."""
+        """The model axis of a DeviceMesh (`launch.mesh.tp_mesh`,
+        `make_mesh`), or None where the axis is 1 wide."""
         size = axis_sizes(mesh).get("model", 1)
         if size <= 1:
             return None
@@ -70,53 +199,67 @@ class TensorParallel:
         """Whether logical `axis` is split over the model axis."""
         return self.size > 1 and self.rules.lookup(axis) == "model"
 
-    def _gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's `x` (same shape and dtype on all) stacked in rank
-        order, (size, *x.shape), on x's device: one all-gather of the raw
-        bytes into one buffer."""
-        import torch.distributed as dist
-
-        # all_gather_single is all_gather_into_tensor's newer name
-        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-        raw = x.contiguous().reshape(-1).view(torch.uint8)
-        staged = raw.cpu() if self.backend == "gloo" and raw.device.type != "cpu" else raw
-        whole = staged.new_empty(self.size * staged.numel())
-        gather(whole, staged, group=self.group)
-        return whole.to(x.device).view(x.dtype).reshape(self.size, *x.shape)
-
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks of their partial `x`, in rank order in
-        f32, rounded once to x's dtype: the same bits on every rank.  On
-        the device: one cast of the gathered partials to f32 (none for
-        f32), size - 1 adds, one cast back."""
-        whole = self._gather(x).float()
-        acc = whole[0]
-        for i in range(1, self.size):
-            acc = acc + whole[i]
-        return acc.to(x.dtype)
-
-    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The ranks' `x` concatenated along `dim` in rank order."""
-        return torch.cat(self._gather(x).unbind(0), dim)
-
 
 _tls = threading.local()
 
 
 @contextlib.contextmanager
+def _installed(name: str, value):
+    prev = getattr(_tls, name, None)
+    setattr(_tls, name, value)
+    try:
+        yield value
+    finally:
+        setattr(_tls, name, prev)
+
+
 def tensor_parallel(tp: Optional[TensorParallel]):
     """Install `tp` (None: single-device code) for the enclosed calls."""
-    prev = getattr(_tls, "tp", None)
-    _tls.tp = tp
-    try:
-        yield tp
-    finally:
-        _tls.tp = prev
+    return _installed("tp", tp)
+
+
+def data_parallel(dp: Optional[AxisGroup]):
+    """Install the data axis' group (None: one data rank) for the enclosed
+    calls: the training loss sums its NLL and mask over it."""
+    return _installed("dp", dp)
+
+
+def mesh_axes(groups: Optional[Dict[str, AxisGroup]]):
+    """Bind mesh axis names to groups ({name: AxisGroup or None for a
+    1-wide axis}) for the enclosed calls, as `shard_map` binds them."""
+    return _installed("axes", groups)
 
 
 def current() -> Optional[TensorParallel]:
     """The installed `TensorParallel`, or None."""
     return getattr(_tls, "tp", None)
+
+
+def current_data() -> Optional[AxisGroup]:
+    """The installed data-axis group, or None."""
+    return getattr(_tls, "dp", None)
+
+
+def axis_group(name: str) -> Optional[AxisGroup]:
+    """The group bound to mesh axis `name` (None where it is 1 wide);
+    raises NameError where no mesh binds it, as JAX does for an unbound
+    axis name."""
+    groups = getattr(_tls, "axes", None)
+    if groups is None or name not in groups:
+        raise NameError(f"unbound axis name: {name!r} (bind it with mesh_axes)")
+    return groups[name]
+
+
+def bind(fn):
+    """`fn` run under the contexts installed now, wherever it is called
+    (a recomputed forward runs on autograd's thread)."""
+    tp, dp, axes = current(), current_data(), getattr(_tls, "axes", None)
+
+    def run(*args, **kwargs):
+        with tensor_parallel(tp), data_parallel(dp), mesh_axes(axes):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def reduce_if_sharded(x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -127,3 +270,13 @@ def reduce_if_sharded(x: torch.Tensor, axis: str) -> torch.Tensor:
     if tp is None or not tp.sharded(axis):
         return x
     return tp.all_reduce(x)
+
+
+def enter_if_sharded(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """`x` entering a product whose output dim, logical `axis`, is split
+    over the model axis: `TensorParallel.enter` there (the identity
+    forward), `x` itself elsewhere."""
+    tp = current()
+    if tp is None or not tp.sharded(axis):
+        return x
+    return tp.enter(x)

@@ -276,3 +276,97 @@ def local_params(params, logical_tree, rules: ShardingRules,
             raise ValueError(f"logical axes {axes}: {e}") from None
 
     return map_axes(shard, logical_tree, params)
+
+
+# ---------------------------------------------------------------------------
+# Leaf cuts: how one rank's shard of a training-state leaf sits in the whole
+# leaf, so the state can be cut from a checkpoint, gathered back to it, and
+# its gradients summed where several ranks hold the same positions.
+# ---------------------------------------------------------------------------
+
+class LeafCut(NamedTuple):
+    """One leaf's cut for one rank.  `dim` is the dim split over the model
+    axis (None: the rank holds the whole leaf), `indices[r]` the whole
+    leaf's positions along it that rank r holds (in its local order),
+    `full` the whole leaf's length there and `rank` this rank's index;
+    `owners[r]`: the local positions of rank r that no lower rank holds
+    (each position of the whole leaf is owned once); `shared`: some
+    position is held by several ranks, `n_shared` of them, this rank's
+    local positions among them `shared_local` and their slots in the
+    sorted list of them `shared_slot`; `blocks`: the ranks hold equal
+    contiguous blocks in rank order.  `partial`: a whole leaf read inside
+    a split region, whose gradient on each rank is a partial sum over the
+    model axis.  `zero_dim`, `zero_rank` and `zero_size`: the ZeRO-1 slice
+    of the (model-cut) leaf this rank updates, its block `zero_rank` of
+    `zero_size` along `zero_dim` (None: none).  `device`: where the rank
+    keeps the leaf (a checkpoint restored under this cut lands there).
+    Build a split one with `LeafCut.split`."""
+
+    dim: Optional[int] = None
+    indices: Tuple = ()
+    full: int = 0
+    rank: int = 0
+    owners: Tuple = ()
+    shared: bool = False
+    n_shared: int = 0
+    shared_local: Any = None
+    shared_slot: Any = None
+    blocks: bool = False
+    partial: bool = False
+    zero_dim: Optional[int] = None
+    zero_rank: int = 0
+    zero_size: int = 1
+    device: Any = None
+
+    @classmethod
+    def split(cls, dim: int, indices, full: int, rank: int) -> "LeafCut":
+        indices = tuple(torch.as_tensor(i, dtype=torch.long) for i in indices)
+        seen, owners, count = set(), [], {}
+        for idx in indices:
+            pos = idx.tolist()
+            owners.append(torch.tensor([p for p, i in enumerate(pos) if i not in seen],
+                                       dtype=torch.long))
+            seen.update(pos)
+            for i in pos:
+                count[i] = count.get(i, 0) + 1
+        slot = {i: s for s, i in enumerate(sorted(i for i, c in count.items() if c > 1))}
+        mine = [(p, slot[i]) for p, i in enumerate(indices[rank].tolist()) if i in slot]
+        n = len(indices[0])
+        blocks = n * len(indices) == full and all(
+            torch.equal(i, torch.arange(r * n, (r + 1) * n)) for r, i in enumerate(indices))
+        return cls(dim=dim, indices=indices, full=full, rank=rank, owners=tuple(owners),
+                   shared=bool(slot), n_shared=len(slot),
+                   shared_local=torch.tensor([p for p, _ in mine], dtype=torch.long),
+                   shared_slot=torch.tensor([s for _, s in mine], dtype=torch.long),
+                   blocks=blocks)
+
+    @property
+    def index(self):
+        """This rank's positions along `dim`."""
+        return self.indices[self.rank]
+
+    def owned(self, r: Optional[int] = None):
+        """The local positions of rank r (default: this rank) it owns."""
+        return self.owners[self.rank if r is None else r]
+
+    def model_local(self, tensor):
+        """The rank's model-axis shard of the whole `tensor` (a fresh
+        contiguous tensor; `tensor` itself where nothing is cut)."""
+        if self.dim is None:
+            return tensor
+        return tensor.index_select(self.dim, self.index.to(tensor.device))
+
+    def zero_slice(self, tensor):
+        """The ZeRO-1 block of a model-axis shard (a view)."""
+        if self.zero_dim is None:
+            return tensor
+        n = tensor.shape[self.zero_dim] // self.zero_size
+        return tensor.narrow(self.zero_dim, self.zero_rank * n, n)
+
+    def local(self, tensor):
+        """What this rank holds of the whole `tensor`: its model-axis shard,
+        then its ZeRO-1 block, contiguous."""
+        out = self.model_local(tensor)
+        if self.zero_dim is None:
+            return out
+        return self.zero_slice(out).clone(memory_format=torch.contiguous_format)

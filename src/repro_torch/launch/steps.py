@@ -44,13 +44,20 @@ inside the rank's `tensor_parallel` context, under the caller's rules
 pruned for the mesh (`fixed_batch_rules`, which refuses a split this path
 does not run).
 
-`TrainConfig` and `make_train_step` are the training step (`jit_train_step`
-in the reference, which jits it with sharded, donated state): value and
-gradient of `model.loss` with microbatched accumulation
-(`loss_and_grads`), then `optim.adamw_update` in place.  It runs eagerly
-on one device; ZeRO-1 sharding of the moments waits for tensor-parallel
-training (ROADMAP.md queue 1, item 8c), as it changes nothing on one
-device.
+`TrainConfig` and `make_train_step(model, train_cfg, rules)` are the
+training step: value and gradient of `model.loss` with microbatched
+accumulation (`loss_and_grads`), then `optim.adamw_update` in place,
+eagerly, on one device.  `mesh_train_step(model, mesh, rules, train_cfg,
+batch_specs)` is the counterpart of the reference's `jit_train_step`,
+which jits that step with sharded, donated state: it returns the step of
+one rank of a (data, model) mesh, each rank a process, over the rank's
+cut of the state (`state_layouts`: the tensor-parallel shards of
+`model.tp_layout`, and the ZeRO-1 blocks of the moments where
+`make_state_shardings` gives them a "data" dim, from `zero1_axes`); the
+batch's rows split over "data", the gradients made whole over "model" and
+summed over "data", the norm the whole tree's.  `train_rules` refuses
+what it does not run (sequence-parallel training: ROADMAP item 8c-ii);
+`gather_state` gathers a rank's state back to the whole tree.
 
 The shardings (`batch_logical_axes`, `rules_for_shape`,
 `make_batch_shardings`, `cache_shardings`, `paged_pool_sharding`,
@@ -67,16 +74,20 @@ import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.distributed.collectives import TensorParallel, tensor_parallel
-from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
-                                              axis_sizes, map_axes, named_sharding,
+from repro_torch.distributed.collectives import (AxisGroup, TensorParallel, data_parallel,
+                                                 mesh_axes, tensor_parallel)
+from repro_torch.distributed.sharding import (DEFAULT_RULES, LeafCut, ShardingRules,
+                                              activation_rules, axis_sizes, map_axes,
+                                              named_sharding, params_shardings,
                                               prune_for_mesh)
 from repro_torch.kernels.dispatch import MatmulTable, matmul_dispatch
 from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.launch.program import Program
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.models.common import grads_into_grad
+from repro_torch.optim import AdamWConfig, adamw_update, global_norm
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -237,33 +248,23 @@ def loss_and_grads(model, params, batch: Dict[str, torch.Tensor],
     slices (microbatch i holds rows i*B/k ... (i+1)*B/k - 1, as the
     reference's reshape to (k, B/k, ...)); each backward adds into the
     leaves' `.grad` (0 + g_1 + g_2 + ..., the reference's f32 sum from
-    zeros) and the sum is divided by k after; the loss is the sum of the
-    k losses over k and the metrics {"loss"}.  With k = 1 the metrics are
-    the model's own dict.  A leaf the loss does not reach gets zeros."""
+    zeros; a stacked leaf's layers and the LM head's reads add into it as
+    their backward runs, `models.common.grads_into_grad`) and the sum is
+    divided by k after; the loss is the sum of the k losses over k and the
+    metrics {"loss"}.  With k = 1 the metrics are the model's own dict.  A
+    leaf the loss does not reach gets zeros."""
     leaves = list(tree_leaves(params))
     for p in leaves:
         p.requires_grad_(True)
         p.grad = None
     try:
-        if microbatches == 1:
-            loss, metrics = model.loss(params, batch)
-            loss.backward()
-            metrics = {name: v.detach() for name, v in metrics.items()}
-            loss = loss.detach()
-        else:
-            rows = next(iter(batch.values())).shape[0]
-            if rows % microbatches:
-                raise ValueError(f"batch of {rows} rows does not split into "
-                                 f"{microbatches} microbatches")
-            n = rows // microbatches
-            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            for i in range(microbatches):
-                l, _ = model.loss(params, {name: v[i * n:(i + 1) * n]
-                                           for name, v in batch.items()})
-                l.backward()
-                loss = loss + l.detach()
-            loss = loss / microbatches
-            metrics = {"loss": loss}
+        # the checkpointed regions (a layer, a loss chunk) are recomputed
+        # to their end: stopping after the last saved tensor would save only
+        # the reductions after it, and the stop (an exception raised inside
+        # the recompute) was seen lost on the card in a loss chunk's
+        # recompute ("SystemError: error return without exception set")
+        with grads_into_grad(), set_checkpoint_early_stop(False):
+            loss, metrics = _backward(model, params, batch, microbatches)
         grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
                          params)
         if microbatches > 1:
@@ -276,18 +277,387 @@ def loss_and_grads(model, params, batch: Dict[str, torch.Tensor],
     return loss, metrics, grads
 
 
-def make_train_step(model, train_cfg: TrainConfig):
+def _backward(model, params, batch, microbatches: int):
+    """`loss_and_grads`' forward and backward passes: -> (loss, metrics),
+    the gradients summed into the leaves' `.grad`."""
+    if microbatches == 1:
+        loss, metrics = model.loss(params, batch)
+        loss.backward()
+        return loss.detach(), {name: v.detach() for name, v in metrics.items()}
+    rows = next(iter(batch.values())).shape[0]
+    if rows % microbatches:
+        raise ValueError(f"batch of {rows} rows does not split into "
+                         f"{microbatches} microbatches")
+    n = rows // microbatches
+    loss = torch.zeros((), dtype=torch.float32, device=next(tree_leaves(params)).device)
+    for i in range(microbatches):
+        l, _ = model.loss(params, {name: v[i * n:(i + 1) * n] for name, v in batch.items()})
+        l.backward()
+        loss = loss + l.detach()
+    loss = loss / microbatches
+    return loss, {"loss": loss}
+
+
+def make_train_step(model, train_cfg: TrainConfig, rules: Optional[ShardingRules]):
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     gradients of `loss_and_grads`, then AdamW (parameters and moments
     updated in place); metrics add "lr" and "grad_norm" (before
-    clipping).  All tensors stay on the parameters' device."""
+    clipping).  All tensors stay on the parameters' device.  The step of
+    one device: `rules` are installed for the body, as the reference
+    installs them (`activation_rules`; a no-op on plain tensors), and
+    `mesh_train_step` runs it on a rank of a mesh."""
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = loss_and_grads(model, params, batch,
-                                              train_cfg.microbatches)
-        params, opt_state, om = adamw_update(params, grads, opt_state, train_cfg.opt)
+        with activation_rules(rules):
+            loss, metrics, grads = loss_and_grads(model, params, batch,
+                                                  train_cfg.microbatches)
+            params, opt_state, om = adamw_update(params, grads, opt_state, train_cfg.opt)
         return params, opt_state, dict(metrics, **om)
 
+    return train_step
+
+
+# ------------------------------------------------------ training on a mesh
+def zero1_axes(logical_tree, shapes_tree, mesh, rules: ShardingRules):
+    """ZeRO-1: each leaf's first logical axis that is None and whose dim
+    (in `shapes_tree`, leaves with a `shape`) divides the "zero" rule's
+    mesh axis becomes "zero" (the data axis), as the reference's."""
+    zset = rules.lookup("zero")
+    zsize = axis_sizes(mesh).get(zset, 1) if isinstance(zset, str) else 1
+
+    def rewrite(axes, shaped):
+        if zsize <= 1:
+            return axes
+        used = {a for a in axes if a is not None}
+        out = list(axes)
+        for i, (a, dim) in enumerate(zip(axes, shaped.shape)):
+            if a is None and dim % zsize == 0 and "zero" not in used:
+                out[i] = "zero"
+                break
+        return tuple(out)
+
+    return map_axes(rewrite, logical_tree, shapes_tree)
+
+
+def make_state_shardings(model, mesh, rules: ShardingRules,
+                         train_cfg: Optional[TrainConfig] = None):
+    """NamedShardings of the (params, opt_state) trees on `mesh`, the
+    reference's entry for entry: the parameters by their logical axes,
+    the moments by `zero1_axes` of them where `train_cfg.zero1`, the step
+    replicated (opt_state None without `train_cfg`)."""
+    p_logical = model.logical_axes()
+    p_shard = params_shardings(mesh, rules, p_logical)
+    if train_cfg is None:
+        return p_shard, None
+    mv_logical = p_logical
+    if train_cfg.zero1:
+        mv_logical = zero1_axes(p_logical, model.param_shapes(), mesh, rules)
+    mv_shard = params_shardings(mesh, rules, mv_logical)
+    return p_shard, {"m": mv_shard, "v": mv_shard, "step": named_sharding(mesh, ())}
+
+
+def train_rules(rules: ShardingRules, mesh) -> ShardingRules:
+    """The caller's `rules` pruned for `mesh` for training on it: "batch"
+    and "zero" over "data", the TP_SPLIT_AXES over "model".  Any other
+    split raises NotImplementedError naming the axis (sequence-parallel
+    training, "seq" / "kv_seq" over "data" at 16k tokens and more: ROADMAP
+    item 8c-ii), as does a "data" axis the batch is not split over and a
+    "pod" axis wider than 1."""
+    rules = prune_for_mesh(rules, mesh)
+    sizes = axis_sizes(mesh)
+    if sizes.get("pod", 1) > 1:
+        raise NotImplementedError(
+            f"mesh axis 'pod' of size {sizes['pod']}: training on a mesh runs a "
+            "(data, model) mesh (ROADMAP item 8c-ii)")
+    for name, target in rules.rules:
+        if name == "seq_sharded":      # a logical axis no model names
+            continue
+        axes = () if target is None else (target,) if isinstance(target, str) else target
+        wide = [a for a in axes if sizes.get(a, 1) > 1]
+        if not wide or (name in TP_SPLIT_AXES and wide == ["model"]) or (
+                name in ("batch", "zero") and wide == ["data"]):
+            continue
+        raise NotImplementedError(
+            f"logical axis {name!r} is split over mesh axes {tuple(wide)} of sizes "
+            f"{tuple(sizes[a] for a in wide)}: training on a mesh splits only batch and "
+            f"zero over 'data' and {', '.join(TP_SPLIT_AXES)} over 'model' "
+            "(sequence-parallel training is ROADMAP item 8c-ii)")
+    if sizes.get("data", 1) > 1 and rules.lookup("batch") != "data":
+        raise NotImplementedError(
+            "the batch is not split over the 'data' axis of size "
+            f"{sizes['data']}: training on a mesh splits it over 'data'")
+    return rules
+
+
+class RankMesh:
+    """This rank's groups on a (data, model) training mesh: `tp`, the model
+    axis' `TensorParallel` under `rules`; `dp`, the data axis (the batch's
+    rows and the gradients' sum); `zero`, the "zero" rule's axis (the
+    ZeRO-1 slices); `axes`, every mesh axis by name (None where 1 wide);
+    `device`, this rank's device; `writer`: the rank at coordinate 0 of
+    every axis.  Every group is None where its axis is 1 wide."""
+
+    def __init__(self, mesh, rules: ShardingRules):
+        self.mesh, self.rules = mesh, rules
+        self.tp = TensorParallel.from_mesh(mesh, rules)
+        self.dp = AxisGroup.from_mesh(mesh, rules.lookup("batch"))
+        self.zero = AxisGroup.from_mesh(mesh, rules.lookup("zero"))
+        self.axes = {name: AxisGroup.from_mesh(mesh, name) for name in mesh.mesh_dim_names}
+        self.writer = all(c == 0 for c in mesh.get_coordinate())
+        if mesh.device_type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.device = torch.device(mesh.device_type)
+
+    def contexts(self):
+        """The rank's contexts for a step's body: the model axis, the data
+        axis and the mesh's axis names."""
+        import contextlib
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(tensor_parallel(self.tp))
+        stack.enter_context(data_parallel(self.dp))
+        stack.enter_context(mesh_axes(self.axes))
+        return stack
+
+    def any(self, flag: bool) -> bool:
+        """Whether `flag` holds on any rank of the mesh (one reduction)."""
+        x = torch.tensor([1.0 if flag else 0.0])
+        for g in self.axes.values():
+            if g is not None:
+                x = g._sum(x if g.backend != "nccl" else x.to(self.device)).cpu()
+        return bool(x.item() > 0)
+
+    def max(self, value: float) -> float:
+        """The largest of every rank's `value` (one reduction an axis)."""
+        x = torch.tensor([float(value)], dtype=torch.float64)
+        for g in self.axes.values():
+            if g is not None:
+                x = g.max(x if g.backend != "nccl" else x.to(self.device)).cpu()
+        return float(x.item())
+
+    def barrier(self) -> None:
+        """Return once every rank of the mesh has reached this call."""
+        for g in self.axes.values():
+            if g is not None:
+                g.barrier()
+
+
+class _OneRank:
+    """The layout view of a 1-wide model axis."""
+
+    def __init__(self, rules):
+        self.rules, self.rank, self.size = rules, 0, 1
+
+
+def state_layouts(model, mesh, rules: ShardingRules, train_cfg: TrainConfig,
+                  rank_mesh: Optional[RankMesh] = None):
+    """The train state's cut on this rank of `mesh` ({"params", "opt": {"m",
+    "v", "step"}}, a `distributed.sharding.LeafCut` a leaf, on the rank's
+    device): the parameters as `model.tp_layout` cuts them (the
+    tensor-parallel shards), the moments so too and then, where
+    `make_state_shardings` gives a leaf's moments a "data" dim (ZeRO-1),
+    the rank's block of it along the data axis."""
+    rm = RankMesh(mesh, rules) if rank_mesh is None else rank_mesh
+    cuts = model.tp_layout(rm.tp if rm.tp is not None else _OneRank(rules))
+    cuts = tree_map(lambda c: c._replace(device=rm.device), cuts)
+    _, opt_shard = make_state_shardings(model, mesh, rules, train_cfg)
+    zset = rules.lookup("zero")
+
+    def with_zero(cut, sharding):
+        dims = [i for i, e in enumerate(sharding.spec) if e == zset and zset is not None]
+        if not dims or rm.zero is None:
+            return cut
+        return cut._replace(zero_dim=dims[0], zero_rank=rm.zero.rank,
+                            zero_size=rm.zero.size)
+
+    mv = tree_map(with_zero, cuts, opt_shard["m"])
+    return {"params": cuts, "opt": {"m": mv, "v": mv, "step": LeafCut(device=rm.device)}}
+
+
+def sync_grads(grads, cuts, tp: Optional[TensorParallel]):
+    """A rank's gradients made whole over the model axis, in place: where
+    several ranks hold a position (`LeafCut.shared`) each holds a partial
+    of its gradient, so those positions' gradients are summed over their
+    holders (placed in a buffer of every shared position, the others'
+    slots zero, summed over the axis in rank order, read back); a
+    `partial` whole leaf is summed over the axis.  Every other leaf's
+    gradient is already whole on its rank."""
+    if tp is None:
+        return grads
+
+    def one(cut, g):
+        if cut.partial:
+            tp.sum_in_place(g)
+        elif cut.dim is not None and cut.shared:
+            # the positions several ranks hold, in a buffer of all of them
+            shape = list(g.shape)
+            shape[cut.dim] = cut.n_shared
+            pos, slot = cut.shared_local.to(g.device), cut.shared_slot.to(g.device)
+            buf = g.new_zeros(shape).index_copy_(cut.dim, slot, g.index_select(cut.dim, pos))
+            g.index_copy_(cut.dim, pos, tp.sum_in_place(buf).index_select(cut.dim, slot))
+        return g
+
+    return tree_map(one, cuts, grads)
+
+
+def _gather_zero(cut: LeafCut, t: torch.Tensor, zero: Optional[AxisGroup]) -> torch.Tensor:
+    """A ZeRO-1 slice's model-axis shard: the data ranks' blocks in order."""
+    if cut.zero_dim is None or zero is None:
+        return t
+    return torch.cat(zero._gather(t).unbind(0), cut.zero_dim)
+
+
+def gather_state(model, state, layouts, rank_mesh: RankMesh, on_leaf=None):
+    """The whole train state from the ranks' shards (collective over the
+    mesh, leaf by leaf in the tree's order): each moment's ZeRO-1 blocks
+    gathered over the data axis, then every leaf's model-axis shards
+    (`zoo.gather_cut`).  -> the whole tree (fresh tensors: a later step
+    does not change them), or with `on_leaf(key, whole)` the tree of its
+    results (each whole leaf dropped after its call)."""
+    from repro_torch.models.zoo import gather_cut
+    from repro_torch.tree import tree_flatten_with_paths
+
+    flat_cuts = dict(tree_flatten_with_paths(layouts))
+    out = {}
+    for key, t in tree_flatten_with_paths(state):
+        cut = flat_cuts[key]
+        whole = _gather_zero(cut, t.detach(), rank_mesh.zero)
+        if rank_mesh.tp is not None and cut.dim is not None:
+            whole = gather_cut(cut, whole, rank_mesh.tp)
+        elif cut.zero_dim is None or rank_mesh.zero is None:
+            whole = whole.clone()                 # the rank's own tensor
+        out[key] = on_leaf(key, whole) if on_leaf else whole
+    return _unflatten(out)
+
+
+def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        *parts, last = key.split("/")
+        for p in parts:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return tree
+
+
+def rank_batch(batch: Dict[str, Any], microbatches: int, dp: Optional[AxisGroup],
+               device) -> Dict[str, torch.Tensor]:
+    """This data rank's rows of a global batch, on `device`: microbatch i
+    is the global rows [i B / k, (i + 1) B / k) as in the reference, and
+    the rank takes its contiguous share of each, concatenated in
+    microbatch order (so `loss_and_grads`' k consecutive slices are its
+    shares of the k microbatches)."""
+    rows = next(iter(batch.values())).shape[0]
+    n_dp = dp.size if dp is not None else 1
+    if rows % (microbatches * n_dp):
+        raise ValueError(f"batch of {rows} rows does not split into {microbatches} "
+                         f"microbatches over {n_dp} data ranks")
+    if n_dp == 1:
+        return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    n, share = rows // microbatches, rows // (microbatches * n_dp)
+    idx = torch.cat([torch.arange(i * n + dp.rank * share, i * n + (dp.rank + 1) * share)
+                     for i in range(microbatches)])
+    return {k: torch.as_tensor(v)[idx].to(device) for k, v in batch.items()}
+
+
+def _pieces(params, grads, opt_state, piece: int = 1 << 24):
+    """(params, grads, opt_state) as flat trees whose large contiguous
+    leaves are split into views of `piece` elements, so AdamW's
+    elementwise update (the same bits a piece at a time) needs a piece's
+    temporaries, not a whole leaf's; the step counter is shared."""
+    from repro_torch.tree import tree_flatten_with_paths
+
+    m, v = (dict(tree_flatten_with_paths(opt_state[k])) for k in ("m", "v"))
+    g = dict(tree_flatten_with_paths(grads))
+    out = ({}, {}, {"m": {}, "v": {}, "step": opt_state["step"]})
+    for key, p in tree_flatten_with_paths(params):
+        leaves = (p, g[key], m[key], v[key])
+        if p.numel() > piece and all(t.is_contiguous() for t in leaves):
+            parts = zip(*(t.view(-1).split(piece) for t in leaves))
+        else:
+            parts = [leaves]
+        for i, (pp, gg, mm, vv) in enumerate(parts):
+            name = f"{key}#{i}"
+            out[0][name], out[1][name] = pp, gg
+            out[2]["m"][name], out[2]["v"][name] = mm, vv
+    return out
+
+
+def mesh_train_step(model, mesh, rules: ShardingRules, train_cfg: TrainConfig,
+                    batch_specs=None):
+    """The rank's train step on a (data, model) `mesh` — the counterpart of
+    the reference's `jit_train_step(model, mesh, rules, train_cfg,
+    batch_specs)`, which computes the same step on the same mesh:
+    (params, opt_state, batch) -> (params, opt_state, metrics), the state
+    this rank's cut (`state_layouts`), `batch` the GLOBAL batch (tensors or
+    arrays on any device; `batch_specs` is unused, as the shapes come with
+    the batch).
+
+      * the loss is the reference's: the rank computes on its share of
+        each microbatch (`rank_batch`) inside its contexts, and the masked
+        mean's sums of NLL and of the mask are reduced over the data axis
+        before the division (`models.common.chunked_softmax_xent`), so the
+        loss is the whole microbatch's, the same bits on every rank;
+      * the gradients are made whole over the model axis (`sync_grads`),
+        then summed over the data axis in rank order in f32: each data
+        rank's gradient already carries the whole microbatch's 1 / count,
+        so the sum is the reference's mean of dp per-rank terms;
+      * `grad_norm` and the clip scale are the whole tree's
+        (`optim.global_norm` over the cuts), the same bits on every rank;
+      * with ZeRO-1 each data rank updates its blocks of the moments and
+        the parameters, then the parameters' blocks are all-gathered over
+        the data axis (the same bits as updating the whole leaf); AdamW
+        runs on pieces of the leaves (`_pieces`: the same bits, a piece's
+        temporaries).
+
+    The rules are `train_rules`' (a split this path does not run raises
+    NotImplementedError).  The step carries `layouts` (`state_layouts`),
+    `rank_mesh` (the rank's `RankMesh`) and `grads(params, batch)` (its
+    first half: the loss, the metrics and the rank's whole gradients);
+    `on_grads`, if given, is called with those gradients before the
+    update."""
+    rules = train_rules(rules, mesh)
+    rm = RankMesh(mesh, rules)
+    layouts = state_layouts(model, mesh, rules, train_cfg, rm)
+    p_cuts, m_cuts = layouts["params"], layouts["opt"]["m"]
+
+    @torch.no_grad()
+    def _sum_data(g):
+        return rm.dp.sum_in_place(g)
+
+    def grads_of(params, batch):
+        """(loss, metrics, the rank's whole gradients of its shards)."""
+        local = rank_batch(batch, train_cfg.microbatches, rm.dp, rm.device)
+        with rm.contexts(), activation_rules(rules):
+            loss, metrics, grads = loss_and_grads(model, params, local,
+                                                  train_cfg.microbatches)
+        with torch.no_grad():
+            grads = sync_grads(grads, p_cuts, rm.tp)
+            if rm.dp is not None:
+                grads = tree_map(_sum_data, grads)
+        return loss, metrics, grads
+
+    def train_step(params, opt_state, batch, on_grads=None):
+        loss, metrics, grads = grads_of(params, batch)
+        if on_grads is not None:
+            on_grads(grads)
+        with torch.no_grad():
+            gnorm = global_norm(grads, p_cuts, rm.tp)
+            zp = tree_map(lambda c, t: c.zero_slice(t), m_cuts, params)
+            zg = tree_map(lambda c, t: c.zero_slice(t), m_cuts, grads)
+            _, _, om = adamw_update(*_pieces(zp, zg, opt_state), train_cfg.opt,
+                                    gnorm=gnorm)
+            del zg, grads
+            tree_map(lambda c, p, z: p.copy_(_gather_zero(c, z, rm.zero))
+                     if c.zero_dim is not None and rm.zero is not None else p,
+                     m_cuts, params, zp)
+        return params, opt_state, dict(metrics, **om)
+
+    train_step.layouts = layouts
+    train_step.rank_mesh = rm
+    train_step.grads = grads_of
     return train_step
 
 

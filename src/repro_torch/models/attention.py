@@ -38,6 +38,10 @@ the rank's KV heads (`init_cache(..., tp=)`), the encoder's non-causal
 and the cross-attention, in either `_sdpa` form — runs at the rank's own
 head counts, each local query head reading local KV head j // G_local;
 `wo`'s partial output is summed over the ranks before the residual add.
+In training the projections' input enters the split region through
+`distributed.collectives`' `enter` (its gradient summed over the ranks);
+the q / k norm scales and the KV heads several ranks read get partial
+gradients, which the train step sums (`zoo.tp_layout`).
 
 The new rows' K/V are written into the pools IN PLACE (`index_put_` on the
 layer's view of the pool), where JAX writes functionally (`.at[].set`) and
@@ -60,7 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import reduce_if_sharded
+from repro_torch.distributed.collectives import bind, enter_if_sharded, reduce_if_sharded
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import packed_row_map
 from repro_torch.models.common import (Params, apply_mrope, apply_rope, dense,
@@ -136,6 +140,7 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
     own (`tp_kv_heads`) under tensor parallelism."""
     b, s, _ = x.shape
     hd = cfg.hd
+    x = enter_if_sharded(x, "heads")
     # role-tagged: the plan's stage `qkv_proj` choice dispatches these
     q = dense(p["wq"], x, role="qkv_proj").reshape(b, s, -1, hd)
     k = dense(p["wk"], x, role="qkv_proj").reshape(b, s, -1, hd)
@@ -220,7 +225,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     acc = torch.zeros((b, hkv, q_per_kv, sq, d), dtype=torch.float32, device=q.device)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     for start in range(0, skv, kv_chunk):
-        body = functools.partial(_chunk_body, causal, start, qpos)
+        body = bind(functools.partial(_chunk_body, causal, start, qpos))
         args = (qg, m, l, acc, k[:, start:start + kv_chunk],
                 v[:, start:start + kv_chunk])
         if grad:
@@ -265,7 +270,7 @@ def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     tensor parallelism, `wo`'s partial output summed over the ranks)."""
     b, s, _ = x.shape
     if kv_override is not None:
-        q = dense(p["wq"], x).reshape(b, s, -1, cfg.hd)
+        q = dense(p["wq"], enter_if_sharded(x, "heads")).reshape(b, s, -1, cfg.hd)
         if cfg.qk_norm:
             q = rms_norm(p["q_norm"], q)
         k, v = kv_override
@@ -282,6 +287,7 @@ def cross_kv(p: Params, cfg: ModelConfig, enc: torch.Tensor):
     layer's cross-attention, computed once per prompt (a rank's KV heads
     under tensor parallelism)."""
     b, s, _ = enc.shape
+    enc = enter_if_sharded(enc, "heads")
     k = dense(p["wk"], enc).reshape(b, s, -1, cfg.hd)
     v = dense(p["wv"], enc).reshape(b, s, -1, cfg.hd)
     if cfg.qk_norm:

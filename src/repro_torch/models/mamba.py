@@ -36,6 +36,13 @@ a mesh, the whole-prompt prefill of the fixed-batch loop included;
     then runs on the rank's K slice of them and the partial outputs are
     summed over the ranks; otherwise it is the whole product.
 
+In training, in_proj's input and the normed activations out_proj's K
+slice is cut from enter the split region through
+`distributed.collectives`' `enter` (their gradients summed over the
+ranks); B and C, whole on every rank, get a partial gradient on each,
+which the train step sums (`zoo.tp_layout` marks their columns and conv
+channels as held by every rank).
+
 Softplus is `jax.nn.softplus` as JAX computes it, logaddexp(x, 0) =
 max(x, 0) + log1p(exp(-|x|)), with no threshold branch: the dt of a padded
 row is forced to 0.0 after it (`mamba_chunk_forward`), which is what makes
@@ -52,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import current
+from repro_torch.distributed.collectives import current, enter_if_sharded
 from repro_torch.models.common import Params, dense, dense_init, norm_init, rms_norm
 
 
@@ -244,7 +251,7 @@ def _gated_out(p: Params, cfg: ModelConfig, y: torch.Tensor, xs: torch.Tensor,
     y = rms_norm(p["norm"], y)
     if tp is not None and tp.sharded("conv_dim"):
         k = y.shape[-1] // tp.size
-        y = y[..., tp.rank * k:(tp.rank + 1) * k].contiguous()
+        y = tp.enter(y)[..., tp.rank * k:(tp.rank + 1) * k].contiguous()
         return tp.all_reduce(dense(p["out_proj"], y, role=role))
     return dense(p["out_proj"], y, role=role)
 
@@ -255,7 +262,7 @@ def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     (conv window (B, W-1, conv channels), SSM state (B, nh, hd, n) f32).
     Under tensor parallelism the layer runs at `tp_dims` on the rank's
     head-aligned slice and the carries are the rank's."""
-    zxbcdt = dense(p["in_proj"], x)
+    zxbcdt = dense(p["in_proj"], enter_if_sharded(x, "ssm_heads"))
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
     xbc = _causal_conv(p["conv_w"], p["conv_b"], xbc_raw)
     xs, Bm, Cm, A = _ssd_inputs(p, cfg, xbc)

@@ -16,7 +16,10 @@ capacity buffers of its own E / tp experts, runs their products and
 all-gathers the experts' outputs, concatenated in rank order, before the
 gather and the combine over the k choices.  The combine's sum is then the
 one-device sum; summing per-rank partial outputs instead would
-reassociate it.
+reassociate it.  In training the experts' input enters the split region
+through `distributed.collectives`' `enter` (its gradient through the
+rank's experts summed over the ranks); the router's path stays whole on
+every rank, so the router's gradient needs no sum.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import current, reduce_if_sharded
+from repro_torch.distributed.collectives import current, enter_if_sharded, reduce_if_sharded
 from repro_torch.kernels.ref import apply_activation
 from repro_torch.models.common import Params, dense, dense_init
 
@@ -51,7 +54,9 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     # activation rides in the hand-written GEMM's epilogue (the torch lane
     # applies it after the product).  Where "ffn" is split over a
     # tensor-parallel axis, this rank's w_in / w_gate columns and w_out rows
-    # give a partial output, summed over the ranks.
+    # give a partial output, summed over the ranks (and x's gradient, a
+    # partial of the rank's columns, is summed in backward).
+    x = enter_if_sharded(x, "ffn")
     if "w_gate" in p:
         h = dense(p["w_in"], x, role="mlp_up")
         h = dense(p["w_gate"], x, role="mlp_up", activation=act) * h
@@ -155,8 +160,12 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     # capacity (of a spare expert), which is cut off
     rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
     buf = x.new_zeros((b, e + 1, cap + 1, d))
+    # the experts' input: with expert parallelism its gradient through the
+    # rank's experts is a partial, summed over the ranks in backward (the
+    # router's path is whole on every rank)
+    xe = tp.enter(x) if ep else x
     buf[rows, torch.where(local, flat_i - lo, e), torch.where(keep, pos, cap)] = \
-        x.repeat_interleave(k, dim=1)
+        xe.repeat_interleave(k, dim=1)
     xin = buf[:, :e, :cap].transpose(0, 1).reshape(e, b * cap, d)
 
     h = torch.bmm(xin, p["w_in"].to(x.dtype))

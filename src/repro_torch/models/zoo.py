@@ -25,7 +25,9 @@ The training halves (`hidden` / `forward` / `loss` of every family) run
 on the f32 parameters under autograd, casting each weight at use as JAX
 does, with the layer bodies wrapped by `_remat` (`cfg.remat`: none, dots,
 full).  Each stacked leaf is split into its layers by one `unbind`
-(`unbind_layers`), whose backward is one `stack` per leaf.
+(`unbind_layers`), whose backward is one `stack` per leaf; in the train
+step each layer's gradient goes straight into its row of the leaf's
+`.grad` (`common.grads_into_grad`).
 
 Every family publishes the logical axes of its parameters
 (`logical_axes`, one tuple of axis names per leaf, "layers" leading the
@@ -33,9 +35,17 @@ stacked leaves; `block_logical_axes` for one decoder block) and of its
 fixed-batch cache (`cache_logical_axes`); `DecoderLM` also of its paged
 pools (`paged_cache_logical_axes`) and `MambaLM` of its slot pools
 (`slot_state_logical_axes`), the reference's trees entry for entry.  The
-`distributed.sharding` rules turn them into placements, and each
-family's `tp_local_params` into one rank's shards for tensor-parallel
-serving (`init_serving(..., tp=)` draws the model straight into them).
+`distributed.sharding` rules turn them into placements, and
+`tp_layout` into one rank's tensor-parallel cut, leaf by leaf, as
+positions of the whole leaf (`distributed.sharding.LeafCut`): each
+family's `tp_local_params` applies it to the serving parameters
+(`init_serving(..., tp=)` draws the model straight into them), the train
+step to its state (its gradients summed where several ranks hold a
+position), and `gather_cut` is its inverse, back to the reference's
+layout for checkpoints and comparisons.  The training halves run on a
+rank's f32 master shards inside its `tensor_parallel` context; `_remat`
+bodies recompute their collectives in backward in the same order on
+every rank.
 On those shards the fixed-batch path (`init_cache` / `prefill` /
 `decode_step`, under the rank's `TensorParallel` context) runs every
 family with its caches at the rank's widths: K / V at its KV heads, the
@@ -57,15 +67,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import current
-from repro_torch.distributed.sharding import local_params, local_shard, map_axes
+from repro_torch.distributed.collectives import bind, current
+from repro_torch.distributed.sharding import LeafCut, is_axes, map_axes
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
 from repro_torch.models.common import (Params, chunked_softmax_xent, dense,
-                                       dense_init, embed, embed_init, layer_norm,
-                                       layer_norm_init, lm_head_logits, norm_init,
-                                       rms_norm, torch_dtype)
+                                       dense_init, embed, embed_init,
+                                       grads_into_grad_active, layer_into_grad,
+                                       layer_norm, layer_norm_init, lm_head_logits,
+                                       norm_init, rms_norm, torch_dtype)
 from repro_torch.tree import tree_leaves, tree_map
 
 ATTN_BACKENDS = ("torch", "cuda_attention")
@@ -112,7 +123,9 @@ def _remat(cfg: ModelConfig, fn):
         if not torch.is_grad_enabled():
             return fn(*args)
         kw = {"context_fn": context_fn} if context_fn else {}
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+        # the recompute sees the tensor-parallel context of this forward
+        return checkpoint(bind(fn), *args, use_reentrant=False, preserve_rng_state=False,
+                          **kw)
 
     return run
 
@@ -177,11 +190,39 @@ def layer_params(blocks: Params, layer: int) -> Params:
     return tree_map(lambda t: t[layer], blocks)
 
 
-def unbind_layers(blocks: Params) -> list:
+class _LayersIntoGrad:
+    """The layers of a layer-stacked tree within `common.grads_into_grad`:
+    layer i's views (`common.layer_into_grad`) made when it is read, so
+    each layer's gradients go into the leaves' `.grad` as soon as its
+    backward has run."""
+
+    def __init__(self, blocks: Params):
+        self.blocks = blocks
+        self.n = next(tree_leaves(blocks)).shape[0]
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(self.n))]
+        if not -self.n <= i < self.n:
+            raise IndexError(i)
+        return tree_map(lambda t: layer_into_grad(t, i % self.n), self.blocks)
+
+    def __iter__(self):
+        return (self[i] for i in range(self.n))
+
+
+def unbind_layers(blocks: Params):
     """Every layer's view of the layer-stacked `blocks` tree, from one
-    `unbind` per leaf: under autograd its backward is one `stack`, where a
-    `t[i]` per layer would add each layer's gradient into a zero tensor of
-    the whole stack."""
+    `unbind` per leaf (under autograd its backward is one `stack`, after
+    every layer's backward has run; a `t[i]` per layer would add each
+    layer's gradient into a zero tensor of the whole stack), or within
+    `common.grads_into_grad` a sequence whose layer i is made when read
+    (`_LayersIntoGrad`)."""
+    if grads_into_grad_active():
+        return _LayersIntoGrad(blocks)
     parts = tree_map(lambda t: t.unbind(0), blocks)
     n = len(next(tree_leaves(parts)))
     return [tree_map(lambda p, i=i: p[i], parts) for i in range(n)]
@@ -190,37 +231,6 @@ def unbind_layers(blocks: Params) -> list:
 def _mamba_layer(cfg: ModelConfig, x: torch.Tensor, bp: Params) -> torch.Tensor:
     """A Mamba2 layer of the training path: x + mamba(norm(x))."""
     return x + M.mamba_forward(bp["mamba"], cfg, _norm(cfg, bp["norm"], x))
-
-
-def _tp_read_kv_heads(cfg: ModelConfig, attn: Params, tp) -> None:
-    """Where "heads" is split and "kv_heads" is not (the KV heads do not
-    divide the axis), cut an attention subtree's wk / wv (stacked or not)
-    to the KV heads the rank's query heads read (`attention.tp_kv_heads`),
-    in place."""
-    if not (tp.sharded("heads") and not tp.sharded("kv_heads")):
-        return
-    first, n = A.tp_kv_heads(cfg, tp.rules, tp.rank, tp.size)
-    hd = cfg.hd
-    for name in ("wk", "wv"):
-        attn[name]["w"] = attn[name]["w"][..., first * hd:(first + n) * hd].contiguous()
-
-
-def _tp_mamba(cfg: ModelConfig, whole: Params, local: Params, tp) -> None:
-    """A Mamba2 block's shards (stacked or not), `local` cut by the rules
-    with "conv_dim" replicated, fixed up in place from the `whole` block:
-    where "ssm_heads" is split, in_proj's columns and the conv weights'
-    channels head-aligned (`mamba.tp_columns`), not the contiguous block
-    their "conv_dim" axis names; where "conv_dim" is split, out_proj's d_in
-    rows in contiguous blocks (the rank's heads' rows when "ssm_heads" is
-    split too)."""
-    if tp.sharded("ssm_heads"):
-        cols, chans = M.tp_columns(cfg, tp.rank, tp.size, whole["conv_w"].device)
-        local["in_proj"] = {"w": whole["in_proj"]["w"].index_select(-1, cols)}
-        local["conv_w"] = whole["conv_w"].index_select(-1, chans)
-        local["conv_b"] = whole["conv_b"].index_select(-1, chans)
-    if tp.sharded("conv_dim"):
-        local["out_proj"] = {"w": local_shard(whole["out_proj"]["w"], (None, "model"),
-                                              {"model": tp.size}, {"model": tp.rank})}
 
 
 def _draw_layers(key: str, block_init, n: int, draw, device) -> Params:
@@ -239,6 +249,97 @@ def _draw_layers(key: str, block_init, n: int, draw, device) -> Params:
         _copy_into(stack, layer, i)
         del layer
     return stack
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose `device` is "meta": `model.init(MetaGenerator())`
+    gives the parameter tree's shapes and dtypes without drawing or
+    allocating anything (the reference's `jax.eval_shape`)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+_ATTN_KEYS = ("attn", "self_attn", "cross_attn")
+
+
+def _cut_index(cfg: ModelConfig, path, axes, shape, rules, rank: int, size: int):
+    """(dim, positions along it) of a leaf that rank `rank` of a
+    `size`-wide model axis holds under `rules` (see `tp_layout`), or None
+    where it holds the whole leaf."""
+    ar = torch.arange
+    heads = size > 1 and rules.lookup("heads") == "model"
+    kv = size > 1 and rules.lookup("kv_heads") == "model"
+    if (len(path) >= 3 and path[-2] in ("wk", "wv") and path[-3] in _ATTN_KEYS
+            and heads and not kv):
+        first, n = A.tp_kv_heads(cfg, rules, rank, size)
+        return len(shape) - 1, ar(first * cfg.hd, (first + n) * cfg.hd)
+    mamba = "mamba" in path[-3:]
+    if mamba and size > 1 and rules.lookup("ssm_heads") == "model" and (
+            path[-2:] == ("in_proj", "w") or path[-1] in ("conv_w", "conv_b")):
+        cols, chans = M.tp_columns(cfg, rank, size)
+        return len(shape) - 1, (cols if path[-1] == "w" else chans)
+    if (mamba and path[-2:] == ("out_proj", "w") and size > 1
+            and rules.lookup("conv_dim") == "model"):
+        n = shape[-2] // size
+        return len(shape) - 2, ar(rank * n, (rank + 1) * n)
+    spec = rules.replace(conv_dim=None).spec(tuple(axes) + (None,) * (len(shape) - len(axes)))
+    for i, entry in enumerate(spec):
+        if size > 1 and (entry == "model" or (isinstance(entry, tuple) and "model" in entry)):
+            if shape[i] % size:
+                raise ValueError(f"logical axes {tuple(axes)}: dim {i} of {tuple(shape)} "
+                                 f"does not split into {size} blocks")
+            n = shape[i] // size
+            return i, ar(rank * n, (rank + 1) * n)
+    return None
+
+
+def gather_cut(cut: LeafCut, local: torch.Tensor, tp) -> torch.Tensor:
+    """The whole leaf from every rank's model-axis shard `local` under
+    `cut` (collective over `tp`'s group): equal blocks concatenated in rank
+    order, other cuts (shards padded to the longest) placed position by
+    position from each position's owner; a leaf no rank splits is `local`
+    itself."""
+    if cut.dim is None:
+        return local
+    if cut.blocks:
+        return tp.all_gather(local.detach(), cut.dim)
+    pad = list(local.shape)
+    pad[cut.dim] = max(len(i) for i in cut.indices) - local.shape[cut.dim]
+    parts = tp._gather(torch.cat([local.detach(), local.new_zeros(pad)], cut.dim))
+    shape = list(local.shape)
+    shape[cut.dim] = cut.full
+    whole = local.new_empty(shape)
+    for r, part in enumerate(parts):
+        own = cut.owned(r).to(local.device)
+        whole.index_copy_(cut.dim, cut.indices[r].to(local.device)[own],
+                          part.index_select(cut.dim, own))
+    return whole
+
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(cls, cfg: ModelConfig) -> Params:
+    return cls(cfg).init(MetaGenerator())
+
+
+@functools.lru_cache(maxsize=64)
+def _tp_layout(cls, cfg: ModelConfig, rules, rank: int, size: int) -> Params:
+    """`_StackedLM.tp_layout`, once per (family, config, rules, rank, size)."""
+    heads = size > 1 and rules.lookup("heads") == "model"
+
+    def walk(axes, shape, path):
+        if not is_axes(axes):
+            return {k: walk(axes[k], shape[k], path + (k,)) for k in axes}
+        shape = tuple(shape.shape)
+        cuts = [_cut_index(cfg, path, axes, shape, rules, r, size) for r in range(size)]
+        partial = heads and len(path) >= 2 and path[-2] in ("q_norm", "k_norm")
+        if cuts[0] is None:
+            return LeafCut(rank=rank, partial=partial)
+        return LeafCut.split(cuts[0][0], [c[1] for c in cuts], shape[cuts[0][0]], rank)
+
+    model = cls(cfg)
+    return walk(model.logical_axes(), model.param_shapes(), ())
 
 
 class _StackedLM:
@@ -324,13 +425,20 @@ class _StackedLM:
         return unbind_layers(params["blocks"])
 
     # ------------------------------------------------ tensor parallelism
-    def _tp_split(self, params: Params, rules, tp) -> Params:
-        """`distributed.sharding.local_params` of `params` (the whole tree
-        or some of its top-level subtrees) under `rules`, for the rank of
-        `tp`."""
-        axes = {k: v for k, v in self.logical_axes().items() if k in params}
-        return local_params(params, axes, rules, {"model": tp.size},
-                            {"model": tp.rank})
+    def param_shapes(self) -> Params:
+        """The parameter tree as meta tensors (shapes and dtypes, nothing
+        drawn or allocated: the reference's `jax.eval_shape` of `init`),
+        built once per config; not to be modified."""
+        return _param_shapes(type(self), self.cfg)
+
+    def _tp_cut(self, params: Params, tp) -> Params:
+        """The rank's shards of `params` (the whole tree or some of its
+        top-level subtrees, a leaf's layers dim of any length): each leaf
+        cut as `tp_layout` says (`LeafCut.model_local`), plain tensors on
+        their device."""
+        layout = self.tp_layout(tp)
+        return tree_map(lambda t, cut: cut.model_local(t), params,
+                        {k: layout[k] for k in params})
 
     def tp_local_params(self, params: Params, tp) -> Params:
         """The rank's shards of the serving parameters: each family defines
@@ -340,6 +448,24 @@ class _StackedLM:
             "tensor-parallel shards; the six families are served on a mesh by "
             "FixedBatchEngine / ServeEngine(mesh=, rules=), and dense / moe / vlm / "
             "ssm also by ContinuousEngine(mesh=, rules=)")
+
+    def tp_layout(self, tp) -> Params:
+        """The parameter tree's `distributed.sharding.LeafCut`s for the
+        rank of `tp` (anything with `rules`, `rank` and `size`): the one
+        tensor-parallel cut of the model, which `tp_local_params` applies
+        to serving and the train step to its state.  Each leaf is cut along
+        at most one dim, given as the whole leaf's positions there for
+        every rank, so each position's owner and the positions several
+        ranks hold are known: the logical axes' contiguous blocks, wk / wv
+        at the KV heads the rank's query heads read where "heads" is split
+        and "kv_heads" is not (`attention.tp_kv_heads`), mamba's in_proj
+        columns and conv channels head-aligned where "ssm_heads" is split
+        (`mamba.tp_columns`: B and C on every rank) and its out_proj's d_in
+        rows in blocks where "conv_dim" is.  `partial` marks the whole
+        leaves read inside a split region, whose gradient is a partial on
+        each rank: the q / k norms of split attention heads.  A split dim
+        that does not divide raises ValueError naming the leaf's axes."""
+        return _tp_layout(type(self), self.cfg, tp.rules, tp.rank, tp.size)
 
     # ------------------------------------------------------------ training
     # each family's `hidden` gives the final-normed states (B, S, d)
@@ -555,15 +681,15 @@ class DecoderLM(_StackedLM):
 
     def tp_local_params(self, params: Params, tp) -> Params:
         """The rank's shards of the serving parameters (the whole tree or
-        some of its top-level subtrees), plain tensors on their device:
-        every leaf split by `tp.rules` over its logical axes
-        (`distributed.sharding.local_params`): the MoE's expert stacks on
-        E (expert parallelism), its shared expert as an MLP on "ffn";
-        where "heads" is split and "kv_heads" is not (the vlm's 2 KV
-        heads at tp = 4), wk / wv keep only the KV heads the rank's query
-        heads read (`tp_kv_heads`).  Where "experts" is split but
-        n_experts does not divide the axis, raises ValueError, as the
-        reference's engine does when it places such a stack."""
+        some of its top-level subtrees), plain tensors on their device,
+        cut as `tp_layout` says: every leaf split by `tp.rules` over its
+        logical axes, the MoE's expert stacks on E (expert parallelism),
+        its shared expert as an MLP on "ffn"; where "heads" is split and
+        "kv_heads" is not (the vlm's 2 KV heads at tp = 4), wk / wv keep
+        only the KV heads the rank's query heads read (`tp_kv_heads`).
+        Where "experts" is split but n_experts does not divide the axis,
+        raises ValueError, as the reference's engine does when it places
+        such a stack."""
         cfg = self.cfg
         if cfg.family == "moe":
             if tp.sharded("experts") and cfg.n_experts % tp.size:
@@ -573,10 +699,7 @@ class DecoderLM(_StackedLM):
             if tp.sharded("expert_ffn"):
                 raise ValueError("'expert_ffn' split over the model axis (TP "
                                  "inside the experts) is not ported")
-        local = self._tp_split(params, tp.rules, tp)
-        if "blocks" in local:
-            _tp_read_kv_heads(cfg, local["blocks"]["attn"], tp)
-        return local
+        return self._tp_cut(params, tp)
 
 
 # ===================================================================== Mamba2
@@ -740,14 +863,11 @@ class MambaLM(_StackedLM):
 
     def tp_local_params(self, params: Params, tp) -> Params:
         """The rank's shards of the serving parameters (the whole tree or
-        some of its top-level subtrees): the embedding and LM head, A_log,
-        D and dt_bias as `distributed.sharding.local_params` cuts them, the
-        Mamba2 blocks' projections and conv weights as `_tp_mamba` cuts
-        them."""
-        local = self._tp_split(params, tp.rules.replace(conv_dim=None), tp)
-        if "blocks" in params:
-            _tp_mamba(self.cfg, params["blocks"]["mamba"], local["blocks"]["mamba"], tp)
-        return local
+        some of its top-level subtrees), cut as `tp_layout` says: the
+        embedding and LM head, A_log, D and dt_bias on their logical axes,
+        in_proj's columns and the conv weights' channels head-aligned
+        (`mamba.tp_columns`), out_proj's d_in rows in blocks."""
+        return self._tp_cut(params, tp)
 
 
 # ===================================================================== Zamba2
@@ -803,17 +923,13 @@ class HybridLM(_StackedLM):
 
     def tp_local_params(self, params: Params, tp) -> Params:
         """The rank's shards of the serving parameters (the whole tree or
-        some of its top-level subtrees): the Mamba2 blocks as
+        some of its top-level subtrees), cut as `tp_layout` says: the
+        Mamba2 blocks as
         `MambaLM.tp_local_params` cuts them, the shared block's attention
         on the heads (wk / wv at the KV heads its query heads read) and its
         MLP on "ffn", its in_proj ("embed", "embed") replicated, the
         embedding and LM head on the vocabulary."""
-        local = self._tp_split(params, tp.rules.replace(conv_dim=None), tp)
-        if "blocks" in params:
-            _tp_mamba(self.cfg, params["blocks"]["mamba"], local["blocks"]["mamba"], tp)
-        if "shared" in params:
-            _tp_read_kv_heads(self.cfg, local["shared"]["attn"], tp)
-        return local
+        return self._tp_cut(params, tp)
 
     def _shared_apply(self, sp: Params, x: torch.Tensor, x0: torch.Tensor,
                       attend) -> torch.Tensor:
@@ -1037,18 +1153,13 @@ class EncDecLM(_StackedLM):
 
     def tp_local_params(self, params: Params, tp) -> Params:
         """The rank's shards of the serving parameters (the whole tree or
-        some of its top-level subtrees): the encoder's attention, the
+        some of its top-level subtrees), cut as `tp_layout` says: the
+        encoder's attention, the
         decoder's self- and cross-attention on the heads (wk / wv at the KV
         heads their query heads read), both MLPs on "ffn", the embedding
         and LM head by the rules (whisper's odd vocabulary: the LM head's
         rows on "embed_vec" under guarded rules), `enc_pos` replicated."""
-        local = self._tp_split(params, tp.rules, tp)
-        if "encoder" in local:
-            _tp_read_kv_heads(self.cfg, local["encoder"]["attn"], tp)
-        if "decoder" in local:
-            for name in ("self_attn", "cross_attn"):
-                _tp_read_kv_heads(self.cfg, local["decoder"][name], tp)
-        return local
+        return self._tp_cut(params, tp)
 
     def _enc_block(self, x: torch.Tensor, bp: Params) -> torch.Tensor:
         cfg = self.cfg

@@ -48,10 +48,31 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree, cuts=None, tp=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+
+    Over a tree of one rank's shards (`cuts`, the `distributed.sharding.
+    LeafCut` of each leaf, and `tp`, the model axis' `TensorParallel`),
+    the whole tree's norm: each leaf's sum of squares over the positions
+    the rank owns (a split leaf's over its shard, the positions several
+    ranks hold counted by their owner alone, a whole leaf by rank 0 of the
+    axis alone), the per-leaf sums reduced over the axis in rank order,
+    then summed over the leaves as on one device: the same bits on every
+    rank."""
+    if cuts is None or tp is None:
+        leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+    def owned_sq(cut, x):
+        if cut.dim is None:
+            sq = torch.sum(torch.square(x.float()))
+            return sq if tp.rank == 0 else torch.zeros_like(sq)
+        if cut.shared:
+            x = x.index_select(cut.dim, cut.owned().to(x.device))
+        return torch.sum(torch.square(x.float()))
+
+    leaves = list(tree_leaves(tree_map(owned_sq, cuts, tree)))
+    return torch.sqrt(torch.sum(tp.all_reduce(torch.stack(leaves))))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -75,12 +96,18 @@ def adamw_init(params) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig
+def adamw_update(params, grads, state, cfg: AdamWConfig, gnorm=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step on `params` from `grads` (not modified): the
     parameters, m, v and step are updated in place and returned with the
-    metrics {"lr", "grad_norm"} (the norm taken before clipping)."""
-    gnorm = global_norm(grads)
+    metrics {"lr", "grad_norm"} (the norm taken before clipping).
+
+    `gnorm`: the gradients' global norm where `grads` are not the whole
+    tree (a rank's shards, or the ZeRO-1 slices of them, with `params`,
+    m and v the same slices: views updated in place); default
+    `global_norm(grads)`."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state["step"]
     step += 1

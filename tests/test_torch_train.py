@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import AxisType, Mesh
+from jax.sharding import PartitionSpec as P
 
 from repro.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro.configs import get_config as jax_get_config
@@ -46,6 +47,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.data import pipeline as port_pipeline
+from repro_torch.distributed import DEFAULT_RULES as PORT_RULES
+from repro_torch.distributed.collectives import mesh_axes
 from repro_torch.launch.steps import TrainConfig
 from repro_torch.models import build_model
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -211,8 +214,17 @@ def test_int8_compression_matches():
     assert abs(float(s) - float(ws)) <= 1e-7 * float(ws)
     _leaf_close(int8_decompress(q, s).numpy(),
                 np.asarray(jax_compress.int8_decompress(wq, ws)), 1e-7)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the mean over a mesh axis: an unbound name raises, as outside
+    # shard_map; on a 1-wide axis it is the JAX function under shard_map
+    # on one device (the wider axes: tests/test_torch_tp_train.py)
+    with pytest.raises(NameError, match="pod"):
         compressed_allgather_mean(torch.from_numpy(x), "pod")
+    with mesh_axes({"pod": None}):
+        got = compressed_allgather_mean(torch.from_numpy(x), "pod")
+    pod = Mesh(np.asarray(jax.devices()[:1]), ("pod",), axis_types=(AxisType.Explicit,))
+    want = jax.shard_map(lambda a: jax_compress.compressed_allgather_mean(a, "pod"),
+                         mesh=pod, in_specs=P(), out_specs=P(), check_vma=False)(jnp.asarray(x))
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 # ----------------------------------------------------------- checkpoint
@@ -338,7 +350,7 @@ def _mk_trainer(tmp_path, steps, ckpt_every=4, seq=16, batch=4, total_steps=None
         train=TrainConfig(microbatches=1, zero1=False,
                           opt=AdamWConfig(lr=1e-3, warmup_steps=2,
                                           total_steps=total_steps or steps)))
-    return Trainer(build_model(cfg), data, tc, device="cpu")
+    return Trainer(build_model(cfg), None, PORT_RULES, data, tc, device="cpu")
 
 
 def test_trainer_loss_decreases(tmp_path):
@@ -417,7 +429,7 @@ def test_trainer_defaults_to_the_gpu(tmp_path, monkeypatch):
     cfg = _small_cfg()
     data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2))
     with pytest.raises(RuntimeError, match="GPU"):
-        Trainer(build_model(cfg), data, TrainerConfig(ckpt_dir=str(tmp_path)))
+        Trainer(build_model(cfg), None, PORT_RULES, data, TrainerConfig(ckpt_dir=str(tmp_path)))
 
 
 def test_three_trainer_steps_match_jax(tmp_path):
@@ -435,7 +447,7 @@ def test_three_trainer_steps_match_jax(tmp_path):
         jax_trainer.TrainerConfig(
             steps=1, ckpt_every=100, ckpt_dir=str(tmp_path / "jax"), log_every=1000,
             train=jax_steps.TrainConfig(microbatches=2, opt=jax_adamw.AdamWConfig(**opt))))
-    ttr = Trainer(build_model(tcfg), SyntheticLMData(DataConfig(**data_kw)),
+    ttr = Trainer(build_model(tcfg), None, PORT_RULES, SyntheticLMData(DataConfig(**data_kw)),
                   TrainerConfig(steps=1, ckpt_every=100, ckpt_dir=str(tmp_path / "port"),
                                 log_every=1000,
                                 train=TrainConfig(microbatches=2, opt=AdamWConfig(**opt))),
