@@ -87,7 +87,7 @@ each with its seconds logged:
      role-tagged matmuls through the kernels: 16 requests, chunked and
      packed prefill and decode-only steps, the two step programs captured
      in CUDA graphs and replayed, against the same engine run eagerly
-     (`cuda_graphs=False`) in three alternating pairs: every request must
+     (`cuda_graphs=False`) in two alternating pairs: every request must
      finish, the pool must drain, `submit()` must capture nothing, each
      graphed engine must capture 2 programs (one signature each) and replay
      every later step, the graphed and eager runs must give the same token
@@ -152,7 +152,7 @@ each with its seconds logged:
      the slot-pooled state cache: phase 3's 16 prompts over this
      vocabulary, 8 slots, 256-token chunks, 32 new tokens.  The kernel
      lanes (the three projections of both ssm stages on the GEMM) graphed
-     and eager in two alternating pairs: streams, first-token logits and
+     and eager in one pair: streams, first-token logits and
      launches bitwise equal, one signature per program, captured once,
      replayed steps - 2 times, nothing captured at submit(); tokens/s and
      TTFT, and the captured decode-only step's device ms against its bytes
@@ -175,7 +175,7 @@ each with its seconds logged:
      paged programs with phase 3's 16 prompts and runtime: the kernel
      lanes (paged attention, the GEMM for qkv, the shared expert and
      lm_head; the router and the routed experts stay torch ops, as the
-     reference's einsums) graphed and eager in two alternating pairs,
+     reference's einsums) graphed and eager in one pair,
      streams, first-token logits and launches bitwise equal, one
      signature per program, captured once, nothing at submit(), every
      request finished and the pool drained; tokens/s and TTFT; the
@@ -251,7 +251,13 @@ each with its seconds logged:
      MFU, the loss every step (its last 5 must average below the first),
      peak device memory; the AdamW update alone by CUDA events beside its
      bytes bound; one step under torch.profiler (device events per step,
-     busy share); no hand-written kernel launched;
+     busy share); no hand-written kernel launched; then the dry run's
+     cross-check: the same step lowered on the meta device with
+     `launch/dryrun.py`'s meters against one real step on the card under
+     FlopCounterMode (the counts must agree within 0.1 %, else the ops
+     that differ are named and the phase fails), the meta argument bytes
+     beside the state the card holds, MemTracker's peak beside the
+     measured one, and MFU from the counted FLOPs beside the 6 N T figure;
  15. `Trainer` end to end at `examples/train_lm.py`'s configuration (qwen3
      reduced to 4 layers, d_model 256, vocab 4096; seq 128, batch 8, 2
      microbatches, 200 steps, a checkpoint every 25): the loss falls, the
@@ -301,7 +307,8 @@ each with its seconds logged:
      `tp_mesh(1)` (a world of one on nccl), graphed, bitwise equal to the
      engine with no mesh (streams, first-token logits, launches, captures
      and replays), then eagerly on the first 8 prompts; (b) tp = 2 and 4 as
-     2 and 4 processes sharing the card in a gloo world over a FileStore
+     2 and 4 processes sharing the card, each width a gloo world over a
+     FileStore, the two worlds side by side (phases 22 and 23 likewise)
      (`--tp-child`), every kernel built before they start, each rank on
      its shards, eagerly: streams equal on every rank, every token held
      against the dense torch path where its top-2 margin exceeds 0.25, one
@@ -352,9 +359,9 @@ each with its seconds logged:
      single-device state from the seed and keeps its cut, computes the
      step-1 gradients (loss within 1e-3 of phase 14's, the global norm
      within 1e-2 relative, every gathered leaf's cosine with phase 14's
-     step-1 gradient >= 0.999) and runs 2 steps: loss and grad_norm the
+     step-1 gradient >= 0.999) and runs 1 step: loss and grad_norm the
      same bits on every rank, the replicated leaves bitwise equal across
-     ranks after step 2, no hand-written kernel launched; each rank's peak
+     ranks after it, no hand-written kernel launched; each rank's peak
      memory beside the shards + gradients + moments + activations reckoned
      before the run, the least free memory on the card during the steps
      (every process's use), and its step ms (gloo on one card: not a TP
@@ -2347,8 +2354,8 @@ def stream_check(torch, label, model, params, prompts, out):
     return compared, total
 
 
-# graphed / eager run order of the kernel lanes: three pairs, alternating
-KERNEL_LANE_RUNS = (True, False, False, True, True, False)
+# graphed / eager run order of the kernel lanes: two pairs, alternating
+KERNEL_LANE_RUNS = (True, False, False, True)
 # the identity pairs (graphed kernel lanes): the first 8 prompts; a pool of
 # 120 blocks preempts them (they need 216 with their 32 new tokens); the
 # first 12 with prompt 1's first 256 tokens as a shared prefix wherever
@@ -3010,7 +3017,7 @@ def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
 # served through ContinuousEngine on the slot-pooled state cache: the 16
 # prompts of phase 3 over this vocabulary, SERVE_RUNTIME's 8 slots, 256-token
 # chunks (one ssm_chunk) and 32 new tokens.
-SSM_KERNEL_RUNS = (True, False, False, True)      # two alternating pairs
+SSM_KERNEL_RUNS = (True, False)                   # one pair
 SSM_PREEMPT_ROWS = 8          # state_slots: 7 usable rows for 8 slots
 SSM_FIXED_PROMPTS = 4
 SSM_DECODE_REPLAYS = 20
@@ -3315,7 +3322,7 @@ def phase_ssm(torch, cfg, profile=False):
 # 3's runtime (8 slots, 16-token blocks, 256-token chunks of up to 4
 # segments, 32 new tokens): phase 3's 16 prompts over each vocabulary
 # (granite: the first 8).
-MOE_KERNEL_RUNS = (True, False, False, True)      # two alternating pairs
+MOE_KERNEL_RUNS = (True, False)                   # one pair
 GRANITE_KERNEL_RUNS = (True, False)               # one pair
 GRANITE_PROMPTS = 8
 DECODE_REPLAYS = 20
@@ -4386,9 +4393,67 @@ def _profile_step(torch, label, fn):
     return events
 
 
-def phase_train(torch, cfg, counters, keep=None):
+def _dry_run_cross_check(torch, label, step_fn, state, batch, step_s, peak_gb, smi):
+    """Phase 14's step lowered on the meta device with the dry run's meters
+    (`launch/dryrun.py::Meters`: FlopCounterMode, MemTracker) beside one
+    real step on the card under FlopCounterMode: the two FLOP counts must
+    agree within 0.1 % (else the ops that differ are named and the phase
+    fails); the meta argument bytes beside the bytes of the state and
+    batch the card holds, MemTracker's peak beside `peak_gb` (logged
+    only), and MFU from the counted FLOPs at `step_s` beside 6 N T."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import Meters, nbytes
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    meta = lambda t: torch.empty_like(t, device="meta")
+    params = tree_map(meta, state["params"])
+    opt = adamw_init(params)
+    mbatch = {k: meta(v) for k, v in batch.items()}
+    argument = nbytes(params) + nbytes(opt) + nbytes(mbatch)
+    meters = Meters(params, opt)
+    with meters():
+        step_fn(params, opt, mbatch)
+    rec = meters.record(argument)
+    t_meta = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step_fn(state["params"], state["opt"], batch)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    meta_flops, card_flops = rec["cost"]["flops"], counter.get_total_flops()
+    card_by_op = {str(op): int(n) for op, n in
+                  counter.get_flop_counts().get("Global", {}).items()}
+    held = nbytes(state) + nbytes(batch)
+    peak = rec["memory"]["peak_bytes_per_device"]
+    n_mm = _matmul_params(state["params"])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log(f"[{label} dry run] {smi}: meta step {t_meta:.1f} s, card step under "
+        f"FlopCounterMode {t_card:.1f} s; FLOPs meta {meta_flops:.6e} {rec['flops_by_op']}, "
+        f"card {card_flops:.6e} {card_by_op}, ratio {meta_flops / card_flops:.6f}")
+    log(f"[{label} dry run] {smi}: argument bytes meta {argument:,}, the card's state + "
+        f"batch {held:,}; MemTracker peak {peak / 1e9:.2f} GB "
+        f"{rec['memory']['peak_by_category']}, measured peak {peak_gb:.2f} GB")
+    log(f"[{label} dry run] {smi}: MFU from the counted FLOPs "
+        f"{card_flops / step_s / BF16_FLOPS * 100:.2f} % ({card_flops:.4e} / "
+        f"{step_s * 1e3:.1f} ms / 989 TFLOP/s), 6 N T {6 * n_mm * tokens / step_s / BF16_FLOPS * 100:.2f} %")
+    if abs(meta_flops / card_flops - 1) > 1e-3:
+        differ = {op: (rec["flops_by_op"].get(op, 0), card_by_op.get(op, 0))
+                  for op in set(rec["flops_by_op"]) | set(card_by_op)
+                  if rec["flops_by_op"].get(op, 0) != card_by_op.get(op, 0)}
+        raise AssertionError(f"[{label} dry run] meta and card FLOPs differ by more "
+                             f"than 0.1 %: (meta, card) by op {differ}")
+    return {"meta_flops": meta_flops, "card_flops": card_flops, "meta_argument": argument,
+            "card_held": held, "meta_peak": peak}
+
+
+def phase_train(torch, cfg, counters, keep=None, smi=""):
     """Phase 14 (see the module docstring); `keep`: the directory where
-    step 1's gradients are left for phase 24 (`keep_leaf`)."""
+    step 1's gradients are left for phase 24 (`keep_leaf`); `smi`: the
+    card's name and power limit, logged with the dry run's cross-check."""
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.distributed import DEFAULT_RULES
     from repro_torch.launch.steps import TrainConfig, loss_and_grads, make_train_step
@@ -4472,6 +4537,8 @@ def phase_train(torch, cfg, counters, keep=None):
     del grads
     events = _profile_step(torch, f"{label} profile", lambda: step_fn(
         state["params"], state["opt"], _train_batch(torch, data, len(losses), cfg)))
+    dry = _dry_run_cross_check(torch, label, step_fn, state,
+                               _train_batch(torch, data, len(losses), cfg), med, peak, smi)
 
     first, last = losses[0], sum(losses[-5:]) / 5
     log(f"[{label}] loss: first {first:.6f}, mean of the last 5 {last:.6f}")
@@ -4484,7 +4551,7 @@ def phase_train(torch, cfg, counters, keep=None):
     _phase_end(label, t_phase)
     return {"step_ms": med * 1e3, "tokens_s": tokens / med, "adamw_ms": _median(ms),
             "adamw_bound_ms": bound_ms, "peak_gb": peak, "events": events,
-            "loss1": loss16, "gnorm1": n16}
+            "loss1": loss16, "gnorm1": n16, "dry_run": dry}
 
 
 def _loop_trainer(ckpt_dir, mesh=None, steps=LOOP_STEPS):
@@ -5012,7 +5079,8 @@ def phase_layout_race(torch, counters):
 # Tensor-parallel serving.  (a) qwen3-1.7b's kernel lanes on tp_mesh(1)
 # (a world of one on nccl in this process), graphed, against the engine
 # with no mesh: bitwise.  (b) tp = 2 and 4 as 2 and 4 processes sharing
-# the card (cuda:0) in a gloo world over a FileStore, each rank serving
+# the card (cuda:0), each width a gloo world over a FileStore and the two
+# worlds side by side (`_tp_worlds`), each rank serving
 # the first TP_PROMPTS prompts on its shards, eagerly, every collective
 # staged through the host (gloo): streams equal on every rank, held
 # against the dense torch path (`stream_check`), one signature per
@@ -5091,45 +5159,51 @@ def tp_child(torch, rank, world, store, out_path):
         dist.destroy_process_group()
 
 
-def _tp_world(tp, tmp, flag="--tp-child", tag="", extra=(), env=None):
-    """Run phase 21 (b)'s ranks of one width (with `flag`
-    "--tp-family-child": phase 22's, and so on; `extra`: more arguments)
-    as processes on the card; -> each rank's result.  Any rank that fails
-    or outlives TP_CHILD_TIMEOUT_S fails the phase (the others are killed
-    first)."""
-    store = os.path.join(tmp, f"store{tag}{tp}")
+def _tp_worlds(widths, tmp, flag="--tp-child", tag="", extra=(), env=None):
+    """Run phase 21 (b)'s ranks of every width in `widths` side by side
+    (with `flag` "--tp-family-child": phase 22's, and so on; `extra`: more
+    arguments), each width a world of its own over its own store, as
+    processes on the card; -> {width: each rank's result}.  Any rank that
+    fails or outlives TP_CHILD_TIMEOUT_S fails the phase (the others are
+    killed first)."""
     procs = []
-    for r in range(tp):
-        out, logf = (os.path.join(tmp, f"tp{tag}{tp}.{r}{ext}") for ext in (".json", ".log"))
-        with open(logf, "w") as f:
-            procs.append((r, out, logf, subprocess.Popen(
-                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
-                 str(r), str(tp), store, out, *extra], stdout=f, stderr=subprocess.STDOUT,
-                env=env,
-                cwd=ROOT)))
+    for tp in widths:
+        store = os.path.join(tmp, f"store{tag}{tp}")
+        for r in range(tp):
+            out, logf = (os.path.join(tmp, f"tp{tag}{tp}.{r}{ext}") for ext in (".json", ".log"))
+            with open(logf, "w") as f:
+                procs.append((tp, r, out, logf, subprocess.Popen(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
+                     str(r), str(tp), store, out, *extra], stdout=f,
+                    stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
     failed = []
     deadline = time.perf_counter() + TP_CHILD_TIMEOUT_S
     try:
-        for r, _, logf, p in procs:
+        for tp, r, _, logf, p in procs:
             try:
                 rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
             except subprocess.TimeoutExpired:
                 rc = "timeout"
             if rc != 0:
                 with open(logf) as f:
-                    failed.append(f"rank {r}: {rc}\n{f.read()[-4000:]}")
+                    failed.append(f"tp={tp} rank {r}: {rc}\n{f.read()[-4000:]}")
     finally:
-        for _, _, _, p in procs:
+        for *_, p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     if failed:
-        raise AssertionError(f"[tp={tp}] ranks failed:\n" + "\n".join(failed))
-    results = []
-    for _, out, _, _ in procs:
+        raise AssertionError("ranks failed:\n" + "\n".join(failed))
+    results = {tp: [] for tp in widths}
+    for tp, _, out, _, _ in procs:
         with open(out) as f:
-            results.append(json.load(f))
+            results[tp].append(json.load(f))
     return results
+
+
+def _tp_world(tp, tmp, flag="--tp-child", tag="", extra=(), env=None):
+    """`_tp_worlds` of one width: -> each rank's result."""
+    return _tp_worlds((tp,), tmp, flag, tag, extra, env)[tp]
 
 
 def phase_tp_serving(torch, counters):
@@ -5179,10 +5253,10 @@ def phase_tp_serving(torch, counters):
 
     build.build_all()                          # every library in place before spawning
     tmp = tempfile.mkdtemp(prefix="tp_worlds_")
-    for tp in TP_SERVE_WIDTHS:
-        t0 = time.perf_counter()
-        ranks = _tp_world(tp, tmp)
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    worlds = _tp_worlds(TP_SERVE_WIDTHS, tmp)  # the widths side by side
+    wall = time.perf_counter() - t0
+    for tp, ranks in worlds.items():
         for res in ranks[1:]:
             if res["streams"] != ranks[0]["streams"]:
                 raise AssertionError(f"[tp={tp}] rank {res['rank']}'s streams differ "
@@ -5216,9 +5290,9 @@ def phase_tp_serving(torch, counters):
                                              for v in out.values()):
             raise AssertionError(f"[tp={tp}] requests {sorted(out)} unfinished")
         same = sum(out[r] == ref[r] for r in ref)
-        log(f"[tp={tp}] {tp} ranks in {wall:.1f} s (start included); streams equal on "
-            f"every rank; {same}/{len(ref)} identical to the tp=1 eager run's, first "
-            f"divergence {_first_divergence(ref, out)}")
+        log(f"[tp={tp}] {tp} ranks (beside the other widths' in {wall:.1f} s, start "
+            f"included); streams equal on every rank; {same}/{len(ref)} identical to the "
+            f"tp=1 eager run's, first divergence {_first_divergence(ref, out)}")
         todo = sorted(r for r in out if checked.get(r) != out[r])
         stream_check(torch, f"qwen3 tp={tp}", model, params,
                      [prompts[r - 1] for r in todo], {r: out[r] for r in todo})
@@ -5497,13 +5571,11 @@ def phase_tp_families(torch, counters):
 
     build.build_all()                          # every library in place before spawning
     tmp = tempfile.mkdtemp(prefix="tp_family_worlds_")
-    worlds = {}
-    for tp in TP_SERVE_WIDTHS:
-        t0 = time.perf_counter()
-        worlds[tp] = _tp_world(tp, tmp, "--tp-family-child", "families")
-        log(f"[tp={tp}] {tp} ranks served {len(TP_FAMILY_ARCHS)} models in "
-            f"{time.perf_counter() - t0:.1f} s (start included), at depths "
-            f"{TP_FAMILY_CHILD_LAYERS}")
+    t0 = time.perf_counter()
+    worlds = _tp_worlds(TP_SERVE_WIDTHS, tmp, "--tp-family-child", "families")
+    log(f"[tp={', '.join(map(str, TP_SERVE_WIDTHS))}] worlds side by side served "
+        f"{len(TP_FAMILY_ARCHS)} models in {time.perf_counter() - t0:.1f} s (start "
+        f"included), at depths {TP_FAMILY_CHILD_LAYERS}")
 
     # every rank's numbers first, so a failing gate still leaves them all
     for arch in TP_FAMILY_ARCHS:
@@ -5742,12 +5814,11 @@ def phase_tp_fixed(torch):
 
     build.build_all()                          # every library in place before spawning
     tmp = tempfile.mkdtemp(prefix="tp_fixed_worlds_")
-    worlds = {}
-    for tp in TP_SERVE_WIDTHS:
-        t0 = time.perf_counter()
-        worlds[tp] = _tp_world(tp, tmp, "--tp-fixed-child", "fixed")
-        log(f"[tp={tp}] {tp} ranks served {len(TP_FIXED_ARCHS)} models through "
-            f"FixedBatchEngine in {time.perf_counter() - t0:.1f} s (start included)")
+    t0 = time.perf_counter()
+    worlds = _tp_worlds(TP_SERVE_WIDTHS, tmp, "--tp-fixed-child", "fixed")
+    log(f"[tp={', '.join(map(str, TP_SERVE_WIDTHS))}] worlds side by side served "
+        f"{len(TP_FIXED_ARCHS)} models through FixedBatchEngine in "
+        f"{time.perf_counter() - t0:.1f} s (start included)")
     def allowed(res, act_gb):
         return res["param_gb"] + res["cache_gb"] + max(res["leaf_gb"], act_gb)
 
@@ -5814,7 +5885,7 @@ def phase_tp_fixed(torch):
 # process restores that checkpoint with no mesh (elastic restart: phase
 # 15's size, as the full 24.4 GB f32 state would take minutes of disk).
 TRAIN_TP_MESHES = ((1, 2), (2, 1))
-TRAIN_TP_STEPS = 2
+TRAIN_TP_STEPS = 1
 TRAIN_TP_LOSS_ATOL, TRAIN_TP_GNORM_RTOL, TRAIN_TP_COSINE = 1e-3, 1e-2, 0.999
 ELASTIC_STEPS = 4
 
@@ -6396,7 +6467,7 @@ def main() -> int:
     atexit.register(shutil.rmtree, keep, True)
     phase14 = timed_phase(14, "training qwen3-1.7b at full width and depth through the "
                           "port's train step", phase_train, torch, get_config("qwen3-1.7b"),
-                          [c.fn for c in checks], keep)
+                          [c.fn for c in checks], keep, smi)
     free_device(torch)
     timed_phase(15, "the Trainer end to end (checkpoints, preemption, resume) and one "
                 "train step of each other family", phase_train_loop, torch,

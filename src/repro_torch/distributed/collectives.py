@@ -46,6 +46,14 @@ On a gloo group a CUDA tensor is always staged through host memory: it is
 copied to the host, gathered there and copied back, on every call (gloo
 has no device transport).  On an NCCL group the gather runs on the
 device.  Which one is decided by the group's backend, not by an error.
+
+Every collective of the port is one all-gather of raw bytes
+(`AxisGroup._gather`).  `count_collectives()` tallies them for the dry run
+(`launch/dryrun.py`) under the reference's kinds: a sum or max over the
+ranks is an "all-reduce", a gather an "all-gather", each with the bytes
+of this rank's operand (what it puts on the wire, as the reference's
+`collective_bytes` counts them).  With no tally installed the check costs
+one global read a call.
 """
 
 from __future__ import annotations
@@ -57,6 +65,45 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.distributed.sharding import ShardingRules, axis_sizes
+
+
+# the reference's collective kinds (`repro/launch/dryrun.py`), in its order
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+
+class CollectiveTally:
+    """Calls and this rank's operand bytes per collective kind."""
+
+    def __init__(self):
+        self.per_kind_bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        self.counts = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.per_kind_bytes[kind] += nbytes
+        self.counts[kind] += 1
+
+    def as_dict(self) -> Dict[str, object]:
+        """The reference's record: per_kind_bytes, counts, total_bytes."""
+        return {"per_kind_bytes": dict(self.per_kind_bytes), "counts": dict(self.counts),
+                "total_bytes": sum(self.per_kind_bytes.values())}
+
+
+# a module global, not thread-local: backward runs collectives on
+# autograd's threads
+_tally: Optional[CollectiveTally] = None
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Tally every collective of the enclosed calls, on any thread
+    (`CollectiveTally`); an enclosing tally sees none of them."""
+    global _tally
+    prev, _tally = _tally, CollectiveTally()
+    try:
+        yield _tally
+    finally:
+        _tally = prev
 
 
 class AxisGroup:
@@ -88,15 +135,17 @@ class AxisGroup:
         coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         return cls(mesh.get_group(wide[0]), coord[wide[0]], sizes[wide[0]])
 
-    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+    def _gather(self, x: torch.Tensor, kind: str = "all-gather") -> torch.Tensor:
         """Every rank's `x` (same shape and dtype on all) stacked in rank
         order, (size, *x.shape), on x's device: one all-gather of the raw
-        bytes into one buffer."""
+        bytes into one buffer, tallied as `kind`."""
         import torch.distributed as dist
 
         # all_gather_single is all_gather_into_tensor's newer name
         gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
         raw = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        if _tally is not None:
+            _tally.add(kind, raw.numel())
         staged = raw.cpu() if self.backend == "gloo" and raw.device.type != "cpu" else raw
         whole = staged.new_empty(self.size * staged.numel())
         gather(whole, staged, group=self.group)
@@ -104,10 +153,9 @@ class AxisGroup:
 
     def _sum(self, x: torch.Tensor) -> torch.Tensor:
         """The rank-order f32 sum of the gathered partials, rounded once."""
-        whole = self._gather(x).float()
-        acc = whole[0]
-        for i in range(1, self.size):
-            acc = acc + whole[i]
+        acc, *rest = self._gather(x, "all-reduce").float().unbind(0)
+        for part in rest:
+            acc = acc + part
         return acc.to(x.dtype)
 
     def sum_in_place(self, x: torch.Tensor, chunk: int = 1 << 26) -> torch.Tensor:
@@ -137,7 +185,7 @@ class AxisGroup:
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the ranks (no gradient)."""
-        return self._gather(x).amax(0)
+        return self._gather(x, "all-reduce").amax(0)
 
     def barrier(self) -> None:
         """Return once every rank of the axis has reached this call."""

@@ -44,6 +44,9 @@ inside the rank's `tensor_parallel` context, under the caller's rules
 pruned for the mesh (`fixed_batch_rules`, which refuses a split this path
 does not run).
 
+`cost_dict` normalises a cost record, as the reference's does, for the
+dry run (`launch/dryrun.py`).
+
 `TrainConfig` and `make_train_step(model, train_cfg, rules)` are the
 training step: value and gradient of `model.loss` with microbatched
 accumulation (`loss_and_grads`), then `optim.adamw_update` in place,
@@ -97,6 +100,16 @@ class TrainConfig:
     zero1: bool = True
     compress_pod_grads: bool = False
     opt: AdamWConfig = AdamWConfig()
+
+
+def cost_dict(cost) -> Dict[str, float]:
+    """A cost record as one dict: the reference normalises
+    `Compiled.cost_analysis()` (a dict, or a one-element list in older JAX
+    releases); the dry run (`launch/dryrun.py`) passes its own record
+    through it, for parity."""
+    if isinstance(cost, (list, tuple)):
+        cost = cost[0] if cost else {}
+    return dict(cost)
 
 
 # ---------------------------------------------------------------- shardings
@@ -209,9 +222,9 @@ def fixed_batch_rules(rules: ShardingRules, mesh) -> ShardingRules:
     fixed-batch loop on the mesh's model axis.  A rule that splits an axis
     this path does not split (see TP_SPLIT_AXES: "kv_seq", "ssm_state",
     "seq", "batch" over a "data" axis wider than 1, ...) raises
-    NotImplementedError naming the axis; an indivisible split raises
-    ValueError where the rank's shards are cut, as the reference's
-    placement does."""
+    NotImplementedError naming the axis and ROADMAP item 8b-iv; an
+    indivisible split raises ValueError where the rank's shards are cut,
+    as the reference's placement does."""
     rules = prune_for_mesh(rules, mesh)
     sizes = axis_sizes(mesh)
     for name, target in rules.rules:
@@ -221,7 +234,8 @@ def fixed_batch_rules(rules: ShardingRules, mesh) -> ShardingRules:
             raise NotImplementedError(
                 f"logical axis {name!r} is split over mesh axes {tuple(wide)} of "
                 f"sizes {tuple(sizes[a] for a in wide)}: tensor-parallel serving "
-                f"splits only {', '.join(TP_SPLIT_AXES)} over 'model'")
+                f"splits only {', '.join(TP_SPLIT_AXES)} over 'model' (the other "
+                "serving layouts are ROADMAP item 8b-iv)")
     return rules
 
 
@@ -359,10 +373,10 @@ def make_state_shardings(model, mesh, rules: ShardingRules,
 def train_rules(rules: ShardingRules, mesh) -> ShardingRules:
     """The caller's `rules` pruned for `mesh` for training on it: "batch"
     and "zero" over "data", the TP_SPLIT_AXES over "model".  Any other
-    split raises NotImplementedError naming the axis (sequence-parallel
-    training, "seq" / "kv_seq" over "data" at 16k tokens and more: ROADMAP
-    item 8c-ii), as does a "data" axis the batch is not split over and a
-    "pod" axis wider than 1."""
+    split raises NotImplementedError naming the axis and ROADMAP item
+    8c-ii (sequence-parallel training, "seq" / "kv_seq" over "data" at 16k
+    tokens and more; "expert_ffn" over "model"), as do a "data" axis the
+    batch is not split over and a "pod" axis wider than 1."""
     rules = prune_for_mesh(rules, mesh)
     sizes = axis_sizes(mesh)
     if sizes.get("pod", 1) > 1:
@@ -381,11 +395,13 @@ def train_rules(rules: ShardingRules, mesh) -> ShardingRules:
             f"logical axis {name!r} is split over mesh axes {tuple(wide)} of sizes "
             f"{tuple(sizes[a] for a in wide)}: training on a mesh splits only batch and "
             f"zero over 'data' and {', '.join(TP_SPLIT_AXES)} over 'model' "
-            "(sequence-parallel training is ROADMAP item 8c-ii)")
+            "(sequence-parallel training and TP inside the experts are ROADMAP "
+            "item 8c-ii)")
     if sizes.get("data", 1) > 1 and rules.lookup("batch") != "data":
         raise NotImplementedError(
             "the batch is not split over the 'data' axis of size "
-            f"{sizes['data']}: training on a mesh splits it over 'data'")
+            f"{sizes['data']}: training on a mesh splits it over 'data' "
+            "(ROADMAP item 8c-ii)")
     return rules
 
 
@@ -394,17 +410,21 @@ class RankMesh:
     axis' `TensorParallel` under `rules`; `dp`, the data axis (the batch's
     rows and the gradients' sum); `zero`, the "zero" rule's axis (the
     ZeRO-1 slices); `axes`, every mesh axis by name (None where 1 wide);
-    `device`, this rank's device; `writer`: the rank at coordinate 0 of
-    every axis.  Every group is None where its axis is 1 wide."""
+    `device`, this rank's device (`device` if given, else the mesh's
+    device type: the dry run's "cpu" mesh over a fake world keeps its
+    state on "meta"); `writer`: the rank at coordinate 0 of every axis.
+    Every group is None where its axis is 1 wide."""
 
-    def __init__(self, mesh, rules: ShardingRules):
+    def __init__(self, mesh, rules: ShardingRules, device=None):
         self.mesh, self.rules = mesh, rules
         self.tp = TensorParallel.from_mesh(mesh, rules)
         self.dp = AxisGroup.from_mesh(mesh, rules.lookup("batch"))
         self.zero = AxisGroup.from_mesh(mesh, rules.lookup("zero"))
         self.axes = {name: AxisGroup.from_mesh(mesh, name) for name in mesh.mesh_dim_names}
         self.writer = all(c == 0 for c in mesh.get_coordinate())
-        if mesh.device_type == "cuda":
+        if device is not None:
+            self.device = torch.device(device)
+        elif mesh.device_type == "cuda":
             self.device = torch.device("cuda", torch.cuda.current_device())
         else:
             self.device = torch.device(mesh.device_type)
@@ -557,9 +577,13 @@ def rank_batch(batch: Dict[str, Any], microbatches: int, dp: Optional[AxisGroup]
     if n_dp == 1:
         return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
     n, share = rows // microbatches, rows // (microbatches * n_dp)
-    idx = torch.cat([torch.arange(i * n + dp.rank * share, i * n + (dp.rank + 1) * share)
-                     for i in range(microbatches)])
-    return {k: torch.as_tensor(v)[idx].to(device) for k, v in batch.items()}
+
+    def mine(v):
+        v = torch.as_tensor(v)
+        return torch.cat([v[i * n + dp.rank * share:i * n + (dp.rank + 1) * share]
+                          for i in range(microbatches)]).to(device)
+
+    return {k: mine(v) for k, v in batch.items()}
 
 
 def _pieces(params, grads, opt_state, piece: int = 1 << 24):
@@ -586,14 +610,14 @@ def _pieces(params, grads, opt_state, piece: int = 1 << 24):
 
 
 def mesh_train_step(model, mesh, rules: ShardingRules, train_cfg: TrainConfig,
-                    batch_specs=None):
+                    batch_specs=None, device=None):
     """The rank's train step on a (data, model) `mesh` — the counterpart of
     the reference's `jit_train_step(model, mesh, rules, train_cfg,
     batch_specs)`, which computes the same step on the same mesh:
     (params, opt_state, batch) -> (params, opt_state, metrics), the state
     this rank's cut (`state_layouts`), `batch` the GLOBAL batch (tensors or
     arrays on any device; `batch_specs` is unused, as the shapes come with
-    the batch).
+    the batch); `device`: the rank's device (`RankMesh`).
 
       * the loss is the reference's: the rank computes on its share of
         each microbatch (`rank_batch`) inside its contexts, and the masked
@@ -619,7 +643,7 @@ def mesh_train_step(model, mesh, rules: ShardingRules, train_cfg: TrainConfig,
     `on_grads`, if given, is called with those gradients before the
     update."""
     rules = train_rules(rules, mesh)
-    rm = RankMesh(mesh, rules)
+    rm = RankMesh(mesh, rules, device)
     layouts = state_layouts(model, mesh, rules, train_cfg, rm)
     p_cuts, m_cuts = layouts["params"], layouts["opt"]["m"]
 

@@ -280,6 +280,17 @@ def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one intra-op thread while the tuners run (restored after
+    the file): their many small products gain nothing from a thread pool,
+    and beside other test processes its threads oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_defaults_stay_measured_and_raise_without_a_gpu(no_gpu):
     for make in (Tuner, WallClockFitness,
                  lambda: SearchTask(MM, TEMPLATES["pallas_matmul"]),
@@ -296,7 +307,8 @@ def resnet32():
         resnet18_graph(batch=1, image=32))
 
 
-def test_model_tuned_resnet_plan_runs_like_the_jax_engine(resnet32, monkeypatch):
+def test_model_tuned_resnet_plan_runs_like_the_jax_engine(resnet32, monkeypatch,
+                                                          one_thread):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     jgopt, pgopt = resnet32
     tuner = Tuner(fitness=ModelFitness())                 # genetic and RL-search
@@ -323,7 +335,7 @@ def test_model_tuned_resnet_plan_runs_like_the_jax_engine(resnet32, monkeypatch)
 
 
 @pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-2.7b"])
-def test_model_tuned_serve_plans_cover_the_jax_graphs(name, no_gpu):
+def test_model_tuned_serve_plans_cover_the_jax_graphs(name, no_gpu, one_thread):
     family = "ssm" if name.startswith("mamba") else "decoder"
     tuner = Tuner(fitness=ModelFitness())
     plan = build_serve_plan(get_config(name), **SERVE, tuner=tuner, family=family)
@@ -349,7 +361,7 @@ RUNTIME = dict(max_slots=3, block_size=8, max_blocks_per_seq=8, chunk_tokens=16,
 PROMPT_LENS = (11, 30, 5, 40, 3, 22)
 
 
-def test_model_tuned_plan_serves_the_jax_engines_streams(no_gpu):
+def test_model_tuned_plan_serves_the_jax_engines_streams(no_gpu, one_thread):
     jcfg = jax_get_config("qwen3-1.7b").reduced(n_layers=2, d_model=64, d_ff=128,
                                                 vocab=97, dtype="float32")
     tcfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
