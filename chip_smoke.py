@@ -370,15 +370,36 @@ each with its seconds logged:
      (data 1, model 2) world trains and saves, and this process, with no
      mesh, restores the checkpoint bitwise equal to the state the ranks
      gathered;
- 25. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 25. serving on a (data 2, model 2) mesh, the serving layouts of the
+     production meshes, as one world of 4 gloo processes sharing the card
+     (`--dp-serve-child`), eager, each model at full width and a cut depth
+     drawn from seed 0 straight into each rank's shards:
+     qwen2-moe-a2.7b (4 layers) with the batch over "data" and TP inside
+     the experts ("experts" replicated, "expert_ffn" over "model"), batch
+     4 and 8 prompts: streams equal on every rank, every decode step's
+     dropped (token, choice) pairs those of the same engine with no mesh,
+     and the tokens held to a teacher-forced replay through it;
+     qwen3-1.7b (4 layers), prompts up to 700 tokens, "kv_heads"
+     replicated and "kv_seq" over "model": streams equal on every rank and
+     held to the replay, each rank's cache exactly its reckoned cut and
+     its serving peak within shards + that cache + the no-mesh run's
+     transient (its draw's within shards + one f32 full leaf and its f32
+     shard); zamba2-1.2b (12 layers) at batch 1 under
+     `rules_for_shape`'s long_500k layout ("kv_seq" and "ssm_state" over
+     "data"), 32 decode steps over each rank's `local_cache` cut of a
+     no-mesh prefill's cache, fed the no-mesh decode's tokens: the logits
+     equal on every rank and within 0.05 x max |logit| of the no-mesh
+     decode's at every step; the draw kernel's launches per rank equal
+     the no-mesh runs';
+ 26. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8, 10 and 20, their
      serving runs, the decode wrapper's call, the fixed-batch runs of
-     phases 11-13 and 23, where only the draw kernel runs, the 32k engine
-     run of phase 16, the serving runs of phases 17-18, 21 and 22, each
-     rank's its own path; a replayed CUDA graph counts the launches it
-     captured), error and times;
- 26. the last line `{"ok": true, "device": {...}}`.
+     phases 11-13, 23 and 25, where only the draw kernel runs, the 32k
+     engine run of phase 16, the serving runs of phases 17-18, 21 and 22,
+     each rank's its own path; a replayed CUDA graph counts the launches
+     it captured), error and times;
+ 27. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -6290,6 +6311,343 @@ def _leaves(tree):
         yield tree
 
 
+# ------------------------------------------------------------ phase 25
+# Serving on a (data 2, model 2) mesh (see the module docstring): the
+# serving layouts of the production meshes, one world of DP_WORLD gloo
+# processes sharing the card (`--dp-serve-child`).  The no-mesh runs at
+# the same depths in this process are what the ranks are held to.  Logged,
+# not gated: streams identical to the no-mesh run's (the TP partial sums
+# round differently in bf16), params / caches / peaks and tokens/s per
+# rank (host-staged gloo on one card: no data- or tensor-parallel speed).
+DP_MESH = (2, 2)
+DP_WORLD = 4
+DP_LAYERS = {"qwen2-moe-a2.7b": 4, "qwen3-1.7b": 4, "zamba2-1.2b": 12}
+# the reference's REPRO_RULES overrides each model serves under
+DP_RULES = {"qwen2-moe-a2.7b": dict(experts=None, expert_ffn="model"),
+            "qwen3-1.7b": dict(kv_heads=None, kv_seq="model")}
+DP_PROMPTS = 8
+DP_MAX_SEQ = 768                # 700-token prompts + 32 new, positions even
+DP_BATCH1_PROMPT = 256          # at most zamba2's ssm_chunk
+DP_BATCH1_SEQ = 512
+DP_DECODE_STEPS = 32
+DP_BATCH1_TOL = 0.05            # x max |logit|: bf16, TP and merged partials
+
+
+def dp_cfg(arch):
+    """Phase 25's configuration of `arch`: full width, the cut depth."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=DP_LAYERS[arch])
+
+
+def dp_prompts(cfg):
+    """The first DP_PROMPTS of phase 3's prompt lengths over the vocabulary,
+    from seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+            for n in PROMPT_LENS[:DP_PROMPTS]]
+
+
+def dp_rules(cfg, mesh):
+    """The guarded rules with the model's DP_RULES overrides."""
+    return fixed_rules(cfg, mesh).replace(**DP_RULES[cfg.name])
+
+
+def batch1_rules(cfg, mesh):
+    """`rules_for_shape`'s layout of a batch of one (long_500k at
+    DP_BATCH1_SEQ positions), for a rank that only decodes."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import fixed_batch_rules, rules_for_shape
+
+    shape = dataclasses.replace(SHAPES["long_500k"], seq_len=DP_BATCH1_SEQ)
+    return fixed_batch_rules(rules_for_shape(cfg, shape, mesh), mesh, prefill=False)
+
+
+def dp_cache_reckoning(cfg):
+    """The bytes of one rank's qwen3 cache under DP_RULES at DP_MESH: its
+    FIXED_BATCH / 2 rows, DP_MAX_SEQ / 2 positions and every KV head, K
+    and V in bf16, and its rows' int32 lengths."""
+    rows, pos = FIXED_BATCH // DP_MESH[0], DP_MAX_SEQ // DP_MESH[1]
+    return 2 * cfg.n_layers * rows * pos * cfg.n_kv_heads * cfg.hd * 2 + rows * 4
+
+
+def dp_serve_child(torch, rank, world, store, out_path, job_path):
+    """One rank of phase 25, run as `chip_smoke.py --dp-serve-child RANK
+    WORLD STORE OUT JOB`: the MoE and qwen3 through FixedBatchEngine on the
+    (data 2, model 2) mesh, each drawn from seed 0 straight into the
+    rank's shards, then zamba2's batch-1 decode steps over its cut of the
+    whole cache in JOB; writes streams, drops, launches, errors, memory
+    and times to OUT as JSON."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import local_cache
+    from repro_torch.launch.mesh import init_file_world, make_mesh
+    from repro_torch.launch.steps import ServeMesh, serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.mlp import record_drops
+    from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
+
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    init_file_world(store, rank, world, "gloo")
+    with open(job_path) as f:
+        job = json.load(f)
+    results = {}
+    try:
+        mesh = make_mesh(DP_MESH)
+        for arch in DP_RULES:
+            cfg = dp_cfg(arch)
+            model = build_model(cfg)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            t0 = time.perf_counter()
+            eng = FixedBatchEngine(
+                model, lambda tp: model.init_serving(gen, tp=tp),
+                ServeConfig(batch_size=FIXED_BATCH, max_seq=DP_MAX_SEQ,
+                            max_new_tokens=SERVE_RUNTIME["max_new_tokens"]),
+                device=DEVICE, mesh=mesh, rules=dp_rules(cfg, mesh))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            init_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with eng.serve_mesh.contexts():
+                caches = model.init_cache(FIXED_BATCH, DP_MAX_SEQ, device="meta", tp=eng.tp)
+            for p in dp_prompts(cfg):
+                eng.submit(p)
+            counters = _serve_counters()
+            _zeroed(counters)
+            dist.barrier()
+            t0 = time.perf_counter()
+            with record_drops() as drops:
+                done = eng.run()
+            torch.cuda.synchronize()
+            results[arch] = {
+                "rank": rank, "coords": list(mesh.get_coordinate()), "rows": list(eng.rows),
+                "rules": {a: eng.rules.lookup(a) for a in
+                          ("batch", "heads", "kv_heads", "kv_seq", "experts", "expert_ffn",
+                           "ffn", "vocab")},
+                "cache_shapes": {k: list(v.shape) for k, v in caches.items()},
+                "cache_bytes": sum(v.numel() * v.element_size() for v in caches.values()),
+                "streams": {str(r.rid): [int(t) for t in r.output] for r in done},
+                "drops": [torch.nonzero(~k).flatten().tolist() for k in drops],
+                "launches": _launched(counters),
+                "param_gb": sum(t.numel() * t.element_size()
+                                for t in _leaves(eng.params)) / 1e9,
+                "leaf_gb": full_leaf_bytes(cfg) / 1e9,
+                "init_s": init_s, "init_peak_gb": init_peak / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "tokens_per_s": eng.throughput(), "prefill_s": eng.stats["prefill_s"],
+                "wall_s": time.perf_counter() - t0,
+            }
+            del eng, done
+
+        arch = "zamba2-1.2b"
+        cfg = dp_cfg(arch)
+        model = build_model(cfg)
+        rules = batch1_rules(cfg, mesh)
+        sm = ServeMesh(mesh, rules)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init_serving(torch.Generator(device=DEVICE).manual_seed(0), tp=sm.tp)
+        cache = local_cache(torch.load(job["cache"], map_location=DEVICE), model, rules,
+                            dict(sm.groups, model=sm.tp))
+        ref = torch.load(job["logits"])
+        errs, agree, compared, digest = [], 0, 0, hashlib.sha256()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for j, tok in enumerate(job["tokens"]):
+            with sm.contexts():
+                logits, cache = serve_step(model, params, cache, torch.tensor(
+                    [[tok]], dtype=torch.int32, device=DEVICE))
+            row = logits[0, -1].float().cpu()
+            digest.update(row.numpy().tobytes())
+            errs.append(float((row - ref[j]).abs().max() / ref[j].abs().max()))
+            top2 = torch.topk(ref[j], 2)
+            if float(top2.values[0] - top2.values[1]) > FIRST_TOKEN_MARGIN:
+                compared += 1
+                agree += int(row.argmax()) == int(top2.indices[0])
+        torch.cuda.synchronize()
+        results[arch] = {
+            "rank": rank, "coords": list(mesh.get_coordinate()),
+            "rules": {a: rules.lookup(a) for a in
+                      ("batch", "kv_seq", "ssm_state", "seq", "heads", "kv_heads",
+                       "ssm_heads", "conv_dim")},
+            "cache_shapes": {k: list(v.shape) for k, v in cache.items()},
+            "errs": errs, "compared": compared, "agree": agree,
+            "digest": digest.hexdigest(), "step_ms": 1e3 * (time.perf_counter() - t0)
+            / len(job["tokens"]),
+        }
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_serving(torch, smi=""):
+    """Phase 25 (see the module docstring); `smi`: the card's nvidia-smi
+    line, logged beside the phase's numbers.  -> launches per path: each
+    model's no-mesh run's and each rank's."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models.mlp import record_drops
+
+    t_phase = time.perf_counter()
+    counters = _serve_counters()
+    paths, ref = {}, {}
+    for arch in DP_RULES:
+        cfg = dp_cfg(arch)
+        model, params = family_setup(torch, cfg)
+        prompts = dp_prompts(cfg)
+        _zeroed(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with record_drops() as drops:
+            out, _, tps, _ = fixed_serve(torch, model, params, prompts,
+                                         f"{arch} no mesh", DP_MAX_SEQ, loop=True)
+        caches = model.init_cache(FIXED_BATCH, DP_MAX_SEQ, device="meta")
+        act_gb = (torch.cuda.max_memory_allocated() - held
+                  - sum(v.numel() * v.element_size() for v in caches.values())) / 1e9
+        drops = [torch.nonzero(~k).flatten().tolist() for k in drops]
+        launches = _launched(counters)
+        if set(launches) != {"sample_draw"}:
+            raise AssertionError(f"[{arch}] launches {launches}: want the draw kernel only")
+        log(f"[{arch} no mesh, {cfg.n_layers} layers] launches {launches}; "
+            f"{sum(map(len, drops))} (token, choice) pairs dropped over {len(drops)} "
+            f"decode calls; the run's transient beyond its caches {act_gb:.3f} GB")
+        paths[f"dp_{arch}_no_mesh"] = launches
+        ref[arch] = (model, params, prompts, out, drops, launches, act_gb)
+
+    # zamba2's batch-1 decode with no mesh: its prefill's whole cache and
+    # each step's token, for the ranks to cut and feed
+    tmp = tempfile.mkdtemp(prefix="dp_serve_")
+    cfg = dp_cfg("zamba2-1.2b")
+    model, params = family_setup(torch, cfg)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, DP_BATCH1_PROMPT)),
+                           dtype=torch.int32, device=DEVICE)
+    logits, cache = steps.prefill_step(model, params, toks, DP_BATCH1_SEQ)
+    torch.save({k: v.cpu() for k, v in cache.items()}, os.path.join(tmp, "cache.pt"))
+    tokens, rows = [], []
+    t0 = time.perf_counter()
+    for _ in range(DP_DECODE_STEPS):
+        tokens.append(int(logits[0, -1].argmax()))
+        logits, cache = steps.serve_step(model, params, cache, torch.tensor(
+            [[tokens[-1]]], dtype=torch.int32, device=DEVICE))
+        rows.append(logits[0, -1].float().cpu())
+    torch.cuda.synchronize()
+    log(f"[zamba2-1.2b no mesh, {cfg.n_layers} layers] batch 1: prefill of "
+        f"{DP_BATCH1_PROMPT} tokens into {DP_BATCH1_SEQ} positions, {DP_DECODE_STEPS} "
+        f"decode steps at {1e3 * (time.perf_counter() - t0) / DP_DECODE_STEPS:.2f} ms")
+    torch.save(torch.stack(rows), os.path.join(tmp, "logits.pt"))
+    job = os.path.join(tmp, "job.json")
+    with open(job, "w") as f:
+        json.dump({"cache": os.path.join(tmp, "cache.pt"),
+                   "logits": os.path.join(tmp, "logits.pt"), "tokens": tokens}, f)
+    del model, params, cache, logits
+    free_device(torch)
+
+    build.build_all()                          # every library in place before spawning
+    t0 = time.perf_counter()
+    ranks = _tp_world(DP_WORLD, tmp, "--dp-serve-child", "dp", extra=(job,))
+    log(f"[dp] the (data 2, model 2) world served {len(DP_RULES)} models and zamba2's "
+        f"batch-1 decode in {time.perf_counter() - t0:.1f} s (start included); "
+        f"nvidia-smi: {smi}")
+    for arch in DP_RULES:                      # every rank's numbers first
+        for res in (r[arch] for r in ranks):
+            log(f"[{arch} dp] rank {res['rank']} at {res['coords']} (rows {res['rows']}, "
+                f"rules {res['rules']}, caches {res['cache_shapes']}): "
+                f"{res['tokens_per_s']:.1f} tokens/s, prefill {res['prefill_s']:.3f} s, wall "
+                f"{res['wall_s']:.2f} s, launches {res['launches']}; params "
+                f"{res['param_gb']:.3f} GB drawn in {res['init_s']:.1f} s (peak "
+                f"{res['init_peak_gb']:.2f} GB), caches {res['cache_bytes'] / 1e9:.3f} GB, "
+                f"the run's peak {res['peak_gb']:.2f} GB; "
+                f"{sum(map(len, res['drops']))} pairs dropped")
+    for res in (r["zamba2-1.2b"] for r in ranks):
+        log(f"[zamba2-1.2b batch 1 dp] rank {res['rank']} at {res['coords']} (rules "
+            f"{res['rules']}, caches {res['cache_shapes']}): {res['step_ms']:.1f} ms a step, "
+            f"max |logit difference| / max |logit| per step max {max(res['errs']):.4f} "
+            f"(first {res['errs'][0]:.4f}, last {res['errs'][-1]:.4f}); argmax equal at "
+            f"{res['agree']}/{res['compared']} steps with a top-2 margin > "
+            f"{FIRST_TOKEN_MARGIN}")
+
+    for arch in DP_RULES:
+        model, params, prompts, out_ref, drops, launches, act_gb = ref[arch]
+        res = [r[arch] for r in ranks]
+        for r in res[1:]:
+            if r["streams"] != res[0]["streams"]:
+                raise AssertionError(f"[{arch} dp] rank {r['rank']}'s streams differ "
+                                     "from rank 0's")
+        for r in res:
+            if r["launches"] != launches:
+                raise AssertionError(f"[{arch} dp] rank {r['rank']}: launches "
+                                     f"{r['launches']}, no mesh {launches}")
+            if r["drops"] != drops:
+                raise AssertionError(f"[{arch} dp] rank {r['rank']}: decode drops differ "
+                                     "from the no-mesh engine's")
+            paths[f"dp_{arch}_rank{r['rank']}"] = r["launches"]
+        if arch == "qwen3-1.7b":
+            # the run: shards + the reckoned cache + the no-mesh run's
+            # transient; the draw: shards + one f32 full leaf and its f32
+            # shard (what `init_serving(tp=)` holds at once, phase 22)
+            want = dp_cache_reckoning(model.cfg)
+            for r in res:
+                allowed = r["param_gb"] + want / 1e9 + act_gb
+                init_allowed = r["param_gb"] + r["leaf_gb"] * (1 + 1 / DP_MESH[1])
+                if (r["cache_bytes"] != want or r["peak_gb"] > allowed
+                        or r["init_peak_gb"] > init_allowed):
+                    raise AssertionError(
+                        f"[{arch} dp] rank {r['rank']}: cache {r['cache_bytes']} B "
+                        f"(reckoned {want}), the run's peak {r['peak_gb']:.2f} GB against "
+                        f"{allowed:.2f}, the draw's {r['init_peak_gb']:.2f} against "
+                        f"{init_allowed:.2f}")
+            log(f"[{arch} dp] every rank's cache {want:,} B as reckoned (rows "
+                f"{FIXED_BATCH // DP_MESH[0]}, positions {DP_MAX_SEQ // DP_MESH[1]}, "
+                f"{model.cfg.n_kv_heads} KV heads); the run's peak within shards + that "
+                f"cache + the no-mesh transient {act_gb:.3f} GB, the draw's within shards "
+                "+ one f32 full leaf and its f32 shard")
+        out = {int(k): v for k, v in res[0]["streams"].items()}
+        if sorted(out) != sorted(out_ref) or any(
+                len(v) != SERVE_RUNTIME["max_new_tokens"] for v in out.values()):
+            raise AssertionError(f"[{arch} dp] requests {sorted(out)} unfinished")
+        same = sum(out[r] == out_ref[r] for r in out_ref)
+        t0 = time.perf_counter()
+        rows = teacher_forced_rows(torch, model, params, prompts, DP_MAX_SEQ, out)
+        n_first, n_all = margin_agree(f"{arch} dp", rows, out, "the no-mesh replay")
+        log(f"[{arch} dp] streams equal on every rank; {same}/{len(out_ref)} identical to "
+            f"the no-mesh run's, first divergence {_first_divergence(out_ref, out)}; "
+            f"decode drops equal the no-mesh engine's ({sum(map(len, drops))} pairs); "
+            f"against the no-mesh loop teacher-forced ({time.perf_counter() - t0:.1f} s): "
+            f"{n_all}/{len(rows)} tokens ({n_first} first tokens) had a top-2 margin > "
+            f"{FIRST_TOKEN_MARGIN}, all agree")
+        if n_all == 0:
+            raise AssertionError(f"[{arch} dp] no token had a margin to compare")
+        del model, params
+        ref[arch] = None
+    res = [r["zamba2-1.2b"] for r in ranks]
+    for r in res:
+        if r["digest"] != res[0]["digest"]:
+            raise AssertionError(f"[zamba2-1.2b batch 1 dp] rank {r['rank']}'s logits "
+                                 "differ from rank 0's")
+        if max(r["errs"]) > DP_BATCH1_TOL:
+            raise AssertionError(
+                f"[zamba2-1.2b batch 1 dp] rank {r['rank']}: max error {max(r['errs']):.4f} "
+                f"(tolerance {DP_BATCH1_TOL})")
+    log(f"[zamba2-1.2b batch 1 dp] logits equal on every rank, within {DP_BATCH1_TOL} x max "
+        f"|logit| of the no-mesh decode at every step")
+    shutil.rmtree(tmp, ignore_errors=True)
+    _phase_end("dp serving", t_phase)
+    return paths
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6304,7 +6662,7 @@ def main() -> int:
                          "(no other phase, no result line)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 23")
+                         "skips phases 3 to 25")
     ap.add_argument("--tp-child", nargs=4, metavar=("RANK", "WORLD", "STORE", "OUT"),
                     help=argparse.SUPPRESS)      # one rank of phase 21 (b)
     ap.add_argument("--tp-family-child", nargs=4,
@@ -6316,6 +6674,9 @@ def main() -> int:
     ap.add_argument("--train-tp-child", nargs=5,
                     metavar=("RANK", "WORLD", "STORE", "OUT", "JOB"),
                     help=argparse.SUPPRESS)      # one rank of phase 24
+    ap.add_argument("--dp-serve-child", nargs=5,
+                    metavar=("RANK", "WORLD", "STORE", "OUT", "JOB"),
+                    help=argparse.SUPPRESS)      # one rank of phase 25
     args = ap.parse_args()
 
     import torch
@@ -6340,7 +6701,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     for flag, child in ((args.tp_child, tp_child), (args.tp_family_child, tp_family_child),
                         (args.tp_fixed_child, tp_fixed_child),
-                        (args.train_tp_child, train_tp_child)):
+                        (args.train_tp_child, train_tp_child),
+                        (args.dp_serve_child, dp_serve_child)):
         if flag:
             rank, world, store, out, *more = flag
             child(torch, int(rank), int(world), store, out, *more)
@@ -6511,7 +6873,14 @@ def main() -> int:
                 "elastic restart", phase_train_tp, torch, [c.fn for c in checks], keep,
                 phase14)
     shutil.rmtree(keep, ignore_errors=True)
+    free_device(torch)
+    dp_paths = timed_phase(
+        25, "serving on a (data 2, model 2) mesh: qwen2-moe-a2.7b with TP inside the "
+        "experts, qwen3-1.7b with the KV positions over model, zamba2-1.2b's batch-1 "
+        "decode with kv_seq / ssm_state over data, as processes on the card",
+        phase_dp_serving, torch, smi)
     paths = {**knob_paths, **race_paths, **tp_paths, **family_tp_paths, **fixed_tp_paths,
+             **dp_paths,
              "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
              **ssm_paths, **moe_paths, **granite_paths, **vlm_paths,

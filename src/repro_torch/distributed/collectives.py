@@ -8,16 +8,22 @@ collectives itself, at the reference's constrain sites
 (`models.common.embed` / `lm_head_logits` / `unembed` /
 `chunked_softmax_xent`, the attention output, `models.mlp.mlp_apply`'s
 down projection, the MoE's expert outputs, mamba's gated activations).
-An `AxisGroup` is this rank's view of one mesh axis (or of the axes the
-batch splits over): its process group, its index on the axis and the
-axis' size.  A `TensorParallel` is the model axis' group plus the
-sharding rules that decide which logical axes are split over it;
-`tensor_parallel(tp)` installs it around a step's body and `current()`
-answers the sites.  `data_parallel(dp)` installs the data axis' group,
-which the training loss reduces its sums over (`current_data()`), and
-`mesh_axes(groups)` binds mesh axis names, as `shard_map` does, for
-`optim.compress.compressed_allgather_mean`.  Outside those contexts (one
-device, a 1-wide axis) every site is the single-device code.
+An `AxisGroup` is this rank's view of one mesh axis, or of the axes the
+batch splits over ("pod" x "data"), as one group ranked by the flattened
+coordinate, pod-major, as GSPMD orders a dim over a tuple of axes: its
+process group, its index on the axes and their size.  A
+`TensorParallel` is the model axis' group plus the sharding rules that
+decide which logical axes are split over it; `tensor_parallel(tp)`
+installs it around a step's body and `current()` answers the sites.
+`data_parallel(dp)` installs the data axis' group, which the training
+loss reduces its sums over (`current_data()`), `mesh_axes(groups)` binds
+mesh axis names, as `shard_map` does, for
+`optim.compress.compressed_allgather_mean`, and `split_groups(groups)`
+installs, for the fixed-batch serving steps, the groups the logical axes
+"batch", "kv_seq" and "ssm_state" are split over (`split_group(name)`:
+the batch's rows, the KV cache's positions, the SSM state's columns).
+Outside those contexts (one device, a 1-wide axis) every site is the
+single-device code.
 
 Three operations, each a `torch.autograd.Function`:
 
@@ -122,18 +128,24 @@ class AxisGroup:
     @classmethod
     def from_mesh(cls, mesh, axes) -> Optional["AxisGroup"]:
         """The group of DeviceMesh axis `axes` (a name, or a tuple of names
-        of which at most one is wider than 1), or None where it is 1 wide."""
+        in the mesh's order), or None where they are 1 wide.  Over several
+        axes wider than 1 it is one group of their product, this rank's
+        index the flattened coordinate, the first axis major (a flattened
+        sub-mesh: building it is collective, every rank of the mesh calls
+        this with the same axes)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
         sizes = axis_sizes(mesh)
         wide = [a for a in axes if sizes.get(a, 1) > 1]
         if not wide:
             return None
-        if len(wide) > 1:
-            raise NotImplementedError(
-                f"a group over mesh axes {tuple(wide)} of sizes "
-                f"{tuple(sizes[a] for a in wide)}: the port's groups span one axis")
         coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-        return cls(mesh.get_group(wide[0]), coord[wide[0]], sizes[wide[0]])
+        if len(wide) == 1:
+            return cls(mesh.get_group(wide[0]), coord[wide[0]], sizes[wide[0]])
+        rank, size = 0, 1
+        for a in wide:
+            rank, size = rank * sizes[a] + coord[a], size * sizes[a]
+        flat = mesh[tuple(wide)]._flatten("_".join(wide))
+        return cls(flat.get_group(), rank, size)
 
     def _gather(self, x: torch.Tensor, kind: str = "all-gather") -> torch.Tensor:
         """Every rank's `x` (same shape and dtype on all) stacked in rank
@@ -186,6 +198,15 @@ class AxisGroup:
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the ranks (no gradient)."""
         return self._gather(x, "all-reduce").amax(0)
+
+    def exclusive_prefix_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the lower ranks' `x`, in rank order (zeros on rank
+        0): one all-gather (no gradient)."""
+        parts = self._gather(x)
+        out = torch.zeros_like(x)
+        for part in parts[:self.rank].unbind(0):
+            out = out + part
+        return out
 
     def barrier(self) -> None:
         """Return once every rank of the axis has reached this call."""
@@ -278,6 +299,21 @@ def mesh_axes(groups: Optional[Dict[str, AxisGroup]]):
     return _installed("axes", groups)
 
 
+def split_groups(groups: Optional[Dict[str, Optional[AxisGroup]]]):
+    """Install {logical axis: the group it is split over, or None} for the
+    enclosed calls: the fixed-batch steps read "batch" (the MoE's decode
+    capacity group spans the batch's rows), "kv_seq" (the KV cache's
+    positions) and "ssm_state" (the SSM state's columns)."""
+    return _installed("split", groups)
+
+
+def split_group(name: str) -> Optional[AxisGroup]:
+    """The group logical axis `name` is split over under `split_groups`
+    (None: not split, or no groups installed)."""
+    groups = getattr(_tls, "split", None)
+    return None if groups is None else groups.get(name)
+
+
 def current() -> Optional[TensorParallel]:
     """The installed `TensorParallel`, or None."""
     return getattr(_tls, "tp", None)
@@ -302,9 +338,10 @@ def bind(fn):
     """`fn` run under the contexts installed now, wherever it is called
     (a recomputed forward runs on autograd's thread)."""
     tp, dp, axes = current(), current_data(), getattr(_tls, "axes", None)
+    split = getattr(_tls, "split", None)
 
     def run(*args, **kwargs):
-        with tensor_parallel(tp), data_parallel(dp), mesh_axes(axes):
+        with tensor_parallel(tp), data_parallel(dp), mesh_axes(axes), split_groups(split):
             return fn(*args, **kwargs)
 
     return run

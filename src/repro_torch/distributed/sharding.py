@@ -370,3 +370,69 @@ class LeafCut(NamedTuple):
         if self.zero_dim is None:
             return out
         return self.zero_slice(out).clone(memory_format=torch.contiguous_format)
+
+
+# ---------------------------------------------------------------------------
+# The fixed-batch serving cut: a rank's block of the batch, of the KV
+# cache's positions and of the SSM state's columns, each split over a group
+# (an `AxisGroup` of the mesh axes the logical axis names, or anything with
+# `rank` and `size`).
+# ---------------------------------------------------------------------------
+
+def local_block(n: int, group, what: str = "dim") -> Tuple[int, int]:
+    """(start, count) of this rank's contiguous block of `n` positions
+    split over `group` (None: all of them), the block GSPMD's placement
+    gives rank `group.rank`; raises ValueError where `n` does not divide,
+    as the reference's placement does."""
+    if group is None or group.size == 1:
+        return 0, n
+    if n % group.size:
+        raise ValueError(f"{what} ({n}) does not split into {group.size} blocks")
+    count = n // group.size
+    return group.rank * count, count
+
+
+def local_rows(n: int, group) -> Tuple[int, int]:
+    """(start, count) of this rank's rows of a batch of `n` split over
+    `group` (the "batch" rule's axes): `local_block`."""
+    return local_block(n, group, "a batch")
+
+
+def local_cache(cache, model, rules: ShardingRules, groups: Dict[str, Any]):
+    """A whole fixed-batch cache (the model's `init_cache` / `prefill`
+    tree) cut to one rank's: from `model.cache_logical_axes()`, each dim
+    named "batch", "kv_seq" or "ssm_state" narrowed to the rank's block
+    over `groups[name]` (None or absent: whole), and under `groups["model"]`
+    (the model axis' view, anything with `rank` and `size`; None: one rank)
+    the KV heads and SSM heads the rank holds: the KV heads its query heads
+    read where "heads" splits and "kv_heads" does not, all of them where
+    "kv_seq" takes the model axis (`attention.tp_kv_heads`); the conv
+    window at its head-aligned channels where "ssm_heads" splits
+    (`mamba.tp_columns`).  Fresh contiguous tensors."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import mamba as M
+
+    cfg = model.cfg
+    tp = groups.get("model")
+    size = 1 if tp is None else tp.size
+    split_heads = size > 1 and rules.lookup("ssm_heads") == "model"
+
+    def cut(axes, leaf):
+        out = leaf
+        for i, name in enumerate(axes):
+            if name in ("batch", "kv_seq", "ssm_state"):
+                start, n = local_block(leaf.shape[i], groups.get(name),
+                                       f"dim {i} ({name!r}) of {tuple(leaf.shape)}")
+                out = out.narrow(i, start, n)
+            elif name == "kv_heads" and size > 1:
+                first, n = A.tp_kv_heads(cfg, rules, tp.rank, size)
+                out = out.narrow(i, first, n)
+            elif name == "ssm_heads" and split_heads:
+                start, n = local_block(leaf.shape[i], tp, f"dim {i} (ssm_heads)")
+                out = out.narrow(i, start, n)
+            elif name == "conv_dim" and split_heads:
+                _, chans = M.tp_columns(cfg, tp.rank, size, leaf.device)
+                out = out.index_select(i, chans)
+        return out.clone(memory_format=torch.contiguous_format)
+
+    return map_axes(cut, model.cache_logical_axes(), cache)

@@ -47,7 +47,11 @@ Each artifact carries the reference's keys:
 Training runs `mesh_train_step` with `TrainConfig(microbatches=
 REPRO_MICROBATCHES or 4, zero1=True)` and `remat="full"`, as the
 reference lowers it; prefill and decode run the fixed-batch
-`prefill_step` / `serve_step` under `fixed_batch_rules`.  The reference's
+`prefill_step` / `serve_step` under `fixed_batch_rules` in the rank's
+contexts (`launch.steps.ServeMesh`): its rows of the batch (over "data",
+or "pod" x "data"), the cache of those rows at its KV heads, positions
+("kv_seq") and SSM state columns ("ssm_state"), as `init_cache` gives
+them under the groups.  The reference's
 environment variables keep their meaning: REPRO_LAYERS (layer count),
 REPRO_CAPF (MoE capacity factor), REPRO_REMAT (training's remat policy),
 REPRO_RULES ("axis=mesh_axis,..." overrides, "+" joining axes) and
@@ -57,7 +61,8 @@ is one program, whose layers are a Python loop, so every layer is counted
 
 A layout the port refuses is recorded as the reference records a
 failure: status "error" with the NotImplementedError's message, which
-names ROADMAP item 8c-ii (training) or 8b-iv (serving).
+names ROADMAP item 8c-ii (training); a split that does not divide is a
+ValueError, as the reference's placement raises one.
 
 Usage (no GPU, no network; one cell takes 1–4 minutes on the CPU, `--all
 --both-meshes` about 15, an existing artifact is skipped):
@@ -82,11 +87,10 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs import (REGISTRY, SHAPES, ModelConfig, ShapeSpec, get_config,
                                  input_specs, runnable)
-from repro_torch.distributed.collectives import (TensorParallel, count_collectives,
-                                                 tensor_parallel)
-from repro_torch.distributed.sharding import axis_sizes, local_shard
+from repro_torch.distributed.collectives import count_collectives
+from repro_torch.distributed.sharding import axis_sizes, local_rows, local_shard
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
-from repro_torch.launch.steps import (TrainConfig, cost_dict, fixed_batch_rules,
+from repro_torch.launch.steps import (ServeMesh, TrainConfig, cost_dict, fixed_batch_rules,
                                       make_state_shardings, mesh_train_step, prefill_step,
                                       rank_batch, rules_for_shape, serve_step)
 from repro_torch.models import build_model
@@ -250,25 +254,32 @@ def _train_cell(model, cfg, shape, mesh, rules, train_cfg: TrainConfig) -> Dict[
 
 
 def _serve_cell(model, cfg, shape, mesh, rules) -> Dict[str, Any]:
-    rules = fixed_batch_rules(rules, mesh)
-    tp = TensorParallel.from_mesh(mesh, rules)
+    rules = fixed_batch_rules(rules, mesh, prefill=shape.kind == "prefill")
+    sm = ServeMesh(mesh, rules)
     params = tree_map(_fresh, model.param_shapes())
-    if tp is not None:
-        params = tree_map(_fresh, model.tp_local_params(params, tp))
+    if sm.tp is not None:
+        params = tree_map(_fresh, model.tp_local_params(params, sm.tp))
+    start, rows = local_rows(shape.global_batch, sm.batch)
+    batch = {k: _fresh(v.narrow(0, start, rows)) for k, v in input_specs(cfg, shape).items()}
     if shape.kind == "prefill":
-        inputs = input_specs(cfg, shape)
+        inputs, groups = batch, {k: nbytes(v) for k, v in batch.items()}
         extras = {k: v for k, v in inputs.items() if k != "tokens"}
         call = lambda: prefill_step(model, params, inputs["tokens"], shape.seq_len, extras)
     else:
-        inputs = {"cache": model.init_cache(shape.global_batch, shape.seq_len, META, tp),
-                  "tokens": input_specs(cfg, shape)["tokens"]}
+        with sm.contexts():
+            cache = model.init_cache(shape.global_batch, shape.seq_len, META, sm.tp)
+        inputs = {"cache": cache, "tokens": batch["tokens"]}
+        groups = {**{k: nbytes(v) for k, v in cache.items()},
+                  "tokens": nbytes(batch["tokens"])}
         call = lambda: serve_step(model, params, inputs["cache"], inputs["tokens"])
-    argument = nbytes(params) + nbytes(inputs)
+    groups = {"params": nbytes(params), **groups}
+    argument = sum(groups.values())
     meters = Meters(params, other=pytree.tree_leaves(inputs))
-    with meters(), tensor_parallel(tp), torch.no_grad():
+    with meters(), sm.contexts(), torch.no_grad():
         out = call()
     rec = meters.record(argument)
-    rec["memory"].update(argument_bytes=argument, output_bytes=nbytes(out))
+    rec["memory"].update(argument_bytes=argument, output_bytes=nbytes(out),
+                         argument_bytes_by_group=groups)
     return rec
 
 

@@ -38,9 +38,11 @@ shards and pools as the decoder's programs do, eagerly at tp > 1.
 
 `prefill_step` and `serve_step` (`make_prefill_step`, `make_serve_step`)
 are the fixed-batch engine's dense-cache steps.  They run eagerly: the
-reference retraces them per prompt length.  On a mesh the engine runs
-them on every rank over its shards and its cache (`local_cache_shapes`)
-inside the rank's `tensor_parallel` context, under the caller's rules
+reference retraces them per prompt length.  On a (pod, data, model) mesh
+the engine runs them on every rank over its shards, its rows of the batch
+and its cache (`local_cache_shapes`) inside the rank's contexts
+(`ServeMesh`: the model axis' `TensorParallel` and the groups "batch",
+"kv_seq" and "ssm_state" are split over), under the caller's rules
 pruned for the mesh (`fixed_batch_rules`, which refuses a split this path
 does not run).
 
@@ -81,7 +83,7 @@ from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed.collectives import (AxisGroup, TensorParallel, data_parallel,
-                                                 mesh_axes, tensor_parallel)
+                                                 mesh_axes, split_groups, tensor_parallel)
 from repro_torch.distributed.sharding import (DEFAULT_RULES, LeafCut, ShardingRules,
                                               activation_rules, axis_sizes, map_axes,
                                               named_sharding, params_shardings,
@@ -198,45 +200,110 @@ def cache_shardings(model, mesh, rules: ShardingRules, batch: int, max_seq: int)
 
 
 def local_cache_shapes(model, batch: int, max_seq: int,
-                       tp: Optional[TensorParallel] = None) -> Dict[str, Any]:
-    """{leaf: shape} of the fixed-batch cache one rank holds under `tp`
-    (the whole cache's with none), from `model.init_cache` on the meta
-    device: K / V (and the encoder-decoder's ek / ev) at the rank's KV
-    heads, the conv window at its head-aligned channels (d_in / tp + 2n,
-    not conv_dim / tp), the SSM state at its heads."""
-    shapes = model.init_cache(batch, max_seq, device="meta", tp=tp)
+                       tp: Optional[TensorParallel] = None,
+                       groups: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """{leaf: shape} of the fixed-batch cache of a whole `batch` and
+    `max_seq` that one rank holds under `tp` and the split `groups`
+    (`ServeMesh.groups`; the whole cache's with neither), from
+    `model.init_cache` on the meta device: K / V (and the encoder-decoder's
+    ek / ev) at the rank's KV heads and positions, the conv window at its
+    head-aligned channels (d_in / tp + 2n, not conv_dim / tp), the SSM
+    state at its heads and columns, every leaf at its rows."""
+    with split_groups(groups):
+        shapes = model.init_cache(batch, max_seq, device="meta", tp=tp)
     return {k: tuple(v.shape) for k, v in shapes.items()}
 
 
 # the logical axes the tensor-parallel serving paths split, over "model"
-# alone; a rule that splits any other axis over a mesh axis wider than 1
-# (the KV sequence, the SSM state, the sequence, the batch over "data", ...)
-# is a layout those paths do not run
 TP_SPLIT_AXES = ("heads", "kv_heads", "ffn", "experts", "vocab", "embed_vec",
                  "ssm_heads", "conv_dim")
+# the other splits of the fixed-batch steps: logical axis -> the sets of
+# wide mesh axes it may take (the serving layouts of the production meshes);
+# "seq" only in a decode step (its prefill is ROADMAP item 8b-v)
+SERVE_SPLITS = {"batch": (["data"], ["pod"], ["pod", "data"]),
+                "kv_seq": (["model"], ["data"]), "ssm_state": (["data"],),
+                "expert_ffn": (["model"],), "seq": (["data"],)}
+# the groups the fixed-batch steps read (`distributed.collectives.split_group`)
+SPLIT_AXES = ("batch", "kv_seq", "ssm_state")
+# logical axes of one tensor that may not take the same mesh axis
+_SAME_TENSOR = (("batch", "kv_seq"), ("batch", "ssm_state"), ("kv_seq", "kv_heads"),
+                ("experts", "expert_ffn"))
 
 
-def fixed_batch_rules(rules: ShardingRules, mesh) -> ShardingRules:
+def _wide(rules: ShardingRules, name: str, sizes) -> list:
+    target = rules.lookup(name)
+    axes = () if target is None else (target,) if isinstance(target, str) else target
+    return [a for a in axes if sizes.get(a, 1) > 1]
+
+
+def fixed_batch_rules(rules: ShardingRules, mesh, prefill: bool = True) -> ShardingRules:
     """The caller's `rules` pruned for `mesh` (`prune_for_mesh`, as the
     reference's `jit_prefill_step` / `jit_serve_step` prune them) for the
-    fixed-batch loop on the mesh's model axis.  A rule that splits an axis
-    this path does not split (see TP_SPLIT_AXES: "kv_seq", "ssm_state",
-    "seq", "batch" over a "data" axis wider than 1, ...) raises
-    NotImplementedError naming the axis and ROADMAP item 8b-iv; an
-    indivisible split raises ValueError where the rank's shards are cut,
-    as the reference's placement does."""
+    fixed-batch steps on it: the TP_SPLIT_AXES over "model" and the
+    SERVE_SPLITS ("batch" over "data" / "pod" x "data", "kv_seq" over
+    "model" or "data", "ssm_state" over "data", "expert_ffn" over "model",
+    and "seq" over "data" in a decode step: pass `prefill=False` for a rank
+    that only decodes).  "seq" split where a prefill runs raises
+    NotImplementedError naming ROADMAP item 8b-v (the sequence-parallel
+    prefill), any other split NotImplementedError naming the axis; two
+    logical axes of one tensor on the same mesh axis raise ValueError, as
+    does an indivisible split where the rank's shards are cut, as the
+    reference's placement does."""
     rules = prune_for_mesh(rules, mesh)
     sizes = axis_sizes(mesh)
-    for name, target in rules.rules:
-        axes = () if target is None else (target,) if isinstance(target, str) else target
-        wide = [a for a in axes if sizes.get(a, 1) > 1]
-        if wide and (name not in TP_SPLIT_AXES or wide != ["model"]):
+    for name, _ in rules.rules:
+        wide = _wide(rules, name, sizes)
+        # "seq_sharded" and "zero" name no serving tensor (ZeRO-1 is training's)
+        if (not wide or name in ("seq_sharded", "zero")
+                or (name in TP_SPLIT_AXES and wide == ["model"])):
+            continue
+        if name == "seq" and prefill:
             raise NotImplementedError(
-                f"logical axis {name!r} is split over mesh axes {tuple(wide)} of "
-                f"sizes {tuple(sizes[a] for a in wide)}: tensor-parallel serving "
-                f"splits only {', '.join(TP_SPLIT_AXES)} over 'model' (the other "
-                "serving layouts are ROADMAP item 8b-iv)")
+                f"logical axis 'seq' is split over mesh axes {tuple(wide)}: a prefill "
+                "with the sequence split over ranks is the sequence-parallel prefill "
+                "(ROADMAP item 8b-v); the decode step alone runs this layout")
+        if wide not in SERVE_SPLITS.get(name, ()):
+            raise NotImplementedError(
+                f"logical axis {name!r} is split over mesh axes {tuple(wide)} of sizes "
+                f"{tuple(sizes[a] for a in wide)}: the fixed-batch steps split "
+                f"{', '.join(TP_SPLIT_AXES)} over 'model' and "
+                + "; ".join(f"{k} over {' or '.join('x'.join(w) for w in v)}"
+                            for k, v in SERVE_SPLITS.items())
+                + " (the layouts rules_for_shape picks; no ROADMAP item ports another)")
+    for a, b in _SAME_TENSOR:
+        both = set(_wide(rules, a, sizes)) & set(_wide(rules, b, sizes))
+        if both:
+            raise ValueError(f"logical axes {a!r} and {b!r} of one tensor both take mesh "
+                             f"axis {sorted(both)[0]!r}")
     return rules
+
+
+class ServeMesh:
+    """This rank's view of a (pod, data, model) mesh for the fixed-batch
+    steps under `rules` (`fixed_batch_rules`'): `tp`, the model axis'
+    `TensorParallel` (None where it is 1 wide), and `groups`, {"batch",
+    "kv_seq", "ssm_state": the `AxisGroup` of the mesh axes the rule
+    splits it over, or None}; `contexts()` installs both for a step's
+    body.  Building it is collective (every rank of the mesh builds it)."""
+
+    def __init__(self, mesh, rules: ShardingRules):
+        self.rules = rules
+        self.tp = TensorParallel.from_mesh(mesh, rules)
+        self.groups = {name: AxisGroup.from_mesh(mesh, rules.lookup(name))
+                       for name in SPLIT_AXES}
+
+    @property
+    def batch(self) -> Optional[AxisGroup]:
+        """The group the batch's rows are split over."""
+        return self.groups["batch"]
+
+    def contexts(self):
+        import contextlib
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(tensor_parallel(self.tp))
+        stack.enter_context(split_groups(self.groups))
+        return stack
 
 
 def paged_pool_sharding(model, mesh, rules: ShardingRules):

@@ -38,6 +38,19 @@ the rank's KV heads (`init_cache(..., tp=)`), the encoder's non-causal
 and the cross-attention, in either `_sdpa` form — runs at the rank's own
 head counts, each local query head reading local KV head j // G_local;
 `wo`'s partial output is summed over the ranks before the residual add.
+The KV cache's sequence split ("kv_seq" over the model axis at decode,
+where the KV heads do not divide it, or over "data" for a batch of one;
+`distributed.collectives.split_group("kv_seq")`): a rank's cache holds
+its contiguous block of the positions (`init_cache`, `cache_write`).
+Over the model axis the K / V projections are whole on every rank, as the
+reference's replicated wk / wv (`tp_kv_heads`), and prefill's attention
+reads the KV heads its query heads read (`_heads_read`).  At decode the
+rank that owns position lengths[b] writes the new row, every rank
+computes the online softmax's partials (m, l, acc) of the query heads it
+needs over its own positions (all of them over the model axis, gathered
+first), and the partials are merged over the group by log-sum-exp in rank
+order in f32, rounded once (`_merge_partials`): the same bits on every
+rank.  The encoder-decoder's cross K / V split so too (`cross_attn_decode`).
 In training the projections' input enters the split region through
 `distributed.collectives`' `enter` (its gradient summed over the ranks);
 the q / k norm scales and the KV heads several ranks read get partial
@@ -64,14 +77,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import bind, enter_if_sharded, reduce_if_sharded
+from repro_torch.distributed.collectives import (bind, current, enter_if_sharded,
+                                                 reduce_if_sharded, split_group)
+from repro_torch.distributed.sharding import local_block
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import packed_row_map
 from repro_torch.models.common import (Params, apply_mrope, apply_rope, dense,
                                        dense_init, norm_init, rms_norm)
 
 __all__ = ["attn_init", "attn_logical_axes", "tp_kv_heads", "local_kv_heads",
-           "attn_forward", "cross_kv", "init_cache", "cache_logical_axes", "attn_decode",
+           "attn_forward", "cross_kv", "init_cache", "cache_logical_axes", "cache_write",
+           "local_positions", "attn_decode", "cross_attn_decode",
            "packed_row_map", "attn_prefill_packed", "attn_decode_paged",
            "decode_write_rows", "packed_write_rows"]
 
@@ -112,9 +128,13 @@ def tp_kv_heads(cfg: ModelConfig, rules, rank: int, size: int) -> Tuple[int, int
     divide the axis), the ones its block of query heads reads, so each
     local query head j reads local KV head j // (local heads / count), as
     on one device.  A layout under which the rank's query heads do not
-    read equal groups of its KV heads in order raises."""
+    read equal groups of its KV heads in order raises.  Where "kv_seq"
+    takes the model axis every rank holds every KV head (the reference's
+    replicated wk / wv) and its block of the cache's positions."""
     heads = size > 1 and rules.lookup("heads") == "model"
     kv = size > 1 and rules.lookup("kv_heads") == "model"
+    if size > 1 and rules.lookup("kv_seq") == "model" and not kv:
+        return 0, cfg.n_kv_heads
     if kv and not heads:
         raise ValueError("kv_heads split over the model axis with heads replicated")
     if not heads:
@@ -156,6 +176,18 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _heads_read(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """k / v (B, S, Hkv, hd) cut to the KV heads the rank's query heads
+    read, where the rank holds all of them beside a block of the query
+    heads ("kv_seq" over the model axis); k / v themselves elsewhere."""
+    tp = current()
+    if (tp is None or not tp.sharded("heads") or tp.sharded("kv_heads")
+            or k.shape[2] != cfg.n_kv_heads):
+        return k, v
+    first, n = tp_kv_heads(cfg, tp.rules.replace(kv_seq=None), tp.rank, tp.size)
+    return k[:, :, first:first + n], v[:, :, first:first + n]
 
 
 def _decode_positions(cfg: ModelConfig, lengths: torch.Tensor) -> torch.Tensor:
@@ -277,7 +309,8 @@ def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         causal = False
     else:
         q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _sdpa(q, k, v, causal, q.shape[2] // k.shape[2])
+    kr, vr = _heads_read(cfg, k, v)
+    out = _sdpa(q, kr, vr, causal, q.shape[2] // kr.shape[2])
     y = reduce_if_sharded(dense(p["wo"], out.reshape(b, s, -1)), "heads")
     return (y, (k, v)) if return_kv else y
 
@@ -303,11 +336,24 @@ def local_kv_heads(cfg: ModelConfig, tp=None) -> int:
                                                          tp.size)[1]
 
 
+def _seq_block(max_seq: int) -> Tuple[int, int]:
+    """(start, count) of the rank's cache positions of `max_seq`."""
+    return local_block(max_seq, split_group("kv_seq"), "the KV cache's sequence")
+
+
+def local_positions(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The rank's block of the positions (dim `dim`) of a whole K or V
+    (all of them where "kv_seq" is not split)."""
+    start, n = _seq_block(t.shape[dim])
+    return t if n == t.shape[dim] else t.narrow(dim, start, n)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, n_layers: int,
                dtype=torch.bfloat16, device=None, tp=None) -> Dict[str, Any]:
-    """Zeroed dense K / V caches (L, B, max_seq, Hkv, hd), Hkv the rank's
-    under `tp` (`local_kv_heads`)."""
-    shape = (n_layers, batch, max_seq, local_kv_heads(cfg, tp), cfg.hd)
+    """Zeroed dense K / V caches (L, B, S, Hkv, hd): Hkv the rank's under
+    `tp` (`local_kv_heads`), S its block of `max_seq` positions where
+    "kv_seq" is split (`split_group`)."""
+    shape = (n_layers, batch, _seq_block(max_seq)[1], local_kv_heads(cfg, tp), cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -318,6 +364,71 @@ def cache_logical_axes() -> Dict[str, Any]:
     return {"k": ax, "v": ax}
 
 
+def cache_write(cache: torch.Tensor, k: torch.Tensor) -> None:
+    """Write a prompt's K or V (B, s, Hkv, hd) into one layer's cache (B,
+    S, Hkv, hd) from position 0, in place: the rank's positions of it
+    where "kv_seq" is split."""
+    group = split_group("kv_seq")
+    start = 0 if group is None else group.rank * cache.shape[1]
+    end = min(start + cache.shape[1], k.shape[1])
+    if end > start:
+        cache[:, :end - start] = k[:, start:end].to(cache.dtype)
+
+
+def _partials(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              valid: Optional[torch.Tensor]):
+    """The online softmax's partials of qg (B, Hkv, G, hd) over keys k / v
+    (B, S, Hkv, hd) where `valid` (broadcast to (B, Hkv, G, S); None: all)
+    holds: m, l (B, Hkv, G) and acc (B, Hkv, G, hd), f32, P·V in V's
+    dtype, as `_chunk_body` rounds a chunk."""
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k).float() * (1.0 / math.sqrt(qg.shape[-1]))
+    if valid is not None:
+        s = torch.where(valid, s, torch.full_like(s, _ref.NEG_INF))
+    m = s.amax(-1)
+    pr = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhgk,bkhd->bhgd", pr.to(v.dtype), v).float()
+    return m, pr.sum(-1), acc
+
+
+def _merge_partials(group, m: torch.Tensor, l: torch.Tensor,
+                    acc: torch.Tensor) -> torch.Tensor:
+    """Every rank's partials merged by log-sum-exp, in rank order in f32
+    (one all-gather): acc / l over all the ranks' keys, f32, the same
+    bits on every rank.  A rank whose keys are all masked has m = NEG_INF
+    and weighs exp(NEG_INF - max) = 0."""
+    parts = group._gather(torch.cat([m[..., None], l[..., None], acc], -1))
+    top = parts[..., 0].amax(0)
+    den = torch.zeros_like(l)
+    num = torch.zeros_like(acc)
+    for part in parts.unbind(0):
+        w = torch.exp(part[..., 0] - top)
+        den = den + part[..., 1] * w
+        num = num + part[..., 2:] * w[..., None]
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+def _split_attend(cfg: ModelConfig, group, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """One query row per sequence, q (B, 1, Hq, hd), against the rank's
+    block of the keys k / v (B, S, Hkv, hd), merged over `group`: (B, 1,
+    Hq * hd) in q's dtype.  Where the group is the model axis and it
+    splits the query heads, every rank computes every head (q gathered
+    first) and keeps its own."""
+    b = q.shape[0]
+    tp = current()
+    own = tp is not None and tp.sharded("heads") and tp.rules.lookup("kv_seq") == "model"
+    if own:
+        q = tp.all_gather(q, 2)
+    hkv = k.shape[2]
+    qg = q.reshape(b, hkv, q.shape[2] // hkv, cfg.hd)
+    out = _merge_partials(group, *_partials(qg, k, v, valid)).to(q.dtype)
+    out = out.reshape(b, -1, cfg.hd)
+    if own:
+        hl = out.shape[1] // tp.size
+        out = out[:, tp.rank * hl:(tp.rank + 1) * hl]
+    return out.reshape(b, 1, -1)
+
+
 def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
                 lengths: torch.Tensor) -> torch.Tensor:
@@ -326,11 +437,28 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     row is written at lengths[b] IN PLACE (where JAX returns new caches),
     then it attends to rows 0..lengths[b].  Returns (B, 1, d).  The head
     counts are the projections' and the caches' (a rank's own under
-    tensor parallelism, `wo`'s partial output summed over the ranks)."""
+    tensor parallelism, `wo`'s partial output summed over the ranks).
+    Where "kv_seq" is split the caches hold the rank's block of the
+    positions: the owner of lengths[b] writes the row, and the attention
+    is merged over the group (see the module docstring)."""
     b = x.shape[0]
     lengths = lengths.long()
     q, k_new, v_new = _project_qkv(p, cfg, x, _decode_positions(cfg, lengths))
     bidx = torch.arange(b, device=x.device)
+    group = split_group("kv_seq")
+    if group is not None:
+        n = k_cache.shape[1]
+        start = group.rank * n
+        owned = ((lengths >= start) & (lengths < start + n))[:, None, None]
+        row = torch.clamp(lengths - start, 0, n - 1)
+        k_cache[bidx, row] = torch.where(owned, k_new[:, 0].to(k_cache.dtype),
+                                         k_cache[bidx, row])
+        v_cache[bidx, row] = torch.where(owned, v_new[:, 0].to(v_cache.dtype),
+                                         v_cache[bidx, row])
+        pos = start + torch.arange(n, device=x.device)
+        valid = (pos[None, :] <= lengths[:, None])[:, None, None, :]
+        out = _split_attend(cfg, group, q, k_cache, v_cache, valid)
+        return reduce_if_sharded(dense(p["wo"], out), "heads")
     k_cache[bidx, lengths] = k_new[:, 0].to(k_cache.dtype)
     v_cache[bidx, lengths] = v_new[:, 0].to(v_cache.dtype)
     hkv = k_cache.shape[2]
@@ -343,6 +471,23 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache)
     return reduce_if_sharded(dense(p["wo"], out.reshape(b, 1, -1)), "heads")
+
+
+def cross_attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      ek: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of one decode token x (B, 1, d) over the cached
+    encoder K / V (B, S_enc, Hkv, hd): `attn_forward` with `kv_override`,
+    or where "kv_seq" is split (the caches hold the rank's block of the
+    encoder positions) every key's partials merged over the group."""
+    group = split_group("kv_seq")
+    if group is None:
+        return attn_forward(p, cfg, x, kv_override=(ek, ev))
+    b = x.shape[0]
+    q = dense(p["wq"], enter_if_sharded(x, "heads")).reshape(b, 1, -1, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q)
+    out = _split_attend(cfg, group, q, ek, ev, None)
+    return reduce_if_sharded(dense(p["wo"], out), "heads")
 
 
 def write_rows(blk: torch.Tensor, off: torch.Tensor, block_size: int):

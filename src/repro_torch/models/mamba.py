@@ -43,6 +43,14 @@ ranks); B and C, whole on every rank, get a partial gradient on each,
 which the train step sums (`zoo.tp_layout` marks their columns and conv
 channels as held by every rank).
 
+The SSM state's columns split ("ssm_state" over "data" for a batch of
+one, the decode step; `distributed.collectives.split_group("ssm_state")`):
+a rank holds its block of the state's N columns.  The conv window still
+yields all of B and C on every rank, each rank updates its columns with
+its slices of them, and y = C · h, a sum over N, is summed over the group
+in rank order in f32 (`mamba_decode`); a prefill's final state is cut to
+the rank's columns (`local_state`).
+
 Softplus is `jax.nn.softplus` as JAX computes it, logaddexp(x, 0) =
 max(x, 0) + log1p(exp(-|x|)), with no threshold branch: the dt of a padded
 row is forced to 0.0 after it (`mamba_chunk_forward`), which is what makes
@@ -59,7 +67,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import current, enter_if_sharded
+from repro_torch.distributed.collectives import current, enter_if_sharded, split_group
+from repro_torch.distributed.sharding import local_block
 from repro_torch.models.common import Params, dense, dense_init, norm_init, rms_norm
 
 
@@ -309,21 +318,36 @@ def mamba_chunk_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return out, ext.index_select(1, rows).float(), h_final
 
 
+def _state_block(cfg: ModelConfig) -> Tuple[int, int]:
+    """(start, count) of the rank's SSM state columns of `cfg.ssm_state`."""
+    return local_block(cfg.ssm_state, split_group("ssm_state"), "the SSM state's width")
+
+
+def local_state(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """A whole SSM state (..., n) cut to the rank's columns (itself where
+    "ssm_state" is not split)."""
+    start, n = _state_block(cfg)
+    return h if n == h.shape[-1] else h[..., start:start + n].contiguous()
+
+
 def mamba_init_state(cfg: ModelConfig, batch: int, device=None,
                      tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zeroed decode carries, conv window (B, W-1, conv channels) and SSM
     state (B, nh, hd, n), f32, at the widths one device computes
-    (`tp_dims`: the rank's under `tp`)."""
+    (`tp_dims`: the rank's under `tp`; n the rank's columns where
+    "ssm_state" is split)."""
     _, nh, conv_dim = tp_dims(cfg, tp)
     conv = torch.zeros((batch, cfg.conv_width - 1, conv_dim), device=device)
-    h = torch.zeros((batch, nh, cfg.ssm_head_dim, cfg.ssm_state), device=device)
+    h = torch.zeros((batch, nh, cfg.ssm_head_dim, _state_block(cfg)[1]), device=device)
     return conv, h
 
 
 def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  conv_cache: torch.Tensor, h: torch.Tensor):
     """One token.  x (B, 1, d); conv_cache (B, W-1, conv_dim); h (B, nh,
-    hd, n) -> (y (B, 1, d), new conv_cache f32, new h f32)."""
+    hd, n) -> (y (B, 1, d), new conv_cache f32, new h f32).  Where
+    "ssm_state" is split, h holds the rank's columns and C · h is summed
+    over the group."""
     d_in, nh, _ = tp_dims(cfg, current())
     n, hd = cfg.ssm_state, cfg.ssm_head_dim
     b = x.shape[0]
@@ -340,8 +364,14 @@ def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     A = -torch.exp(p["A_log"].float())
     dtv = softplus(dt[:, 0].float() + p["dt_bias"].float())  # (B, nh)
 
+    group = split_group("ssm_state")
+    if group is not None:
+        start, cols = _state_block(cfg)
+        Bm, Cm = Bm[:, start:start + cols], Cm[:, start:start + cols]
     dA = torch.exp(dtv * A)
     h = h * dA[..., None, None] + (xs * dtv[..., None])[..., None] * Bm[:, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", h, Cm)
+    if group is not None:
+        y = group.all_reduce(y)
     out = _gated_out(p, cfg, y[:, None], xs[:, None], z, x.dtype, "out_proj")
     return out, new_conv, h

@@ -20,17 +20,38 @@ reassociate it.  In training the experts' input enters the split region
 through `distributed.collectives`' `enter` (its gradient through the
 rank's experts summed over the ranks); the router's path stays whole on
 every rank, so the router's gradient needs no sum.
+
+Where "expert_ffn" is split over the model axis instead (TP inside the
+experts, where n_experts does not divide it), every rank holds every
+expert's w_in / w_gate columns and w_out rows of its block of the
+expert width: each routes the whole batch, runs its slices and the
+experts' partial outputs are summed over the ranks in rank order before
+the gather.
+
+With the batch split over the data axes ("batch" over "data" or "pod" x
+"data", `distributed.collectives.split_group("batch")`) a rank holds its
+rows.  Prefill groups by sequence, so nothing crosses the ranks; at decode
+the whole batch is one capacity group, as in the reference: the capacity
+is that of the whole batch, and each pair's place in its expert's queue
+is offset by the lower ranks' counts of that expert (an exclusive prefix
+sum over the batch group), so each rank keeps and drops exactly the pairs
+the one-device group does and runs only its own tokens.
+`record_drops()` collects each decode call's kept pairs of the whole
+group, for the differential tests.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as Fn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import current, enter_if_sharded, reduce_if_sharded
+from repro_torch.distributed.collectives import (current, enter_if_sharded, reduce_if_sharded,
+                                                 split_group)
 from repro_torch.kernels.ref import apply_activation
 from repro_torch.models.common import Params, dense, dense_init
 
@@ -129,6 +150,26 @@ def moe_route(p: Params, cfg: ModelConfig, x: torch.Tensor):
     return flat_i, pos, top_p.to(x.dtype).reshape(b, s * k)
 
 
+# the decode calls' kept masks while `record_drops` is on (a module
+# global: the serving steps run on the caller's thread)
+_drops: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def record_drops():
+    """Collect, for every decode call of `moe_apply` in the enclosed calls,
+    the (T,) bool mask of the whole capacity group's (token, choice) pairs
+    that were kept (pairs in t * k + j order, the whole batch's even where
+    a rank holds some rows: gathered over the batch group); -> the list,
+    in call order."""
+    global _drops
+    prev, _drops = _drops, []
+    try:
+        yield _drops
+    finally:
+        _drops = prev
+
+
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
               act: str = "silu") -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  Groups are sequences; at S == 1 (decode)
@@ -137,20 +178,29 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     them as einsums outside any kernel); the shared experts go through
     `mlp_apply`, so a plan's mlp_up / mlp_down lanes run them.  Where
     "experts" is split over a tensor-parallel axis, p's expert stacks are
-    the rank's E / tp experts (see the module docstring)."""
+    the rank's E / tp experts, where "expert_ffn" is, their slices of
+    the expert width; with the batch split the decode group spans every
+    rank's rows (see the module docstring)."""
     b, s, d = x.shape
     squeeze = s == 1
     if squeeze:
         x = x.reshape(1, b, d)
         b, s = 1, b
     k = cfg.top_k
-    cap = moe_capacity(cfg, s)
+    batch = split_group("batch") if squeeze else None
+    cap = moe_capacity(cfg, s * (1 if batch is None else batch.size))
     flat_i, pos, weights = moe_route(p, cfg, x)
+    if batch is not None:
+        counts = Fn.one_hot(flat_i[0], cfg.n_experts).sum(0)
+        pos = pos + batch.exclusive_prefix_sum(counts)[flat_i]
     keep = pos < cap
+    if squeeze and _drops is not None:
+        _drops.append((keep if batch is None else batch._gather(keep)).reshape(-1).cpu())
 
     # the rank's experts [lo, lo + e): all of them on one device
     tp = current()
     ep = tp is not None and tp.sharded("experts")
+    efn = tp is not None and tp.sharded("expert_ffn")
     e = p["w_in"].shape[0]
     lo = tp.rank * e if ep else 0
     local = (flat_i >= lo) & (flat_i < lo + e)
@@ -163,7 +213,7 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     # the experts' input: with expert parallelism its gradient through the
     # rank's experts is a partial, summed over the ranks in backward (the
     # router's path is whole on every rank)
-    xe = tp.enter(x) if ep else x
+    xe = tp.enter(x) if ep or efn else x
     buf[rows, torch.where(local, flat_i - lo, e), torch.where(keep, pos, cap)] = \
         xe.repeat_interleave(k, dim=1)
     xin = buf[:, :e, :cap].transpose(0, 1).reshape(e, b * cap, d)
@@ -172,6 +222,8 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     g = torch.bmm(xin, p["w_gate"].to(x.dtype))
     h = apply_activation(g, act) * h
     y = torch.bmm(h, p["w_out"].to(x.dtype)).reshape(e, b, cap, d)
+    if efn:
+        y = tp.all_reduce(y)                             # the expert width's partials
     if ep:
         y = tp.all_gather(y, 0)                          # (E, B, cap, d), exact
     y = y.transpose(0, 1)

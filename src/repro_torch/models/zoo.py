@@ -50,6 +50,13 @@ On those shards the fixed-batch path (`init_cache` / `prefill` /
 `decode_step`, under the rank's `TensorParallel` context) runs every
 family with its caches at the rank's widths: K / V at its KV heads, the
 conv window at its head-aligned channels, the SSM state at its heads.
+Under the serving layouts of the production meshes
+(`distributed.collectives.split_groups`) the caches also hold the rank's
+rows of the batch ("batch"), its block of the KV positions ("kv_seq") and
+of the SSM state's columns ("ssm_state"): `init_cache(batch, max_seq)`
+takes the whole batch and sequence and gives the rank's cut of them,
+prefill writes the rank's part of what it computes, and the decode steps
+merge attention and C · h over the groups (`attention`, `mamba`).
 
 The vision patches and audio frames are stubs, as in the reference: the
 batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
@@ -67,8 +74,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import bind, current
-from repro_torch.distributed.sharding import LeafCut, is_axes, map_axes
+from repro_torch.distributed.collectives import bind, current, split_group
+from repro_torch.distributed.sharding import LeafCut, is_axes, local_rows, map_axes
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
@@ -274,6 +281,8 @@ def _cut_index(cfg: ModelConfig, path, axes, shape, rules, rank: int, size: int)
     if (len(path) >= 3 and path[-2] in ("wk", "wv") and path[-3] in _ATTN_KEYS
             and heads and not kv):
         first, n = A.tp_kv_heads(cfg, rules, rank, size)
+        if n == cfg.n_kv_heads:                  # every rank holds every KV head
+            return None
         return len(shape) - 1, ar(first * cfg.hd, (first + n) * cfg.hd)
     mamba = "mamba" in path[-3:]
     if mamba and size > 1 and rules.lookup("ssm_heads") == "model" and (
@@ -293,6 +302,17 @@ def _cut_index(cfg: ModelConfig, path, axes, shape, rules, rank: int, size: int)
             n = shape[i] // size
             return i, ar(rank * n, (rank + 1) * n)
     return None
+
+
+def _rows(batch: int) -> int:
+    """The rank's rows of a whole batch of `batch` (`split_group("batch")`)."""
+    return local_rows(batch, split_group("batch"))[1]
+
+
+def _whole(rows: int) -> int:
+    """The whole batch of which the rank holds `rows` rows."""
+    group = split_group("batch")
+    return rows * (1 if group is None else group.size)
 
 
 def gather_cut(cut: LeafCut, local: torch.Tensor, tp) -> torch.Tensor:
@@ -559,11 +579,14 @@ class DecoderLM(_StackedLM):
     def init_cache(self, batch: int, max_seq: int, device=None,
                    tp=None) -> Dict[str, Any]:
         """Zeroed dense caches (L, batch, max_seq, Hkv, hd) of `cfg.dtype`
-        (Hkv the rank's under `tp`) and (batch,) int32 lengths."""
+        and (batch,) int32 lengths, as the rank holds them: Hkv its own
+        under `tp`, its rows and positions where the groups installed
+        split them."""
         cfg = self.cfg
-        cache = A.init_cache(cfg, batch, max_seq, cfg.n_layers,
+        rows = _rows(batch)
+        cache = A.init_cache(cfg, rows, max_seq, cfg.n_layers,
                              torch_dtype(cfg.dtype), device, tp)
-        cache["lengths"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+        cache["lengths"] = torch.zeros((rows,), dtype=torch.int32, device=device)
         return cache
 
     def cache_logical_axes(self) -> Dict[str, Any]:
@@ -580,13 +603,13 @@ class DecoderLM(_StackedLM):
         x = self._embed_inputs(params, batch)
         b, s, _ = x.shape
         positions = self._position_ids(b, torch.arange(s, device=x.device))
-        cache = self.init_cache(b, max_seq, x.device, current())
+        cache = self.init_cache(_whole(b), max_seq, x.device, current())
         for i, bp in enumerate(self._layers(params)):
             h = _norm(cfg, bp["attn_norm"], x)
             y, (k, v) = A.attn_forward(bp["attn"], cfg, h, positions=positions,
                                        causal=True, return_kv=True)
-            cache["k"][i, :, :s] = k.to(cache["k"].dtype)
-            cache["v"][i, :, :s] = v.to(cache["v"].dtype)
+            A.cache_write(cache["k"][i], k)
+            A.cache_write(cache["v"][i], v)
             x = self._mlp(bp, x + y)
         x = _norm(cfg, params["final_norm"], x)
         cache["lengths"].fill_(s)
@@ -687,18 +710,17 @@ class DecoderLM(_StackedLM):
         its shared expert as an MLP on "ffn"; where "heads" is split and
         "kv_heads" is not (the vlm's 2 KV heads at tp = 4), wk / wv keep
         only the KV heads the rank's query heads read (`tp_kv_heads`).
-        Where "experts" is split but n_experts does not divide the axis,
-        raises ValueError, as the reference's engine does when it places
-        such a stack."""
+        Where "expert_ffn" is split instead (TP inside the experts), every
+        expert's w_in / w_gate columns and w_out rows of the rank's block
+        of the expert width.  Where "kv_seq" takes the model axis, wk / wv
+        are whole (`tp_kv_heads`).  Where "experts" is split but n_experts
+        does not divide the axis, raises ValueError, as the reference's
+        engine does when it places such a stack."""
         cfg = self.cfg
-        if cfg.family == "moe":
-            if tp.sharded("experts") and cfg.n_experts % tp.size:
-                raise ValueError(
-                    f"'experts' is split over the model axis but n_experts "
-                    f"{cfg.n_experts} does not divide its {tp.size} ranks")
-            if tp.sharded("expert_ffn"):
-                raise ValueError("'expert_ffn' split over the model axis (TP "
-                                 "inside the experts) is not ported")
+        if cfg.family == "moe" and tp.sharded("experts") and cfg.n_experts % tp.size:
+            raise ValueError(
+                f"'experts' is split over the model axis but n_experts "
+                f"{cfg.n_experts} does not divide its {tp.size} ranks")
         return self._tp_cut(params, tp)
 
 
@@ -739,14 +761,16 @@ class MambaLM(_StackedLM):
                    tp=None) -> Dict[str, Any]:
         """Zeroed carries: conv (L, batch, W-1, conv channels) and ssm (L,
         batch, nh, hd, n), both f32 at the rank's widths under `tp`
-        (`mamba.tp_dims`), and (batch,) int32 lengths; `max_seq` is unused
-        (the state does not grow)."""
+        (`mamba.tp_dims`), and (batch,) int32 lengths, at the rank's rows
+        and state columns where the groups installed split them;
+        `max_seq` is unused (the state does not grow)."""
         del max_seq
-        conv, h = M.mamba_init_state(self.cfg, batch, device, tp)
+        rows = _rows(batch)
+        conv, h = M.mamba_init_state(self.cfg, rows, device, tp)
         n_layers = self.cfg.n_layers
         return {"conv": conv.expand(n_layers, *conv.shape).clone(),
                 "ssm": h.expand(n_layers, *h.shape).clone(),
-                "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+                "lengths": torch.zeros((rows,), dtype=torch.int32, device=device)}
 
     def cache_logical_axes(self) -> Dict[str, Any]:
         return {"conv": ("layers", "batch", None, "conv_dim"),
@@ -769,7 +793,7 @@ class MambaLM(_StackedLM):
                                                 return_state=True)
             x = x + y
             convs.append(conv.float())
-            hs.append(hstate)
+            hs.append(M.local_state(cfg, hstate))
         x = rms_norm(params["final_norm"], x)
         cache = {"conv": torch.stack(convs), "ssm": torch.stack(hs),
                  "lengths": torch.full((b,), s, dtype=torch.int32, device=x.device)}
@@ -971,15 +995,17 @@ class HybridLM(_StackedLM):
         """Zeroed carries conv (L, batch, W-1, conv channels) / ssm (L,
         batch, nh, hd, n) f32, dense K / V caches (n_shared_uses, batch,
         max_seq, Hkv, hd) of `cfg.dtype`, all at the rank's widths under
-        `tp`, and (batch,) int32 lengths."""
+        `tp`, and (batch,) int32 lengths, at the rank's rows, positions and
+        state columns where the groups installed split them."""
         cfg = self.cfg
-        conv, h = M.mamba_init_state(cfg, batch, device, tp)
-        kv = A.init_cache(cfg, batch, max_seq, self.n_shared_uses,
+        rows = _rows(batch)
+        conv, h = M.mamba_init_state(cfg, rows, device, tp)
+        kv = A.init_cache(cfg, rows, max_seq, self.n_shared_uses,
                           torch_dtype(cfg.dtype), device, tp)
         return {"conv": conv.expand(cfg.n_layers, *conv.shape).clone(),
                 "ssm": h.expand(cfg.n_layers, *h.shape).clone(),
                 "k": kv["k"], "v": kv["v"],
-                "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+                "lengths": torch.zeros((rows,), dtype=torch.int32, device=device)}
 
     def cache_logical_axes(self) -> Dict[str, Any]:
         kv = ("layers", "batch", "kv_seq", "kv_heads", None)
@@ -1005,8 +1031,8 @@ class HybridLM(_StackedLM):
         def attend(h):
             y, (k, v) = A.attn_forward(sp["attn"], cfg, h, positions=positions,
                                        causal=True, return_kv=True)
-            kv["k"][use, :, :s] = k.to(kv["k"].dtype)
-            kv["v"][use, :, :s] = v.to(kv["v"].dtype)
+            A.cache_write(kv["k"][use], k)
+            A.cache_write(kv["v"][use], v)
             return y
 
         off = use = 0
@@ -1017,7 +1043,7 @@ class HybridLM(_StackedLM):
                                                     return_state=True)
                 x = x + y
                 convs.append(conv.float())
-                hs.append(hstate)
+                hs.append(M.local_state(cfg, hstate))
             off += gsize
             if gsize == cfg.attn_every:
                 x = self._shared_apply(sp, x, x0, attend)
@@ -1202,12 +1228,16 @@ class EncDecLM(_StackedLM):
         return _norm(cfg, params["final_norm"], x)
 
     def _cross_mlp(self, bp: Params, x: torch.Tensor, ek: torch.Tensor,
-                   ev: torch.Tensor) -> torch.Tensor:
+                   ev: torch.Tensor, decode: bool = False) -> torch.Tensor:
         """A decoder layer after its self-attention: cross-attention over
-        (ek, ev), then the MLP."""
+        (ek, ev) (at `decode`, the cached ones: `attention.cross_attn_decode`),
+        then the MLP."""
         cfg = self.cfg
         h = _norm(cfg, bp["cross_norm"], x)
-        x = x + A.attn_forward(bp["cross_attn"], cfg, h, kv_override=(ek, ev))
+        if decode:
+            x = x + A.cross_attn_decode(bp["cross_attn"], cfg, h, ek, ev)
+        else:
+            x = x + A.attn_forward(bp["cross_attn"], cfg, h, kv_override=(ek, ev))
         h = _norm(cfg, bp["mlp_norm"], x)
         return x + F.mlp_apply(bp["mlp"], h, "gelu")
 
@@ -1219,10 +1249,11 @@ class EncDecLM(_StackedLM):
         lengths."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
-        kv = A.init_cache(cfg, batch, max_seq, cfg.n_layers, dtype, device, tp)
-        enc = A.init_cache(cfg, batch, cfg.enc_seq, cfg.n_layers, dtype, device, tp)
+        rows = _rows(batch)
+        kv = A.init_cache(cfg, rows, max_seq, cfg.n_layers, dtype, device, tp)
+        enc = A.init_cache(cfg, rows, cfg.enc_seq, cfg.n_layers, dtype, device, tp)
         return {"k": kv["k"], "v": kv["v"], "ek": enc["k"], "ev": enc["v"],
-                "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+                "lengths": torch.zeros((rows,), dtype=torch.int32, device=device)}
 
     def cache_logical_axes(self) -> Dict[str, Any]:
         ax = ("layers", "batch", "kv_seq", "kv_heads", None)
@@ -1243,13 +1274,13 @@ class EncDecLM(_StackedLM):
         eks, evs = [], []
         for i, bp in enumerate(unbind_layers(params["decoder"])):
             ek, ev = A.cross_kv(bp["cross_attn"], cfg, enc)
-            eks.append(ek.to(dtype))
-            evs.append(ev.to(dtype))
+            eks.append(A.local_positions(ek.to(dtype)))
+            evs.append(A.local_positions(ev.to(dtype)))
             h = _norm(cfg, bp["self_norm"], x)
             y, (k, v) = A.attn_forward(bp["self_attn"], cfg, h, positions=positions,
                                        causal=True, return_kv=True)
-            kv["k"][i, :, :s] = k.to(dtype)
-            kv["v"][i, :, :s] = v.to(dtype)
+            A.cache_write(kv["k"][i], k)
+            A.cache_write(kv["v"][i], v)
             x = self._cross_mlp(bp, x + y, ek, ev)
         x = _norm(cfg, params["final_norm"], x)
         cache = {"k": kv["k"], "v": kv["v"], "ek": torch.stack(eks),
@@ -1268,7 +1299,7 @@ class EncDecLM(_StackedLM):
             h = _norm(cfg, bp["self_norm"], x)
             x = x + A.attn_decode(bp["self_attn"], cfg, h, cache["k"][i],
                                   cache["v"][i], lengths)
-            x = self._cross_mlp(bp, x, cache["ek"][i], cache["ev"][i])
+            x = self._cross_mlp(bp, x, cache["ek"][i], cache["ev"][i], decode=True)
         x = _norm(cfg, params["final_norm"], x)
         return lm_head_logits(params["lm_head"], x), dict(cache, lengths=lengths + 1)
 

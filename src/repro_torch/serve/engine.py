@@ -24,18 +24,26 @@ continuous serving is an explicit `ContinuousEngine`).
 
 The engines take `device` (`None` means the GPU and raises without one)
 and, as the JAX engines do, an optional mesh and sharding rules.  On a
-mesh (`launch.mesh.tp_mesh(tp)` in a world of tp ranks, each running the
-same engine on the same requests) `FixedBatchEngine` serves every family
-from the rank's parameter shards (`tp_local_params`, or drawn straight
-into them through a `params(tp)` callable) and its caches at the rank's
-widths, the steps inside its `TensorParallel` context under the caller's
-rules pruned for the mesh (`launch.steps.fixed_batch_rules`): every rank
-holds the same logits and draws the same tokens.  `ServeEngine` passes
-the mesh and rules to whichever engine it routes to.
+mesh (`launch.mesh.tp_mesh(tp)`, or a (data, model) / (pod, data, model)
+mesh from `make_mesh`, in a world of its ranks, each running the same
+engine on the same requests) `FixedBatchEngine` serves every family from
+the rank's parameter shards (`tp_local_params`, or drawn straight into
+them through a `params(tp)` callable) and its caches at the rank's
+widths, the steps inside its contexts (`launch.steps.ServeMesh`) under the
+caller's rules pruned for the mesh (`launch.steps.fixed_batch_rules`).
+With the batch split over "data" (or "pod" x "data") each rank pads the
+whole batch and runs its contiguous block of rows (`local_rows`), draws
+its rows' tokens with their keys in the whole batch, and all-gathers the
+tokens over the batch group, so every rank returns every request's
+stream; the ranks of one block of rows hold the same logits and draw the
+same tokens.  The KV cache's positions may split over "model" at decode
+("kv_seq") and the experts' width over "model" ("expert_ffn").
+`ServeEngine` passes the mesh and rules to whichever engine it routes to.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional
@@ -43,9 +51,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.collectives import TensorParallel, tensor_parallel
-from repro_torch.distributed.sharding import DEFAULT_RULES, ShardingRules
-from repro_torch.launch.steps import fixed_batch_rules, prefill_step, serve_step
+from repro_torch.distributed.sharding import DEFAULT_RULES, ShardingRules, local_rows
+from repro_torch.launch.steps import ServeMesh, fixed_batch_rules, prefill_step, serve_step
 from repro_torch.platform import DeviceLike, resolve_device
 from repro_torch.serve.sampling import (SamplingParams, batch_sampling_arrays,
                                         sample_host, truncate_at_eos)
@@ -74,7 +81,9 @@ class FixedBatchEngine:
     no model axis) giving the rank's serving parameters, e.g. `lambda tp:
     model.init_serving(gen, tp=tp)`.  `rules` (DEFAULT_RULES when omitted)
     are taken as given and pruned for `mesh`, as the reference's engine
-    takes them: an indivisible split raises ValueError."""
+    takes them: an indivisible split (a batch that does not split over
+    the data axes included) raises ValueError, the sequence split over
+    ranks NotImplementedError (its prefill is ROADMAP item 8b-v)."""
 
     def __init__(self, model, params, cfg: ServeConfig,
                  extras: Optional[Dict[str, Any]] = None,
@@ -83,10 +92,15 @@ class FixedBatchEngine:
         self.device = resolve_device(device)
         self.model = model
         self.mesh = mesh
-        self.rules = self.tp = None
+        self.rules = self.tp = self.serve_mesh = None
+        rows = (0, cfg.batch_size)
         if mesh is not None:
             self.rules = fixed_batch_rules(DEFAULT_RULES if rules is None else rules, mesh)
-            self.tp = TensorParallel.from_mesh(mesh, self.rules)
+            self.serve_mesh = ServeMesh(mesh, self.rules)
+            self.tp = self.serve_mesh.tp
+            rows = local_rows(cfg.batch_size, self.serve_mesh.batch)
+        # this rank's rows of every batch: [start, start + count)
+        self.rows = rows
         if callable(params):
             self.params = model.serving_params(params(self.tp), self.device)
         else:
@@ -94,9 +108,9 @@ class FixedBatchEngine:
             if self.tp is not None:
                 self.params = model.tp_local_params(self.params, self.tp)
         self.cfg = cfg
-        # each extra (one request's, e.g. (nv, d)) broadcast over the batch
+        # each extra (one request's, e.g. (nv, d)) broadcast over the rank's rows
         self.extras = {k: torch.as_tensor(v, device=self.device)
-                      .expand(cfg.batch_size, *v.shape)
+                      .expand(rows[1], *v.shape)
                       for k, v in (extras or {}).items()}
         self.queue: List[Request] = []
         self._rid = 0
@@ -118,6 +132,17 @@ class FixedBatchEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _contexts(self):
+        if self.serve_mesh is None:
+            return contextlib.nullcontext()
+        return self.serve_mesh.contexts()
+
+    def _whole(self, nxt: torch.Tensor) -> torch.Tensor:
+        """The whole batch's tokens from every rank's rows (an all-gather
+        over the batch group; `nxt` itself where the batch is not split)."""
+        group = None if self.serve_mesh is None else self.serve_mesh.batch
+        return nxt if group is None else group._gather(nxt).reshape(-1)
+
     def run(self) -> List[Request]:
         """Drain the queue in fixed-size batches; returns completed requests."""
         done: List[Request] = []
@@ -131,28 +156,31 @@ class FixedBatchEngine:
             for i, r in enumerate(batch_reqs):
                 toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
 
-            # keyed sampling arrays at token index 0 (the prefill sample)
+            # keyed sampling arrays at token index 0 (the prefill sample),
+            # the whole batch's, of which the rank draws its rows
             sp, ks = batch_sampling_arrays(batch_reqs, cfg.batch_size)
+            lo, hi = self.rows[0], self.rows[0] + self.rows[1]
+            sp_r, ks_r = sp[lo:hi], ks[lo:hi]              # views: ks advances
 
             t_batch0 = time.perf_counter()
-            with tensor_parallel(self.tp):
+            with self._contexts():
                 logits, cache = prefill_step(
                     self.model, self.params,
-                    torch.as_tensor(toks, device=self.device), cfg.max_seq,
+                    torch.as_tensor(toks[lo:hi], device=self.device), cfg.max_seq,
                     self.extras)
-            nxt = sample_host(logits[:, -1], sp, ks)
-            outs = [nxt.cpu().numpy()]                     # syncs
+            nxt = sample_host(logits[:, -1], sp_r, ks_r)
+            outs = [self._whole(nxt).cpu().numpy()]        # syncs
             tok_t = [time.perf_counter()]
             self.stats["prefill_s"] += tok_t[0] - t_batch0
 
             t0 = time.perf_counter()
             for j in range(1, cfg.max_new_tokens):
-                with tensor_parallel(self.tp):
+                with self._contexts():
                     logits, cache = serve_step(self.model, self.params, cache,
                                                nxt[:, None])
                 ks[:, 2] = j                               # token index advances
-                nxt = sample_host(logits[:, -1], sp, ks)
-                outs.append(nxt.cpu().numpy())
+                nxt = sample_host(logits[:, -1], sp_r, ks_r)
+                outs.append(self._whole(nxt).cpu().numpy())
                 tok_t.append(time.perf_counter())
             out_tokens = np.stack(outs, 1)
             self._sync()

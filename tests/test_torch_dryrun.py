@@ -15,12 +15,19 @@ JAX package's, on the CPU.
     placements exactly its argument bytes, the port's own cut less by the
     K / V projections it does not hold, FLOPs within 1 % of an analytic
     count of the step's products and attention and at most 1.05 x the
-    reference's, collectives logged beside the reference's; three cells the
-    port refuses, each naming its ROADMAP item; a miniature (reduced qwen3:
-    train at (data 2, model 2), prefill and decode at (1, 2)) whose params,
-    tokens and argument bytes equal XLA's `memory_analysis` of the JAX steps
-    compiled on 4 forced host devices in a second subprocess (Auto-typed
-    meshes), the FLOP ratio logged and at most 1.05; and every module of
+    reference's, collectives logged beside the reference's; qwen3-1.7b
+    decode_32k at 16 x 16 lowering with the batch over "data" and the KV
+    cache's positions over "model" (1,879,048,192 bytes of K / V a
+    device); whisper-base decode_32k refused as the reference's placement
+    refuses it (1500 encoder positions do not split over 16); two cells
+    the port refuses, each naming its ROADMAP item; a miniature (reduced
+    qwen3: train at (data 2, model 2), prefill and decode at (1, 2) and at
+    (data 2, model 2), decode with the KV positions over "model" at (1, 4);
+    reduced zamba2: the batch-1 decode at (data 2, model 1), its KV
+    positions and SSM state columns over "data") whose params, tokens and
+    argument bytes equal XLA's `memory_analysis` of the JAX steps compiled
+    on 4 forced host devices in a second subprocess (Auto-typed meshes),
+    the FLOP ratio logged and at most 1.05; and every module of
     `repro_torch` imported with neither `jax` nor `repro` loaded.
 """
 
@@ -47,13 +54,20 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 REFERENCE = json.loads((ROOT / "artifacts" / "dryrun" /
                         "qwen3-1.7b__train_4k__16x16.json").read_text())
 CHILD_TIMEOUT_S = 600
-# the reduced qwen3 of the miniature: (kind, shape name, mesh, seq, batch)
-MINI = [("train", "train_4k", (2, 2), 32, 8), ("prefill", "prefill_32k", (1, 2), 32, 2),
-        ("decode", "decode_32k", (1, 2), 64, 2)]
+# the miniature's cells, each a reduced arch: (key, shape name, mesh, seq,
+# batch, arch)
+MINI = [("train", "train_4k", (2, 2), 32, 8, "qwen3-1.7b"),
+        ("prefill", "prefill_32k", (1, 2), 32, 2, "qwen3-1.7b"),
+        ("decode", "decode_32k", (1, 2), 64, 2, "qwen3-1.7b"),
+        ("prefill_dp", "prefill_32k", (2, 2), 32, 4, "qwen3-1.7b"),
+        ("decode_dp", "decode_32k", (2, 2), 64, 4, "qwen3-1.7b"),
+        ("decode_kv_seq", "decode_32k", (1, 4), 64, 2, "qwen3-1.7b"),
+        ("decode_batch1", "long_500k", (2, 1), 64, 1, "zamba2-1.2b")]
 # the cells the port refuses, and the ROADMAP item each message names
-REFUSED = [("qwen3-1.7b", "decode_32k", False, "8b-iv"),
-           ("qwen3-1.7b", "train_4k", True, "8c-ii"),
+REFUSED = [("qwen3-1.7b", "train_4k", True, "8c-ii"),
            ("qwen2-moe-a2.7b", "train_4k", False, "8c-ii")]
+# the production cells the port now lowers or refuses as the reference does
+CELLS = [("qwen3-1.7b", "decode_32k", False), ("whisper-base", "decode_32k", False)]
 
 
 # ------------------------------------------------------------ input_specs
@@ -193,15 +207,16 @@ _PORT_CHILD = textwrap.dedent("""
     from repro_torch.launch import dryrun
     from repro_torch.launch.steps import TrainConfig
 
-    mini, refused, out = json.loads(sys.argv[1]), json.loads(sys.argv[2]), sys.argv[3]
+    mini, refused, out = (json.loads(sys.argv[1]), json.loads(sys.argv[2]) + json.loads(
+        sys.argv[3]), sys.argv[4])
     res = {"mini": {}, "cells": {}}
-    cfg = get_config("qwen3-1.7b").reduced()
-    for kind, name, mesh, seq, b in mini:
+    for key, name, mesh, seq, b, arch in mini:
+        cfg = get_config(arch).reduced()
         shape = dataclasses.replace(SHAPES[name], seq_len=seq, global_batch=b)
-        rec = dryrun.lower_cell("qwen3-1.7b", name, False,
+        rec = dryrun.lower_cell(arch, name, False,
                                 TrainConfig(microbatches=2, zero1=True), cfg=cfg,
                                 shape=shape, mesh_shape=mesh)
-        res["mini"][kind] = rec
+        res["mini"][key] = rec
     for arch, shape, mp in [("qwen3-1.7b", "train_4k", False)] + [c[:3] for c in refused]:
         res["cells"][f"{arch}__{shape}__{mp}"] = dryrun.cell_record(arch, shape, mp)
     for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
@@ -227,8 +242,9 @@ _JAX_CHILD = textwrap.dedent("""
 
     mini, out = json.loads(sys.argv[1]), sys.argv[2]
     res = {}
-    for kind, name, mshape, seq, b in mini:
-        cfg = get_config("qwen3-1.7b").reduced()
+    for key, name, mshape, seq, b, arch in mini:
+        kind = SHAPES[name].kind
+        cfg = get_config(arch).reduced()
         if kind == "train":
             cfg = dataclasses.replace(cfg, remat="full")
         shape = dataclasses.replace(SHAPES[name], seq_len=seq, global_batch=b)
@@ -258,7 +274,7 @@ _JAX_CHILD = textwrap.dedent("""
 
             mem = lower(False).compile().memory_analysis()
             cost = cost_dict(lower(True).compile().cost_analysis())
-        res[kind] = {"argument_bytes": int(mem.argument_size_in_bytes),
+        res[key] = {"argument_bytes": int(mem.argument_size_in_bytes),
                      "output_bytes": int(mem.output_size_in_bytes),
                      "flops": float(cost["flops"]), "params": cfg.param_count(),
                      "n_params": int(sum(x.size for x in jax.tree.leaves(params)))}
@@ -271,7 +287,7 @@ def runs(tmp_path_factory):
     """The port's child (the miniature, the 16 x 16 cells, the imports) and
     the JAX child, side by side."""
     tmp = tmp_path_factory.mktemp("dryrun")
-    jobs = {"port": (_PORT_CHILD, [json.dumps(MINI), json.dumps(REFUSED)]),
+    jobs = {"port": (_PORT_CHILD, [json.dumps(MINI), json.dumps(REFUSED), json.dumps(CELLS)]),
             "jax": (_JAX_CHILD, [json.dumps(MINI)])}
     procs = {}
     for name, (script, args) in jobs.items():
@@ -377,13 +393,42 @@ def test_refused_cells_name_their_roadmap_item(runs, arch, shape, multi_pod, ite
     assert cell["mesh"] == ("2x16x16" if multi_pod else "16x16")
 
 
+def test_qwen3_decode_32k_lowers_with_the_kv_positions_over_model(runs):
+    """The batch over "data" (8 of the 128 rows a rank) and, the 8 KV heads
+    not dividing model 16, the cache's positions over "model" (2,048 of
+    32,768) with every KV head: 8 x 2,048 x 8 x 128 x 2 tensors x 28 layers
+    of bf16 K / V a device."""
+    cell = runs["port"]["cells"]["qwen3-1.7b__decode_32k__False"]
+    assert cell["status"] == "ok", cell.get("traceback")
+    cfg = get_config("qwen3-1.7b")
+    kv = 8 * 2048 * cfg.n_kv_heads * cfg.hd * 2 * cfg.n_layers * 2
+    assert kv == 1_879_048_192
+    cache = cell["memory"]["argument_bytes_by_group"]
+    assert cache["k"] + cache["v"] == kv, cache
+    assert cache["tokens"] == 8 * 4 and cache["lengths"] == 8 * 4
+    assert cell["tokens"] == 128 and cell["kind"] == "decode"
+    assert cell["collectives"]["counts"]["all-gather"] > 0
+
+
+def test_whisper_decode_32k_is_refused_as_the_reference_refuses_it(runs):
+    """whisper-base decode_32k at 16 x 16: its 8 KV heads do not divide
+    model 16, so the cache's positions take the model axis, the cross
+    K / V's 1500 encoder positions with them; they do not split into 16,
+    and the reference's placement (`jax.jit`'s in_shardings) raises
+    ValueError there, as the port does."""
+    cell = runs["port"]["cells"]["whisper-base__decode_32k__False"]
+    assert cell["status"] == "error"
+    assert cell["error"].startswith("ValueError: "), cell["error"]
+    assert "1500" in cell["error"] and "16 blocks" in cell["error"]
+
+
 @pytest.mark.parametrize("kind", [m[0] for m in MINI])
 def test_miniature_matches_xla_memory_analysis(runs, kind):
     got, want = runs["port"]["mini"][kind], runs["jax"][kind]
-    _, name, mesh, seq, b = next(m for m in MINI if m[0] == kind)
+    _, name, mesh, seq, b, arch = next(m for m in MINI if m[0] == kind)
     assert got["status"] == "ok" and got["mesh"] == "x".join(map(str, mesh))
-    assert got["params"] == want["params"] == get_config("qwen3-1.7b").reduced().param_count()
-    assert got["tokens"] == (b * seq if kind != "decode" else b)
+    assert got["params"] == want["params"] == get_config(arch).reduced().param_count()
+    assert got["tokens"] == (b * seq if SHAPES[name].kind != "decode" else b)
     # the step counter is an argument on both sides; XLA counts nothing else
     # the port does not
     assert got["memory"]["argument_bytes"] == want["argument_bytes"]

@@ -228,7 +228,9 @@ def test_fixed_batch_families_take_no_mesh():
     fixed-batch engines; FixedBatchEngine and ServeEngine take `mesh` /
     `rules` as the reference's engines do and serve them there
     (tests/test_torch_tp_fixed_batch.py), their models cut their shards,
-    and a split the loop does not run raises naming the axis."""
+    and a split the loop does not run raises naming the axis ("kv_seq"
+    over "model" runs since the serving layouts of the production meshes,
+    but not beside "kv_heads" on the same axis)."""
     for arch in ("zamba2-1.2b", "whisper-base"):
         cfg = get_config(arch).reduced(n_layers=2, dtype="float32")
         model = build_model(cfg)
@@ -242,7 +244,10 @@ def test_fixed_batch_families_take_no_mesh():
         for engine in (FixedBatchEngine, ServeEngine):
             sig = inspect.signature(engine).parameters
             assert sig["mesh"].default is None and sig["rules"].default is None
-            with pytest.raises(NotImplementedError, match="'kv_seq'"):
+            with pytest.raises(NotImplementedError, match="'ssm_state'"):
+                engine(model, params, ServeConfig(), device="cpu", mesh=FakeMesh(model=2),
+                       rules=DEFAULT_RULES.replace(ssm_state="model"))
+            with pytest.raises(ValueError, match="'kv_seq' and 'kv_heads'"):
                 engine(model, params, ServeConfig(), device="cpu", mesh=FakeMesh(model=2),
                        rules=DEFAULT_RULES.replace(kv_seq="model"))
 

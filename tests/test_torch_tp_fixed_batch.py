@@ -10,7 +10,9 @@ JAX package.
     whisper's odd vocabulary moving the LM head's split to its rows),
     `init_serving(tp=)` equals cutting the whole model, the fixed-batch
     caches have the rank's shapes, and a split this path does not run
-    raises naming the axis;
+    raises naming the axis (the serving layouts it now runs, "kv_seq"
+    over "model" and "batch" over "data", are served in the worlds below
+    and give the JAX engine's streams);
   * (b) the layers on each rank's shards with the collectives, in gloo
     worlds of 2 and 4 CPU processes: `attn_forward` (causal, the encoder's
     non-causal form, cross-attention), `cross_kv`, `attn_decode`,
@@ -58,7 +60,8 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import DEFAULT_RULES
-from repro_torch.launch.steps import local_cache_shapes
+from repro_torch.launch.steps import TrainConfig as PortTrainConfig
+from repro_torch.launch.steps import local_cache_shapes, mesh_train_step
 from repro_torch.models import attention as port_attention
 from repro_torch.models import build_model
 from repro_torch.models import mamba as port_mamba
@@ -240,17 +243,51 @@ def test_fixed_batch_caches_have_the_rank_shapes(name, tp):
     assert got["lengths"] == (b,)
 
 
+# the serving layouts of the production meshes this path now runs: the
+# split, the world that serves the hybrid under it and that run's key
+SPLIT_RUNS = {"kv_seq": (2, "hybrid/kv_seq_model2"), "batch": (4, "hybrid/batch_data2_model2")}
+
+
 @pytest.mark.parametrize("axis,mesh", [("kv_seq", FakeMesh(model=2)),
                                        ("ssm_state", FakeMesh(model=2)),
                                        ("seq", FakeMesh(model=2)),
-                                       ("batch", FakeMesh(model=2, data=2))])
-def test_a_split_this_path_does_not_run_raises_naming_the_axis(axis, mesh):
+                                       ("batch", FakeMesh(model=2, data=2)),
+                                       ("seq", FakeMesh(model=1, data=2)),
+                                       ("expert_ffn", FakeMesh(model=2))])
+def test_a_split_this_path_does_not_run_raises_naming_the_axis(axis, mesh, request):
+    """"kv_seq" over "model" and "batch" over "data" now run: the hybrid
+    served under each (in the worlds of 2 and 4 ranks, on a (1, 2) and a
+    (2, 2) mesh) gives the JAX engine's streams on every rank.  What stays
+    refused raises NotImplementedError naming the axis: "ssm_state" and
+    "seq" over "model", "seq" over "data" where a prefill runs (the
+    sequence-parallel prefill, ROADMAP item 8b-v), and "expert_ffn" in
+    training (item 8c-ii)."""
     cfg = _cfg("hybrid")
     model = build_model(cfg)
-    rules = DEFAULT_RULES if axis == "batch" else DEFAULT_RULES.replace(**{axis: "model"})
+    size = dict(mesh.shape)
+    if axis in SPLIT_RUNS and size.get("data", 1) * size["model"] == SPLIT_RUNS[axis][0]:
+        outs, streams, _ = request.getfixturevalue("worlds")
+        world, key = SPLIT_RUNS[axis]
+        for rank, res in enumerate(outs[world]):
+            run = res["split_runs"][key]
+            assert run["rules"][axis] in ("model", "data"), (key, run["rules"])
+            assert run["streams"] == streams["hybrid"], f"{key} rank {rank}"
+            assert run["requests"] == len(LENS["hybrid"])
+        return
+    if axis == "expert_ffn":
+        moe = build_model(get_config("qwen2-moe-a2.7b").reduced())
+        with pytest.raises(NotImplementedError, match="8c-ii"):
+            mesh_train_step(moe, mesh, DEFAULT_RULES.replace(experts=None,
+                                                             expert_ffn="model"),
+                            PortTrainConfig())
+        return
+    target = "data" if size.get("data", 1) > 1 else "model"
+    rules = DEFAULT_RULES.replace(**{axis: target})
     for engine in (FixedBatchEngine, ServeEngine):
-        with pytest.raises(NotImplementedError, match=f"'{axis}'"):
+        with pytest.raises(NotImplementedError, match=f"'{axis}'") as err:
             engine(model, {}, ServeConfig(**SERVE), device="cpu", mesh=mesh, rules=rules)
+        if axis == "seq":
+            assert "8b-v" in str(err.value)
 
 
 def test_an_indivisible_split_raises_value_error_naming_the_axis():
@@ -278,7 +315,7 @@ _CHILD = textwrap.dedent("""
     from repro_torch.distributed import DEFAULT_RULES
     from repro_torch.distributed.collectives import TensorParallel, tensor_parallel
     from repro_torch.distributed.sharding import prune_for_mesh
-    from repro_torch.launch.mesh import init_file_world, tp_mesh
+    from repro_torch.launch.mesh import init_file_world, make_mesh, tp_mesh
     from repro_torch.launch.steps import local_cache_shapes, prefill_step
     from repro_torch.models import attention as A
     from repro_torch.models import build_model
@@ -373,7 +410,20 @@ _CHILD = textwrap.dedent("""
                 res["enc_layer"] = model._enc_block(t("x_long"), enc)
         return {k: v.float().numpy().tolist() for k, v in res.items()}
 
-    out = {"runs": {}, "layers": {}}
+    def split_run(name, model, params, mesh, rules):
+        scfg = ServeConfig(**job["serve"])
+        sp = model.serving_params(params, "cpu")
+        eng = FixedBatchEngine(model, lambda tp: model.tp_local_params(sp, tp), scfg,
+                               device="cpu", mesh=mesh, rules=rules)
+        prompts, samp = workload(name, model.cfg.vocab, job["seed"])
+        for p, s in zip(prompts, samp):
+            eng.submit(p, sampling=s)
+        done = eng.run()
+        return {"streams": {str(r.rid): [int(t) for t in r.output] for r in done},
+                "requests": eng.stats["requests"],
+                "rules": {a: eng.rules.lookup(a) for a in ("batch", "kv_seq", "kv_heads")}}
+
+    out = {"runs": {}, "layers": {}, "split_runs": {}}
     for name, spec in job["models"].items():
         cfg = get_config(spec["arch"]).reduced(**spec["cfg"])
         model = build_model(cfg)
@@ -386,6 +436,16 @@ _CHILD = textwrap.dedent("""
         if world > 1:
             out["layers"][name] = layers(name, model, params, mesh,
                                          dict(np.load(spec["layers"])))
+        if name == "hybrid" and world == 2:
+            # the KV cache's positions over "model" (its KV heads replicated)
+            out["split_runs"]["hybrid/kv_seq_model2"] = split_run(
+                name, model, params, mesh,
+                rules_for(cfg, mesh).replace(kv_heads=None, kv_seq="model"))
+        if name == "hybrid" and world == 4:
+            # the batch over "data" on a (data 2, model 2) mesh
+            mesh22 = make_mesh((2, 2), device_type="cpu")
+            out["split_runs"]["hybrid/batch_data2_model2"] = split_run(
+                name, model, params, mesh22, rules_for(cfg, mesh22))
         if world == 2 and name == "encdec":
             try:
                 FixedBatchEngine(model, params, ServeConfig(**job["serve"]), extras,
