@@ -374,23 +374,32 @@ each with its seconds logged:
      production meshes, as one world of 4 gloo processes sharing the card
      (`--dp-serve-child`), eager, each model at full width and a cut depth
      drawn from seed 0 straight into each rank's shards:
-     qwen2-moe-a2.7b (4 layers) with the batch over "data" and TP inside
+     qwen2-moe-a2.7b (2 layers) with the batch over "data" and TP inside
      the experts ("experts" replicated, "expert_ffn" over "model"), batch
      4 and 8 prompts: streams equal on every rank, every decode step's
      dropped (token, choice) pairs those of the same engine with no mesh,
      and the tokens held to a teacher-forced replay through it;
-     qwen3-1.7b (4 layers), prompts up to 700 tokens, "kv_heads"
+     qwen3-1.7b (2 layers), prompts up to 700 tokens, "kv_heads"
      replicated and "kv_seq" over "model": streams equal on every rank and
      held to the replay, each rank's cache exactly its reckoned cut and
      its serving peak within shards + that cache + the no-mesh run's
      transient (its draw's within shards + one f32 full leaf and its f32
-     shard); zamba2-1.2b (12 layers) at batch 1 under
-     `rules_for_shape`'s long_500k layout ("kv_seq" and "ssm_state" over
-     "data"), 32 decode steps over each rank's `local_cache` cut of a
-     no-mesh prefill's cache, fed the no-mesh decode's tokens: the logits
-     equal on every rank and within 0.05 x max |logit| of the no-mesh
-     decode's at every step; the draw kernel's launches per rank equal
-     the no-mesh runs';
+     shard); the sequence-parallel prefill at batch 1 under
+     `rules_for_shape`'s long_500k layout (the batch replicated, "seq",
+     "kv_seq" and "ssm_state" over "data") of zamba2-1.2b (12 layers, a
+     16,128-token prompt: each rank's block 31.5 chunks of 256) and
+     mamba2-2.7b (8 layers, 16,384 tokens), each through `prefill_step`
+     (the logits bitwise equal on every rank and within 0.05 x max |logit|
+     of the no-mesh prefill's, each rank's conv / SSM carries and K / V
+     within 0.05 x max of the no-mesh cache's `local_cache` cut or twice
+     the error of the rank's prefill with the whole prompt on every rank
+     (tensor parallelism's own rounding, logged), each rank's prefill
+     peak below the no-mesh prefill's), then 8 decode
+     steps fed the no-mesh stream (within 0.05 x max at every step,
+     margin tokens agree) and through FixedBatchEngine (32 tokens, the
+     streams equal on every rank and to the no-mesh stream up to a token
+     of top-2 margin <= 0.25, 32 draw launches a rank); the draw kernel's
+     launches per rank equal the no-mesh runs';
  26. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8, 10 and 20, their
@@ -3523,9 +3532,10 @@ def family_setup(torch, cfg):
     params = model.init_serving(torch.Generator(device=DEVICE).manual_seed(0))
     torch.cuda.synchronize()
     leaves = list(_leaves(params))
+    heads = f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, " if cfg.n_heads else ""
     log(f"model {cfg.name} ({type(model).__name__}): {cfg.n_layers} layers"
         f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.n_enc_layers else ''}, "
-        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, "
+        f"d_model {cfg.d_model}, {heads}"
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
         f"{sum(t.numel() for t in leaves) / 1e9:.3f} G params "
         f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB) "
@@ -6321,16 +6331,26 @@ def _leaves(tree):
 # rank (host-staged gloo on one card: no data- or tensor-parallel speed).
 DP_MESH = (2, 2)
 DP_WORLD = 4
-DP_LAYERS = {"qwen2-moe-a2.7b": 4, "qwen3-1.7b": 4, "zamba2-1.2b": 12}
+# the MoE and qwen3 at 2 layers since the sequence-parallel prefill joined
+# the phase (4 before), to hold the script's time
+DP_LAYERS = {"qwen2-moe-a2.7b": 2, "qwen3-1.7b": 2, "zamba2-1.2b": 12, "mamba2-2.7b": 8}
 # the reference's REPRO_RULES overrides each model serves under
 DP_RULES = {"qwen2-moe-a2.7b": dict(experts=None, expert_ffn="model"),
             "qwen3-1.7b": dict(kv_heads=None, kv_seq="model")}
 DP_PROMPTS = 8
 DP_MAX_SEQ = 768                # 700-token prompts + 32 new, positions even
-DP_BATCH1_PROMPT = 256          # at most zamba2's ssm_chunk
-DP_BATCH1_SEQ = 512
+# the sequence-parallel prefill's prompts (63 and 64 chunks of 256: each
+# rank's block 31.5 and 32 chunks), each model's cache DP_DECODE_STEPS
+# positions longer
+DP_SEQ_PROMPTS = {"zamba2-1.2b": 16_128, "mamba2-2.7b": 16_384}
 DP_DECODE_STEPS = 32
+DP_SEQ_CHECK_STEPS = 8          # decode steps fed the no-mesh stream after prefill_step
 DP_BATCH1_TOL = 0.05            # x max |logit|: bf16, TP and merged partials
+# x max |leaf|: each rank's carries and K / V against the no-mesh cache's
+# cut, or within DP_CACHE_TP_RATIO x the same rank's error with the whole
+# prompt on every rank ("seq" whole: the TP run's own bf16 rounding)
+DP_CACHE_TOL = 0.05
+DP_CACHE_TP_RATIO = 2.0
 
 
 def dp_cfg(arch):
@@ -6355,14 +6375,20 @@ def dp_rules(cfg, mesh):
     return fixed_rules(cfg, mesh).replace(**DP_RULES[cfg.name])
 
 
-def batch1_rules(cfg, mesh):
-    """`rules_for_shape`'s layout of a batch of one (long_500k at
-    DP_BATCH1_SEQ positions), for a rank that only decodes."""
+def seq_rules(cfg, mesh, max_seq):
+    """`rules_for_shape`'s layout of a batch of one (long_500k at `max_seq`
+    positions: the batch replicated, "seq", "kv_seq" and "ssm_state" over
+    "data"), pruned for the mesh."""
     from repro_torch.configs import SHAPES
     from repro_torch.launch.steps import fixed_batch_rules, rules_for_shape
 
-    shape = dataclasses.replace(SHAPES["long_500k"], seq_len=DP_BATCH1_SEQ)
-    return fixed_batch_rules(rules_for_shape(cfg, shape, mesh), mesh, prefill=False)
+    shape = dataclasses.replace(SHAPES["long_500k"], seq_len=max_seq)
+    return fixed_batch_rules(rules_for_shape(cfg, shape, mesh), mesh)
+
+
+def _rel(got, want):
+    """max |got - want| / max |want| (f32, on the host)."""
+    return float((got - want).abs().max() / want.abs().max())
 
 
 def dp_cache_reckoning(cfg):
@@ -6373,20 +6399,116 @@ def dp_cache_reckoning(cfg):
     return 2 * cfg.n_layers * rows * pos * cfg.n_kv_heads * cfg.hd * 2 + rows * 4
 
 
-def dp_serve_child(torch, rank, world, store, out_path, job_path):
-    """One rank of phase 25, run as `chip_smoke.py --dp-serve-child RANK
-    WORLD STORE OUT JOB`: the MoE and qwen3 through FixedBatchEngine on the
-    (data 2, model 2) mesh, each drawn from seed 0 straight into the
-    rank's shards, then zamba2's batch-1 decode steps over its cut of the
-    whole cache in JOB; writes streams, drops, launches, errors, memory
-    and times to OUT as JSON."""
+def _dp_seq_rank(torch, arch, plen, mesh, ref_path, rank):
+    """One rank's sequence-parallel prefill of `arch` (DP_LAYERS deep, drawn
+    from seed 0 into the rank's shards) under `seq_rules`: `prefill_step`
+    on the no-mesh run's prompt in `ref_path` (its logits' digest and error,
+    the rank's cache against the cut of the no-mesh cache, the prefill's
+    peak beyond what the rank held before it), DP_SEQ_CHECK_STEPS decode
+    steps fed the no-mesh stream (errors, margin tokens), the same prefill
+    with "seq" whole (the whole prompt on every rank: the cache errors of
+    tensor parallelism alone), then FixedBatchEngine at batch 1 (its
+    stream and draw launches)."""
     import hashlib
 
     import torch.distributed as dist
 
+    from repro_torch.configs import SHAPES
     from repro_torch.distributed.sharding import local_cache
+    from repro_torch.launch.steps import ServeMesh, prefill_step, rules_for_shape, serve_step
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
+
+    cfg = dp_cfg(arch)
+    model = build_model(cfg)
+    max_seq = plen + DP_DECODE_STEPS
+    rules = seq_rules(cfg, mesh, max_seq)
+    sm = ServeMesh(mesh, rules)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init_serving(torch.Generator(device=DEVICE).manual_seed(0), tp=sm.tp)
+    ref = torch.load(ref_path)
+    toks = ref["prompt"].to(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with sm.contexts():
+        logits, cache = prefill_step(model, params, toks, max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    row = logits[0, -1].float().cpu()
+    digest = hashlib.sha256(row.numpy().tobytes()).hexdigest()
+    errs = [_rel(row, ref["rows"][0])]
+    cut = local_cache(ref["cache"], model, rules, dict(sm.groups, model=sm.tp))
+    cache_errs = {k: _rel(cache[k].float().cpu(), cut[k].float()) for k in cut
+                  if k != "lengths"}
+    if not torch.equal(cache["lengths"].cpu(), cut["lengths"]):
+        raise AssertionError(f"[{arch} seq] rank {rank}: lengths {cache['lengths']}")
+    agree = compared = 0
+    t0 = time.perf_counter()
+    for j, tok in enumerate(ref["stream"][:DP_SEQ_CHECK_STEPS]):
+        with sm.contexts():
+            logits, cache = serve_step(model, params, cache, torch.tensor(
+                [[tok]], dtype=torch.int32, device=DEVICE))
+        row, want = logits[0, -1].float().cpu(), ref["rows"][j + 1]
+        errs.append(_rel(row, want))
+        top2 = torch.topk(want, 2)
+        if float(top2.values[0] - top2.values[1]) > FIRST_TOKEN_MARGIN:
+            compared += 1
+            agree += int(row.argmax()) == int(top2.indices[0])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / DP_SEQ_CHECK_STEPS
+    cache_shapes = {k: list(v.shape) for k, v in cache.items()}
+    del cache, logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with ServeMesh(mesh, rules.replace(seq=None)).contexts():
+        logits, cache = prefill_step(model, params, toks, max_seq)
+    torch.cuda.synchronize()
+    whole_peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    tp_errs = {k: _rel(cache[k].float().cpu(), cut[k].float()) for k in cache_errs}
+    tp_errs["logits"] = _rel(logits[0, -1].float().cpu(), ref["rows"][0])
+    del cache, logits
+    counters = _serve_counters()
+    _zeroed(counters)
+    shape = dataclasses.replace(SHAPES["long_500k"], seq_len=max_seq)
+    eng = FixedBatchEngine(model, lambda tp: params,
+                           ServeConfig(batch_size=1, max_seq=max_seq,
+                                       max_new_tokens=DP_DECODE_STEPS),
+                           device=DEVICE, mesh=mesh, rules=rules_for_shape(cfg, shape, mesh))
+    eng.submit(ref["prompt"][0].numpy())
+    dist.barrier()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return {"rank": rank, "coords": list(mesh.get_coordinate()),
+            "rules": {a: rules.lookup(a) for a in
+                      ("batch", "seq", "kv_seq", "ssm_state", "heads", "kv_heads",
+                       "ssm_heads", "conv_dim")},
+            "cache_shapes": cache_shapes, "prefill_s": prefill_s, "peak_gb": peak_gb,
+            "whole_peak_gb": whole_peak_gb,
+            "digest": digest, "errs": errs, "cache_errs": cache_errs, "tp_errs": tp_errs,
+            "agree": agree,
+            "compared": compared, "step_ms": step_ms, "stream": done[0].output,
+            "engine_s": time.perf_counter() - t0, "engine_prefill_s": eng.stats["prefill_s"],
+            "launches": _launched(counters)}
+
+
+def dp_serve_child(torch, rank, world, store, out_path, job_path):
+    """One rank of phase 25, run as `chip_smoke.py --dp-serve-child RANK
+    WORLD STORE OUT JOB`: the MoE and qwen3 through FixedBatchEngine on the
+    (data 2, model 2) mesh, each drawn from seed 0 straight into the
+    rank's shards, then zamba2's and mamba2's sequence-parallel prefill
+    (`_dp_seq_rank`, against the no-mesh runs whose files JOB names);
+    writes streams, drops, launches, errors, memory and times to OUT as
+    JSON."""
+    import torch.distributed as dist
+
     from repro_torch.launch.mesh import init_file_world, make_mesh
-    from repro_torch.launch.steps import ServeMesh, serve_step
     from repro_torch.models import build_model
     from repro_torch.models.mlp import record_drops
     from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
@@ -6447,42 +6569,8 @@ def dp_serve_child(torch, rank, world, store, out_path, job_path):
             }
             del eng, done
 
-        arch = "zamba2-1.2b"
-        cfg = dp_cfg(arch)
-        model = build_model(cfg)
-        rules = batch1_rules(cfg, mesh)
-        sm = ServeMesh(mesh, rules)
-        gc.collect()
-        torch.cuda.empty_cache()
-        params = model.init_serving(torch.Generator(device=DEVICE).manual_seed(0), tp=sm.tp)
-        cache = local_cache(torch.load(job["cache"], map_location=DEVICE), model, rules,
-                            dict(sm.groups, model=sm.tp))
-        ref = torch.load(job["logits"])
-        errs, agree, compared, digest = [], 0, 0, hashlib.sha256()
-        dist.barrier()
-        t0 = time.perf_counter()
-        for j, tok in enumerate(job["tokens"]):
-            with sm.contexts():
-                logits, cache = serve_step(model, params, cache, torch.tensor(
-                    [[tok]], dtype=torch.int32, device=DEVICE))
-            row = logits[0, -1].float().cpu()
-            digest.update(row.numpy().tobytes())
-            errs.append(float((row - ref[j]).abs().max() / ref[j].abs().max()))
-            top2 = torch.topk(ref[j], 2)
-            if float(top2.values[0] - top2.values[1]) > FIRST_TOKEN_MARGIN:
-                compared += 1
-                agree += int(row.argmax()) == int(top2.indices[0])
-        torch.cuda.synchronize()
-        results[arch] = {
-            "rank": rank, "coords": list(mesh.get_coordinate()),
-            "rules": {a: rules.lookup(a) for a in
-                      ("batch", "kv_seq", "ssm_state", "seq", "heads", "kv_heads",
-                       "ssm_heads", "conv_dim")},
-            "cache_shapes": {k: list(v.shape) for k, v in cache.items()},
-            "errs": errs, "compared": compared, "agree": agree,
-            "digest": digest.hexdigest(), "step_ms": 1e3 * (time.perf_counter() - t0)
-            / len(job["tokens"]),
-        }
+        for arch, plen in DP_SEQ_PROMPTS.items():
+            results[f"{arch} seq"] = _dp_seq_rank(torch, arch, plen, mesh, job[arch], rank)
         with open(out_path, "w") as f:
             json.dump(results, f)
     finally:
@@ -6526,40 +6614,55 @@ def phase_dp_serving(torch, smi=""):
         paths[f"dp_{arch}_no_mesh"] = launches
         ref[arch] = (model, params, prompts, out, drops, launches, act_gb)
 
-    # zamba2's batch-1 decode with no mesh: its prefill's whole cache and
-    # each step's token, for the ranks to cut and feed
+    # the sequence-parallel prefill's references with no mesh: each model's
+    # prefill (its logits, whole cache and peak beyond the parameters), then
+    # DP_DECODE_STEPS greedy decode steps (each step's logits and token)
     tmp = tempfile.mkdtemp(prefix="dp_serve_")
-    cfg = dp_cfg("zamba2-1.2b")
-    model, params = family_setup(torch, cfg)
-    rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, DP_BATCH1_PROMPT)),
-                           dtype=torch.int32, device=DEVICE)
-    logits, cache = steps.prefill_step(model, params, toks, DP_BATCH1_SEQ)
-    torch.save({k: v.cpu() for k, v in cache.items()}, os.path.join(tmp, "cache.pt"))
-    tokens, rows = [], []
-    t0 = time.perf_counter()
-    for _ in range(DP_DECODE_STEPS):
-        tokens.append(int(logits[0, -1].argmax()))
-        logits, cache = steps.serve_step(model, params, cache, torch.tensor(
-            [[tokens[-1]]], dtype=torch.int32, device=DEVICE))
-        rows.append(logits[0, -1].float().cpu())
-    torch.cuda.synchronize()
-    log(f"[zamba2-1.2b no mesh, {cfg.n_layers} layers] batch 1: prefill of "
-        f"{DP_BATCH1_PROMPT} tokens into {DP_BATCH1_SEQ} positions, {DP_DECODE_STEPS} "
-        f"decode steps at {1e3 * (time.perf_counter() - t0) / DP_DECODE_STEPS:.2f} ms")
-    torch.save(torch.stack(rows), os.path.join(tmp, "logits.pt"))
+    job, seq_ref = {}, {}
+    for arch, plen in DP_SEQ_PROMPTS.items():
+        cfg = dp_cfg(arch)
+        model, params = family_setup(torch, cfg)
+        max_seq = plen + DP_DECODE_STEPS
+        rng = np.random.default_rng(1)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, plen)),
+                               dtype=torch.int32, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        logits, cache = steps.prefill_step(model, params, toks, max_seq)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        whole = {k: v.to("cpu", copy=True) for k, v in cache.items()}   # before decoding
+        rows, stream = [logits[0, -1].float().cpu()], []
+        t0 = time.perf_counter()
+        for _ in range(DP_DECODE_STEPS):
+            stream.append(int(rows[-1].argmax()))
+            logits, cache = steps.serve_step(model, params, cache, torch.tensor(
+                [[stream[-1]]], dtype=torch.int32, device=DEVICE))
+            rows.append(logits[0, -1].float().cpu())
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / DP_DECODE_STEPS
+        log(f"[{arch} no mesh, {cfg.n_layers} layers] batch 1: prefill of {plen} tokens "
+            f"into {max_seq} positions in {prefill_s:.3f} s, its peak beyond the parameters "
+            f"{peak_gb:.3f} GB; {DP_DECODE_STEPS} decode steps at {step_ms:.2f} ms")
+        job[arch] = os.path.join(tmp, f"{arch}.pt")
+        torch.save({"prompt": toks.cpu(), "rows": torch.stack(rows), "stream": stream,
+                    "cache": whole}, job[arch])
+        seq_ref[arch] = (peak_gb, prefill_s, torch.stack(rows), stream)
+        del model, params, cache, logits, whole
+        free_device(torch)
+    with open(os.path.join(tmp, "job.json"), "w") as f:
+        json.dump(job, f)
     job = os.path.join(tmp, "job.json")
-    with open(job, "w") as f:
-        json.dump({"cache": os.path.join(tmp, "cache.pt"),
-                   "logits": os.path.join(tmp, "logits.pt"), "tokens": tokens}, f)
-    del model, params, cache, logits
-    free_device(torch)
 
     build.build_all()                          # every library in place before spawning
     t0 = time.perf_counter()
     ranks = _tp_world(DP_WORLD, tmp, "--dp-serve-child", "dp", extra=(job,))
-    log(f"[dp] the (data 2, model 2) world served {len(DP_RULES)} models and zamba2's "
-        f"batch-1 decode in {time.perf_counter() - t0:.1f} s (start included); "
+    log(f"[dp] the (data 2, model 2) world served {len(DP_RULES)} models and the "
+        f"sequence-parallel prefill of {', '.join(DP_SEQ_PROMPTS)} in "
+        f"{time.perf_counter() - t0:.1f} s (start included); "
         f"nvidia-smi: {smi}")
     for arch in DP_RULES:                      # every rank's numbers first
         for res in (r[arch] for r in ranks):
@@ -6571,14 +6674,22 @@ def phase_dp_serving(torch, smi=""):
                 f"{res['init_peak_gb']:.2f} GB), caches {res['cache_bytes'] / 1e9:.3f} GB, "
                 f"the run's peak {res['peak_gb']:.2f} GB; "
                 f"{sum(map(len, res['drops']))} pairs dropped")
-    for res in (r["zamba2-1.2b"] for r in ranks):
-        log(f"[zamba2-1.2b batch 1 dp] rank {res['rank']} at {res['coords']} (rules "
-            f"{res['rules']}, caches {res['cache_shapes']}): {res['step_ms']:.1f} ms a step, "
-            f"max |logit difference| / max |logit| per step max {max(res['errs']):.4f} "
-            f"(first {res['errs'][0]:.4f}, last {res['errs'][-1]:.4f}); argmax equal at "
-            f"{res['agree']}/{res['compared']} steps with a top-2 margin > "
-            f"{FIRST_TOKEN_MARGIN}")
-
+    for arch in DP_SEQ_PROMPTS:
+        for res in (r[f"{arch} seq"] for r in ranks):
+            log(f"[{arch} seq dp] rank {res['rank']} at {res['coords']} (rules "
+                f"{res['rules']}, caches {res['cache_shapes']}): prefill "
+                f"{res['prefill_s']:.3f} s, its peak beyond the rank's parameters "
+                f"{res['peak_gb']:.3f} GB ({res['whole_peak_gb']:.3f} with the whole prompt "
+                f"on every rank); max |logit difference| / max |logit| "
+                f"{res['errs'][0]:.4f} at the prefill, {max(res['errs'][1:]):.4f} at most over "
+                f"{DP_SEQ_CHECK_STEPS} decode steps ({res['step_ms']:.1f} ms a step; argmax equal "
+                f"at {res['agree']}/{res['compared']} with a top-2 margin > "
+                f"{FIRST_TOKEN_MARGIN}); cache errors "
+                + ", ".join(f"{k} {v:.4f}" for k, v in res["cache_errs"].items())
+                + " (with the whole prompt on every rank: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in res["tp_errs"].items())
+                + f"); the engine in {res['engine_s']:.2f} s (prefill "
+                f"{res['engine_prefill_s']:.3f} s), launches {res['launches']}")
     for arch in DP_RULES:
         model, params, prompts, out_ref, drops, launches, act_gb = ref[arch]
         res = [r[arch] for r in ranks]
@@ -6632,17 +6743,44 @@ def phase_dp_serving(torch, smi=""):
             raise AssertionError(f"[{arch} dp] no token had a margin to compare")
         del model, params
         ref[arch] = None
-    res = [r["zamba2-1.2b"] for r in ranks]
-    for r in res:
-        if r["digest"] != res[0]["digest"]:
-            raise AssertionError(f"[zamba2-1.2b batch 1 dp] rank {r['rank']}'s logits "
-                                 "differ from rank 0's")
-        if max(r["errs"]) > DP_BATCH1_TOL:
-            raise AssertionError(
-                f"[zamba2-1.2b batch 1 dp] rank {r['rank']}: max error {max(r['errs']):.4f} "
-                f"(tolerance {DP_BATCH1_TOL})")
-    log(f"[zamba2-1.2b batch 1 dp] logits equal on every rank, within {DP_BATCH1_TOL} x max "
-        f"|logit| of the no-mesh decode at every step")
+    for arch, (peak_gb, prefill_s, rows, stream) in seq_ref.items():
+        label = f"{arch} seq dp"
+        res = [r[f"{arch} seq"] for r in ranks]
+        for r in res:
+            bad = {k: v for k, v in r["cache_errs"].items()
+                   if v > max(DP_CACHE_TOL, DP_CACHE_TP_RATIO * r["tp_errs"][k])}
+            if r["digest"] != res[0]["digest"] or r["stream"] != res[0]["stream"]:
+                raise AssertionError(f"[{label}] rank {r['rank']}'s prefill logits or "
+                                     "stream differ from rank 0's")
+            if max(r["errs"]) > DP_BATCH1_TOL or bad or r["agree"] != r["compared"]:
+                raise AssertionError(
+                    f"[{label}] rank {r['rank']}: max logit error {max(r['errs']):.4f} "
+                    f"(tolerance {DP_BATCH1_TOL}), cache errors over {DP_CACHE_TOL} and "
+                    f"{DP_CACHE_TP_RATIO} x the whole-prompt run's: {bad}, "
+                    f"margin tokens {r['agree']}/{r['compared']} agree")
+            if r["peak_gb"] >= peak_gb:
+                raise AssertionError(f"[{label}] rank {r['rank']}: prefill peak "
+                                     f"{r['peak_gb']:.3f} GB, no mesh {peak_gb:.3f} GB")
+            if r["launches"] != {"sample_draw": DP_DECODE_STEPS}:
+                raise AssertionError(f"[{label}] rank {r['rank']}: launches {r['launches']}")
+            paths[f"dp_{arch}_seq_rank{r['rank']}"] = r["launches"]
+        div = next((j for j, (a, b) in enumerate(zip(res[0]["stream"], stream)) if a != b),
+                   None)
+        if div is not None:
+            top2 = torch.topk(rows[div], 2)
+            margin = float(top2.values[0] - top2.values[1])
+            if margin > FIRST_TOKEN_MARGIN:
+                raise AssertionError(f"[{label}] the engine's token {div} differs from the "
+                                     f"no-mesh stream's at a top-2 margin {margin:.3f}")
+        log(f"[{label}] prefill logits bitwise equal on every rank, the engine's streams "
+            f"equal; logits within {DP_BATCH1_TOL} x max |logit| of the no-mesh run's at the "
+            f"prefill and {DP_SEQ_CHECK_STEPS} decode steps, caches within {DP_CACHE_TOL} x max "
+            f"of its cut or {DP_CACHE_TP_RATIO} x the whole-prompt run's error, "
+            f"margin tokens agree; every rank's prefill peak below the no-mesh "
+            f"{peak_gb:.3f} GB (largest {max(r['peak_gb'] for r in res):.3f} GB); the "
+            f"engine's stream equal to the no-mesh stream "
+            + ("throughout" if div is None else f"up to token {div} (margin {margin:.3f})")
+            + f"; {DP_DECODE_STEPS} draw launches a rank")
     shutil.rmtree(tmp, ignore_errors=True)
     _phase_end("dp serving", t_phase)
     return paths
@@ -6876,8 +7014,8 @@ def main() -> int:
     free_device(torch)
     dp_paths = timed_phase(
         25, "serving on a (data 2, model 2) mesh: qwen2-moe-a2.7b with TP inside the "
-        "experts, qwen3-1.7b with the KV positions over model, zamba2-1.2b's batch-1 "
-        "decode with kv_seq / ssm_state over data, as processes on the card",
+        "experts, qwen3-1.7b with the KV positions over model, the sequence-parallel "
+        "prefill of zamba2-1.2b and mamba2-2.7b at 16k tokens, as processes on the card",
         phase_dp_serving, torch, smi)
     paths = {**knob_paths, **race_paths, **tp_paths, **family_tp_paths, **fixed_tp_paths,
              **dp_paths,

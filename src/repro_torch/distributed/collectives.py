@@ -20,8 +20,9 @@ loss reduces its sums over (`current_data()`), `mesh_axes(groups)` binds
 mesh axis names, as `shard_map` does, for
 `optim.compress.compressed_allgather_mean`, and `split_groups(groups)`
 installs, for the fixed-batch serving steps, the groups the logical axes
-"batch", "kv_seq" and "ssm_state" are split over (`split_group(name)`:
-the batch's rows, the KV cache's positions, the SSM state's columns).
+"batch", "kv_seq", "ssm_state" and "seq" are split over (`split_group(name)`:
+the batch's rows, the KV cache's positions, the SSM state's columns, a
+prompt's positions in the sequence-parallel prefill: `seq_split`).
 Outside those contexts (one device, a 1-wide axis) every site is the
 single-device code.
 
@@ -70,7 +71,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.distributed.sharding import ShardingRules, axis_sizes
+from repro_torch.distributed.sharding import ShardingRules, axis_sizes, uneven_block
 
 
 # the reference's collective kinds (`repro/launch/dryrun.py`), in its order
@@ -303,7 +304,8 @@ def split_groups(groups: Optional[Dict[str, Optional[AxisGroup]]]):
     """Install {logical axis: the group it is split over, or None} for the
     enclosed calls: the fixed-batch steps read "batch" (the MoE's decode
     capacity group spans the batch's rows), "kv_seq" (the KV cache's
-    positions) and "ssm_state" (the SSM state's columns)."""
+    positions), "ssm_state" (the SSM state's columns) and "seq" (a
+    prompt's positions, `seq_split`)."""
     return _installed("split", groups)
 
 
@@ -312,6 +314,51 @@ def split_group(name: str) -> Optional[AxisGroup]:
     (None: not split, or no groups installed)."""
     groups = getattr(_tls, "split", None)
     return None if groups is None else groups.get(name)
+
+
+class SeqSplit:
+    """A prompt of `total` positions split over `group` (the "seq" rule's
+    axes) in `sharding.uneven_block`'s blocks: the sequence-parallel
+    prefill's view of them.  `start` / `count` are this rank's block,
+    `width` the longest block's (ceil(total / size)); a block may be
+    short or empty.  Every gather here is one all-gather of the blocks
+    padded to `width`, the same bits on every rank."""
+
+    def __init__(self, group: AxisGroup, total: int):
+        self.group, self.total = group, total
+        self.width = -(-total // group.size)
+        self.start, self.count = uneven_block(total, group)
+        self.counts = [min(total, (r + 1) * self.width) - min(total, r * self.width)
+                       for r in range(group.size)]
+
+    def parts(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """Every rank's `x` (its block along `dim`, the other dims alike on
+        every rank), padded with zeros to `width` along `dim`, stacked in
+        rank order: (size, *padded shape)."""
+        pad = list(x.shape)
+        pad[dim] = self.width - x.shape[dim]
+        if pad[dim]:
+            x = torch.cat([x, x.new_zeros(pad)], dim)
+        return self.group._gather(x)
+
+    def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The whole sequence along `dim` from every rank's block `x`."""
+        parts = self.parts(x, dim)
+        return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts.unbind(0), self.counts)],
+                         dim)
+
+    def last(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole sequence's last row x[:, -1:] (from the rank whose
+        block holds position total - 1), on every rank."""
+        row = x[:, -1:] if self.count else x.new_zeros((x.shape[0], 1, *x.shape[2:]))
+        return self.group._gather(row)[(self.total - 1) // self.width]
+
+
+def seq_split(total: int) -> Optional[SeqSplit]:
+    """The `SeqSplit` of a prompt of `total` positions over the installed
+    "seq" group (`split_groups`), or None where the sequence is whole."""
+    group = split_group("seq")
+    return None if group is None else SeqSplit(group, total)
 
 
 def current() -> Optional[TensorParallel]:

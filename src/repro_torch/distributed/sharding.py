@@ -374,9 +374,9 @@ class LeafCut(NamedTuple):
 
 # ---------------------------------------------------------------------------
 # The fixed-batch serving cut: a rank's block of the batch, of the KV
-# cache's positions and of the SSM state's columns, each split over a group
-# (an `AxisGroup` of the mesh axes the logical axis names, or anything with
-# `rank` and `size`).
+# cache's positions, of the SSM state's columns and of a prompt's
+# positions, each split over a group (an `AxisGroup` of the mesh axes the
+# logical axis names, or anything with `rank` and `size`).
 # ---------------------------------------------------------------------------
 
 def local_block(n: int, group, what: str = "dim") -> Tuple[int, int]:
@@ -390,6 +390,20 @@ def local_block(n: int, group, what: str = "dim") -> Tuple[int, int]:
         raise ValueError(f"{what} ({n}) does not split into {group.size} blocks")
     count = n // group.size
     return group.rank * count, count
+
+
+def uneven_block(n: int, group) -> Tuple[int, int]:
+    """(start, count) of this rank's block of `n` positions split over
+    `group` (None: all of them) as GSPMD splits a dim its axis need not
+    divide: blocks of ceil(n / size), rank r's [r c, min(n, (r + 1) c)),
+    so the last blocks may be short or empty.  The activations of the
+    sequence-parallel prefill ("seq" over "data") take these blocks; caches
+    and parameters keep `local_block`'s even ones."""
+    if group is None or group.size == 1:
+        return 0, n
+    width = -(-n // group.size)
+    start = min(n, group.rank * width)
+    return start, min(n, start + width) - start
 
 
 def local_rows(n: int, group) -> Tuple[int, int]:

@@ -254,7 +254,7 @@ def _train_cell(model, cfg, shape, mesh, rules, train_cfg: TrainConfig) -> Dict[
 
 
 def _serve_cell(model, cfg, shape, mesh, rules) -> Dict[str, Any]:
-    rules = fixed_batch_rules(rules, mesh, prefill=shape.kind == "prefill")
+    rules = fixed_batch_rules(rules, mesh)
     sm = ServeMesh(mesh, rules)
     params = tree_map(_fresh, model.param_shapes())
     if sm.tp is not None:

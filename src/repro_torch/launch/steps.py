@@ -42,9 +42,12 @@ reference retraces them per prompt length.  On a (pod, data, model) mesh
 the engine runs them on every rank over its shards, its rows of the batch
 and its cache (`local_cache_shapes`) inside the rank's contexts
 (`ServeMesh`: the model axis' `TensorParallel` and the groups "batch",
-"kv_seq" and "ssm_state" are split over), under the caller's rules
+"kv_seq", "ssm_state" and "seq" are split over), under the caller's rules
 pruned for the mesh (`fixed_batch_rules`, which refuses a split this path
-does not run).
+does not run).  With "seq" over "data" (a batch too small to split over
+the data axes, `rules_for_shape`'s long_500k layout) the prefill is
+sequence-parallel: each rank runs its block of the prompt and gets the
+whole prompt's logits and its own part of the cache.
 
 `cost_dict` normalises a cost record, as the reference's does, for the
 dry run (`launch/dryrun.py`).
@@ -218,16 +221,15 @@ def local_cache_shapes(model, batch: int, max_seq: int,
 TP_SPLIT_AXES = ("heads", "kv_heads", "ffn", "experts", "vocab", "embed_vec",
                  "ssm_heads", "conv_dim")
 # the other splits of the fixed-batch steps: logical axis -> the sets of
-# wide mesh axes it may take (the serving layouts of the production meshes);
-# "seq" only in a decode step (its prefill is ROADMAP item 8b-v)
+# wide mesh axes it may take (the serving layouts of the production meshes)
 SERVE_SPLITS = {"batch": (["data"], ["pod"], ["pod", "data"]),
                 "kv_seq": (["model"], ["data"]), "ssm_state": (["data"],),
                 "expert_ffn": (["model"],), "seq": (["data"],)}
 # the groups the fixed-batch steps read (`distributed.collectives.split_group`)
-SPLIT_AXES = ("batch", "kv_seq", "ssm_state")
+SPLIT_AXES = ("batch", "kv_seq", "ssm_state", "seq")
 # logical axes of one tensor that may not take the same mesh axis
-_SAME_TENSOR = (("batch", "kv_seq"), ("batch", "ssm_state"), ("kv_seq", "kv_heads"),
-                ("experts", "expert_ffn"))
+_SAME_TENSOR = (("batch", "kv_seq"), ("batch", "ssm_state"), ("batch", "seq"),
+                ("kv_seq", "kv_heads"), ("experts", "expert_ffn"))
 
 
 def _wide(rules: ShardingRules, name: str, sizes) -> list:
@@ -236,19 +238,17 @@ def _wide(rules: ShardingRules, name: str, sizes) -> list:
     return [a for a in axes if sizes.get(a, 1) > 1]
 
 
-def fixed_batch_rules(rules: ShardingRules, mesh, prefill: bool = True) -> ShardingRules:
+def fixed_batch_rules(rules: ShardingRules, mesh) -> ShardingRules:
     """The caller's `rules` pruned for `mesh` (`prune_for_mesh`, as the
     reference's `jit_prefill_step` / `jit_serve_step` prune them) for the
     fixed-batch steps on it: the TP_SPLIT_AXES over "model" and the
     SERVE_SPLITS ("batch" over "data" / "pod" x "data", "kv_seq" over
     "model" or "data", "ssm_state" over "data", "expert_ffn" over "model",
-    and "seq" over "data" in a decode step: pass `prefill=False` for a rank
-    that only decodes).  "seq" split where a prefill runs raises
-    NotImplementedError naming ROADMAP item 8b-v (the sequence-parallel
-    prefill), any other split NotImplementedError naming the axis; two
-    logical axes of one tensor on the same mesh axis raise ValueError, as
-    does an indivisible split where the rank's shards are cut, as the
-    reference's placement does."""
+    "seq" over "data": the sequence-parallel prefill, in uneven blocks
+    where the axis does not divide the prompt).  Any other split raises
+    NotImplementedError naming the axis; two logical axes of one tensor
+    on the same mesh axis raise ValueError, as does an indivisible split
+    where the rank's shards are cut, as the reference's placement does."""
     rules = prune_for_mesh(rules, mesh)
     sizes = axis_sizes(mesh)
     for name, _ in rules.rules:
@@ -257,11 +257,6 @@ def fixed_batch_rules(rules: ShardingRules, mesh, prefill: bool = True) -> Shard
         if (not wide or name in ("seq_sharded", "zero")
                 or (name in TP_SPLIT_AXES and wide == ["model"])):
             continue
-        if name == "seq" and prefill:
-            raise NotImplementedError(
-                f"logical axis 'seq' is split over mesh axes {tuple(wide)}: a prefill "
-                "with the sequence split over ranks is the sequence-parallel prefill "
-                "(ROADMAP item 8b-v); the decode step alone runs this layout")
         if wide not in SERVE_SPLITS.get(name, ()):
             raise NotImplementedError(
                 f"logical axis {name!r} is split over mesh axes {tuple(wide)} of sizes "
@@ -282,7 +277,7 @@ class ServeMesh:
     """This rank's view of a (pod, data, model) mesh for the fixed-batch
     steps under `rules` (`fixed_batch_rules`'): `tp`, the model axis'
     `TensorParallel` (None where it is 1 wide), and `groups`, {"batch",
-    "kv_seq", "ssm_state": the `AxisGroup` of the mesh axes the rule
+    "kv_seq", "ssm_state", "seq": the `AxisGroup` of the mesh axes the rule
     splits it over, or None}; `contexts()` installs both for a step's
     body.  Building it is collective (every rank of the mesh builds it)."""
 
@@ -954,7 +949,8 @@ def prefill_step(model, params, tokens: torch.Tensor, max_seq: int,
     `max_seq` rows, Mamba2's carries, or both, and the encoder's cross
     K/V).  Inside a rank's `tensor_parallel` context it runs on the rank's
     shards, the cache at the rank's widths (`local_cache_shapes`), the
-    logits whole on every rank."""
+    logits whole on every rank; inside its `ServeMesh.contexts()` with
+    "seq" split, on its block of the prompt (the whole prompt is passed)."""
     return model.prefill(params, {"tokens": tokens, **(extras or {})}, max_seq)
 
 

@@ -51,6 +51,12 @@ needs over its own positions (all of them over the model axis, gathered
 first), and the partials are merged over the group by log-sum-exp in rank
 order in f32, rounded once (`_merge_partials`): the same bits on every
 rank.  The encoder-decoder's cross K / V split so too (`cross_attn_decode`).
+The prompt's split ("seq" over "data", the sequence-parallel prefill): a
+rank projects its block of the queries and keys at their global
+positions, all-gathers K / V over the group, and runs the reference's
+form for the whole key length with its queries' offset in the causal
+mask (`attn_forward(..., seq=)`); `cache_write` then fills its cache
+positions from the whole K / V as before.
 In training the projections' input enters the split region through
 `distributed.collectives`' `enter` (its gradient summed over the ranks);
 the q / k norm scales and the KV heads several ranks read get partial
@@ -162,9 +168,10 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
     hd = cfg.hd
     x = enter_if_sharded(x, "heads")
     # role-tagged: the plan's stage `qkv_proj` choice dispatches these
-    q = dense(p["wq"], x, role="qkv_proj").reshape(b, s, -1, hd)
-    k = dense(p["wk"], x, role="qkv_proj").reshape(b, s, -1, hd)
-    v = dense(p["wv"], x, role="qkv_proj").reshape(b, s, -1, hd)
+    # the head counts from the weights (a block of the prompt may be empty)
+    q = dense(p["wq"], x, role="qkv_proj").reshape(b, s, p["wq"]["w"].shape[-1] // hd, hd)
+    k = dense(p["wk"], x, role="qkv_proj").reshape(b, s, p["wk"]["w"].shape[-1] // hd, hd)
+    v = dense(p["wv"], x, role="qkv_proj").reshape(b, s, p["wv"]["w"].shape[-1] // hd, hd)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q)
         k = rms_norm(p["k_norm"], k)
@@ -202,15 +209,17 @@ _KV_CHUNK = 1024
 
 
 def _sdpa_direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                 q_per_kv: int) -> torch.Tensor:
+                 q_per_kv: int, q_offset: Optional[int] = None) -> torch.Tensor:
     """`repro.models.attention._sdpa_direct`: (B, Sq, H, D) x (B, Skv, Hkv,
-    D), GQA grouped, the causal mask aligned at the bottom right."""
+    D), GQA grouped, query i at key position `q_offset` + i in the causal
+    mask (default Skv - Sq: the mask aligned at the bottom right)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    off = skv - sq if q_offset is None else q_offset
     qg = q.reshape(b, sq, hkv, q_per_kv, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * (1.0 / math.sqrt(d))
     if causal:
-        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device).tril(skv - sq)
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device).tril(off)
         logits = torch.where(mask, logits, torch.full_like(logits, _ref.NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, sq, h, d)
@@ -237,26 +246,31 @@ def _chunk_body(causal: bool, start: int, qpos: torch.Tensor, qg: torch.Tensor,
 
 
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                  q_per_kv: int, kv_chunk: int = _KV_CHUNK) -> torch.Tensor:
+                  q_per_kv: int, kv_chunk: int = _KV_CHUNK,
+                  q_offset: Optional[int] = None) -> torch.Tensor:
     """`repro.models.attention._sdpa_chunked`: the online softmax over
     Skv / kv_chunk KV chunks (a Python loop where the reference scans),
     the carry in f32, each chunk's P·V product in V's dtype added to the
-    f32 accumulator, the output acc / max(l, 1e-30) in q's dtype.  Under
-    autograd (grad enabled and an input that requires it) each chunk body
-    is checkpointed, its logits recomputed in backward; otherwise it runs
-    as is and holds no graph."""
+    f32 accumulator, the output acc / max(l, 1e-30) in q's dtype.  Query i
+    sits at key position `q_offset` + i (default Skv - Sq, the bottom
+    right); causal, the chunks past the last query's position are skipped:
+    every key of theirs is masked for every query, so each would leave
+    the carry's bits as they are.  Under autograd (grad enabled and an
+    input that requires it) each chunk body is checkpointed, its logits
+    recomputed in backward; otherwise it runs as is and holds no graph."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if skv % kv_chunk:
         raise ValueError(f"Skv={skv} is not a multiple of the chunk {kv_chunk}")
+    off = skv - sq if q_offset is None else q_offset
     qg = q.reshape(b, sq, hkv, q_per_kv, d)
-    qpos = torch.arange(sq, device=q.device) + (skv - sq)
+    qpos = torch.arange(sq, device=q.device) + off
     m = torch.full((b, hkv, q_per_kv, sq), _ref.NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((b, hkv, q_per_kv, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, hkv, q_per_kv, sq, d), dtype=torch.float32, device=q.device)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    for start in range(0, skv, kv_chunk):
+    for start in range(0, min(skv, off + sq) if causal else skv, kv_chunk):
         body = bind(functools.partial(_chunk_body, causal, start, qpos))
         args = (qg, m, l, acc, k[:, start:start + kv_chunk],
                 v[:, start:start + kv_chunk])
@@ -278,28 +292,37 @@ def _kv_chunk_for(skv: int, target: int = _KV_CHUNK) -> int:
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-          q_per_kv: int) -> torch.Tensor:
+          q_per_kv: int, q_offset: Optional[int] = None) -> torch.Tensor:
     """`repro.models.attention._sdpa`: the chunked form from
     `_CHUNKED_KV_THRESHOLD` keys on where `_kv_chunk_for` gives more than
-    one chunk, the direct form otherwise."""
+    one chunk, the direct form otherwise; `q_offset`: the first query's
+    key position (default Skv - Sq)."""
     skv = k.shape[1]
     if skv >= _CHUNKED_KV_THRESHOLD:
         chunk = _kv_chunk_for(skv)
         if chunk and skv // chunk > 1:
-            return _sdpa_chunked(q, k, v, causal, q_per_kv, kv_chunk=chunk)
-    return _sdpa_direct(q, k, v, causal, q_per_kv)
+            return _sdpa_chunked(q, k, v, causal, q_per_kv, kv_chunk=chunk,
+                                 q_offset=q_offset)
+    return _sdpa_direct(q, k, v, causal, q_per_kv, q_offset)
 
 
 def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                  positions: Optional[torch.Tensor] = None, causal: bool = True,
                  kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 return_kv: bool = False):
+                 return_kv: bool = False, seq=None):
     """Full-sequence attention over x (B, S, d) -> (B, S, d), and with
     `return_kv` the (K, V) it built, each (B, S, Hkv, hd), for the cache.
     `kv_override` (K, V) makes it cross-attention: only the query is
     projected (`wq` with no role, q-norm, no RoPE) and every query sees
     every key.  The head counts are the projections' (a rank's own under
-    tensor parallelism, `wo`'s partial output summed over the ranks)."""
+    tensor parallelism, `wo`'s partial output summed over the ranks).
+
+    With `seq` (a `distributed.collectives.SeqSplit`: the sequence-parallel
+    prefill) x is the rank's block of the sequence, `positions` its global
+    ones: K / V are all-gathered over the group (one gather), the block's
+    queries attend causally to every key at or before their position in
+    the reference's form for the whole key length, and `return_kv` gives
+    the whole sequence's K / V."""
     b, s, _ = x.shape
     if kv_override is not None:
         q = dense(p["wq"], enter_if_sharded(x, "heads")).reshape(b, s, -1, cfg.hd)
@@ -309,9 +332,14 @@ def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         causal = False
     else:
         q, k, v = _project_qkv(p, cfg, x, positions)
+        if seq is not None:
+            kv = seq.gather(torch.cat([k, v], -1))
+            k, v = kv[..., :cfg.hd], kv[..., cfg.hd:]
     kr, vr = _heads_read(cfg, k, v)
-    out = _sdpa(q, kr, vr, causal, q.shape[2] // kr.shape[2])
-    y = reduce_if_sharded(dense(p["wo"], out.reshape(b, s, -1)), "heads")
+    out = _sdpa(q, kr, vr, causal, q.shape[2] // kr.shape[2],
+                None if seq is None or kv_override is not None else seq.start)
+    y = reduce_if_sharded(dense(p["wo"], out.reshape(b, s, out.shape[2] * out.shape[3])),
+                          "heads")
     return (y, (k, v)) if return_kv else y
 
 

@@ -51,6 +51,15 @@ its slices of them, and y = C · h, a sum over N, is summed over the group
 in rank order in f32 (`mamba_decode`); a prefill's final state is cut to
 the rank's columns (`local_state`).
 
+The sequence split ("seq" over "data", the sequence-parallel prefill of a
+batch of one): a rank runs its block of the prompt (`mamba_forward(...,
+seq=)`).  The conv continues from the raw inputs just before its block,
+gathered from the lower ranks (`_conv_halo`), and the scan from a zero
+state, its result corrected by the state the lower ranks' blocks leave
+(`ssd_split`: one all-gather of every block's final state and total
+decay, folded in rank order).  The carries it returns are the whole
+prompt's on every rank.
+
 Softplus is `jax.nn.softplus` as JAX computes it, logaddexp(x, 0) =
 max(x, 0) + log1p(exp(-|x|)), with no threshold branch: the dt of a padded
 row is forced to 0.0 after it (`mamba_chunk_forward`), which is what makes
@@ -236,6 +245,68 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     return y, h_prev
 
 
+def ssd_split(seq, x, dt, A, B, C, chunk: int):
+    """`ssd_chunked` of a whole sequence split over ranks, run on this
+    rank's block (`distributed.collectives.SeqSplit` `seq`; x (b, n, h, p),
+    dt (b, n, h), B, C (b, n, N)): -> (y of the block (b, n, h, p), the
+    whole sequence's final state (b, h, p, N), the same bits on every
+    rank).
+
+    The block is scanned from a zero state, in chunks of `chunk` (a block
+    of at most `chunk` rows is one chunk; a longer one is padded at its end
+    with dt = 0 rows, exact identities of the recurrence, to a whole number
+    of chunks).  SSD is exact under any chunking, so the block's own
+    chunks stand in for the whole sequence's.  Then one all-gather of every
+    rank's (final state S_j, total log-decay a_j = sum of dt·A over its
+    block) and the fold, in rank order, h <- h·exp(a_j) + S_j: over the
+    lower ranks it gives the block's true initial state h0, over all of
+    them the final state.  h0's term, C_t · (exp(cumsum of dt·A up to t)
+    h0), the term the scan's step 4 adds for a carried state, is added to
+    the block's outputs: the scan runs once."""
+    b, n, h, p = x.shape
+    if n:
+        q = min(chunk, n)
+        pad = -n % q
+        if pad:
+            x, dt, B, C = (torch.cat([t, t.new_zeros((b, pad, *t.shape[2:]))], 1)
+                           for t in (x, dt, B, C))
+        y, state = ssd_chunked(x, dt, A, B, C, chunk)
+        y, dt, C = y[:, :n], dt[:, :n], C[:, :n]
+        cum = torch.cumsum(dt * A, dim=1)                   # (b, n, h)
+        total = cum[:, -1]
+    else:
+        y = x.new_zeros(x.shape)
+        state = x.new_zeros((b, h, p, B.shape[-1]))
+        cum, total = dt.new_zeros((b, 0, h)), dt.new_zeros((b, h))
+    parts = seq.group._gather(torch.cat([state.reshape(b, -1), total], -1))
+    h_run = torch.zeros_like(state)
+    h0 = h_run
+    for j, part in enumerate(parts.unbind(0)):
+        if j == seq.group.rank:
+            h0 = h_run
+        h_run = (h_run * torch.exp(part[:, -h:])[..., None, None]
+                 + part[:, :-h].reshape(state.shape))
+    y = y + torch.einsum("bsn,bhpn->bshp", C, h0) * torch.exp(cum)[..., None]
+    return y, h_run
+
+
+def _conv_halo(seq, xbc_raw: torch.Tensor, w1: int):
+    """(the last `w1` raw conv inputs before this rank's block, those of
+    the whole sequence), each (B, w1, C), zero-padded at the front where
+    fewer precede: from one all-gather of every rank's last `w1` rows (a
+    halo may reach back over several short blocks)."""
+    b, n, c = xbc_raw.shape
+    tail = xbc_raw[:, max(0, n - w1):]
+    parts = seq.parts(tail, 1).unbind(0)
+    zeros = xbc_raw.new_zeros((b, w1, c))
+
+    def before(r):
+        rows = [part[:, :min(w1, cnt)] for part, cnt in zip(parts[:r], seq.counts)]
+        return torch.cat([zeros, *rows], 1)[:, -w1:]
+
+    return before(seq.group.rank), before(seq.group.size)
+
+
 def _ssd_inputs(p: Params, cfg: ModelConfig, xbc: torch.Tensor):
     d_in, nh, _ = tp_dims(cfg, current())
     n, hd = cfg.ssm_state, cfg.ssm_head_dim
@@ -253,7 +324,7 @@ def _gated_out(p: Params, cfg: ModelConfig, y: torch.Tensor, xs: torch.Tensor,
     projection (under tensor parallelism: see the module docstring)."""
     b, s = z.shape[:2]
     y = y + xs.float() * p["D"].float()[:, None]
-    y = y.reshape(b, s, -1).to(dtype) * F.silu(z)
+    y = y.reshape(b, s, z.shape[-1]).to(dtype) * F.silu(z)
     tp = current()
     if tp is not None and tp.sharded("ssm_heads"):
         y = tp.all_gather(y, -1)
@@ -266,21 +337,33 @@ def _gated_out(p: Params, cfg: ModelConfig, y: torch.Tensor, xs: torch.Tensor,
 
 
 def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                  return_state: bool = False):
+                  return_state: bool = False, seq=None):
     """x (B, S, d) -> (B, S, d), and with `return_state` the decode carries
     (conv window (B, W-1, conv channels), SSM state (B, nh, hd, n) f32).
     Under tensor parallelism the layer runs at `tp_dims` on the rank's
-    head-aligned slice and the carries are the rank's."""
+    head-aligned slice and the carries are the rank's.
+
+    With `seq` (a `distributed.collectives.SeqSplit`: the sequence-parallel
+    prefill) x is the rank's block of the sequence: the conv reads the
+    W-1 raw inputs before the block through `_causal_conv_carry` (zeros
+    before position 0; `_conv_halo`), the scan is `ssd_split`, and the
+    carries are the whole sequence's, the same on every rank."""
     zxbcdt = dense(p["in_proj"], enter_if_sharded(x, "ssm_heads"))
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
-    xbc = _causal_conv(p["conv_w"], p["conv_b"], xbc_raw)
+    w1 = cfg.conv_width - 1
+    if seq is None:
+        xbc = _causal_conv(p["conv_w"], p["conv_b"], xbc_raw)
+        conv = xbc_raw[:, -w1:, :]
+    else:
+        halo, conv = _conv_halo(seq, xbc_raw, w1)
+        xbc = _causal_conv_carry(p["conv_w"], p["conv_b"], xbc_raw, halo)
     xs, Bm, Cm, A = _ssd_inputs(p, cfg, xbc)
     dt = softplus(dt.float() + p["dt_bias"].float())
-    y, h_final = ssd_chunked(xs.float(), dt, A, Bm.float(), Cm.float(),
-                             cfg.ssm_chunk)
+    scan = ssd_chunked if seq is None else functools.partial(ssd_split, seq)
+    y, h_final = scan(xs.float(), dt, A, Bm.float(), Cm.float(), cfg.ssm_chunk)
     out = _gated_out(p, cfg, y, xs, z, x.dtype, None)
     if return_state:
-        return out, (xbc_raw[:, -(cfg.conv_width - 1):, :], h_final)
+        return out, (conv, h_final)
     return out
 
 

@@ -36,8 +36,14 @@ is that of the whole batch, and each pair's place in its expert's queue
 is offset by the lower ranks' counts of that expert (an exclusive prefix
 sum over the batch group), so each rank keeps and drops exactly the pairs
 the one-device group does and runs only its own tokens.
+With the sequence split ("seq" over "data", the sequence-parallel
+prefill) a prefill group, one row's sequence, spans the ranks: the
+capacity is that of the whole sequence, and each pair's place is offset,
+row by row, by the lower ranks' counts of its expert (the same prefix
+sum over the "seq" group), since the lower ranks hold the earlier tokens.
 `record_drops()` collects each decode call's kept pairs of the whole
-group, for the differential tests.
+group, `record_drops(prefill=True)` each prefill call's, for the
+differential tests.
 """
 
 from __future__ import annotations
@@ -150,28 +156,33 @@ def moe_route(p: Params, cfg: ModelConfig, x: torch.Tensor):
     return flat_i, pos, top_p.to(x.dtype).reshape(b, s * k)
 
 
-# the decode calls' kept masks while `record_drops` is on (a module
-# global: the serving steps run on the caller's thread)
+# the kept masks while `record_drops` is on, and whether it records the
+# prefill calls (module globals: the serving steps run on the caller's
+# thread)
 _drops: Optional[List[torch.Tensor]] = None
+_drops_prefill = False
 
 
 @contextlib.contextmanager
-def record_drops():
+def record_drops(prefill: bool = False):
     """Collect, for every decode call of `moe_apply` in the enclosed calls,
     the (T,) bool mask of the whole capacity group's (token, choice) pairs
     that were kept (pairs in t * k + j order, the whole batch's even where
-    a rank holds some rows: gathered over the batch group); -> the list,
-    in call order."""
-    global _drops
-    prev, _drops = _drops, []
+    a rank holds some rows: gathered over the batch group); with `prefill`,
+    for every prefill call instead, the (B, S * k) masks of its groups
+    (the whole sequence's even where a rank holds a block of it: gathered
+    over the "seq" group); -> the list, in call order."""
+    global _drops, _drops_prefill
+    prev, _drops = (_drops, _drops_prefill), []
+    _drops_prefill = prefill
     try:
         yield _drops
     finally:
-        _drops = prev
+        _drops, _drops_prefill = prev
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              act: str = "silu") -> torch.Tensor:
+              act: str = "silu", seq=None) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  Groups are sequences; at S == 1 (decode)
     the whole batch is one group.  Expert products are batched matmuls
     over (E, B * capacity, d) buffers in x's dtype (the reference runs
@@ -180,22 +191,34 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     "experts" is split over a tensor-parallel axis, p's expert stacks are
     the rank's E / tp experts, where "expert_ffn" is, their slices of
     the expert width; with the batch split the decode group spans every
-    rank's rows (see the module docstring)."""
+    rank's rows, with `seq` (a `distributed.collectives.SeqSplit`: x is
+    the rank's block of each row's sequence) a prefill group spans every
+    rank's block (see the module docstring)."""
     b, s, d = x.shape
-    squeeze = s == 1
+    squeeze = s == 1 and seq is None
     if squeeze:
         x = x.reshape(1, b, d)
         b, s = 1, b
     k = cfg.top_k
     batch = split_group("batch") if squeeze else None
-    cap = moe_capacity(cfg, s * (1 if batch is None else batch.size))
+    cap = moe_capacity(cfg, seq.total if seq is not None else
+                       s * (1 if batch is None else batch.size))
     flat_i, pos, weights = moe_route(p, cfg, x)
     if batch is not None:
         counts = Fn.one_hot(flat_i[0], cfg.n_experts).sum(0)
         pos = pos + batch.exclusive_prefix_sum(counts)[flat_i]
+    if seq is not None:                                  # row by row of the batch
+        counts = Fn.one_hot(flat_i, cfg.n_experts).sum(1)             # (B, E)
+        pos = pos + seq.group.exclusive_prefix_sum(counts).gather(1, flat_i)
     keep = pos < cap
-    if squeeze and _drops is not None:
-        _drops.append((keep if batch is None else batch._gather(keep)).reshape(-1).cpu())
+    if _drops is not None and squeeze != _drops_prefill:
+        if batch is not None:
+            keep_all = batch._gather(keep)
+        elif seq is not None:
+            keep_all = seq.gather(keep.reshape(b, s, k))
+        else:
+            keep_all = keep
+        _drops.append((keep_all.reshape(-1) if squeeze else keep_all.reshape(b, -1)).cpu())
 
     # the rank's experts [lo, lo + e): all of them on one device
     tp = current()

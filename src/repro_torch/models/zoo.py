@@ -56,7 +56,14 @@ rows of the batch ("batch"), its block of the KV positions ("kv_seq") and
 of the SSM state's columns ("ssm_state"): `init_cache(batch, max_seq)`
 takes the whole batch and sequence and gives the rank's cut of them,
 prefill writes the rank's part of what it computes, and the decode steps
-merge attention and C · h over the groups (`attention`, `mamba`).
+merge attention and C · h over the groups (`attention`, `mamba`).  Where
+"seq" is split (the sequence-parallel prefill of a replicated batch) each
+prefill runs the rank's block of the prompt at its global positions
+(`distributed.collectives.SeqSplit`): the SSD's state folded across the
+ranks and the conv's halo (`mamba`), attention over every rank's K / V
+(`attention`), the MoE's sequence groups across the ranks (`mlp`), and
+the last position's logits from the rank that holds it, the same bits on
+every rank.
 
 The vision patches and audio frames are stubs, as in the reference: the
 batch carries pre-computed `vision_embeds` (B, nv, d) / `audio_embeds`
@@ -74,7 +81,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import bind, current, split_group
+from repro_torch.distributed.collectives import bind, current, seq_split, split_group
 from repro_torch.distributed.sharding import LeafCut, is_axes, local_rows, map_axes
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
@@ -315,6 +322,26 @@ def _whole(rows: int) -> int:
     return rows * (1 if group is None else group.size)
 
 
+def _block_tokens(tokens: torch.Tensor, seq) -> torch.Tensor:
+    """The rank's block of a prompt's tokens (B, S) (all of them with no
+    `seq`, a `distributed.collectives.SeqSplit`)."""
+    return tokens if seq is None else tokens[:, seq.start:seq.start + seq.count]
+
+
+def _block_positions(b: int, s: int, seq, device) -> torch.Tensor:
+    """The global positions (B, s) of the rank's block of a prompt."""
+    start = 0 if seq is None else seq.start
+    return torch.arange(start, start + s, device=device).expand(b, s)
+
+
+def _last_normed(norm, x: torch.Tensor, seq) -> torch.Tensor:
+    """`norm` of the prompt's last position (B, 1, d): from the rank whose
+    block holds it, the same bits on every rank, where `seq` splits it."""
+    if seq is None:
+        return norm(x)[:, -1:]
+    return norm(seq.last(x))
+
+
 def gather_cut(cut: LeafCut, local: torch.Tensor, tp) -> torch.Tensor:
     """The whole leaf from every rank's model-axis shard `local` under
     `cut` (collective over `tp`'s group): equal blocks concatenated in rank
@@ -520,10 +547,10 @@ class DecoderLM(_StackedLM):
             "lm_head": {"w": ("embed_vec", "vocab")},
         }
 
-    def _mlp(self, bp: Params, x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, bp: Params, x: torch.Tensor, seq=None) -> torch.Tensor:
         h = _norm(self.cfg, bp["mlp_norm"], x)
         if self.cfg.family == "moe":
-            return x + F.moe_apply(bp["moe"], self.cfg, h, self.cfg.act)
+            return x + F.moe_apply(bp["moe"], self.cfg, h, self.cfg.act, seq)
         return x + F.mlp_apply(bp["mlp"], h, self.cfg.act)
 
     # ------------------------------------------------------------ inputs
@@ -546,16 +573,30 @@ class DecoderLM(_StackedLM):
         pw = torch.where(is_vis, idx % grid, t_text)
         return torch.stack([pt, ph, pw], -1).expand(b, s, 3)
 
-    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]):
+    def _vision(self, batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        return batch.get("vision_embeds") if self.cfg.family == "vlm" else None
+
+    def _seq_len(self, batch: Dict[str, torch.Tensor]) -> int:
+        """The length of the embedded sequence (`_embed_inputs`)."""
+        vis = self._vision(batch)
+        s = batch["tokens"].shape[1]
+        return s if vis is None else max(s, vis.shape[1])
+
+    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor], seq=None):
         """The token embeddings (B, S, d); for the vlm with
         batch["vision_embeds"] (B, nv, d) those replace the first nv rows
         (as the reference concatenates them: a batch shorter than nv comes
-        out nv rows long)."""
-        cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
-        if cfg.family == "vlm" and "vision_embeds" in batch:
-            vis = batch["vision_embeds"]
-            x = torch.cat([vis.to(x.dtype), x[:, vis.shape[1]:]], 1)
+        out nv rows long).  With `seq` (a `distributed.collectives.SeqSplit`
+        of `_seq_len`) the rank's block of those rows: the vision rows of
+        global positions 0..nv-1 that fall in it, then its tokens'."""
+        vis = self._vision(batch)
+        lo, hi = (0, self._seq_len(batch)) if seq is None else (seq.start,
+                                                                seq.start + seq.count)
+        nv = 0 if vis is None else vis.shape[1]
+        x = embed(params["embed"], batch["tokens"][:, max(lo, nv):max(hi, nv)],
+                  torch_dtype(self.cfg.dtype))
+        if nv:
+            x = torch.cat([vis[:, lo:min(hi, nv)].to(x.dtype), x], 1)
         return x
 
     # -------------------------------------------------------- training
@@ -598,22 +639,28 @@ class DecoderLM(_StackedLM):
                 max_seq: int):
         """Run the whole prompt batch["tokens"] (B, S) (with the vlm's
         batch["vision_embeds"]), build a cache of `max_seq` rows holding
-        its K/V; -> (last-position logits (B, 1, V), cache)."""
+        its K/V; -> (last-position logits (B, 1, V), cache).  Where the
+        "seq" group splits the prompt (the sequence-parallel prefill) the
+        rank runs its block of it (`SeqSplit`), the logits and the cache
+        those of the whole prompt."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
+        total = self._seq_len(batch)
+        seq = seq_split(total)
+        x = self._embed_inputs(params, batch, seq)
         b, s, _ = x.shape
-        positions = self._position_ids(b, torch.arange(s, device=x.device))
+        start = 0 if seq is None else seq.start
+        positions = self._position_ids(b, torch.arange(start, start + s, device=x.device))
         cache = self.init_cache(_whole(b), max_seq, x.device, current())
         for i, bp in enumerate(self._layers(params)):
             h = _norm(cfg, bp["attn_norm"], x)
             y, (k, v) = A.attn_forward(bp["attn"], cfg, h, positions=positions,
-                                       causal=True, return_kv=True)
+                                       causal=True, return_kv=True, seq=seq)
             A.cache_write(cache["k"][i], k)
             A.cache_write(cache["v"][i], v)
-            x = self._mlp(bp, x + y)
-        x = _norm(cfg, params["final_norm"], x)
-        cache["lengths"].fill_(s)
-        return lm_head_logits(params["lm_head"], x[:, -1:]), cache
+            x = self._mlp(bp, x + y, seq)
+        x = _last_normed(functools.partial(_norm, cfg, params["final_norm"]), x, seq)
+        cache["lengths"].fill_(total)
+        return lm_head_logits(params["lm_head"], x), cache
 
     def decode_step(self, params: Params, cache: Dict[str, Any],
                     tokens: torch.Tensor):
@@ -781,23 +828,28 @@ class MambaLM(_StackedLM):
                 max_seq: int):
         """The whole prompt batch["tokens"] (B, S) through the SSD scan (S
         at most `ssm_chunk` or a multiple of it); -> (last-position logits
-        (B, 1, V), the carries after it)."""
+        (B, 1, V), the carries after it).  Where the "seq" group splits the
+        prompt the rank runs its block (`mamba.mamba_forward(..., seq=)`),
+        the logits and the carries those of the whole prompt."""
         del max_seq
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
-        b, s, _ = x.shape
+        total = batch["tokens"].shape[1]
+        seq = seq_split(total)
+        x = embed(params["embed"], _block_tokens(batch["tokens"], seq),
+                  torch_dtype(cfg.dtype))
+        b = x.shape[0]
         convs, hs = [], []
         for bp in self._layers(params):
             h = rms_norm(bp["norm"], x)
             y, (conv, hstate) = M.mamba_forward(bp["mamba"], cfg, h,
-                                                return_state=True)
+                                                return_state=True, seq=seq)
             x = x + y
             convs.append(conv.float())
             hs.append(M.local_state(cfg, hstate))
-        x = rms_norm(params["final_norm"], x)
+        x = _last_normed(functools.partial(rms_norm, params["final_norm"]), x, seq)
         cache = {"conv": torch.stack(convs), "ssm": torch.stack(hs),
-                 "lengths": torch.full((b,), s, dtype=torch.int32, device=x.device)}
-        return lm_head_logits(params["lm_head"], x[:, -1:]), cache
+                 "lengths": torch.full((b,), total, dtype=torch.int32, device=x.device)}
+        return lm_head_logits(params["lm_head"], x), cache
 
     def decode_step(self, params: Params, cache: Dict[str, Any],
                     tokens: torch.Tensor):
@@ -1017,12 +1069,18 @@ class HybridLM(_StackedLM):
                 max_seq: int):
         """The whole prompt batch["tokens"] (B, S) (S at most `ssm_chunk` or
         a multiple of it); -> (last-position logits (B, 1, V), the carries
-        and the shared block's K / V after it)."""
+        and the shared block's K / V after it).  Where the "seq" group
+        splits the prompt the rank runs its block: the Mamba2 layers as
+        `MambaLM.prefill` runs them, the shared block's attention over every
+        rank's K / V at the block's global positions."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        total = batch["tokens"].shape[1]
+        seq = seq_split(total)
+        x = embed(params["embed"], _block_tokens(batch["tokens"], seq),
+                  torch_dtype(cfg.dtype))
         x0 = x
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = _block_positions(b, s, seq, x.device)
         kv = A.init_cache(cfg, b, max_seq, self.n_shared_uses,
                           torch_dtype(cfg.dtype), x.device, current())
         layers, sp = self._layers(params), params["shared"]
@@ -1030,7 +1088,7 @@ class HybridLM(_StackedLM):
 
         def attend(h):
             y, (k, v) = A.attn_forward(sp["attn"], cfg, h, positions=positions,
-                                       causal=True, return_kv=True)
+                                       causal=True, return_kv=True, seq=seq)
             A.cache_write(kv["k"][use], k)
             A.cache_write(kv["v"][use], v)
             return y
@@ -1040,7 +1098,7 @@ class HybridLM(_StackedLM):
             for bp in layers[off:off + gsize]:
                 h = _norm(cfg, bp["norm"], x)
                 y, (conv, hstate) = M.mamba_forward(bp["mamba"], cfg, h,
-                                                    return_state=True)
+                                                    return_state=True, seq=seq)
                 x = x + y
                 convs.append(conv.float())
                 hs.append(M.local_state(cfg, hstate))
@@ -1048,11 +1106,11 @@ class HybridLM(_StackedLM):
             if gsize == cfg.attn_every:
                 x = self._shared_apply(sp, x, x0, attend)
                 use += 1
-        x = _norm(cfg, params["final_norm"], x)
+        x = _last_normed(functools.partial(_norm, cfg, params["final_norm"]), x, seq)
         cache = {"conv": torch.stack(convs), "ssm": torch.stack(hs),
                  "k": kv["k"], "v": kv["v"],
-                 "lengths": torch.full((b,), s, dtype=torch.int32, device=x.device)}
-        return lm_head_logits(params["lm_head"], x[:, -1:]), cache
+                 "lengths": torch.full((b,), total, dtype=torch.int32, device=x.device)}
+        return lm_head_logits(params["lm_head"], x), cache
 
     def decode_step(self, params: Params, cache: Dict[str, Any],
                     tokens: torch.Tensor):
@@ -1263,13 +1321,19 @@ class EncDecLM(_StackedLM):
                 max_seq: int):
         """Encode batch["audio_embeds"], then run the whole prompt
         batch["tokens"] (B, S); -> (last-position logits (B, 1, V), a cache
-        of `max_seq` self-attention rows and each layer's cross K / V)."""
+        of `max_seq` self-attention rows and each layer's cross K / V).
+        Where the "seq" group splits the prompt the rank runs its block of
+        the decoder (self-attention over every rank's K / V); the encoder
+        and the cross K / V stay whole on every rank, as the reference
+        splits no encoder activation."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         enc = self.encode(params, batch["audio_embeds"])
-        x = embed(params["embed"], batch["tokens"], dtype)
+        total = batch["tokens"].shape[1]
+        seq = seq_split(total)
+        x = embed(params["embed"], _block_tokens(batch["tokens"], seq), dtype)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = _block_positions(b, s, seq, x.device)
         kv = A.init_cache(cfg, b, max_seq, cfg.n_layers, dtype, x.device, current())
         eks, evs = [], []
         for i, bp in enumerate(unbind_layers(params["decoder"])):
@@ -1278,15 +1342,15 @@ class EncDecLM(_StackedLM):
             evs.append(A.local_positions(ev.to(dtype)))
             h = _norm(cfg, bp["self_norm"], x)
             y, (k, v) = A.attn_forward(bp["self_attn"], cfg, h, positions=positions,
-                                       causal=True, return_kv=True)
+                                       causal=True, return_kv=True, seq=seq)
             A.cache_write(kv["k"][i], k)
             A.cache_write(kv["v"][i], v)
             x = self._cross_mlp(bp, x + y, ek, ev)
-        x = _norm(cfg, params["final_norm"], x)
+        x = _last_normed(functools.partial(_norm, cfg, params["final_norm"]), x, seq)
         cache = {"k": kv["k"], "v": kv["v"], "ek": torch.stack(eks),
                  "ev": torch.stack(evs),
-                 "lengths": torch.full((b,), s, dtype=torch.int32, device=x.device)}
-        return lm_head_logits(params["lm_head"], x[:, -1:]), cache
+                 "lengths": torch.full((b,), total, dtype=torch.int32, device=x.device)}
+        return lm_head_logits(params["lm_head"], x), cache
 
     def decode_step(self, params: Params, cache: Dict[str, Any],
                     tokens: torch.Tensor):

@@ -37,7 +37,14 @@ its rows' tokens with their keys in the whole batch, and all-gathers the
 tokens over the batch group, so every rank returns every request's
 stream; the ranks of one block of rows hold the same logits and draw the
 same tokens.  The KV cache's positions may split over "model" at decode
-("kv_seq") and the experts' width over "model" ("expert_ffn").
+("kv_seq") and the experts' width over "model" ("expert_ffn").  Where the
+batch does not split over the data axes (`rules_for_shape`'s long_500k
+layout: the batch replicated, "seq", "kv_seq" and "ssm_state" over
+"data") the prefill is sequence-parallel: every rank passes the whole
+padded batch, the model runs the rank's block of the prompt (uneven
+blocks where "data" does not divide it), and every rank gets the whole
+prompt's logits, the same bits, and its own part of the cache; the
+decode steps then merge over the KV positions and SSM state columns.
 `ServeEngine` passes the mesh and rules to whichever engine it routes to.
 """
 
@@ -82,8 +89,9 @@ class FixedBatchEngine:
     model.init_serving(gen, tp=tp)`.  `rules` (DEFAULT_RULES when omitted)
     are taken as given and pruned for `mesh`, as the reference's engine
     takes them: an indivisible split (a batch that does not split over
-    the data axes included) raises ValueError, the sequence split over
-    ranks NotImplementedError (its prefill is ROADMAP item 8b-v)."""
+    the data axes included) raises ValueError, a split the fixed-batch
+    steps do not run NotImplementedError (`fixed_batch_rules`); the
+    sequence over "data" runs the sequence-parallel prefill."""
 
     def __init__(self, model, params, cfg: ServeConfig,
                  extras: Optional[Dict[str, Any]] = None,

@@ -1,7 +1,8 @@
 """The serving layouts of the production meshes (the fixed-batch engine
 with the batch over "data" / "pod" x "data", the KV cache's positions over
 "model", TP inside the experts, the batch-1 decode with "kv_seq" /
-"ssm_state" over "data") against the JAX package, on the CPU.
+"ssm_state" over "data", the sequence-parallel prefill) against the JAX
+package, on the CPU.
 
   * two gloo worlds of 4 CPU processes side by side: (data 2, model 2)
     and (pod 2, data 2, model 1).  Six tiny f32 models (dense, moe, vlm,
@@ -25,17 +26,29 @@ with the batch over "data" / "pod" x "data", the KV cache's positions over
       rank's cache after them the cut of JAX's;
     - the (pod, data) group: one group of 4 ranked pod-major, its gather
       in that order;
+    - the sequence-parallel prefill of every family under the long_500k
+      layout at (data 2, model 2) (the batch replicated, "seq" / "kv_seq"
+      / "ssm_state" over "data"): FixedBatchEngine at batch 1 and at a
+      left-padded batch of 3 with the greedy streams of the JAX engine on
+      one device (run in a JAX process of its own beside the worlds);
+      `prefill_step` at SEQ_LENS, whose blocks are whole chunks of the
+      ssd, 1.5 chunks, uneven (13 over 2) and shorter than the conv's
+      W-1: the logits and each rank's cache within 1e-5 x max of the JAX
+      prefill's (cut by `local_cache`); the moe's prefill drops pair for
+      pair; the ssm's per-rank FLOPs at most SEQ_FLOPS_MAX of the same
+      rules' with "seq" whole;
   * `local_rows` and `local_cache` against the reference's
     `NamedSharding` slices (`devices_indices_map` on forced host devices,
     in a JAX subprocess): the batch, KV positions, SSM state columns and
     split heads of every cache leaf, for every device of three meshes.
 
-Budget: about 120 s alone (the children run with OMP_NUM_THREADS=1).
+Budget: about 85 s alone (the children run with OMP_NUM_THREADS=1).
 """
 
 import dataclasses
 import json
 import os
+import pickle
 import subprocess
 import sys
 import textwrap
@@ -90,6 +103,11 @@ RUNS = {"dm": [(f, None) for f in MODELS] + [("moe", "expert_ffn"), ("dense", "k
         "pdm": [("dense", None), ("moe", None)]}
 BATCH1 = ("ssm", "hybrid")
 BATCH1_PROMPT, BATCH1_SEQ, BATCH1_STEPS = 32, 64, 4
+# the sequence-parallel prefill's prompts at data 2: blocks of 16 (one
+# chunk of the ssd), 24 (1.5 chunks), 7 / 6 (uneven) and 3 / 2 (the second
+# shorter than the conv's W-1 = 3; the vlm's 8 vision rows make it 4 / 4)
+SEQ_LENS = (32, 48, 13, 5)
+SEQ_FLOPS_MAX = 0.65                    # a rank's share of the whole prefill's FLOPs
 LOGIT_RTOL = 1e-5                       # x max |logit|: f32, the reference's step
 CHILD_TIMEOUT_S = 300
 
@@ -144,8 +162,8 @@ _CHILD = textwrap.dedent("""
     from repro_torch.distributed.collectives import AxisGroup
     from repro_torch.distributed.sharding import local_cache
     from repro_torch.launch.mesh import init_file_world, make_mesh
-    from repro_torch.launch.steps import (ServeMesh, fixed_batch_rules, rules_for_shape,
-                                          serve_step)
+    from repro_torch.launch.steps import (ServeMesh, fixed_batch_rules, prefill_step,
+                                          rules_for_shape, serve_step)
     from repro_torch.configs import SHAPES
     from repro_torch.models import build_model
     from repro_torch.models.mlp import record_drops
@@ -217,7 +235,7 @@ _CHILD = textwrap.dedent("""
         model, sp = model_of(name)
         cfg = model.cfg
         shape = dataclasses.replace(SHAPES["long_500k"], seq_len=job["batch1_seq"])
-        rules = fixed_batch_rules(rules_for_shape(cfg, shape, mesh), mesh, prefill=False)
+        rules = fixed_batch_rules(rules_for_shape(cfg, shape, mesh), mesh)
         sm = ServeMesh(mesh, rules)
         params = model.tp_local_params(sp, sm.tp) if sm.tp else sp
         whole = {k: v for k, v in load(job["batch1"][name]).items()}
@@ -235,12 +253,63 @@ _CHILD = textwrap.dedent("""
                           ("batch", "kv_seq", "ssm_state", "seq", "heads", "kv_heads",
                            "ssm_heads", "conv_dim")}}
 
-    out = {"runs": {}, "batch1": {}}
+    def seq_prompts(vocab):
+        return [((np.arange(n) * 7 + 3 + i) % vocab).astype(np.int32)
+                for i, n in enumerate(job["seq_lens"])]
+
+    def seq_run(name):
+        # the sequence-parallel prefill: FixedBatchEngine at batch 1 and at
+        # a replicated batch of 3 under the long_500k layout, prefill_step
+        # at every prompt length, and (ssm) the prefill's FLOPs
+        from torch.utils.flop_counter import FlopCounterMode
+
+        model, sp = model_of(name)
+        cfg = model.cfg
+        extras = job["extras"].get(name)
+        extras = {k: np.load(v) for k, v in extras.items()} if extras else None
+        res = {"streams": {}, "drops": {}, "rules": {}}
+        for b in (3, 1):
+            shape = dataclasses.replace(SHAPES["long_500k"], seq_len=job["batch1_seq"],
+                                        global_batch=b)
+            scfg = ServeConfig(batch_size=b, max_seq=job["batch1_seq"],
+                               max_new_tokens=job["serve"]["max_new_tokens"])
+            eng = FixedBatchEngine(model, lambda tp: model.tp_local_params(sp, tp) if tp
+                                   else sp, scfg, extras, device="cpu", mesh=mesh,
+                                   rules=rules_for_shape(cfg, shape, mesh))
+            for p in seq_prompts(cfg.vocab)[:b if b > 1 else None]:
+                eng.submit(p)
+            with record_drops(prefill=True) as drops:
+                done = eng.run()
+            res["streams"][b] = {str(r.rid): [int(t) for t in r.output] for r in done}
+            res["drops"][b] = [k.tolist() for k in drops]
+            res["rules"][b] = {a: eng.rules.lookup(a) for a in
+                               ("batch", "seq", "kv_seq", "ssm_state")}
+        res["prefill"] = []
+        for p in seq_prompts(cfg.vocab):
+            with eng.serve_mesh.contexts():
+                logits, cache = prefill_step(model, eng.params, torch.as_tensor(p[None]),
+                                             job["batch1_seq"], eng.extras)
+            res["prefill"].append({"logits": logits.reshape(-1).tolist(),
+                                   "cache": {k: v.float().tolist() for k, v in cache.items()}})
+        res["coords"] = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        if name == "ssm":
+            toks = torch.as_tensor(seq_prompts(cfg.vocab)[0][None]).repeat(1, 2)
+            res["flops"] = {}
+            for key, rules in (("seq", eng.rules), ("whole", eng.rules.replace(seq=None))):
+                sm = ServeMesh(mesh, fixed_batch_rules(rules, mesh))
+                with FlopCounterMode(display=False) as fc, sm.contexts():
+                    prefill_step(model, eng.params, toks, job["batch1_seq"])
+                res["flops"][key] = fc.get_total_flops()
+        return res
+
+    out = {"runs": {}, "batch1": {}, "seq": {}}
     for name, variant in job["runs"][tag]:
         out["runs"][f"{name}/{variant}"] = serve(name, variant)
     if tag == "dm":
         for name in job["batch1_models"]:
             out["batch1"][name] = batch1(name)
+        for name in job["models"]:
+            out["seq"][name] = seq_run(name)
     if tag == "pdm":
         g = AxisGroup.from_mesh(mesh, ("pod", "data"))
         out["group"] = {"rank": g.rank, "size": g.size,
@@ -297,6 +366,36 @@ _JAX_SLICES = textwrap.dedent("""
         out[key] = {"leaves": leaves, "rules": {k: v for k, v in rules.rules}}
     json.dump(out, open(out_path, "w"))
 """)
+# the sequence-parallel prefill's reference (`_jax_seq`, the JAX engine on
+# one device) in a process of its own, beside the worlds: -> a pickle of
+# {family: _jax_seq's result}
+_JAX_SEQ = textwrap.dedent("""
+    import json, os, pickle, sys
+    sys.path.insert(0, os.path.join(sys.argv[3], "tests"))
+    import jax.numpy as jnp
+    import numpy as np
+    import pytest
+    import test_torch_dp_serving as T
+    from repro.models import build_model
+
+    job, out_path = json.load(open(sys.argv[1])), sys.argv[2]
+    mesh = T._auto_mesh()
+    trained = {}
+    for name in T.MODELS:
+        params = {}
+        with np.load(job["params"][name]) as z:
+            for key in z.files:
+                node = params
+                *path, leaf = key.split("/")
+                for k in path:
+                    node = node.setdefault(k, {})
+                node[leaf] = jnp.asarray(z[key])
+        jcfg = T._cfg(name, T.jax_get_config)
+        trained[name] = (jcfg, build_model(jcfg), params)
+    patch = pytest.MonkeyPatch()
+    out = {name: T._jax_seq(name, trained, mesh, patch) for name in T.MODELS}
+    pickle.dump(out, open(out_path, "wb"))
+""")
 # (key, family, mesh, rules, batch, seq)
 SLICE_CASES = [("dense_kv_seq", "dense", (2, 2), "kv_seq", 4, 64),
                ("hybrid_batch1", "hybrid", (2, 2), "batch1", 1, 64),
@@ -311,11 +410,13 @@ def _env():
 
 
 def _spawn(tmp, job, meanwhile):
-    """Both worlds side by side, and the JAX slices' subprocess, while
-    `meanwhile()` runs here; -> ({tag: each rank's JSON}, slices,
+    """Both worlds side by side, and the JAX slices' and the sequence
+    split's reference subprocesses, while `meanwhile()` runs here; ->
+    ({tag: each rank's JSON}, slices, the sequence split's reference,
     meanwhile's result)."""
     (tmp / "child.py").write_text(_CHILD)
     (tmp / "slices.py").write_text(_JAX_SLICES)
+    (tmp / "seq_ref.py").write_text(_JAX_SEQ)
     (tmp / "job.json").write_text(json.dumps(job))
     procs = []
     for tag in WORLDS:
@@ -329,6 +430,10 @@ def _spawn(tmp, job, meanwhile):
         [sys.executable, str(tmp / "slices.py"), json.dumps(cases), str(tmp / "slices.json")],
         env={**_env(), "JAX_PLATFORMS": "cpu"}, cwd=str(tmp), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)))
+    procs.append(("jax seq reference", tmp / "seq_ref.pkl", subprocess.Popen(
+        [sys.executable, str(tmp / "seq_ref.py"), str(tmp / "job.json"),
+         str(tmp / "seq_ref.pkl"), ROOT], env={**_env(), "JAX_PLATFORMS": "cpu"},
+        cwd=str(tmp), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failures = []
     try:
         local = meanwhile()
@@ -348,7 +453,9 @@ def _spawn(tmp, job, meanwhile):
     assert not failures, "\n".join(failures)
     worlds = {tag: [json.loads((tmp / f"{tag}.{r}.json").read_text()) for r in range(4)]
               for tag in WORLDS}
-    return worlds, json.loads((tmp / "slices.json").read_text()), local
+    with open(tmp / "seq_ref.pkl", "rb") as f:
+        seq = pickle.load(f)
+    return worlds, json.loads((tmp / "slices.json").read_text()), seq, local
 
 
 # ------------------------------------------------------------- the reference
@@ -380,12 +487,24 @@ def _train(name, mesh):
     return jcfg, model, params
 
 
-def _recording_moe(orig, sink):
+def _recording_moe(orig, sink, prefill=False):
     """`moe_apply` that also records, at decode (one token per row: the
     whole batch one capacity group), the (T,) mask of kept pairs, computed
-    by the reference's own routing lines, through `jax.debug.callback`."""
+    by the reference's own routing lines, through `jax.debug.callback`;
+    with `prefill`, at prefill instead, the (B, S * k) masks of its
+    sequence groups."""
     def moe_apply(p, cfg, x, act="silu"):
-        if x.shape[1] == 1:
+        if prefill and x.shape[1] > 1:
+            b, s = x.shape[:2]
+            probs = jax.nn.softmax(jax_common.dense(p["router"], x).astype(jnp.float32), -1)
+            _, top_i = jax.lax.top_k(probs, cfg.top_k)
+            flat_i = top_i.reshape(b, s * cfg.top_k)
+            onehot = jax.nn.one_hot(flat_i, cfg.n_experts, dtype=jnp.int32)
+            pos = jnp.take_along_axis(jnp.cumsum(onehot, axis=1) - onehot,
+                                      flat_i[..., None], -1)[..., 0]
+            keep = pos < jax_mlp.moe_capacity(cfg, s)
+            jax.debug.callback(lambda k: sink.append(np.asarray(k)), keep, ordered=True)
+        if not prefill and x.shape[1] == 1:
             b = x.shape[0]
             xg = x.reshape(1, b, x.shape[-1])
             probs = jax.nn.softmax(jax_common.dense(p["router"], xg).astype(jnp.float32), -1)
@@ -449,6 +568,54 @@ def _jax_batch1(name, trained, mesh, path):
     return out, {k: np.asarray(v) for k, v in cache.items()}
 
 
+def _seq_prompts(vocab):
+    return [((np.arange(n) * 7 + 3 + i) % vocab).astype(np.int32)
+            for i, n in enumerate(SEQ_LENS)]
+
+
+def _jax_seq(name, trained, mesh, monkeypatch):
+    """The JAX FixedBatchEngine (the one-device reference), greedy, on the
+    first three SEQ_LENS prompts at batch 3 (one batch, left-padded) and
+    on all of them at batch 1: {b: (streams, the moe's prefill drops)},
+    and at batch 1 each prefill's (logits, whole cache), captured as the
+    engine runs them."""
+    jcfg, model, params = trained[name]
+    out, prefills = {}, []
+    for b in (3, 1):
+        drops = []
+        if name == "moe":
+            monkeypatch.setattr(jax_mlp, "moe_apply",
+                                _recording_moe(jax_mlp.moe_apply, drops, prefill=True))
+        try:
+            eng = JaxFixedBatchEngine(model, params, mesh, JAX_RULES, JaxServeConfig(
+                batch_size=b, max_seq=BATCH1_SEQ, max_new_tokens=SERVE["max_new_tokens"]),
+                _extras(name, jcfg))
+            if b == 1:
+                build = eng._build
+
+                def capture(plen, eng=eng, build=build):
+                    build(plen)
+                    run = eng._prefill
+
+                    def prefill(p, batch):
+                        logits, cache = run(p, batch)
+                        prefills.append((np.asarray(logits).reshape(-1),
+                                         {k: np.asarray(v) for k, v in cache.items()}))
+                        return logits, cache
+                    eng._prefill = prefill
+
+                eng._build = capture
+            for p in _seq_prompts(jcfg.vocab)[:b if b > 1 else None]:
+                eng.submit(p)
+            with mesh:
+                done = eng.run()
+            jax.effects_barrier()
+        finally:
+            monkeypatch.undo()
+        out[b] = ({str(r.rid): [int(t) for t in r.output] for r in done}, drops)
+    return out, prefills
+
+
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dp_serving")
@@ -458,7 +625,7 @@ def served(tmp_path_factory):
            "runs": RUNS, "models": MODELS, "params": {}, "extras": {},
            "batch_size": {n: _batch_size(n) for n in MODELS}, "batch1": {},
            "batch1_models": list(BATCH1), "batch1_seq": BATCH1_SEQ,
-           "batch1_steps": BATCH1_STEPS}
+           "batch1_steps": BATCH1_STEPS, "seq_lens": list(SEQ_LENS)}
     for name, (jcfg, _, params) in trained.items():
         job["params"][name] = str(tmp / f"{name}.npz")
         np.savez(job["params"][name],
@@ -478,8 +645,8 @@ def served(tmp_path_factory):
         patch = pytest.MonkeyPatch()
         return {name: _jax_serve(name, trained, mesh, patch) for name in MODELS}
 
-    worlds, slices, reference = _spawn(tmp, job, meanwhile)
-    return worlds, slices, reference, batch1
+    worlds, slices, seq, reference = _spawn(tmp, job, meanwhile)
+    return worlds, slices, reference, batch1, seq
 
 
 # ------------------------------------------------------------------ the tests
@@ -490,7 +657,7 @@ def test_streams_equal_the_jax_engine_on_every_rank(served, tag, name, variant):
     data axes (and the experts' width or the KV positions over "model" in
     the variants), equal the JAX engine's on every rank; every rank counts
     the whole batch and runs its own block of rows."""
-    worlds, _, reference, _ = served
+    worlds, _, reference, _, _ = served
     want, _ = reference[name]
     key = f"{name}/{variant}"
     b = _batch_size(name)
@@ -513,7 +680,7 @@ def test_moe_decode_drops_equal_the_reference_pair_for_pair(served, tag, variant
     """Each decode call's dropped (token, choice) pairs of the whole batch,
     every rank holding some of its rows, equal the reference's one-group
     routing's; pairs do drop."""
-    worlds, _, reference, _ = served
+    worlds, _, reference, _, _ = served
     _, want = reference["moe"]
     n_calls = (len(LENS) // MOE_BATCH) * (SERVE["max_new_tokens"] - 1) * \
         _cfg("moe").n_layers
@@ -530,7 +697,7 @@ def test_batch1_decode_matches_the_reference_step_on_a_whole_cache(served, name)
     "data", the heads over "model"): each rank's logits within 1e-5 x max
     of the reference's, and its cache after the steps the cut of the
     reference's whole cache."""
-    worlds, _, _, batch1 = served
+    worlds, _, _, batch1, _ = served
     want_logits, want_cache = batch1[name]
     cfg = _cfg(name)
     model = build_model(cfg)
@@ -557,7 +724,7 @@ def test_batch1_decode_matches_the_reference_step_on_a_whole_cache(served, name)
 
 
 def test_the_pod_data_group_is_one_group_ranked_pod_major(served):
-    worlds, slices, _, _ = served
+    worlds, slices, _, _, _ = served
     ranks = worlds["pdm"]
     order = sorted(ranks, key=lambda r: (r["group"]["coords"]["pod"],
                                          r["group"]["coords"]["data"]))
@@ -622,7 +789,7 @@ def test_local_cache_is_the_reference_placement_slice(served, case):
     positions `NamedSharding.devices_indices_map` gives that device
     (`local_rows` for the batch); the conv window's head-aligned channels
     are the port's own cut (see `mamba.tp_columns`)."""
-    _, slices, _, _ = served
+    _, slices, _, _, _ = served
     _, family, mesh_shape, _, batch, seq = next(c for c in SLICE_CASES if c[0] == case)
     cfg = _cfg(family)
     model = build_model(cfg)
@@ -653,3 +820,84 @@ def test_local_cache_is_the_reference_placement_slice(served, case):
                 start, n = local_rows(batch, groups["batch"])
                 assert [start, start + n] == ref[0], (case, coords)
     assert compared > 0
+
+
+# ------------------------------------------- the sequence-parallel prefill
+@pytest.mark.parametrize("name,b", [(n, b) for n in MODELS for b in (1, 3)])
+def test_seq_prefill_streams_equal_the_jax_engine_on_every_rank(served, name, b):
+    """FixedBatchEngine at batch 1 and at a replicated batch of 3 under
+    `rules_for_shape`'s long_500k layout at (data 2, model 2): the prompt
+    split over "data" in the prefill, the KV positions and the SSM
+    state's columns at decode; greedy streams equal the JAX one-device
+    engine's on every rank."""
+    worlds, _, _, _, seq = served
+    want, _ = seq[name][0][b]
+    for rank, res in enumerate(worlds["dm"]):
+        run = res["seq"][name]
+        rules = run["rules"][str(b)]
+        assert rules["batch"] is None and rules["seq"] == "data", rules
+        assert rules["kv_seq"] == "data"
+        assert run["streams"][str(b)] == want, f"rank {rank}"
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_seq_prefill_logits_and_cache_match_the_jax_prefill(served, name):
+    """`prefill_step` of each SEQ_LENS prompt with the sequence split:
+    every rank's last-position logits within 1e-5 x max of the JAX
+    one-device prefill's (and the same bits on every rank), each rank's
+    cache within 1e-5 x max of the JAX prefill's whole cache cut by
+    `local_cache` (KV positions and SSM state columns over "data", heads
+    over "model")."""
+    worlds, _, _, _, seq = served
+    _, want = seq[name]
+    assert len(want) == len(SEQ_LENS)
+    cfg = _cfg(name)
+    model = build_model(cfg)
+    rules = _batch1_port_rules(cfg)
+    for rank, res in enumerate(worlds["dm"]):
+        run = res["seq"][name]
+        coords = run["coords"]
+        groups = {"batch": None, "kv_seq": _Stub(coords["data"], 2),
+                  "ssm_state": _Stub(coords["data"], 2) if cfg.ssm_state else None,
+                  "model": _TP(rules, coords["model"], 2)}
+        for n, got, (logits, cache) in zip(SEQ_LENS, run["prefill"], want):
+            assert got["logits"] == worlds["dm"][0]["seq"][name]["prefill"][
+                SEQ_LENS.index(n)]["logits"], f"rank {rank} S={n}: logits differ"
+            err = np.abs(np.asarray(got["logits"]) - logits).max() / np.abs(logits).max()
+            assert err <= LOGIT_RTOL, f"rank {rank} S={n}: {err:.3e}"
+            cut = local_cache({k: torch.from_numpy(np.array(v)) for k, v in cache.items()},
+                              model, rules, groups)
+            for leaf, t in cut.items():
+                g = np.asarray(got["cache"][leaf])
+                assert g.shape == tuple(t.shape), (rank, n, leaf)
+                scale = max(float(t.float().abs().max()), 1e-30)
+                err = np.abs(g - t.float().numpy()).max() / scale
+                assert err <= LOGIT_RTOL, f"rank {rank} S={n} {leaf}: {err:.3e}"
+
+
+@pytest.mark.parametrize("b", (1, 3))
+def test_moe_seq_prefill_drops_equal_the_reference_pair_for_pair(served, b):
+    """Each prefill call's dropped (token, choice) pairs, every sequence
+    one capacity group split over the two data ranks, equal the reference
+    routing's, pair for pair; pairs do drop."""
+    worlds, _, _, _, seq = served
+    _, want = seq["moe"][0][b]
+    n_calls = (1 if b > 1 else len(SEQ_LENS)) * _cfg("moe").n_layers
+    assert len(want) == n_calls
+    assert sum(int((~k).sum()) for k in want) > 0, "no pair dropped: the check is vacuous"
+    for rank, res in enumerate(worlds["dm"]):
+        got = res["seq"]["moe"]["drops"][str(b)]
+        assert len(got) == n_calls
+        for j, (g, w) in enumerate(zip(got, want)):
+            assert np.array_equal(np.asarray(g), w), f"rank {rank} call {j}"
+
+
+def test_ssm_seq_prefill_splits_the_work(served):
+    """A rank's prefill FLOPs (`FlopCounterMode`) of a 64-token prompt with
+    the sequence over "data" are at most SEQ_FLOPS_MAX of its FLOPs under
+    the same rules with "seq" whole (the whole prompt on every rank): the
+    sequence really splits."""
+    worlds, _, _, _, _ = served
+    for rank, res in enumerate(worlds["dm"]):
+        flops = res["seq"]["ssm"]["flops"]
+        assert flops["seq"] <= SEQ_FLOPS_MAX * flops["whole"], (rank, flops)

@@ -52,7 +52,7 @@ def test_kv_chunk_and_form_match_the_reference(skv, monkeypatch):
     for mod in (JA, A):
         monkeypatch.setattr(mod, "_sdpa_direct", lambda *a: picked.append("direct"))
         monkeypatch.setattr(mod, "_sdpa_chunked",
-                            lambda *a, kv_chunk: picked.append(("chunked", kv_chunk)))
+                            lambda *a, kv_chunk, **kw: picked.append(("chunked", kv_chunk)))
         mod._sdpa(None, types.SimpleNamespace(shape=(1, skv, 1, 1)), None, True, 1)
     assert picked[0] == picked[1]
     assert A._CHUNKED_KV_THRESHOLD == JA._CHUNKED_KV_THRESHOLD

@@ -11,8 +11,9 @@ JAX package.
     `init_serving(tp=)` equals cutting the whole model, the fixed-batch
     caches have the rank's shapes, and a split this path does not run
     raises naming the axis (the serving layouts it now runs, "kv_seq"
-    over "model" and "batch" over "data", are served in the worlds below
-    and give the JAX engine's streams);
+    over "model", "batch" over "data" and "seq" over "data" with the
+    batch replicated, are served in the worlds below and give the JAX
+    engine's streams);
   * (b) the layers on each rank's shards with the collectives, in gloo
     worlds of 2 and 4 CPU processes: `attn_forward` (causal, the encoder's
     non-causal form, cross-attention), `cross_kv`, `attn_decode`,
@@ -244,8 +245,11 @@ def test_fixed_batch_caches_have_the_rank_shapes(name, tp):
 
 
 # the serving layouts of the production meshes this path now runs: the
-# split, the world that serves the hybrid under it and that run's key
-SPLIT_RUNS = {"kv_seq": (2, "hybrid/kv_seq_model2"), "batch": (4, "hybrid/batch_data2_model2")}
+# split, the mesh that serves the hybrid under it (in the world of its
+# ranks) and that run's key
+SPLIT_RUNS = {"kv_seq": ({"data": 1, "model": 2}, "hybrid/kv_seq_model2"),
+              "batch": ({"data": 2, "model": 2}, "hybrid/batch_data2_model2"),
+              "seq": ({"data": 2, "model": 1}, "hybrid/seq_data2")}
 
 
 @pytest.mark.parametrize("axis,mesh", [("kv_seq", FakeMesh(model=2)),
@@ -255,20 +259,20 @@ SPLIT_RUNS = {"kv_seq": (2, "hybrid/kv_seq_model2"), "batch": (4, "hybrid/batch_
                                        ("seq", FakeMesh(model=1, data=2)),
                                        ("expert_ffn", FakeMesh(model=2))])
 def test_a_split_this_path_does_not_run_raises_naming_the_axis(axis, mesh, request):
-    """"kv_seq" over "model" and "batch" over "data" now run: the hybrid
-    served under each (in the worlds of 2 and 4 ranks, on a (1, 2) and a
-    (2, 2) mesh) gives the JAX engine's streams on every rank.  What stays
-    refused raises NotImplementedError naming the axis: "ssm_state" and
-    "seq" over "model", "seq" over "data" where a prefill runs (the
-    sequence-parallel prefill, ROADMAP item 8b-v), and "expert_ffn" in
-    training (item 8c-ii)."""
+    """"kv_seq" over "model", "batch" over "data" and "seq" over "data"
+    (the sequence-parallel prefill, the batch replicated) now run: the
+    hybrid served under each (in the worlds of 2 and 4 ranks, on a (1, 2),
+    a (2, 2) and a (2, 1) mesh) gives the JAX engine's streams on every
+    rank.  What stays refused raises NotImplementedError naming the axis:
+    "ssm_state" and "seq" over "model", and "expert_ffn" in training
+    (item 8c-ii)."""
     cfg = _cfg("hybrid")
     model = build_model(cfg)
     size = dict(mesh.shape)
-    if axis in SPLIT_RUNS and size.get("data", 1) * size["model"] == SPLIT_RUNS[axis][0]:
+    if axis in SPLIT_RUNS and size == SPLIT_RUNS[axis][0]:
         outs, streams, _ = request.getfixturevalue("worlds")
-        world, key = SPLIT_RUNS[axis]
-        for rank, res in enumerate(outs[world]):
+        key = SPLIT_RUNS[axis][1]
+        for rank, res in enumerate(outs[size["data"] * size["model"]]):
             run = res["split_runs"][key]
             assert run["rules"][axis] in ("model", "data"), (key, run["rules"])
             assert run["streams"] == streams["hybrid"], f"{key} rank {rank}"
@@ -284,10 +288,8 @@ def test_a_split_this_path_does_not_run_raises_naming_the_axis(axis, mesh, reque
     target = "data" if size.get("data", 1) > 1 else "model"
     rules = DEFAULT_RULES.replace(**{axis: target})
     for engine in (FixedBatchEngine, ServeEngine):
-        with pytest.raises(NotImplementedError, match=f"'{axis}'") as err:
+        with pytest.raises(NotImplementedError, match=f"'{axis}'"):
             engine(model, {}, ServeConfig(**SERVE), device="cpu", mesh=mesh, rules=rules)
-        if axis == "seq":
-            assert "8b-v" in str(err.value)
 
 
 def test_an_indivisible_split_raises_value_error_naming_the_axis():
@@ -413,15 +415,16 @@ _CHILD = textwrap.dedent("""
     def split_run(name, model, params, mesh, rules):
         scfg = ServeConfig(**job["serve"])
         sp = model.serving_params(params, "cpu")
-        eng = FixedBatchEngine(model, lambda tp: model.tp_local_params(sp, tp), scfg,
-                               device="cpu", mesh=mesh, rules=rules)
+        eng = FixedBatchEngine(model, lambda tp: model.tp_local_params(sp, tp) if tp else sp,
+                               scfg, device="cpu", mesh=mesh, rules=rules)
         prompts, samp = workload(name, model.cfg.vocab, job["seed"])
         for p, s in zip(prompts, samp):
             eng.submit(p, sampling=s)
         done = eng.run()
         return {"streams": {str(r.rid): [int(t) for t in r.output] for r in done},
                 "requests": eng.stats["requests"],
-                "rules": {a: eng.rules.lookup(a) for a in ("batch", "kv_seq", "kv_heads")}}
+                "rules": {a: eng.rules.lookup(a) for a in ("batch", "kv_seq", "kv_heads",
+                                                           "seq")}}
 
     out = {"runs": {}, "layers": {}, "split_runs": {}}
     for name, spec in job["models"].items():
@@ -441,6 +444,13 @@ _CHILD = textwrap.dedent("""
             out["split_runs"]["hybrid/kv_seq_model2"] = split_run(
                 name, model, params, mesh,
                 rules_for(cfg, mesh).replace(kv_heads=None, kv_seq="model"))
+        if name == "hybrid" and world == 2:
+            # the sequence-parallel prefill: the prompt over "data" on a
+            # (data 2, model 1) mesh, the batch replicated
+            mesh21 = make_mesh((2, 1), device_type="cpu")
+            out["split_runs"]["hybrid/seq_data2"] = split_run(
+                name, model, params, mesh21,
+                rules_for(cfg, mesh21).replace(batch=None, seq="data"))
         if name == "hybrid" and world == 4:
             # the batch over "data" on a (data 2, model 2) mesh
             mesh22 = make_mesh((2, 2), device_type="cpu")
