@@ -146,7 +146,7 @@ each with its seconds logged:
      `FixedBatchEngine` at batch 1 on one prompt of each mix, held by first
      tokens where the draw's top-2 margin exceeds 0.25; under --profile the
      draw kernel's device share of the graphed steps;
-  7. mamba2-2.7b at full width and depth (64 layers, d_model 2560, 80
+  7. mamba2-2.7b at full width and 16 of its 64 layers (d_model 2560, 80
      heads x 64, state 128, conv 4, vocab 50,280, bf16, random weights from
      seed 0, initialised on the card) served through `ContinuousEngine` on
      the slot-pooled state cache: phase 3's 16 prompts over this
@@ -167,7 +167,7 @@ each with its seconds logged:
      requests served under it (tokens/s beside the kernel and torch
      lanes'); the phase's peak device memory and seconds (--profile: each
      serving run's device-time breakdown and busy share);
-  8. qwen2-moe-a2.7b at full width and depth (24 layers, d_model 2048,
+  8. qwen2-moe-a2.7b at full width and 8 of its 24 layers (d_model 2048,
      16 / 16 heads x 128, 60 experts top-4 of width 1408 and 4 shared,
      norm_topk off, vocab 151,936, bf16, random weights from seed 0
      drawn on the card one layer at a time by `init_serving`, after every
@@ -247,7 +247,7 @@ each with its seconds logged:
      microbatches, AdamW (lr 3e-4, warm-up 5, 40 total); step 1's loss and
      global gradient norm against an f32 twin (the same config in f32, TF32
      off, same parameters and batch; each leaf's gradient cosine logged);
-     2 warm-up and 20 timed steps: step ms (median, min, max), tokens/s,
+     2 warm-up and 12 timed steps: step ms (median, min, max), tokens/s,
      MFU, the loss every step (its last 5 must average below the first),
      peak device memory; the AdamW update alone by CUDA events beside its
      bytes bound; one step under torch.profiler (device events per step,
@@ -276,7 +276,7 @@ each with its seconds logged:
      and backward in the direct and the chunked form, each one's ms and
      peak memory above its inputs, outputs and gradients agreeing at
      2e-2 x max; qwen3-1.7b trained at seq 4096 x batch 8 (2 microbatches,
-     remat full; 1 warm-up and 3 timed steps: step ms, tokens/s, peak, the
+     remat full; 1 warm-up and 1 timed step: step ms, tokens/s, peak, the
      loss finite, no hand-written kernel); one 32,768-token prompt through
      the fixed-batch `prefill_step` with no autograd graph (seconds, peak)
      and through a one-slot `ContinuousEngine` on the graphed kernel lanes
@@ -306,7 +306,9 @@ each with its seconds logged:
  21. tensor-parallel serving: (a) qwen3-1.7b's kernel lanes on
      `tp_mesh(1)` (a world of one on nccl), graphed, bitwise equal to the
      engine with no mesh (streams, first-token logits, launches, captures
-     and replays), then eagerly on the first 8 prompts; (b) tp = 2 and 4 as
+     and replays), then eagerly on the first 8 prompts at the ranks' depth
+     (8 of the 28 layers: an earlier path, cut for the time limit); (b)
+     tp = 2 and 4 as
      2 and 4 processes sharing the card, each width a gloo world over a
      FileStore, the two worlds side by side (phases 22 and 23 likewise)
      (`--tp-child`), every kernel built before they start, each rank on
@@ -318,8 +320,8 @@ each with its seconds logged:
      ranks' heads for tp = 2 / 4 / 16 and the GEMM at the shard shapes for
      tp = 2 / 4);
  22. tensor-parallel serving of the other ContinuousEngine families:
-     qwen2-vl-2b, mamba2-2.7b and qwen2-moe-a2.7b at full width and depth
-     on their kernel-lane plans and the first 8 prompts: (a) each with no
+     qwen2-vl-2b, mamba2-2.7b and qwen2-moe-a2.7b at full width and a cut
+     depth on their kernel-lane plans and the first 8 prompts: (a) each with no
      mesh and on `tp_mesh(1)`, graphed, bitwise equal, then on
      `tp_mesh(1)` eagerly; (b) tp = 2 and 4 as gloo worlds of processes on
      the card (`--tp-family-child`), each rank serving the three models in
@@ -334,11 +336,10 @@ each with its seconds logged:
      lanes (`forced_check`), each token with a top-2 margin > 0.25 its
      argmax (phase 2 first holds paged decode / prefill at the MoE's and
      the vlm's rank heads and the GEMM at the three models' shard shapes,
-     tp = 2 / 4).  The ranks of (b) serve the three models at full width
-     and a cut depth (TP_FAMILY_CHILD_LAYERS: 4 / 8 / 4 layers), against
-     a tp = 1 eager run and replay at that depth;
- 23. the fixed-batch loop on a mesh: zamba2-1.2b (38 layers) and
-     whisper-base (1500 audio frames) at full size, one batch of 4 prompts
+     tp = 2 / 4).  (a), (b) and (c) serve the three models at full width
+     and a cut depth (TP_FAMILY_CHILD_LAYERS: 4 / 8 / 4 layers);
+ 23. the fixed-batch loop on a mesh: zamba2-1.2b (12 of its 38 layers) and
+     whisper-base (1500 audio frames) at full width, one batch of 4 prompts
      each through `FixedBatchEngine` under the guarded rules (whisper's
      odd vocabulary splits the LM head's rows): (a) no mesh and
      `tp_mesh(1)` bitwise equal (streams, first-token logits, launches);
@@ -351,25 +352,29 @@ each with its seconds logged:
      replayed teacher-forced through the tp = 1 loop, each token with a
      top-2 margin > 0.25 its argmax;
  24. training on a mesh: qwen3-1.7b at phase 14's configuration (full
-     width and depth, remat full, seq 1024 x batch 8, 2 microbatches, seed
-     0) through `Trainer(model, mesh, rules, data, cfg)` and its rank step
-     (`launch/steps.py::mesh_train_step`) on a (data 1, model 2) and a
-     (data 2, model 1) mesh with ZeRO-1, each a gloo world of two
-     processes sharing the card (`--train-tp-child`): every rank draws the
+     width, 2 layers, remat full, seq 1024 x batch 8, 2
+     microbatches, seed 0) through `Trainer(model, mesh, rules, data, cfg)`
+     and its rank step (`launch/steps.py::mesh_train_step`) on a (data 1,
+     model 2) and a (data 2, model 1) mesh with ZeRO-1, each a gloo world of
+     two processes sharing the card (`--train-tp-child`), the two side by
+     side, then one world of 4 processes running ROADMAP 8c-ii's layouts:
+     qwen3-1.7b (2 layers) on (pod 2, data 2, model 1), the batch over pod
+     x data, and zamba2-1.2b (6 layers) on one sequence of 16,384 tokens
+     over (data 2, model 2), "seq" over "data"; every rank draws the
      single-device state from the seed and keeps its cut, computes the
-     step-1 gradients (loss within 1e-3 of phase 14's, the global norm
-     within 1e-2 relative, every gathered leaf's cosine with phase 14's
-     step-1 gradient >= 0.999) and runs 1 step: loss and grad_norm the
-     same bits on every rank, the replicated leaves bitwise equal across
-     ranks after it, no hand-written kernel launched; each rank's peak
-     memory beside the shards + gradients + moments + activations reckoned
-     before the run, the least free memory on the card during the steps
-     (every process's use), and its step ms (gloo on one card: not a TP
-     speed).
-     Then the elastic restart at phase 15's Trainer configuration: the
-     (data 1, model 2) world trains and saves, and this process, with no
-     mesh, restores the checkpoint bitwise equal to the state the ranks
-     gathered;
+     step-1 gradients (loss within 1e-3 of the no-mesh step at the same
+     depth, which this process runs first, the global norm within 1e-2
+     relative, every gathered leaf's cosine with the no-mesh step-1
+     gradient >= 0.999) and runs 1 step: loss and grad_norm the same bits
+     on every rank, the replicated leaves bitwise equal across ranks after
+     it, no hand-written kernel launched; each rank's peak memory beside
+     the shards + gradients + moments + activations reckoned before the
+     run, the least free memory on the card during the steps (every
+     process's use), and its step ms (gloo on one card: not a DP / TP
+     speed).  Then the elastic restart at phase 15's Trainer
+     configuration: the (data 1, model 2) world trains and saves, and this
+     process, with no mesh, restores the checkpoint bitwise equal to the
+     state the ranks gathered;
  25. serving on a (data 2, model 2) mesh, the serving layouts of the
      production meshes, as one world of 4 gloo processes sharing the card
      (`--dp-serve-child`), eager, each model at full width and a cut depth
@@ -386,9 +391,9 @@ each with its seconds logged:
      transient (its draw's within shards + one f32 full leaf and its f32
      shard); the sequence-parallel prefill at batch 1 under
      `rules_for_shape`'s long_500k layout (the batch replicated, "seq",
-     "kv_seq" and "ssm_state" over "data") of zamba2-1.2b (12 layers, a
+     "kv_seq" and "ssm_state" over "data") of zamba2-1.2b (6 layers, a
      16,128-token prompt: each rank's block 31.5 chunks of 256) and
-     mamba2-2.7b (8 layers, 16,384 tokens), each through `prefill_step`
+     mamba2-2.7b (4 layers, 16,384 tokens), each through `prefill_step`
      (the logits bitwise equal on every rank and within 0.05 x max |logit|
      of the no-mesh prefill's, each rank's conv / SSM carries and K / V
      within 0.05 x max of the no-mesh cache's `local_cache` cut or twice
@@ -400,15 +405,22 @@ each with its seconds logged:
      streams equal on every rank and to the no-mesh stream up to a token
      of top-2 margin <= 0.25, 32 draw launches a rank); the draw kernel's
      launches per rank equal the no-mesh runs';
- 26. one JSON line `{"kernels": [...]}` with each kernel's launches on each
+ 26. the port's examples (`repro_torch.examples`), run right after phase 4
+     in this process at their JAX examples' sizes: quickstart (its engine
+     within `verify_against_reference`'s 2e-2 of the vendor lane),
+     tune_resnet18 on phase 4's device-time fitness (one row a conv group,
+     the warm-cache re-tune all hits) and serve_inference (12 of 12
+     requests continue the learned sequence exactly); each one's output,
+     seconds and hand-written launches logged;
+ 27. one JSON line `{"kernels": [...]}` with each kernel's launches on each
      path (the eager and the graphed forward are separate paths, as are
      the knob sweep, the races of phases 4, 5, 7, 8, 10 and 20, their
      serving runs, the decode wrapper's call, the fixed-batch runs of
      phases 11-13, 23 and 25, where only the draw kernel runs, the 32k
      engine run of phase 16, the serving runs of phases 17-18, 21 and 22,
-     each rank's its own path; a replayed CUDA graph counts the launches
-     it captured), error and times;
- 27. the last line `{"ok": true, "device": {...}}`.
+     each rank's its own path, each example its own; a replayed CUDA graph
+     counts the launches it captured), error and times;
+ 28. the last line `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package.  Without a GPU it exits
 nonzero before printing any result.
@@ -417,7 +429,6 @@ nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
-import atexit
 import dataclasses
 import gc
 import json
@@ -623,9 +634,13 @@ def phase_environment(torch):
     # the tensor-core tile shows in the machine code as HMMA (mma.sync) or
     # HGMMA (wgmma) instructions
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in TENSOR_CORE_LIBS:
-        sass = subprocess.run([tool, "--dump-sass", str(build.lib_path(name))],
-                              capture_output=True, text=True, check=True).stdout
+    dumps = {name: subprocess.Popen([tool, "--dump-sass", str(build.lib_path(name))],
+                                    stdout=subprocess.PIPE, text=True)
+             for name in TENSOR_CORE_LIBS}              # side by side
+    for name, proc in dumps.items():
+        sass = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump --dump-sass {name}: exit {proc.returncode}")
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
         log(f"  sass {name}: {counts}")
         if counts["HMMA"] + counts["HGMMA"] == 0:
@@ -3042,11 +3057,14 @@ def phase_serve_plan(torch, served, counters, torch_run, kernel_tps=None):
 
 
 # ------------------------------------------------------------ phase 7
-# mamba2-2.7b at full width and depth (64 layers, d_model 2560, 80 heads x
-# 64, state 128, conv 4, vocab 50,280, bf16, random weights from seed 0)
+# mamba2-2.7b at full width (d_model 2560, 80 heads x 64, state 128, conv
+# 4, vocab 50,280, bf16, random weights from seed 0) and SSM_SERVE_LAYERS
+# of its 64 layers (an earlier path, cut for the script's time limit: its
+# eager runs and the fixed-batch loop grow with depth, the gates do not)
 # served through ContinuousEngine on the slot-pooled state cache: the 16
 # prompts of phase 3 over this vocabulary, SERVE_RUNTIME's 8 slots, 256-token
 # chunks (one ssm_chunk) and 32 new tokens.
+SSM_SERVE_LAYERS = 16
 SSM_KERNEL_RUNS = (True, False)                   # one pair
 SSM_PREEMPT_ROWS = 8          # state_slots: 7 usable rows for 8 slots
 SSM_FIXED_PROMPTS = 4
@@ -3346,12 +3364,14 @@ def phase_ssm(torch, cfg, profile=False):
 
 
 # ------------------------------------------------------------ phases 8, 9
-# qwen2-moe-a2.7b (phase 8) and granite-3-8b (phase 9) at full width and
-# depth, bf16, random weights from seed 0 drawn on the card one layer at a
-# time, served through ContinuousEngine on the paged programs with phase
-# 3's runtime (8 slots, 16-token blocks, 256-token chunks of up to 4
-# segments, 32 new tokens): phase 3's 16 prompts over each vocabulary
+# qwen2-moe-a2.7b (phase 8, MOE_SERVE_LAYERS of its 24 layers: an earlier
+# path, cut for the script's time limit) and granite-3-8b (phase 9, all 40)
+# at full width, bf16, random weights from seed 0 drawn on the card one
+# layer at a time, served through ContinuousEngine on the paged programs
+# with phase 3's runtime (8 slots, 16-token blocks, 256-token chunks of up
+# to 4 segments, 32 new tokens): phase 3's 16 prompts over each vocabulary
 # (granite: the first 8).
+MOE_SERVE_LAYERS = 8
 MOE_KERNEL_RUNS = (True, False)                   # one pair
 GRANITE_KERNEL_RUNS = (True, False)               # one pair
 GRANITE_PROMPTS = 8
@@ -4009,7 +4029,65 @@ def phase_wpk(torch, profile=False):
             _log_device_profile(prof, wall, f"{label}, {FORWARD_REPEATS} forwards",
                                 calls=FORWARD_REPEATS)
     return {"wpk_resnet18_race": race, "wpk_resnet18_forward": forward,
-            "wpk_resnet18_forward_graphed": graphed}, plans["race"]
+            "wpk_resnet18_forward_graphed": graphed}, plans["race"], fitness
+
+
+# ------------------------------------------------------------ phase 26
+# The port's examples (`repro_torch.examples`, ROADMAP item 10a) in this
+# process, at their JAX examples' sizes, on the card, right after phase 4:
+# quickstart (its graph, optimize_graph, a genetic Tuner on device time,
+# select, the Engine with default_registry(), verify_against_reference),
+# tune_resnet18 (ResNet-18's 11 conv groups at batch 1, 224, bf16, the
+# genetic Tuner on phase 4's WallClockFitness, the vendor lane cuDNN, the
+# warm-cache re-tune) and serve_inference (reduced qwen3 trained 30 steps,
+# the serve plan tuned by random search on device time, 12 requests
+# through ContinuousEngine).  Each one's output is logged, its
+# hand-written launches counted as a path of its own.
+EXAMPLE_REQUESTS = 12
+
+
+def phase_examples(torch, fitness):
+    """Phase 26 (see the comment above); `fitness`: phase 4's device-time
+    fitness, handed to tune_resnet18 so that no measurement repeats."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart, serve_inference, tune_resnet18
+    from repro_torch.models.resnet import conv_groups
+
+    label = "examples"
+    t_phase = time.perf_counter()
+    wrappers = _wrappers()
+    paths, out = {}, {}
+    for name, call in (("quickstart", lambda: quickstart.main([])),
+                       ("tune_resnet18", lambda: tune_resnet18.main([], fitness=fitness)),
+                       ("serve_inference", lambda: serve_inference.main([]))):
+        _zeroed(wrappers)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out[name] = call()
+        torch.cuda.synchronize()
+        for line in buf.getvalue().splitlines():
+            log(f"[{label} {name}] {line}")
+        paths[f"example_{name}"] = {fn.__name__: fn.launches for fn in wrappers}
+        log(f"[{label} {name}] {time.perf_counter() - t0:.1f} s; hand-written launches "
+            f"{_launched(wrappers) or 'none'}")
+    q, t, s = out["quickstart"], out["tune_resnet18"], out["serve_inference"]
+    groups = conv_groups(1, 224)
+    if not q["max_err"] <= 2e-2:
+        raise AssertionError(f"[{label}] quickstart's engine error {q['max_err']:.3e}")
+    if [r[0] for r in t["rows"]] != [n for n, _ in groups] or t["hits"] != len(groups):
+        raise AssertionError(f"[{label}] tune_resnet18: {len(t['rows'])} rows, "
+                             f"{t['hits']} warm hits for {len(groups)} groups")
+    if not s["served"] == s["correct"] == EXAMPLE_REQUESTS:
+        raise AssertionError(f"[{label}] serve_inference: {s['correct']}/{s['served']} "
+                             "requests continued the sequence")
+    log(f"[{label}] quickstart's engine within {q['max_err']:.2e} of the vendor lane; "
+        f"tune_resnet18 one row a group ({len(groups)}), the warm re-tune all hits; "
+        f"serve_inference {s['correct']}/{s['served']} exact")
+    _phase_end(label, t_phase)
+    return paths
 
 
 # ------------------------------------------------------------ phase 10
@@ -4302,7 +4380,7 @@ def phase_fitness(torch, served, counters, checks, torch_run, wall_plan, wall_tp
 # TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL leave 5-50x margin and still catch a
 # wrong cast, a lost term or a dropped layer.
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES = 1024, 8, 2
-TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 2, 20
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 2, 12
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=5, total_steps=40)
 TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL = 0.05, 0.05
 ADAMW_BYTES_PER_PARAM = 28      # read p, g, m, v; write p, m, v (f32)
@@ -4340,12 +4418,10 @@ def _train_batch(torch, data, step, cfg, gen=None):
     return batch
 
 
-def _against_f32_twin(torch, label, model, params, batch, microbatches, keep=None):
+def _against_f32_twin(torch, label, model, params, batch, microbatches):
     """Loss and gradients of the bf16 model and of its f32 twin on the
     same parameters and batch: the loss within TRAIN_LOSS_ATOL, the global
-    norm within TRAIN_GNORM_RTOL, every leaf's cosine logged.  `keep`: a
-    directory where the bf16 model's gradients are left on the host, one
-    `<leaf>.npy` each (`keep_leaf`), for phase 24.
+    norm within TRAIN_GNORM_RTOL, every leaf's cosine logged.
     -> (bf16 loss, bf16 norm, peak GB)."""
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import build_model
@@ -4363,8 +4439,6 @@ def _against_f32_twin(torch, label, model, params, batch, microbatches, keep=Non
     cosines = []
     g32 = dict(tree_flatten_with_paths(g32))
     for key, g in tree_flatten_with_paths(g16):
-        if keep:
-            keep_leaf(torch, keep, key, g)
         a, b = g.double().flatten(), g32[key].double().flatten()
         den = float(a.norm() * b.norm())
         cosines.append((float(a @ b) / den if den > 0 else 1.0, key))
@@ -4481,10 +4555,9 @@ def _dry_run_cross_check(torch, label, step_fn, state, batch, step_s, peak_gb, s
             "card_held": held, "meta_peak": peak}
 
 
-def phase_train(torch, cfg, counters, keep=None, smi=""):
-    """Phase 14 (see the module docstring); `keep`: the directory where
-    step 1's gradients are left for phase 24 (`keep_leaf`); `smi`: the
-    card's name and power limit, logged with the dry run's cross-check."""
+def phase_train(torch, cfg, counters, smi=""):
+    """Phase 14 (see the module docstring); `smi`: the card's name and
+    power limit, logged with the dry run's cross-check."""
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.distributed import DEFAULT_RULES
     from repro_torch.launch.steps import TrainConfig, loss_and_grads, make_train_step
@@ -4516,7 +4589,7 @@ def phase_train(torch, cfg, counters, keep=None, smi=""):
     _zeroed(counters)
     loss16, n16, twin_peak = _against_f32_twin(
         torch, label, model, params, _train_batch(torch, data, 0, cfg),
-        TRAIN_MICROBATCHES, keep=keep)
+        TRAIN_MICROBATCHES)
     step_fn = make_train_step(model, tcfg, DEFAULT_RULES)
     losses, times = [], []
     for step in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
@@ -4566,10 +4639,10 @@ def phase_train(torch, cfg, counters, keep=None, smi=""):
         f"bytes bound {bound_ms:.2f} ms ({ADAMW_BYTES_PER_PARAM} B x "
         f"{n_params / 1e9:.4f} G / 3.35 TB/s): {_median(ms) / bound_ms:.2f}x")
     del grads
-    events = _profile_step(torch, f"{label} profile", lambda: step_fn(
+    _profile_step(torch, f"{label} profile", lambda: step_fn(
         state["params"], state["opt"], _train_batch(torch, data, len(losses), cfg)))
-    dry = _dry_run_cross_check(torch, label, step_fn, state,
-                               _train_batch(torch, data, len(losses), cfg), med, peak, smi)
+    _dry_run_cross_check(torch, label, step_fn, state,
+                         _train_batch(torch, data, len(losses), cfg), med, peak, smi)
 
     first, last = losses[0], sum(losses[-5:]) / 5
     log(f"[{label}] loss: first {first:.6f}, mean of the last 5 {last:.6f}")
@@ -4580,9 +4653,6 @@ def phase_train(torch, cfg, counters, keep=None, smi=""):
                              f"{_launched(counters)}")
     log(f"[{label}] hand-written kernels launched: none")
     _phase_end(label, t_phase)
-    return {"step_ms": med * 1e3, "tokens_s": tokens / med, "adamw_ms": _median(ms),
-            "adamw_bound_ms": bound_ms, "peak_gb": peak, "events": events,
-            "loss1": loss16, "gnorm1": n16, "dry_run": dry}
 
 
 def _loop_trainer(ckpt_dir, mesh=None, steps=LOOP_STEPS):
@@ -4733,7 +4803,7 @@ LONG_ATTN = dict(b=4, s=4096, h=16, hkv=8, d=128)
 LONG_ATTN_TOL = 2e-2            # x max |.|: two bf16 forms (the chunked one
                                 # rounds each chunk's P·V product to bf16)
 LONG_TRAIN_SEQ, LONG_TRAIN_BATCH, LONG_TRAIN_MICRO = 4096, 8, 2
-LONG_TRAIN_WARMUP, LONG_TRAIN_TIMED = 1, 3
+LONG_TRAIN_WARMUP, LONG_TRAIN_TIMED = 1, 1  # its steps' times spread < 1 %
 LONG_PROMPT = 32_768
 
 
@@ -4819,7 +4889,8 @@ def _long_attention_forms(torch):
 
 def _long_train(torch, counters):
     """qwen3-1.7b trained at seq 4096 x batch 8 (2 microbatches, remat
-    full, phase 14's optimiser) for 1 warm-up and 3 timed steps: step ms,
+    full, phase 14's optimiser) for LONG_TRAIN_WARMUP warm-up and
+    LONG_TRAIN_TIMED timed steps: step ms,
     tokens/s, peak memory, the chunked form's calls a step; the loss must
     be finite and no hand-written kernel may launch."""
     from repro_torch.configs import get_config
@@ -5120,12 +5191,14 @@ def phase_layout_race(torch, counters):
 # the tokens/s logged measure no tensor-parallel speed.
 TP_SERVE_WIDTHS = (2, 4)
 TP_PROMPTS = 8
+TP_SERVE_LAYERS = 8            # the ranks' depth (28 in the published config)
 TP_CHILD_TIMEOUT_S = 600
 
 
 def tp_child(torch, rank, world, store, out_path):
     """One rank of phase 21 (b), run as `chip_smoke.py --tp-child RANK
-    WORLD STORE OUT`: qwen3-1.7b drawn from seed 0 on the card, served on
+    WORLD STORE OUT`: qwen3-1.7b at TP_SERVE_LAYERS layers drawn from seed 0
+    on the card, served on
     its shards of `tp_mesh(world)`; writes its streams, program counts,
     launches, memory and times to OUT as JSON."""
     import numpy as np
@@ -5142,7 +5215,7 @@ def tp_child(torch, rank, world, store, out_path):
     init_file_world(store, rank, world, "gloo")
     try:
         mesh = tp_mesh(world)
-        cfg = get_config("qwen3-1.7b")
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=TP_SERVE_LAYERS)
         model = build_model(cfg)
         params = model.init_serving(torch.Generator(device=DEVICE).manual_seed(0))
         rng = np.random.default_rng(0)
@@ -5266,8 +5339,15 @@ def phase_tp_serving(torch, counters):
     mesh = tp_mesh(1)
     try:
         one = run("qwen3 tp_mesh(1), graphed", mesh=mesh, rules=DEFAULT_RULES)
-        eager = run("qwen3 tp_mesh(1), eager", mesh=mesh, rules=DEFAULT_RULES,
-                    graphs=False, prompts=prompts[:TP_PROMPTS], check_schedule=False)
+        # the ranks' depth: the reference their launches and streams meet
+        del served, model, params
+        free_device(torch)
+        served = serving_setup(torch, dataclasses.replace(get_config("qwen3-1.7b"),
+                                                          n_layers=TP_SERVE_LAYERS))
+        model, params, prompts = served
+        eager = run(f"qwen3 tp_mesh(1), eager, {TP_SERVE_LAYERS} layers", mesh=mesh,
+                    rules=DEFAULT_RULES, graphs=False, prompts=prompts[:TP_PROMPTS],
+                    check_schedule=False)
     finally:
         dist.destroy_process_group()
     if one[0] != base[0] or not _same_firsts(one[1], base[1]) or one[3] != base[3]:
@@ -5334,15 +5414,16 @@ def phase_tp_serving(torch, counters):
 
 # ------------------------------------------------------------ phase 22
 # Tensor-parallel serving of the other ContinuousEngine families:
-# qwen2-vl-2b, mamba2-2.7b and qwen2-moe-a2.7b at full width and depth
-# (random weights from seed 0), each on its kernel-lane plan and the first
+# qwen2-vl-2b, mamba2-2.7b and qwen2-moe-a2.7b at full width and the cut
+# depth TP_FAMILY_CHILD_LAYERS (an earlier path, cut for the script's
+# time) (random weights from seed 0), each on its kernel-lane plan and the first
 # TP_PROMPTS prompts.  (a) In this process, for each model: no mesh and
 # tp_mesh(1), graphed, bitwise equal (streams, first-token logits,
 # launches), then tp_mesh(1) eagerly, the run the ranks are held to.
 # (b) tp = 2 and 4 as gloo worlds of processes sharing the card
 # (`--tp-family-child`), each rank serving the three models in turn, each
 # drawn straight into the rank's shards (`init_serving(..., tp=)` through
-# the engine's params callable: the MoE's 28.6 GB never exist whole on a
+# the engine's params callable: the MoE's whole stacks never exist on a
 # rank): streams equal on every rank, one signature per program, nothing
 # captured, every request drained, launches of paged decode / prefill,
 # the GEMM and the draw equal to the tp = 1 eager run's, and each rank's
@@ -5395,7 +5476,6 @@ def tp_family_child(torch, rank, world, store, out_path):
     import numpy as np
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import DEFAULT_RULES
     from repro_torch.launch.mesh import init_file_world, tp_mesh
     from repro_torch.models import build_model
@@ -5545,7 +5625,6 @@ def phase_tp_families(torch, counters):
 
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import DEFAULT_RULES
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import tp_mesh
@@ -5554,7 +5633,7 @@ def phase_tp_families(torch, counters):
     t_phase = time.perf_counter()
     paths, eager = {}, {}
     for arch in TP_FAMILY_ARCHS:
-        cfg = get_config(arch)
+        cfg = tp_family_cfg(arch)             # the ranks' depth
         served = _family_setup(torch, cfg)
         router = family_router(cfg)
         kw = dict(prompts=served[2], require_packing=cfg.family != "ssm")
@@ -5571,15 +5650,8 @@ def phase_tp_families(torch, counters):
         mesh = tp_mesh(1)
         try:
             one = run("tp_mesh(1), graphed", mesh=mesh, rules=DEFAULT_RULES)
-            full_eager = run("tp_mesh(1), eager", mesh=mesh, rules=DEFAULT_RULES,
-                             graphs=False)
-            # the ranks' depth: the reference their launches and streams meet
-            del served
-            free_device(torch)
-            served = _family_setup(torch, tp_family_cfg(arch))
-            kw["prompts"] = served[2]
-            eager[arch] = run(f"tp_mesh(1), eager, {TP_FAMILY_CHILD_LAYERS[arch]} layers",
-                              mesh=mesh, rules=DEFAULT_RULES, graphs=False)
+            eager[arch] = run("tp_mesh(1), eager", mesh=mesh, rules=DEFAULT_RULES,
+                              graphs=False)
         finally:
             dist.destroy_process_group()
         if one[0] != base[0] or not _same_firsts(one[1], base[1]) or one[3] != base[3]:
@@ -5590,14 +5662,13 @@ def phase_tp_families(torch, counters):
         need = ("matmul_fused", "sample_draw") + (
             () if cfg.family == "ssm" else ("paged_decode_attention",
                                             "paged_prefill_attention"))
-        if any(run_[3][k] <= 0 for k in need for run_ in (full_eager, eager[arch])):
-            raise AssertionError(f"[{arch}] the tp = 1 eager runs launched "
-                                 f"{full_eager[3]} / {eager[arch][3]}: a kernel of {need} "
-                                 "never ran")
+        if any(eager[arch][3][k] <= 0 for k in need):
+            raise AssertionError(f"[{arch}] the tp = 1 eager run launched "
+                                 f"{eager[arch][3]}: a kernel of {need} never ran")
         log(f"[{arch}] tp_mesh(1) = no mesh: streams, first-token logits (bitwise) and "
             f"launches {one[3]}")
         paths[f"serve_{arch}_tp_mesh1"] = one[3]
-        del served, base, one, full_eager
+        del served, base, one
         free_device(torch)
 
     build.build_all()                          # every library in place before spawning
@@ -5668,8 +5739,9 @@ def phase_tp_families(torch, counters):
 
 
 # ------------------------------------------------------------ phase 23
-# The fixed-batch loop on a mesh: zamba2-1.2b (38 layers) and whisper-base
-# (1500 audio frames) at full size (random weights from seed 0), each one
+# The fixed-batch loop on a mesh: zamba2-1.2b (12 of its 38 layers: an
+# earlier path, cut for the script's time) and whisper-base (1500 audio
+# frames) at full width (random weights from seed 0), each one
 # batch of FIXED_BATCH prompts (the first of HYBRID_FIXED_LENS /
 # ENCDEC_FIXED_LENS) through FixedBatchEngine under the guarded rules
 # (`PlanRouter(None).serve_rules`: whisper's odd vocabulary splits the LM
@@ -5690,6 +5762,16 @@ def phase_tp_families(torch, counters):
 # card: no TP speed).
 TP_FIXED_ARCHS = (("zamba2-1.2b", HYBRID_FIXED_LENS, HYBRID_FIXED_SEQ, None),
                   ("whisper-base", ENCDEC_FIXED_LENS, ENCDEC_FIXED_SEQ, "audio_embeds"))
+TP_FIXED_LAYERS = {"zamba2-1.2b": 12}      # of 38: cut for the script's time
+
+
+def tp_fixed_cfg(arch):
+    """A phase-23 model's config: whisper-base whole, zamba2-1.2b at
+    TP_FIXED_LAYERS (two uses of its shared block)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=TP_FIXED_LAYERS.get(arch, cfg.n_layers))
 
 
 def fixed_mesh_inputs(cfg, lens, extras_key):
@@ -5724,7 +5806,6 @@ def tp_fixed_child(torch, rank, world, store, out_path):
     times to OUT as JSON."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import init_file_world, tp_mesh
     from repro_torch.models import build_model
     from repro_torch.serve.engine import FixedBatchEngine, ServeConfig
@@ -5736,7 +5817,7 @@ def tp_fixed_child(torch, rank, world, store, out_path):
     try:
         mesh = tp_mesh(world)
         for arch, lens, max_seq, extras_key in TP_FIXED_ARCHS:
-            cfg = get_config(arch)
+            cfg = tp_fixed_cfg(arch)
             model = build_model(cfg)
             prompts, extras = fixed_mesh_inputs(cfg, lens, extras_key)
             gc.collect()
@@ -5794,7 +5875,6 @@ def phase_tp_fixed(torch):
 
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import tp_mesh
 
@@ -5803,7 +5883,7 @@ def phase_tp_fixed(torch):
     counters = _serve_counters()
     paths, served = {}, {}
     for arch, lens, max_seq, extras_key in TP_FIXED_ARCHS:
-        cfg = get_config(arch)
+        cfg = tp_fixed_cfg(arch)
         model, params = family_setup(torch, cfg)
         prompts, extras = fixed_mesh_inputs(cfg, lens, extras_key)
 
@@ -5905,20 +5985,44 @@ def phase_tp_fixed(torch):
 
 # ------------------------------------------------------------ phase 24
 # Training on a mesh (`Trainer(model, mesh, rules, data, cfg)`, the rank
-# step `launch/steps.py::mesh_train_step`): qwen3-1.7b at phase 14's
-# configuration on a (data 1, model 2) and a (data 2, model 1) mesh with
-# ZeRO-1, each a gloo world of two processes sharing the card
-# (`--train-tp-child RANK WORLD STORE OUT JOB`).  Every rank draws the
-# single-device state from seed 0 and keeps its cut, computes the step-1
-# gradients (held against phase 14's, which phase 14 left on the host) and
-# runs TRAIN_TP_STEPS steps; the (data 1, model 2) world then trains phase
-# 15's Trainer configuration for ELASTIC_STEPS steps and saves, and this
-# process restores that checkpoint with no mesh (elastic restart: phase
-# 15's size, as the full 24.4 GB f32 state would take minutes of disk).
+# step `launch/steps.py::mesh_train_step`), every world a gloo world of
+# processes sharing the card (`--train-tp-child RANK WORLD STORE OUT JOB`):
+#   (a) qwen3-1.7b at phase 14's configuration, cut to TRAIN_TP_LAYERS
+#       layers (of 28; an earlier path, cut for the script's time;
+#       the same no-mesh reference as (b)'s qwen3), on a (data 1, model 2) and a (data 2, model 1) mesh with
+#       ZeRO-1, worlds of two;
+#   (b) the layouts of ROADMAP item 8c-ii, one world of LAYOUT_WORLD
+#       processes after (a)'s two, which run side by side (LAYOUT_RUNS;
+#       its qwen3 ranks beside (a)'s (data 1, model 2) world took the
+#       card's 80 GB): qwen3-1.7b on
+#       (pod 2, data 2, model 1), the batch over pod x data, ZeRO-1 over
+#       data; zamba2-1.2b on (data 2, model 2) with one 16,384-token
+#       sequence, "seq" over "data" (the batch replicated: the SSD's fold,
+#       the conv's halo and the shared attention's K / V across the ranks).
+# Every rank draws the single-device state from seed 0 and keeps its cut,
+# computes the step-1 gradients (held against this process's no-mesh step
+# at the same depth, whose gradients it leaves on the host: loss within
+# TRAIN_TP_LOSS_ATOL, norm within TRAIN_TP_GNORM_RTOL, every leaf's cosine
+# >= TRAIN_TP_COSINE) and runs TRAIN_TP_STEPS steps (the same bits on
+# every rank); the (data 1, model 2) world then trains phase 15's Trainer
+# configuration for ELASTIC_STEPS steps and saves, and this process
+# restores that checkpoint with no mesh (elastic restart: phase 15's size,
+# as the full 24.4 GB f32 state would take minutes of disk).  "expert_ffn"
+# in training needs n_experts % model != 0: qwen2-moe's 60 experts divide
+# 2 and 4, so one card checks it on the CPU only
+# (tests/test_torch_train_layouts.py).
 TRAIN_TP_MESHES = ((1, 2), (2, 1))
+TRAIN_TP_LAYERS = 2
 TRAIN_TP_STEPS = 1
 TRAIN_TP_LOSS_ATOL, TRAIN_TP_GNORM_RTOL, TRAIN_TP_COSINE = 1e-3, 1e-2, 0.999
 ELASTIC_STEPS = 4
+LAYOUT_WORLD = 4
+# name -> (arch, layers, mesh shape, sequence, global batch, microbatches)
+LAYOUT_RUNS = {
+    "pod 2 x data 2 x model 1": ("qwen3-1.7b", 2, (2, 2, 1), TRAIN_SEQ, TRAIN_BATCH,
+                                 TRAIN_MICROBATCHES),
+    "data 2 x model 2, seq over data": ("zamba2-1.2b", 6, (2, 2), 16_384, 1, 1),
+}
 
 
 def _wrappers():
@@ -5934,21 +6038,31 @@ def _wrappers():
             KA.dense_decode_attention, KS.sample_draw)
 
 
-def train_tp_reckon(cfg, state, rows, tp):
+def train_tp_reckon(cfg, state, rows, seq, tp, keys=None):
     """Bytes one rank needs before the run, from its shards: parameters,
     gradients (the parameters' shapes), moments (as cut, ZeRO-1 blocks
-    included), and activations under remat full: each layer's input kept
-    (rows x seq x d, bf16), one layer recomputed in backward (the f32
-    attention logits and probabilities of its heads, or its MLP's four
-    (rows, seq, d_ff / tp) bf16 tensors, the larger) and one LM-head chunk
-    (512 positions' f32 logits over the rank's vocabulary, three times:
-    logits, exponentials, gradient)."""
+    included), and activations under remat full for `rows` rows of `seq`
+    positions a microbatch attending to `keys` positions (default `seq`):
+    each layer's input kept (bf16), one layer recomputed in backward
+    (attention's f32 logits and probabilities of the rank's heads over
+    the keys, or over one key chunk where `_sdpa` takes the chunked form,
+    its MLP's four (rows, seq, d_ff / tp) bf16 tensors, or for the SSM
+    layers the SSD's three (chunk x chunk) f32 tensors a head and chunk,
+    the largest) and one LM-head chunk (512 positions' f32 logits over the
+    rank's vocabulary, three times: logits, exponentials, gradient)."""
+    from repro_torch.models.attention import _CHUNKED_KV_THRESHOLD, _kv_chunk_for
+
     nbytes = lambda tree: sum(t.numel() * t.element_size() for t in _leaves(tree))
     params, moments = nbytes(state["params"]), nbytes(state["opt"]["m"]) * 2
-    seq, d = TRAIN_SEQ, cfg.d_model
+    d, keys = cfg.d_model, keys or seq
+    chunk = _kv_chunk_for(keys) if keys >= _CHUNKED_KV_THRESHOLD else 0
+    span = chunk if chunk and keys // chunk > 1 else keys
     kept = cfg.n_layers * rows * seq * d * 2
-    layer = max(rows * (cfg.n_heads // tp) * seq * seq * (4 + 4 + 2),
+    layer = max(rows * (cfg.n_heads // tp) * seq * span * (4 + 4 + 2),
                 4 * rows * seq * (cfg.d_ff // tp) * 2)
+    if cfg.ssm_state:
+        heads = cfg.ssm_expand * d // cfg.ssm_head_dim // tp
+        layer = max(layer, 3 * rows * heads * seq * cfg.ssm_chunk * 4)
     head = 3 * rows * 512 * (cfg.vocab // tp) * 4
     return {"params": params, "grads": params, "moments": moments,
             "activations": kept + layer + head}
@@ -5998,112 +6112,147 @@ def _least_free(torch):
     return done
 
 
-def train_tp_child(torch, rank, world, store, out_path, job_path):
-    """One rank of phase 24, run as `chip_smoke.py --train-tp-child RANK
-    WORLD STORE OUT JOB`: the mesh of JOB's shape, qwen3-1.7b's state from
-    seed 0 cut to the rank, the step-1 gradients' cosines with phase 14's
-    (on the writing rank), TRAIN_TP_STEPS steps; with JOB's "elastic", the
-    Trainer run that saves.  Writes its numbers to OUT as JSON."""
-    import numpy as np
-    import torch.distributed as dist
+def _train_cfg(arch, layers):
+    """`arch` at full width, remat full, `layers` deep."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), remat="full", n_layers=layers)
+
+
+def _train_mesh(torch, world, shape):
+    """A DeviceMesh of the world's ranks: (data, model) or (pod, data,
+    model)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    from repro_torch.configs import ShapeSpec, get_config
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return DeviceMesh(DEVICE, torch.arange(world).reshape(tuple(shape)),
+                      mesh_dim_names=names)
+
+
+def _train_mesh_run(torch, world, run, tmp):
+    """One mesh of a phase-24 world: the Trainer over RUN's mesh (arch,
+    layers, shape, seq, batch, microbatches), the state drawn from seed 0
+    and cut, step 1's gradients against RUN's kept no-mesh ones (cosines on
+    the ranks that own each position), TRAIN_TP_STEPS steps; -> its
+    numbers."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeSpec
     from repro_torch.data import DataConfig, SyntheticLMData
-    from repro_torch.launch.mesh import init_file_world
     from repro_torch.launch.steps import TrainConfig, rules_for_shape
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.tree import tree_flatten_with_paths
 
+    res = {}
+    mesh = _train_mesh(torch, world, run["shape"])
+    cfg = _train_cfg(run["arch"], run["layers"])
+    rules = rules_for_shape(cfg, ShapeSpec("train", "train", run["seq"], run["batch"]), mesh)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=run["seq"],
+                                      global_batch=run["batch"]))
+    tr = Trainer(build_model(cfg), mesh, rules, data, TrainerConfig(
+        steps=TRAIN_TP_STEPS, ckpt_every=10 ** 9, log_every=10 ** 9,
+        ckpt_dir=os.path.join(tmp, f"ckpt_unused_{dist.get_rank()}"),
+        train=TrainConfig(microbatches=run["k"], zero1=True,
+                          opt=AdamWConfig(**TRAIN_OPT))))
+    step, rm = tr._step_fn, tr.rank_mesh
+    wrappers = _wrappers()
+    _zeroed(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.init_state(0)
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    rows = run["batch"] // run["k"] // (rm.batch.size if rm.batch is not None else 1)
+    seq = run["seq"] // (rm.seq.size if rm.seq is not None else 1)
+    res["reckon"] = train_tp_reckon(cfg, state, rows, seq,
+                                    rm.tp.size if rm.tp is not None else 1, run["seq"])
+    res["rules"] = {a: rm.rules.lookup(a) for a in ("batch", "seq", "zero", "heads",
+                                                   "kv_heads", "ffn", "vocab",
+                                                   "ssm_heads")}
+    cuts, cos = dict(tree_flatten_with_paths(step.layouts["params"])), {}
+
+    def against_reference(grads):
+        # step 1's gradients against the no-mesh step's, leaf by leaf: each
+        # rank takes the dot product and the squared norms over the positions
+        # it owns of the reference leaf's cut as its own, summed over the
+        # model axis (the other axes hold the same whole gradients)
+        t0 = time.perf_counter()
+        keys, sums = [], []
+        for key, g in tree_flatten_with_paths(grads):
+            cut = cuts[key]
+            ref = cut.model_local(kept_leaf(torch, run["grads"], key))
+            if cut.dim is not None and len(cut.owned()) < len(cut.index):
+                own = cut.owned().to(g.device)
+                g, ref = g.index_select(cut.dim, own), ref.index_select(cut.dim, own)
+            part = _dots(torch, g, ref)
+            if cut.dim is None and rm.tp is not None and rm.tp.rank != 0:
+                part = torch.zeros_like(part)
+            keys.append(key)
+            sums.append(part.float())
+            del ref
+        sums = torch.stack(sums)
+        if rm.tp is not None:
+            sums = rm.tp.all_reduce(sums)
+        for key, (ab, aa, bb) in zip(keys, sums.double().tolist()):
+            cos[key] = ab / math.sqrt(aa * bb)
+        res["compare_s"] = time.perf_counter() - t0
+
+    losses, norms, ms = [], [], []
+    least_free = _least_free(torch)
+    for i in range(TRAIN_TP_STEPS):
+        batch = tr._batch(i)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        state["params"], state["opt"], met = step(
+            state["params"], state["opt"], batch,
+            on_grads=against_reference if i == 0 else None)
+        losses.append(float(met["loss"]).hex())
+        norms.append(float(met["grad_norm"]).hex())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 - (res["compare_s"] * 1e3 if i == 0
+                                                     else 0.0))
+    res.update(cosines=cos, n_leaves=len(cuts), losses=losses, norms=norms, step_ms=ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               least_free_gib=least_free() / 2 ** 30,
+               launches={fn.__name__: fn.launches for fn in wrappers})
+    res["replicated"] = {k: _sha(torch, t)
+                         for k, t in tree_flatten_with_paths(state["params"])
+                         if cuts[k].dim is None}
+    del state, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_tp_child(torch, rank, world, store, out_path, job_path):
+    """One rank of phase 24, run as `chip_smoke.py --train-tp-child RANK
+    WORLD STORE OUT JOB`: JOB's entry for this world's size, each of its
+    runs in turn (`_train_mesh_run`, every run's mesh over the same
+    ranks); with "elastic", the Trainer run on the (data 1, model 2) mesh
+    that saves.  Writes its numbers to OUT as JSON."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_file_world
+    from repro_torch.tree import tree_flatten_with_paths
+
     with open(job_path) as f:
-        job = json.load(f)
+        job = json.load(f)[str(world)]
     torch.cuda.set_device(0)
     torch.cuda.init()
     init_file_world(store, rank, world, "gloo")
-    res = {"rank": rank}
+    res = {"rank": rank, "runs": {}}
     try:
-        shape = tuple(job["shape"])
-        mesh = DeviceMesh(DEVICE, torch.arange(world).reshape(shape),
-                          mesh_dim_names=("data", "model"))
-        cfg = dataclasses.replace(get_config("qwen3-1.7b"), remat="full")
-        rules = rules_for_shape(cfg, ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
-                                mesh)
-        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                          global_batch=TRAIN_BATCH))
-        tr = Trainer(build_model(cfg), mesh, rules, data, TrainerConfig(
-            steps=TRAIN_TP_STEPS, ckpt_every=10 ** 9, log_every=10 ** 9,
-            ckpt_dir=os.path.join(job["tmp"], f"ckpt_unused_{rank}"),
-            train=TrainConfig(microbatches=TRAIN_MICROBATCHES, zero1=True,
-                              opt=AdamWConfig(**TRAIN_OPT))))
-        step, rm = tr._step_fn, tr.rank_mesh
-        wrappers = _wrappers()
-        _zeroed(wrappers)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state = tr.init_state(0)
-        torch.cuda.synchronize()
-        res["init_s"] = time.perf_counter() - t0
-        dp, tp = shape
-        res["reckon"] = train_tp_reckon(cfg, state, TRAIN_BATCH // TRAIN_MICROBATCHES // dp,
-                                        tp)
-        res["rules"] = {a: rm.rules.lookup(a) for a in ("batch", "zero", "heads", "kv_heads",
-                                                       "ffn", "vocab")}
-        cuts, cos = dict(tree_flatten_with_paths(step.layouts["params"])), {}
-
-        def against_phase14(grads):
-            # step 1's gradients against phase 14's, leaf by leaf: each rank
-            # takes the dot product and the squared norms over the positions
-            # it owns of phase 14's leaf cut as its own, summed over the ranks
+        for name, run in job["runs"].items():
             t0 = time.perf_counter()
-            keys, sums = [], []
-            for key, g in tree_flatten_with_paths(grads):
-                cut = cuts[key]
-                ref = cut.model_local(kept_leaf(torch, job["grads"], key))
-                if cut.dim is not None and len(cut.owned()) < len(cut.index):
-                    own = cut.owned().to(g.device)
-                    g, ref = g.index_select(cut.dim, own), ref.index_select(cut.dim, own)
-                part = _dots(torch, g, ref)
-                if cut.dim is None and rm.tp is not None and rm.tp.rank != 0:
-                    part = torch.zeros_like(part)
-                keys.append(key)
-                sums.append(part.float())
-                del ref
-            sums = torch.stack(sums)
-            if rm.tp is not None:
-                sums = rm.tp.all_reduce(sums)
-            for key, (ab, aa, bb) in zip(keys, sums.double().tolist()):
-                cos[key] = ab / math.sqrt(aa * bb)
-            res["compare_s"] = time.perf_counter() - t0
-
-        losses, norms, ms = [], [], []
-        least_free = _least_free(torch)
-        for i in range(TRAIN_TP_STEPS):
-            batch = tr._batch(i)
-            torch.cuda.synchronize()
-            dist.barrier()
-            t0 = time.perf_counter()
-            state["params"], state["opt"], met = step(
-                state["params"], state["opt"], batch,
-                on_grads=against_phase14 if i == 0 else None)
-            losses.append(float(met["loss"]).hex())
-            norms.append(float(met["grad_norm"]).hex())
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3 - (res["compare_s"] * 1e3 if i == 0
-                                                         else 0.0))
-        res.update(cosines=cos, n_leaves=len(cuts), losses=losses, norms=norms, step_ms=ms,
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   least_free_gib=least_free() / 2 ** 30,
-                   launches={fn.__name__: fn.launches for fn in wrappers})
-        res["replicated"] = {k: _sha(torch, t)
-                             for k, t in tree_flatten_with_paths(state["params"])
-                             if cuts[k].dim is None}
-        del state, tr, step
-        gc.collect()
-        torch.cuda.empty_cache()
+            res["runs"][name] = _train_mesh_run(torch, world, run, job["tmp"])
+            res["runs"][name]["run_s"] = time.perf_counter() - t0
         if job.get("elastic"):
-            etr = _loop_trainer(job["elastic_dir"], mesh=mesh, steps=ELASTIC_STEPS)
+            etr = _loop_trainer(job["elastic_dir"], mesh=_train_mesh(torch, world, (1, 2)),
+                                steps=ELASTIC_STEPS)
             _, st, _ = etr.run()
             full = etr.full_state(st)
             if etr.rank_mesh.writer:
@@ -6191,9 +6340,84 @@ def train_memory_history(torch):
         f"in {len(live)} blocks")
 
 
-def phase_train_tp(torch, counters, keep, phase14):
-    """Phase 24 (see the comment above).  `keep`: the directory of phase
-    14's step-1 gradients; `phase14`: its numbers (step-1 loss, norm)."""
+def _step1_reference(torch, arch, layers, seq, batch, k, keep):
+    """The no-mesh bf16 step 1 of `arch` at `layers` layers (full width,
+    remat full, seed 0, the pipeline's batch 0 of `batch` x `seq`, `k`
+    microbatches) in this process: its gradients left on the host in
+    `keep` (`keep_leaf`); -> {"loss1", "gnorm1", "peak_gb", "s"}."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_flatten_with_paths
+
+    t0 = time.perf_counter()
+    cfg = _train_cfg(arch, layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch))
+    torch.cuda.reset_peak_memory_stats()
+    loss, _, grads = loss_and_grads(model, params, _train_batch(torch, data, 0, cfg), k)
+    gnorm = float(global_norm(grads))
+    for key, g in tree_flatten_with_paths(grads):
+        keep_leaf(torch, keep, key, g)
+    out = {"loss1": float(loss), "gnorm1": gnorm,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "s": time.perf_counter() - t0}
+    del model, params, grads
+    free_device(torch)
+    return out
+
+
+def _check_train_world(torch, tag, ranks, name, ref):
+    """Every rank's run `name` of a phase-24 world: its numbers logged
+    beside its reckoning, the same bits on every rank, step 1 against the
+    no-mesh reference `ref`, no hand-written launch."""
+    for r in ranks:
+        run, rk = r["runs"][name], r["runs"][name]["reckon"]
+        total = sum(rk.values()) / 1e9
+        log(f"{tag} rank {r['rank']} (rules {run['rules']}): state drawn and cut in "
+            f"{run['init_s']:.1f} s; step-1 gradients gathered and compared in "
+            f"{run['compare_s']:.2f} s; step ms (gloo on one card, not a DP / TP speed) "
+            + ", ".join(f"{m:.1f}" for m in run["step_ms"])
+            + f"; peak {run['peak_gb']:.2f} GB beside the reckoning {total:.2f} GB "
+            f"(params {rk['params'] / 1e9:.2f}, grads {rk['grads'] / 1e9:.2f}, "
+            f"moments {rk['moments'] / 1e9:.2f}, activations "
+            f"{rk['activations'] / 1e9:.2f}); least free on the card during the "
+            f"steps (every process's use) {run['least_free_gib']:.2f} GiB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f} GiB; "
+            f"the run {run['run_s']:.1f} s; launches {run['launches']}")
+    first = ranks[0]["runs"][name]
+    for r in ranks[1:]:
+        for key in ("losses", "norms", "replicated"):
+            if r["runs"][name][key] != first[key]:
+                raise AssertionError(f"{tag} rank {r['rank']}'s {key} differ from "
+                                     "rank 0's")
+    loss, gnorm = float.fromhex(first["losses"][0]), float.fromhex(first["norms"][0])
+    cos = next(r["runs"][name]["cosines"] for r in ranks if r["runs"][name]["cosines"])
+    worst = sorted((c, k) for k, c in cos.items())
+    log(f"{tag} step 1: loss {loss:.6f} (no mesh {ref['loss1']:.6f}, |d| "
+        f"{abs(loss - ref['loss1']):.2e}, tol {TRAIN_TP_LOSS_ATOL}), grad_norm "
+        f"{gnorm:.6f} (no mesh {ref['gnorm1']:.6f}, rel "
+        f"{abs(gnorm / ref['gnorm1'] - 1):.2e}, tol {TRAIN_TP_GNORM_RTOL}); losses "
+        + ", ".join(f"{float.fromhex(x):.6f}" for x in first["losses"])
+        + "; the same bits on every rank (loss, grad_norm, "
+        f"{len(first['replicated'])} replicated leaves after step {TRAIN_TP_STEPS})")
+    log(f"{tag} gradient cosine with the no-mesh step per leaf (its bf16-rounded "
+        "copy): " + ", ".join(f"{k} {c:.6f}" for c, k in worst))
+    if not (abs(loss - ref["loss1"]) <= TRAIN_TP_LOSS_ATOL
+            and abs(gnorm / ref["gnorm1"] - 1) <= TRAIN_TP_GNORM_RTOL
+            and len(cos) == first["n_leaves"] and worst[0][0] >= TRAIN_TP_COSINE):
+        raise AssertionError(f"{tag} step 1 disagrees with the no-mesh step")
+    if any(n for r in ranks for n in r["runs"][name]["launches"].values()):
+        raise AssertionError(f"{tag} hand-written kernels launched")
+
+
+def phase_train_tp(torch, counters, smi=""):
+    """Phase 24 (see the comment above): the no-mesh references in this
+    process, then (a)'s two worlds side by side, then (b)'s world."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     from repro_torch.tree import tree_flatten_with_paths
@@ -6202,68 +6426,58 @@ def phase_train_tp(torch, counters, keep, phase14):
     t_phase = time.perf_counter()
     _zeroed(counters)
     tmp = tempfile.mkdtemp(prefix="train_tp_")
-    worlds = {}
+    runs = {f"data {d} x model {m}": ("qwen3-1.7b", TRAIN_TP_LAYERS, (d, m), TRAIN_SEQ,
+                                      TRAIN_BATCH, TRAIN_MICROBATCHES)
+            for d, m in TRAIN_TP_MESHES}
+    runs.update(LAYOUT_RUNS)
+    refs, jobs = {}, {}
     try:
-        for shape in TRAIN_TP_MESHES:
-            tag = f"train{shape[0]}x{shape[1]}_"
-            job = {"shape": shape, "grads": keep, "tmp": tmp, "elastic": shape == (1, 2),
-                   "elastic_dir": os.path.join(tmp, "elastic"),
-                   "elastic_npz": os.path.join(tmp, "elastic.npz")}
-            job_path = os.path.join(tmp, f"{tag}job.json")
-            with open(job_path, "w") as f:
-                json.dump(job, f)
-            t0 = time.perf_counter()
-            # two ranks of 35 GB share the card: segments that grow in place
-            # keep the allocator's cached-but-unusable bytes down
-            worlds[shape] = _tp_world(shape[0] * shape[1], tmp, "--train-tp-child", tag,
-                                      (job_path,), env={
-                                          **os.environ,
-                                          "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
-            log(f"[{label} {shape}] {len(worlds[shape])} ranks in "
-                f"{time.perf_counter() - t0:.1f} s (start included)")
-            for r in worlds[shape]:
-                rk = r["reckon"]
-                total = sum(rk.values()) / 1e9
-                log(f"[{label} data {shape[0]} x model {shape[1]}] rank {r['rank']} (rules "
-                    f"{r['rules']}): state drawn and cut in {r['init_s']:.1f} s; step-1 "
-                    f"gradients gathered and compared in {r['compare_s']:.2f} s; "
-                    f"step ms (gloo on one card, not a TP speed) "
-                    + ", ".join(f"{m:.1f}" for m in r["step_ms"])
-                    + f"; peak {r['peak_gb']:.2f} GB beside the reckoning {total:.2f} GB "
-                    f"(params {rk['params'] / 1e9:.2f}, grads {rk['grads'] / 1e9:.2f}, "
-                    f"moments {rk['moments'] / 1e9:.2f}, activations "
-                    f"{rk['activations'] / 1e9:.2f}); least free on the card during the "
-                    f"steps (every process's use) {r['least_free_gib']:.2f} GiB of "
-                    f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f} GiB; "
-                    f"launches {r['launches']}")
-        loss14, gnorm14 = phase14["loss1"], phase14["gnorm1"]
-        for shape, ranks in worlds.items():
-            tag = f"[{label} data {shape[0]} x model {shape[1]}]"
-            first = ranks[0]
-            for r in ranks[1:]:
-                for key in ("losses", "norms", "replicated"):
-                    if r[key] != first[key]:
-                        raise AssertionError(f"{tag} rank {r['rank']}'s {key} differ from "
-                                             "rank 0's")
-            loss, gnorm = float.fromhex(first["losses"][0]), float.fromhex(first["norms"][0])
-            cos = next(r["cosines"] for r in ranks if r["cosines"])
-            worst = sorted((c, k) for k, c in cos.items())
-            log(f"{tag} step 1: loss {loss:.6f} (phase 14 {loss14:.6f}, |d| "
-                f"{abs(loss - loss14):.2e}, tol {TRAIN_TP_LOSS_ATOL}), grad_norm "
-                f"{gnorm:.6f} (phase 14 {gnorm14:.6f}, rel {abs(gnorm / gnorm14 - 1):.2e}, "
-                f"tol {TRAIN_TP_GNORM_RTOL}); losses "
-                + ", ".join(f"{float.fromhex(x):.6f}" for x in first["losses"])
-                + "; the same bits on every rank (loss, grad_norm, "
-                f"{len(first['replicated'])} replicated leaves after step "
-                f"{TRAIN_TP_STEPS})")
-            log(f"{tag} gradient cosine with phase 14 per leaf (its bf16-rounded "
-                "copy): " + ", ".join(f"{k} {c:.6f}" for c, k in worst))
-            if not (abs(loss - loss14) <= TRAIN_TP_LOSS_ATOL
-                    and abs(gnorm / gnorm14 - 1) <= TRAIN_TP_GNORM_RTOL
-                    and len(cos) == first["n_leaves"] and worst[0][0] >= TRAIN_TP_COSINE):
-                raise AssertionError(f"{tag} step 1 disagrees with phase 14")
-            if any(n for r in ranks for n in r["launches"].values()):
-                raise AssertionError(f"{tag} hand-written kernels launched")
+        for name, (arch, layers, shape, seq, batch, k) in runs.items():
+            keep = os.path.join(tmp, "ref_" + re.sub(r"\W+", "_", name))
+            os.makedirs(keep)
+            key = (arch, layers, seq, batch, k)
+            if key not in refs:
+                refs[key] = dict(_step1_reference(torch, arch, layers, seq, batch, k, keep),
+                                 grads=keep)
+                log(f"[{label}] the no-mesh reference: {arch} at {layers} layers, "
+                    f"{batch} x {seq} tokens, {k} microbatches: step-1 loss "
+                    f"{refs[key]['loss1']:.6f}, grad_norm {refs[key]['gnorm1']:.6f}, peak "
+                    f"{refs[key]['peak_gb']:.2f} GB, {refs[key]['s']:.1f} s")
+            jobs[name] = {"arch": arch, "layers": layers, "shape": list(shape), "seq": seq,
+                          "batch": batch, "k": k, "grads": refs[key]["grads"]}
+        first, second = (f"data {d} x model {m}" for d, m in TRAIN_TP_MESHES)
+        job_paths = []
+        for tag, size, extra in (
+                ("a1", 2, {"runs": {first: jobs[first]}, "elastic": True,
+                           "elastic_dir": os.path.join(tmp, "elastic"),
+                           "elastic_npz": os.path.join(tmp, "elastic.npz")}),
+                ("a2", 2, {"runs": {second: jobs[second]}}),
+                ("b", LAYOUT_WORLD, {"runs": {n: jobs[n] for n in LAYOUT_RUNS}})):
+            job_paths.append(os.path.join(tmp, f"job_{tag}.json"))
+            with open(job_paths[-1], "w") as f:
+                json.dump({str(size): dict(extra, tmp=tmp)}, f)
+        # ranks of 17 GB share the card: segments that grow in place keep
+        # the allocator's cached-but-unusable bytes down
+        env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            futures = [pool.submit(_tp_world, 2, tmp, "--train-tp-child", f"train_a{i}_",
+                                   (job_paths[i],), env) for i in range(2)]
+            world_a = [f.result() for f in futures]
+        log(f"[{label}] the (data 1, model 2) and (data 2, model 1) worlds side by side: "
+            f"{time.perf_counter() - t0:.1f} s (start included)")
+        t0 = time.perf_counter()
+        world_b = _tp_world(LAYOUT_WORLD, tmp, "--train-tp-child", "train_b_",
+                            (job_paths[2],), env)
+        log(f"[{label}] the {LAYOUT_WORLD}-rank world: {time.perf_counter() - t0:.1f} s "
+            "(start included)")
+        for name, ranks in ((first, world_a[0]), (second, world_a[1])):
+            _check_train_world(torch, f"[{label} {name}]", ranks, name,
+                               refs[runs[name][:2] + runs[name][3:]])
+        for name in LAYOUT_RUNS:
+            _check_train_world(torch, f"[{label} {name}]", world_b, name,
+                               refs[runs[name][:2] + runs[name][3:]])
+        log(f"[{label}] {smi}")
         # the elastic restart: the (1, 2) world saved, this process restores
         held = dict(np.load(os.path.join(tmp, "elastic.npz")))
         solo = _loop_trainer(os.path.join(tmp, "elastic"), steps=ELASTIC_STEPS)
@@ -6272,7 +6486,7 @@ def phase_train_tp(torch, counters, keep, phase14):
                 if not np.array_equal(t.cpu().numpy(), held[k])]
         log(f"[{label}] elastic restart: the (data 1, model 2) world trained phase 15's "
             f"configuration {ELASTIC_STEPS} steps (loss "
-            f"{worlds[(1, 2)][0]['elastic_loss']:.4f}) and saved; restored here with no "
+            f"{world_a[0][0]['elastic_loss']:.4f}) and saved; restored here with no "
             f"mesh at step {start}: {len(held)} leaves, "
             + ("bitwise equal to the state the ranks gathered" if not diff
                else f"{len(diff)} differ: {diff[:5]}"))
@@ -6287,7 +6501,6 @@ def phase_train_tp(torch, counters, keep, phase14):
                              f"{_launched(counters)}")
     log(f"[{label}] hand-written kernels launched: none (this process and every rank)")
     _phase_end(label, t_phase)
-    return worlds
 
 
 def _log_device_profile(prof, wall_s, label, calls=None):
@@ -6332,8 +6545,10 @@ def _leaves(tree):
 DP_MESH = (2, 2)
 DP_WORLD = 4
 # the MoE and qwen3 at 2 layers since the sequence-parallel prefill joined
-# the phase (4 before), to hold the script's time
-DP_LAYERS = {"qwen2-moe-a2.7b": 2, "qwen3-1.7b": 2, "zamba2-1.2b": 12, "mamba2-2.7b": 8}
+# the phase (4 before), zamba2 at 6 (one use of the shared block) and
+# mamba2 at 4 since the training layouts joined phase 24 (12 and 8 before),
+# to hold the script's time
+DP_LAYERS = {"qwen2-moe-a2.7b": 2, "qwen3-1.7b": 2, "zamba2-1.2b": 6, "mamba2-2.7b": 4}
 # the reference's REPRO_RULES overrides each model serves under
 DP_RULES = {"qwen2-moe-a2.7b": dict(experts=None, expert_ffn="model"),
             "qwen3-1.7b": dict(kv_heads=None, kv_seq="model")}
@@ -6800,7 +7015,7 @@ def main() -> int:
                          "(no other phase, no result line)")
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (no result line); "
-                         "skips phases 3 to 25")
+                         "skips phases 3 to 26")
     ap.add_argument("--tp-child", nargs=4, metavar=("RANK", "WORLD", "STORE", "OUT"),
                     help=argparse.SUPPRESS)      # one rank of phase 21 (b)
     ap.add_argument("--tp-family-child", nargs=4,
@@ -6923,8 +7138,12 @@ def main() -> int:
     sampled_launches = timed_phase(
         6, "sampled serving: the mixed cycle through the step programs",
         phase_sampled, torch, served, router, greedy_out, args.profile)
-    wpk, wpk_plan = timed_phase(4, "the paper's pipeline on ResNet-18 (optimize_graph, "
-                                "select, Engine)", phase_wpk, torch, args.profile)
+    wpk, wpk_plan, wpk_fitness = timed_phase(
+        4, "the paper's pipeline on ResNet-18 (optimize_graph, select, Engine)",
+        phase_wpk, torch, args.profile)
+    example_paths = timed_phase(
+        26, "the port's examples: quickstart, tune_resnet18 (on phase 4's fitness) and "
+        "serve_inference at their JAX sizes", phase_examples, torch, wpk_fitness)
     plan_paths, wall_plan, wall_tps = timed_phase(
         5, "the serve plan: build_serve_plan on the card, then serving under it",
         phase_serve_plan, torch, served, [c.fn for c in checks], torch_run, kernel_tps)
@@ -6933,12 +7152,14 @@ def main() -> int:
         [c.fn for c in checks], checks, torch_run, wall_plan, wall_tps, wpk_plan)
     ssm_paths = timed_phase(
         7, "serving mamba2-2.7b through ContinuousEngine (the slot-pooled state cache)",
-        phase_ssm, torch, get_config("mamba2-2.7b"), args.profile)
+        phase_ssm, torch, dataclasses.replace(get_config("mamba2-2.7b"),
+                                              n_layers=SSM_SERVE_LAYERS), args.profile)
     del served
     free_device(torch)
     moe_paths = timed_phase(
         8, "serving qwen2-moe-a2.7b through ContinuousEngine (the MoE on the paged "
-        "programs)", phase_moe, torch, get_config("qwen2-moe-a2.7b"),
+        "programs)", phase_moe, torch, dataclasses.replace(
+            get_config("qwen2-moe-a2.7b"), n_layers=MOE_SERVE_LAYERS),
         [c.fn for c in checks], args.profile)
     free_device(torch)
     granite_paths = timed_phase(
@@ -6962,12 +7183,9 @@ def main() -> int:
         ENCDEC_FIXED_LENS, ENCDEC_FIXED_SEQ, "whisper", "fixed_whisper_base",
         "audio_embeds")
     free_device(torch)
-    # phase 14's step-1 gradients, left on the host for phase 24
-    keep = tempfile.mkdtemp(prefix="phase14_grads_")
-    atexit.register(shutil.rmtree, keep, True)
-    phase14 = timed_phase(14, "training qwen3-1.7b at full width and depth through the "
-                          "port's train step", phase_train, torch, get_config("qwen3-1.7b"),
-                          [c.fn for c in checks], keep, smi)
+    timed_phase(14, "training qwen3-1.7b at full width and depth through the port's "
+                "train step", phase_train, torch, get_config("qwen3-1.7b"),
+                [c.fn for c in checks], smi)
     free_device(torch)
     timed_phase(15, "the Trainer end to end (checkpoints, preemption, resume) and one "
                 "train step of each other family", phase_train_loop, torch,
@@ -7006,11 +7224,11 @@ def main() -> int:
         "FixedBatchEngine, tp_mesh(1) against no mesh, then tp = 2 / 4 as processes on "
         "the card", phase_tp_fixed, torch)
     free_device(torch)
-    timed_phase(24, "training on a mesh: qwen3-1.7b on (data 1, model 2) and (data 2, "
-                "model 1) with ZeRO-1 as processes on the card, against phase 14; the "
-                "elastic restart", phase_train_tp, torch, [c.fn for c in checks], keep,
-                phase14)
-    shutil.rmtree(keep, ignore_errors=True)
+    timed_phase(24, "training on a mesh as processes on the card: qwen3-1.7b on (data 1, "
+                "model 2) and (data 2, model 1) with ZeRO-1, on (pod 2, data 2, model 1), "
+                "and zamba2-1.2b's 16,384-token sequence over data on (data 2, model 2), "
+                "each against the no-mesh step; the elastic restart", phase_train_tp,
+                torch, [c.fn for c in checks], smi)
     free_device(torch)
     dp_paths = timed_phase(
         25, "serving on a (data 2, model 2) mesh: qwen2-moe-a2.7b with TP inside the "
@@ -7018,7 +7236,7 @@ def main() -> int:
         "prefill of zamba2-1.2b and mamba2-2.7b at 16k tokens, as processes on the card",
         phase_dp_serving, torch, smi)
     paths = {**knob_paths, **race_paths, **tp_paths, **family_tp_paths, **fixed_tp_paths,
-             **dp_paths,
+             **dp_paths, **example_paths,
              "serve_qwen3_1_7b": serve_launches,
              "serve_sampled": sampled_launches, **wpk, **plan_paths, **fit_paths,
              **ssm_paths, **moe_paths, **granite_paths, **vlm_paths,

@@ -24,7 +24,11 @@ either package.  With a registry the engine runs it on the registry's
 fusing each chain inside the JAX engine's `jit`, as `Program` is the
 counterpart of `jit` itself.  An engine without a registry (the vendor
 lane, `verify_against_reference`'s reference) runs it through ref_ops,
-one PyTorch op per stage.  The weight of an NHWC conv on the vendor lane is laid out once, at
+one PyTorch op per stage.  A plan is tuned at one dtype (`select(dtype=)`,
+bf16 by default) and runs on whatever dtype the graph holds, as the JAX
+engine's does: a GEMM tile tuned at another dtype that the data's cannot
+launch runs on the GEMM's default geometry (`ops.matmul`'s `any_dtype`).
+The weight of an NHWC conv on the vendor lane is laid out once, at
 construction, as cuDNN reads it (`ref_ops.nhwc_conv_weight`), not on every
 call.
 """
@@ -53,7 +57,8 @@ def default_registry() -> BackendRegistry:
     return {
         "xla": None,  # resolved per op via ref_ops
         "pallas_matmul": lambda inputs, attrs, config: kops.matmul(
-            *inputs, config=config, activation=attrs.get("activation")),
+            *inputs, config=config, activation=attrs.get("activation"),
+            any_dtype=True),
         "pallas_conv2d": lambda inputs, attrs, config: kops.conv2d(
             *inputs, stride=attrs.get("stride", 1),
             padding=attrs.get("padding", "SAME"),

@@ -26,7 +26,7 @@ prompt's positions in the sequence-parallel prefill: `seq_split`).
 Outside those contexts (one device, a 1-wide axis) every site is the
 single-device code.
 
-Three operations, each a `torch.autograd.Function`:
+Four operations, each a `torch.autograd.Function`:
 
   * `all_reduce(x)`: the sum of the ranks' partial `x`, computed as an
     all-gather of the partials viewed as raw bytes, then a sum in rank
@@ -41,7 +41,12 @@ Three operations, each a `torch.autograd.Function`:
     in backward the sum over the ranks of the gradient.  It sits where a
     replicated activation enters a product split over the axis (the
     column-split projections): each rank's gradient of it is the partial
-    sum of its own columns' terms.
+    sum of its own columns' terms;
+  * `stacked(x)`: every rank's `x` stacked in rank order, (size,
+    *x.shape), where each rank reads every other's block in its own way
+    (the sequence split: `SeqSplit`).  Backward: the sum over the ranks of
+    their gradients at this rank's slot, in rank order in f32 (f64 for
+    f64), a reduce-scatter run as one all-gather of every rank's gradient.
 
 Each runs its forward bits unchanged with autograd off or on, so serving
 reads the same numbers it always did.  Backward runs where autograd runs
@@ -196,6 +201,15 @@ class AxisGroup:
         """`x` itself forward; its gradient summed over the ranks."""
         return _Enter.apply(x, self)
 
+    def stacked(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's `x` stacked in rank order, (size, *x.shape): the
+        bits of `_gather`.  Where `x` takes a gradient its backward is the
+        reduce-scatter of `_Stacked`, a collective: every rank's `x` must
+        take one or none, and every rank's graph must reach the result."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Stacked.apply(x, self)
+        return self._gather(x)
+
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the ranks (no gradient)."""
         return self._gather(x, "all-reduce").amax(0)
@@ -233,6 +247,22 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class _Stacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis._gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        acc, *rest = axis._gather(g.contiguous(), "reduce-scatter")[:, axis.rank] \
+            .to(torch.promote_types(g.dtype, torch.float32)).unbind(0)
+        for part in rest:
+            acc = acc + part
+        return acc.to(g.dtype), None
 
 
 class _Enter(torch.autograd.Function):
@@ -317,12 +347,15 @@ def split_group(name: str) -> Optional[AxisGroup]:
 
 
 class SeqSplit:
-    """A prompt of `total` positions split over `group` (the "seq" rule's
+    """A sequence of `total` positions split over `group` (the "seq" rule's
     axes) in `sharding.uneven_block`'s blocks: the sequence-parallel
-    prefill's view of them.  `start` / `count` are this rank's block,
-    `width` the longest block's (ceil(total / size)); a block may be
-    short or empty.  Every gather here is one all-gather of the blocks
-    padded to `width`, the same bits on every rank."""
+    prefill's and training step's view of them.  `start` / `count` are
+    this rank's block, `width` the longest block's (ceil(total / size)); a
+    block may be short or empty.  Every gather here is one all-gather of
+    the blocks padded to `width`, the same bits on every rank; `parts`
+    and `gather` are `AxisGroup.stacked`, whose backward returns to each
+    rank the sum of every rank's gradient of its block (`last`, read by
+    the prefill alone, takes no gradient)."""
 
     def __init__(self, group: AxisGroup, total: int):
         self.group, self.total = group, total
@@ -339,7 +372,7 @@ class SeqSplit:
         pad[dim] = self.width - x.shape[dim]
         if pad[dim]:
             x = torch.cat([x, x.new_zeros(pad)], dim)
-        return self.group._gather(x)
+        return self.group.stacked(x)
 
     def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """The whole sequence along `dim` from every rank's block `x`."""

@@ -4,13 +4,15 @@ Each `csrc/*.cu` source is compiled by `nvcc` on first use into its own
 shared library with a plain C interface, and loaded through `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -split-compile=0 -o <lib>.so csrc/<name>.cu
 
 The libraries land in `build/repro_torch_kernels/` under the repository
 root (listed in `.gitignore`; `REPRO_TORCH_BUILD_DIR` overrides it), named
 by a digest of their sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.  `build_all()` starts one `nvcc` per source,
-all at the same time, and waits for them together; the compiler's
+all at the same time, and waits for them together; `-split-compile=0`
+lets each run its optimisation passes on every core (the sources with
+24-30 template instances otherwise set the build's wall time); the compiler's
 `-Xptxas -v` report (registers, shared memory, spills) is kept beside each
 library as `<lib>.log`.
 
@@ -43,7 +45,7 @@ SOURCES = {
 HEADERS = ("paged_attention.cuh", "mma_attention.cuh", "activation.cuh",
            "ptx.cuh", "split_decode.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

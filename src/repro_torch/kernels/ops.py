@@ -58,15 +58,32 @@ def _tuned_geometry(m: int, n: int, k: int, dtype: torch.dtype,
     return geo
 
 
+# the dtypes a plan is tuned at (`select(dtype=)`) that the GEMM runs
+_PLAN_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *, config: Config = None,
            activation: Optional[str] = None,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None,
+           any_dtype: bool = False) -> torch.Tensor:
     """(..., K) @ (K, N) [+ bias] -> activation, f32 accumulation, at the
-    config's (tile_m, split_k) where it gives them."""
+    config's (tile_m, split_k) where it gives them.  `any_dtype` (a plan's
+    engine): a pair tuned at another dtype that x's dtype cannot launch
+    runs on the default geometry."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    geo = _tuned_geometry(x2.shape[0], w.shape[-1], x2.shape[1], x.dtype, config)
+    m, n, k = x2.shape[0], w.shape[-1], x2.shape[1]
+    cfg = config or {}
+    if any_dtype and all(key in cfg for key in GEMM_KNOBS):
+        launches = [_mm.geometry(m, n, k, dtype, cfg["tile_m"], cfg["split_k"]) is not None
+                    for dtype in (x.dtype,) + _PLAN_DTYPES]
+        if not launches[0] and any(launches):
+            # tuned at another dtype: the default geometry, as the JAX
+            # engine runs a plan's tiles at any dtype (a pair no dtype
+            # launches still raises)
+            config = {key: v for key, v in cfg.items() if key not in GEMM_KNOBS}
+    geo = _tuned_geometry(m, n, k, x.dtype, config)
     out = _mm.matmul_fused(x2.contiguous(), w, bias, activation, out_dtype,
                            geometry=geo)
     return out.reshape(*lead, w.shape[-1])

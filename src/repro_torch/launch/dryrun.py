@@ -60,9 +60,8 @@ is one program, whose layers are a Python loop, so every layer is counted
 (`models.runmode`).
 
 A layout the port refuses is recorded as the reference records a
-failure: status "error" with the NotImplementedError's message, which
-names ROADMAP item 8c-ii (training); a split that does not divide is a
-ValueError, as the reference's placement raises one.
+failure: status "error" with the exception's message; a split that does
+not divide is a ValueError, as the reference's placement raises one.
 
 Usage (no GPU, no network; one cell takes 1–4 minutes on the CPU, `--all
 --both-meshes` about 15, an existing artifact is skipped):
@@ -233,7 +232,7 @@ def _train_cell(model, cfg, shape, mesh, rules, train_cfg: TrainConfig) -> Dict[
     params = tree_map(lambda c, p: _fresh(c.model_local(p)), layouts["params"], shapes)
     opt = adamw_init(tree_map(lambda c, p: c.zero_slice(p), layouts["opt"]["m"], params))
     batch = input_specs(cfg, shape)
-    local = rank_batch(batch, train_cfg.microbatches, rm.dp, META)
+    local = rank_batch(batch, train_cfg.microbatches, rm.batch, META)
     groups = {"params": nbytes(params), "m": nbytes(opt["m"]), "v": nbytes(opt["v"]),
               "step": nbytes(opt["step"]), "batch": nbytes(local)}
     p_shard, o_shard = make_state_shardings(model, mesh, rm.rules, train_cfg)

@@ -58,14 +58,16 @@ accumulation (`loss_and_grads`), then `optim.adamw_update` in place,
 eagerly, on one device.  `mesh_train_step(model, mesh, rules, train_cfg,
 batch_specs)` is the counterpart of the reference's `jit_train_step`,
 which jits that step with sharded, donated state: it returns the step of
-one rank of a (data, model) mesh, each rank a process, over the rank's
-cut of the state (`state_layouts`: the tensor-parallel shards of
-`model.tp_layout`, and the ZeRO-1 blocks of the moments where
-`make_state_shardings` gives them a "data" dim, from `zero1_axes`); the
-batch's rows split over "data", the gradients made whole over "model" and
-summed over "data", the norm the whole tree's.  `train_rules` refuses
-what it does not run (sequence-parallel training: ROADMAP item 8c-ii);
-`gather_state` gathers a rank's state back to the whole tree.
+one rank of a (pod, data, model) mesh, each rank a process, over the
+rank's cut of the state (`state_layouts`: the tensor-parallel shards of
+`model.tp_layout`, TP inside the experts included, and the ZeRO-1 blocks
+of the moments where `make_state_shardings` gives them a "data" dim, from
+`zero1_axes`); the batch's rows split over "pod" x "data", or the
+sequence's positions over "data" (a replicated batch), the gradients made
+whole over "model" and summed over the split axes, the norm the whole
+tree's.  `train_rules` refuses what the reference refuses and what the
+step does not run; `gather_state` gathers a rank's state back to the
+whole tree.
 
 The shardings (`batch_logical_axes`, `rules_for_shape`,
 `make_batch_shardings`, `cache_shardings`, `paged_pool_sharding`,
@@ -432,46 +434,65 @@ def make_state_shardings(model, mesh, rules: ShardingRules,
     return p_shard, {"m": mv_shard, "v": mv_shard, "step": named_sharding(mesh, ())}
 
 
+# the splits of the train step beside the TP_SPLIT_AXES over "model":
+# logical axis -> the sets of wide mesh axes it may take ("kv_seq" and
+# "ssm_state" name cache dims, no tensor of the step: rules_for_shape puts
+# them over "data" beside "seq")
+TRAIN_SPLITS = {"batch": (["data"], ["pod"], ["pod", "data"]), "zero": (["data"],),
+                "seq": (["data"],), "expert_ffn": (["model"],), "kv_seq": (["data"],),
+                "ssm_state": (["data"],)}
+
+
 def train_rules(rules: ShardingRules, mesh) -> ShardingRules:
-    """The caller's `rules` pruned for `mesh` for training on it: "batch"
-    and "zero" over "data", the TP_SPLIT_AXES over "model".  Any other
-    split raises NotImplementedError naming the axis and ROADMAP item
-    8c-ii (sequence-parallel training, "seq" / "kv_seq" over "data" at 16k
-    tokens and more; "expert_ffn" over "model"), as do a "data" axis the
-    batch is not split over and a "pod" axis wider than 1."""
+    """The caller's `rules` pruned for `mesh` for training on it: the
+    TP_SPLIT_AXES and "expert_ffn" (TP inside the experts) over "model",
+    "batch" over "data", "pod" or both (pod-major), "zero" (ZeRO-1) over
+    "data", and "seq" over "data" (sequence-parallel training, where the
+    reference runs it: the batch replicated).  "batch" and "seq" on the
+    same mesh axis raise ValueError, as the reference's placement refuses a
+    spec naming an axis twice (DuplicateSpecError); any other split raises
+    NotImplementedError naming the axis, as do a "batch" and a "seq" both
+    split and a "data" or "pod" axis that neither splits."""
     rules = prune_for_mesh(rules, mesh)
     sizes = axis_sizes(mesh)
-    if sizes.get("pod", 1) > 1:
-        raise NotImplementedError(
-            f"mesh axis 'pod' of size {sizes['pod']}: training on a mesh runs a "
-            "(data, model) mesh (ROADMAP item 8c-ii)")
-    for name, target in rules.rules:
-        if name == "seq_sharded":      # a logical axis no model names
-            continue
-        axes = () if target is None else (target,) if isinstance(target, str) else target
-        wide = [a for a in axes if sizes.get(a, 1) > 1]
-        if not wide or (name in TP_SPLIT_AXES and wide == ["model"]) or (
-                name in ("batch", "zero") and wide == ["data"]):
+    for name, _ in rules.rules:
+        wide = _wide(rules, name, sizes)
+        if (not wide or name == "seq_sharded"          # a logical axis no model names
+                or (name in TP_SPLIT_AXES and wide == ["model"])
+                or wide in TRAIN_SPLITS.get(name, ())):
             continue
         raise NotImplementedError(
             f"logical axis {name!r} is split over mesh axes {tuple(wide)} of sizes "
-            f"{tuple(sizes[a] for a in wide)}: training on a mesh splits only batch and "
-            f"zero over 'data' and {', '.join(TP_SPLIT_AXES)} over 'model' "
-            "(sequence-parallel training and TP inside the experts are ROADMAP "
-            "item 8c-ii)")
-    if sizes.get("data", 1) > 1 and rules.lookup("batch") != "data":
+            f"{tuple(sizes[a] for a in wide)}: training on a mesh splits "
+            f"{', '.join(TP_SPLIT_AXES)} over 'model' and "
+            + "; ".join(f"{k} over {' or '.join('x'.join(w) for w in v)}"
+                        for k, v in TRAIN_SPLITS.items()))
+    batch, seq = _wide(rules, "batch", sizes), _wide(rules, "seq", sizes)
+    both = set(batch) & set(seq)
+    if both:
+        raise ValueError(f"logical axes 'batch' and 'seq' of one tensor both take mesh "
+                         f"axis {sorted(both)[0]!r}")
+    if batch and seq:
         raise NotImplementedError(
-            "the batch is not split over the 'data' axis of size "
-            f"{sizes['data']}: training on a mesh splits it over 'data' "
-            "(ROADMAP item 8c-ii)")
+            f"the batch over {tuple(batch)} and the sequence over {tuple(seq)}: "
+            "sequence-parallel training runs a replicated batch, as rules_for_shape "
+            "gives it")
+    for axis in ("pod", "data"):
+        if sizes.get(axis, 1) > 1 and axis not in batch + seq:
+            raise NotImplementedError(
+                f"neither the batch nor the sequence is split over the {axis!r} axis "
+                f"of size {sizes[axis]}: training on a mesh splits one of them over "
+                f"it")
     return rules
 
 
 class RankMesh:
-    """This rank's groups on a (data, model) training mesh: `tp`, the model
-    axis' `TensorParallel` under `rules`; `dp`, the data axis (the batch's
-    rows and the gradients' sum); `zero`, the "zero" rule's axis (the
-    ZeRO-1 slices); `axes`, every mesh axis by name (None where 1 wide);
+    """This rank's groups on a (pod, data, model) training mesh: `tp`, the
+    model axis' `TensorParallel` under `rules`; `batch`, the axes the
+    batch's rows are split over (pod-major); `seq`, those the sequence's
+    positions are (`SeqSplit`); `dp`, whichever of the two is split (the
+    loss's sums and the gradients' sum); `zero`, the "zero" rule's axis
+    (the ZeRO-1 slices); `axes`, every mesh axis by name (None where 1 wide);
     `device`, this rank's device (`device` if given, else the mesh's
     device type: the dry run's "cpu" mesh over a fake world keeps its
     state on "meta"); `writer`: the rank at coordinate 0 of every axis.
@@ -480,7 +501,9 @@ class RankMesh:
     def __init__(self, mesh, rules: ShardingRules, device=None):
         self.mesh, self.rules = mesh, rules
         self.tp = TensorParallel.from_mesh(mesh, rules)
-        self.dp = AxisGroup.from_mesh(mesh, rules.lookup("batch"))
+        self.batch = AxisGroup.from_mesh(mesh, rules.lookup("batch"))
+        self.seq = AxisGroup.from_mesh(mesh, rules.lookup("seq"))
+        self.dp = self.batch if self.seq is None else self.seq
         self.zero = AxisGroup.from_mesh(mesh, rules.lookup("zero"))
         self.axes = {name: AxisGroup.from_mesh(mesh, name) for name in mesh.mesh_dim_names}
         self.writer = all(c == 0 for c in mesh.get_coordinate())
@@ -492,13 +515,15 @@ class RankMesh:
             self.device = torch.device(mesh.device_type)
 
     def contexts(self):
-        """The rank's contexts for a step's body: the model axis, the data
-        axis and the mesh's axis names."""
+        """The rank's contexts for a step's body: the model axis, the loss's
+        group (`dp`), the sequence's split ("seq") and the mesh's axis
+        names."""
         import contextlib
 
         stack = contextlib.ExitStack()
         stack.enter_context(tensor_parallel(self.tp))
         stack.enter_context(data_parallel(self.dp))
+        stack.enter_context(split_groups({"seq": self.seq}))
         stack.enter_context(mesh_axes(self.axes))
         return stack
 
@@ -626,11 +651,14 @@ def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 def rank_batch(batch: Dict[str, Any], microbatches: int, dp: Optional[AxisGroup],
                device) -> Dict[str, torch.Tensor]:
-    """This data rank's rows of a global batch, on `device`: microbatch i
-    is the global rows [i B / k, (i + 1) B / k) as in the reference, and
-    the rank takes its contiguous share of each, concatenated in
-    microbatch order (so `loss_and_grads`' k consecutive slices are its
-    shares of the k microbatches)."""
+    """This rank's rows of a global batch, on `device`, `dp` the group the
+    rows are split over (`RankMesh.batch`; ranked pod-major over "pod" x
+    "data"): microbatch i is the global rows [i B / k, (i + 1) B / k) as
+    in the reference, and the rank takes its contiguous share of each,
+    concatenated in microbatch order (so `loss_and_grads`' k consecutive
+    slices are its shares of the k microbatches).  With `dp` None (a
+    replicated batch, as under sequence-parallel training) every row: the
+    model takes its block of positions from them (`SeqSplit`)."""
     rows = next(iter(batch.values())).shape[0]
     n_dp = dp.size if dp is not None else 1
     if rows % (microbatches * n_dp):
@@ -673,7 +701,7 @@ def _pieces(params, grads, opt_state, piece: int = 1 << 24):
 
 def mesh_train_step(model, mesh, rules: ShardingRules, train_cfg: TrainConfig,
                     batch_specs=None, device=None):
-    """The rank's train step on a (data, model) `mesh` — the counterpart of
+    """The rank's train step on a (pod, data, model) `mesh` — the counterpart of
     the reference's `jit_train_step(model, mesh, rules, train_cfg,
     batch_specs)`, which computes the same step on the same mesh:
     (params, opt_state, batch) -> (params, opt_state, metrics), the state
@@ -682,14 +710,18 @@ def mesh_train_step(model, mesh, rules: ShardingRules, train_cfg: TrainConfig,
     the batch); `device`: the rank's device (`RankMesh`).
 
       * the loss is the reference's: the rank computes on its share of
-        each microbatch (`rank_batch`) inside its contexts, and the masked
-        mean's sums of NLL and of the mask are reduced over the data axis
-        before the division (`models.common.chunked_softmax_xent`), so the
-        loss is the whole microbatch's, the same bits on every rank;
+        each microbatch (`rank_batch`; where "seq" is split, on its block
+        of every row's positions, `collectives.SeqSplit`) inside its
+        contexts, and the masked mean's sums of NLL and of the mask are
+        reduced over the split axes (`RankMesh.dp`) before the division
+        (`models.common.chunked_softmax_xent`), so the loss is the whole
+        microbatch's, the same bits on every rank;
       * the gradients are made whole over the model axis (`sync_grads`),
-        then summed over the data axis in rank order in f32: each data
-        rank's gradient already carries the whole microbatch's 1 / count,
-        so the sum is the reference's mean of dp per-rank terms;
+        then summed over `RankMesh.dp` in rank order in f32: each rank's
+        gradient already carries the whole microbatch's 1 / count, so the
+        sum is the reference's mean of its rows' (or positions') terms
+        (under the sequence split the gathers' backward has returned to
+        each rank what the other ranks' positions read of its block);
       * `grad_norm` and the clip scale are the whole tree's
         (`optim.global_norm` over the cuts), the same bits on every rank;
       * with ZeRO-1 each data rank updates its blocks of the moments and
@@ -699,7 +731,7 @@ def mesh_train_step(model, mesh, rules: ShardingRules, train_cfg: TrainConfig,
         temporaries).
 
     The rules are `train_rules`' (a split this path does not run raises
-    NotImplementedError).  The step carries `layouts` (`state_layouts`),
+    NotImplementedError, one the reference refuses ValueError).  The step carries `layouts` (`state_layouts`),
     `rank_mesh` (the rank's `RankMesh`) and `grads(params, batch)` (its
     first half: the loss, the metrics and the rank's whole gradients);
     `on_grads`, if given, is called with those gradients before the
@@ -715,7 +747,7 @@ def mesh_train_step(model, mesh, rules: ShardingRules, train_cfg: TrainConfig,
 
     def grads_of(params, batch):
         """(loss, metrics, the rank's whole gradients of its shards)."""
-        local = rank_batch(batch, train_cfg.microbatches, rm.dp, rm.device)
+        local = rank_batch(batch, train_cfg.microbatches, rm.batch, rm.device)
         with rm.contexts(), activation_rules(rules):
             loss, metrics, grads = loss_and_grads(model, params, local,
                                                   train_cfg.microbatches)

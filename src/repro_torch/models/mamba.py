@@ -262,7 +262,12 @@ def ssd_split(seq, x, dt, A, B, C, chunk: int):
     lower ranks it gives the block's true initial state h0, over all of
     them the final state.  h0's term, C_t · (exp(cumsum of dt·A up to t)
     h0), the term the scan's step 4 adds for a carried state, is added to
-    the block's outputs: the scan runs once."""
+    the block's outputs: the scan runs once.
+
+    Under autograd the gather is `AxisGroup.stacked`: the gradients of the
+    lower ranks' (S_j, a_j) go back to them.  h0 is read from the stack of
+    every prefix of the fold, so every rank's graph reaches the gather
+    and runs its backward (rank 0's own h0 is the zero state)."""
     b, n, h, p = x.shape
     if n:
         q = min(chunk, n)
@@ -275,36 +280,38 @@ def ssd_split(seq, x, dt, A, B, C, chunk: int):
         cum = torch.cumsum(dt * A, dim=1)                   # (b, n, h)
         total = cum[:, -1]
     else:
+        # an empty block: zeros on x's graph, so that under autograd this
+        # rank's backward reaches the gather as every other rank's does
+        tie = x.sum() * 0 if x.requires_grad else 0.0
         y = x.new_zeros(x.shape)
-        state = x.new_zeros((b, h, p, B.shape[-1]))
-        cum, total = dt.new_zeros((b, 0, h)), dt.new_zeros((b, h))
-    parts = seq.group._gather(torch.cat([state.reshape(b, -1), total], -1))
-    h_run = torch.zeros_like(state)
-    h0 = h_run
-    for j, part in enumerate(parts.unbind(0)):
-        if j == seq.group.rank:
-            h0 = h_run
-        h_run = (h_run * torch.exp(part[:, -h:])[..., None, None]
-                 + part[:, :-h].reshape(state.shape))
+        state = x.new_zeros((b, h, p, B.shape[-1])) + tie
+        cum, total = dt.new_zeros((b, 0, h)), dt.new_zeros((b, h)) + tie
+    parts = seq.group.stacked(torch.cat([state.reshape(b, -1), total], -1))
+    runs = [torch.zeros_like(state)]
+    for part in parts.unbind(0):
+        runs.append(runs[-1] * torch.exp(part[:, -h:])[..., None, None]
+                    + part[:, :-h].reshape(state.shape))
+    h0 = torch.stack(runs[:-1])[seq.group.rank]
     y = y + torch.einsum("bsn,bhpn->bshp", C, h0) * torch.exp(cum)[..., None]
-    return y, h_run
+    return y, runs[-1]
 
 
 def _conv_halo(seq, xbc_raw: torch.Tensor, w1: int):
     """(the last `w1` raw conv inputs before this rank's block, those of
     the whole sequence), each (B, w1, C), zero-padded at the front where
     fewer precede: from one all-gather of every rank's last `w1` rows (a
-    halo may reach back over several short blocks)."""
+    halo may reach back over several short blocks).  Both are read from
+    one run of every rank's rows, so under autograd every rank's graph
+    reaches the gather, whose backward returns the gradients of the rows
+    read to their holders (`SeqSplit.parts`)."""
     b, n, c = xbc_raw.shape
     tail = xbc_raw[:, max(0, n - w1):]
     parts = seq.parts(tail, 1).unbind(0)
-    zeros = xbc_raw.new_zeros((b, w1, c))
-
-    def before(r):
-        rows = [part[:, :min(w1, cnt)] for part, cnt in zip(parts[:r], seq.counts)]
-        return torch.cat([zeros, *rows], 1)[:, -w1:]
-
-    return before(seq.group.rank), before(seq.group.size)
+    held = [min(w1, cnt) for cnt in seq.counts]
+    rows = torch.cat([xbc_raw.new_zeros((b, w1, c)),
+                      *[part[:, :m] for part, m in zip(parts, held)]], 1)
+    end = w1 + sum(held[:seq.group.rank])
+    return rows[:, end - w1:end], rows[:, -w1:]
 
 
 def _ssd_inputs(p: Params, cfg: ModelConfig, xbc: torch.Tensor):

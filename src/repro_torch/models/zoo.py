@@ -242,9 +242,10 @@ def unbind_layers(blocks: Params):
     return [tree_map(lambda p, i=i: p[i], parts) for i in range(n)]
 
 
-def _mamba_layer(cfg: ModelConfig, x: torch.Tensor, bp: Params) -> torch.Tensor:
-    """A Mamba2 layer of the training path: x + mamba(norm(x))."""
-    return x + M.mamba_forward(bp["mamba"], cfg, _norm(cfg, bp["norm"], x))
+def _mamba_layer(cfg: ModelConfig, x: torch.Tensor, bp: Params, seq=None) -> torch.Tensor:
+    """A Mamba2 layer of the training path: x + mamba(norm(x)) (with `seq`,
+    on the rank's block of the sequence)."""
+    return x + M.mamba_forward(bp["mamba"], cfg, _norm(cfg, bp["norm"], x), seq=seq)
 
 
 def _draw_layers(key: str, block_init, n: int, draw, device) -> Params:
@@ -522,10 +523,17 @@ class _StackedLM:
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
         """-> (mean next-token NLL over batch["labels"] (and batch["mask"]),
-        {"loss": it}), through `chunked_softmax_xent`."""
+        {"loss": it}), through `chunked_softmax_xent`.  Where the "seq"
+        group splits the sequence (sequence-parallel training) `hidden`
+        gives the rank's block of positions and the loss reads the block's
+        labels and mask; its sums are reduced over the group installed by
+        `collectives.data_parallel`."""
         x = self.hidden(params, batch)
-        l = chunked_softmax_xent(x, params["lm_head"]["w"], batch["labels"],
-                                 batch.get("mask"))
+        labels, mask = batch["labels"], batch.get("mask")
+        seq = seq_split(labels.shape[1])
+        labels = _block_tokens(labels, seq)
+        mask = None if mask is None else _block_tokens(mask, seq)
+        l = chunked_softmax_xent(x, params["lm_head"]["w"], labels, mask)
         return l, {"loss": l}
 
 
@@ -600,20 +608,26 @@ class DecoderLM(_StackedLM):
         return x
 
     # -------------------------------------------------------- training
-    def _block(self, x: torch.Tensor, bp: Params, positions: torch.Tensor):
+    def _block(self, x: torch.Tensor, bp: Params, positions: torch.Tensor, seq=None):
         h = _norm(self.cfg, bp["attn_norm"], x)
         x = x + A.attn_forward(bp["attn"], self.cfg, h, positions=positions,
-                               causal=True)
-        return self._mlp(bp, x)
+                               causal=True, seq=seq)
+        return self._mlp(bp, x, seq)
 
     def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The training path's final-normed states (B, S, d); where the
+        "seq" group splits the sequence, those of the rank's block
+        (`SeqSplit`: attention over every rank's K / V, the MoE's groups
+        across the ranks)."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
+        seq = seq_split(self._seq_len(batch))
+        x = self._embed_inputs(params, batch, seq)
         b, s, _ = x.shape
-        positions = self._position_ids(b, torch.arange(s, device=x.device))
+        start = 0 if seq is None else seq.start
+        positions = self._position_ids(b, torch.arange(start, start + s, device=x.device))
         body = _remat(cfg, self._block)
         for bp in self._layers(params):
-            x = body(x, bp, positions)
+            x = body(x, bp, positions, seq)
         return _norm(cfg, params["final_norm"], x)
 
     # -------------------------------------------- dense-cache serving path
@@ -795,12 +809,16 @@ class MambaLM(_StackedLM):
         }
 
     def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The training path (S at most `ssm_chunk` or a multiple of it)."""
+        """The training path (S at most `ssm_chunk` or a multiple of it);
+        where the "seq" group splits the sequence, the rank's block (the
+        conv's halo and the SSD's fold across the ranks)."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        seq = seq_split(batch["tokens"].shape[1])
+        x = embed(params["embed"], _block_tokens(batch["tokens"], seq),
+                  torch_dtype(cfg.dtype))
         body = _remat(cfg, functools.partial(_mamba_layer, cfg))
         for bp in self._layers(params):
-            x = body(x, bp)
+            x = body(x, bp, seq)
         return _norm(cfg, params["final_norm"], x)
 
     # ------------------------------------------------- fixed-batch serving
@@ -1021,22 +1039,26 @@ class HybridLM(_StackedLM):
     def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The training path: each group's Mamba2 layers under `_remat`,
         the shared block after each full group (not rematerialised, as in
-        the reference)."""
+        the reference); where the "seq" group splits the sequence, the
+        rank's block, as `prefill` runs it."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        seq = seq_split(batch["tokens"].shape[1])
+        x = embed(params["embed"], _block_tokens(batch["tokens"], seq),
+                  torch_dtype(cfg.dtype))
         x0 = x
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = _block_positions(b, s, seq, x.device)
         layers, sp = self._layers(params), params["shared"]
         body = _remat(cfg, functools.partial(_mamba_layer, cfg))
 
         def attend(h):
-            return A.attn_forward(sp["attn"], cfg, h, positions=positions, causal=True)
+            return A.attn_forward(sp["attn"], cfg, h, positions=positions, causal=True,
+                                  seq=seq)
 
         off = 0
         for gsize in self._group_sizes():
             for bp in layers[off:off + gsize]:
-                x = body(x, bp)
+                x = body(x, bp, seq)
             off += gsize
             if gsize == cfg.attn_every:
                 x = self._shared_apply(sp, x, x0, attend)
@@ -1263,26 +1285,32 @@ class EncDecLM(_StackedLM):
         return _norm(cfg, params["enc_norm"], x)
 
     def _dec_block(self, x: torch.Tensor, bp: Params, positions: torch.Tensor,
-                   ek: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
+                   ek: torch.Tensor, ev: torch.Tensor, seq=None) -> torch.Tensor:
         h = _norm(self.cfg, bp["self_norm"], x)
         x = x + A.attn_forward(bp["self_attn"], self.cfg, h, positions=positions,
-                               causal=True)
+                               causal=True, seq=seq)
         return self._cross_mlp(bp, x, ek, ev)
 
     def hidden(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The training path: encode batch["audio_embeds"], every decoder
         layer's cross K / V from it (outside `_remat`, as the reference
-        computes them before its layer scan), then the decoder layers."""
+        computes them before its layer scan), then the decoder layers.
+        Where the "seq" group splits the sequence the rank runs its block
+        of the decoder; the encoder is whole on every rank (each rank's
+        gradient of it is its own positions' part, summed with the
+        rest)."""
         cfg = self.cfg
         enc = self.encode(params, batch["audio_embeds"])
-        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        seq = seq_split(batch["tokens"].shape[1])
+        x = embed(params["embed"], _block_tokens(batch["tokens"], seq),
+                  torch_dtype(cfg.dtype))
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = _block_positions(b, s, seq, x.device)
         layers = unbind_layers(params["decoder"])
         enc_kv = [A.cross_kv(bp["cross_attn"], cfg, enc) for bp in layers]
         body = _remat(cfg, self._dec_block)
         for bp, (ek, ev) in zip(layers, enc_kv):
-            x = body(x, bp, positions, ek, ev)
+            x = body(x, bp, positions, ek, ev, seq)
         return _norm(cfg, params["final_norm"], x)
 
     def _cross_mlp(self, bp: Params, x: torch.Tensor, ek: torch.Tensor,

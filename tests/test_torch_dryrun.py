@@ -20,13 +20,15 @@ JAX package's, on the CPU.
     cache's positions over "model" (1,879,048,192 bytes of K / V a
     device); whisper-base decode_32k refused as the reference's placement
     refuses it (1500 encoder positions do not split over 16); two cells
-    the port refuses, each naming its ROADMAP item; a miniature (reduced
-    qwen3: train at (data 2, model 2), prefill and decode at (1, 2) and at
+    the port refused under ROADMAP item 8c-ii lowering at one layer
+    (qwen3-1.7b train across pods, qwen2-moe-a2.7b train with TP inside
+    the experts); a miniature (reduced qwen3: train at (data 2, model 2)
+    and at (pod 2, data 2, model 2), prefill and decode at (1, 2) and at
     (data 2, model 2), decode with the KV positions over "model" at (1, 4);
     reduced zamba2: the batch-1 decode at (data 2, model 1), its KV
     positions and SSM state columns over "data") whose params, tokens and
     argument bytes equal XLA's `memory_analysis` of the JAX steps compiled
-    on 4 forced host devices in a second subprocess (Auto-typed meshes),
+    on 8 forced host devices in a second subprocess (Auto-typed meshes),
     the FLOP ratio logged and at most 1.05; and every module of
     `repro_torch` imported with neither `jax` nor `repro` loaded.
 """
@@ -62,10 +64,14 @@ MINI = [("train", "train_4k", (2, 2), 32, 8, "qwen3-1.7b"),
         ("prefill_dp", "prefill_32k", (2, 2), 32, 4, "qwen3-1.7b"),
         ("decode_dp", "decode_32k", (2, 2), 64, 4, "qwen3-1.7b"),
         ("decode_kv_seq", "decode_32k", (1, 4), 64, 2, "qwen3-1.7b"),
-        ("decode_batch1", "long_500k", (2, 1), 64, 1, "zamba2-1.2b")]
-# the cells the port refuses, and the ROADMAP item each message names
-REFUSED = [("qwen3-1.7b", "train_4k", True, "8c-ii"),
-           ("qwen2-moe-a2.7b", "train_4k", False, "8c-ii")]
+        ("decode_batch1", "long_500k", (2, 1), 64, 1, "zamba2-1.2b"),
+        # the reference's (pod 2, data 2, model 2) miniature
+        # (tests/test_distributed.py): the batch over pod x data
+        ("train_pod", "train_4k", (2, 2, 2), 32, 8, "qwen3-1.7b")]
+# cells the port refused until training ran the pod axis and TP inside the
+# experts (ROADMAP item 8c-ii), lowered at one layer (REPRO_LAYERS=1; the
+# production run lowers every layer into artifacts/dryrun_torch/)
+LOWERED = [("qwen3-1.7b", "train_4k", True), ("qwen2-moe-a2.7b", "train_4k", False)]
 # the production cells the port now lowers or refuses as the reference does
 CELLS = [("qwen3-1.7b", "decode_32k", False), ("whisper-base", "decode_32k", False)]
 
@@ -199,7 +205,7 @@ def test_collective_tally_is_exact_on_a_gloo_world(tmp_path):
 
 # ------------------------------------------- the cells and the miniature
 _PORT_CHILD = textwrap.dedent("""
-    import dataclasses, importlib, json, pkgutil, sys
+    import dataclasses, importlib, json, os, pkgutil, sys
     import torch
     torch.set_num_threads(1)
     import repro_torch
@@ -207,8 +213,8 @@ _PORT_CHILD = textwrap.dedent("""
     from repro_torch.launch import dryrun
     from repro_torch.launch.steps import TrainConfig
 
-    mini, refused, out = (json.loads(sys.argv[1]), json.loads(sys.argv[2]) + json.loads(
-        sys.argv[3]), sys.argv[4])
+    mini, lowered, cells, out = (json.loads(sys.argv[1]), json.loads(sys.argv[2]),
+                                 json.loads(sys.argv[3]), sys.argv[4])
     res = {"mini": {}, "cells": {}}
     for key, name, mesh, seq, b, arch in mini:
         cfg = get_config(arch).reduced()
@@ -217,8 +223,12 @@ _PORT_CHILD = textwrap.dedent("""
                                 TrainConfig(microbatches=2, zero1=True), cfg=cfg,
                                 shape=shape, mesh_shape=mesh)
         res["mini"][key] = rec
-    for arch, shape, mp in [("qwen3-1.7b", "train_4k", False)] + [c[:3] for c in refused]:
+    for arch, shape, mp in [("qwen3-1.7b", "train_4k", False)] + [c[:3] for c in cells]:
         res["cells"][f"{arch}__{shape}__{mp}"] = dryrun.cell_record(arch, shape, mp)
+    os.environ["REPRO_LAYERS"] = "1"
+    for arch, shape, mp in lowered:
+        res["cells"][f"{arch}__{shape}__{mp}"] = dryrun.cell_record(arch, shape, mp)
+    del os.environ["REPRO_LAYERS"]
     for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         if not m.name.endswith("__main__"):
             importlib.import_module(m.name)
@@ -230,7 +240,7 @@ _PORT_CHILD = textwrap.dedent("""
 
 _JAX_CHILD = textwrap.dedent("""
     import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import dataclasses, json, sys
     import jax, numpy as np
     from jax.sharding import AxisType, Mesh
@@ -249,8 +259,9 @@ _JAX_CHILD = textwrap.dedent("""
             cfg = dataclasses.replace(cfg, remat="full")
         shape = dataclasses.replace(SHAPES[name], seq_len=seq, global_batch=b)
         n = int(np.prod(mshape))
-        mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(mshape), ("data", "model"),
-                    axis_types=(AxisType.Auto, AxisType.Auto))
+        names = ("data", "model") if len(mshape) == 2 else ("pod", "data", "model")
+        mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(mshape), names,
+                    axis_types=(AxisType.Auto,) * len(mshape))
         model = build_model(cfg)
         rules = rules_for_shape(cfg, shape, mesh)
         with mesh:
@@ -287,7 +298,7 @@ def runs(tmp_path_factory):
     """The port's child (the miniature, the 16 x 16 cells, the imports) and
     the JAX child, side by side."""
     tmp = tmp_path_factory.mktemp("dryrun")
-    jobs = {"port": (_PORT_CHILD, [json.dumps(MINI), json.dumps(REFUSED), json.dumps(CELLS)]),
+    jobs = {"port": (_PORT_CHILD, [json.dumps(MINI), json.dumps(LOWERED), json.dumps(CELLS)]),
             "jax": (_JAX_CHILD, [json.dumps(MINI)])}
     procs = {}
     for name, (script, args) in jobs.items():
@@ -382,15 +393,24 @@ def test_qwen3_train_4k_meets_the_reference_artifact(runs):
     assert coll["total_bytes"] == sum(coll["per_kind_bytes"].values()) > 0
 
 
-@pytest.mark.parametrize("arch,shape,multi_pod,item", REFUSED,
+@pytest.mark.parametrize("arch,shape,multi_pod", LOWERED,
                          ids=[f"{a}-{s}-{'2x16x16' if m else '16x16'}"
-                              for a, s, m, _ in REFUSED])
-def test_refused_cells_name_their_roadmap_item(runs, arch, shape, multi_pod, item):
+                              for a, s, m in LOWERED])
+def test_refused_cells_name_their_roadmap_item(runs, arch, shape, multi_pod):
+    """The name is kept from when these cells were refused naming ROADMAP
+    item 8c-ii; it now asserts the opposite: the cells lower with status
+    "ok".  qwen3-1.7b's train cell across pods (the batch over pod x data)
+    and qwen2-moe-a2.7b's at 16 x 16 (60 experts over model 16: TP inside
+    the experts), at one layer: a FLOP count, the argument bytes and the
+    collectives of the step."""
     cell = runs["port"]["cells"][f"{arch}__{shape}__{multi_pod}"]
-    assert cell["status"] == "error"
-    assert cell["error"].startswith("NotImplementedError: ")
-    assert f"ROADMAP item {item}" in cell["error"]
+    assert cell["status"] == "ok", cell.get("error")
     assert cell["mesh"] == ("2x16x16" if multi_pod else "16x16")
+    assert cell["n_devices"] == (512 if multi_pod else 256)
+    assert cell["tokens"] == SHAPES[shape].seq_len * SHAPES[shape].global_batch
+    assert cell["cost"]["flops_per_device"] > 0
+    assert cell["memory"]["argument_bytes"] > 0
+    assert cell["collectives"]["counts"]["all-reduce"] > 0
 
 
 def test_qwen3_decode_32k_lowers_with_the_kv_positions_over_model(runs):

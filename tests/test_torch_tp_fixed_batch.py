@@ -61,8 +61,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import DEFAULT_RULES
-from repro_torch.launch.steps import TrainConfig as PortTrainConfig
-from repro_torch.launch.steps import local_cache_shapes, mesh_train_step
+from repro_torch.launch.steps import local_cache_shapes, train_rules
 from repro_torch.models import attention as port_attention
 from repro_torch.models import build_model
 from repro_torch.models import mamba as port_mamba
@@ -264,8 +263,12 @@ def test_a_split_this_path_does_not_run_raises_naming_the_axis(axis, mesh, reque
     hybrid served under each (in the worlds of 2 and 4 ranks, on a (1, 2),
     a (2, 2) and a (2, 1) mesh) gives the JAX engine's streams on every
     rank.  What stays refused raises NotImplementedError naming the axis:
-    "ssm_state" and "seq" over "model", and "expert_ffn" in training
-    (item 8c-ii)."""
+    "ssm_state" and "seq" over "model".  The "expert_ffn" case no longer
+    raises: training takes "expert_ffn" over "model", and the case checks
+    only that each rank's cut of the experts holds its block of their
+    width; the training step itself runs in
+    tests/test_torch_train_layouts.py's "efn14" world (6 experts on
+    (data 1, model 4)), held against JAX there."""
     cfg = _cfg("hybrid")
     model = build_model(cfg)
     size = dict(mesh.shape)
@@ -279,11 +282,16 @@ def test_a_split_this_path_does_not_run_raises_naming_the_axis(axis, mesh, reque
             assert run["requests"] == len(LENS["hybrid"])
         return
     if axis == "expert_ffn":
+        # training takes it too: the step's cut holds the rank's slice of
+        # the expert width (the step runs in test_torch_train_layouts.py's
+        # efn14 world)
         moe = build_model(get_config("qwen2-moe-a2.7b").reduced())
-        with pytest.raises(NotImplementedError, match="8c-ii"):
-            mesh_train_step(moe, mesh, DEFAULT_RULES.replace(experts=None,
-                                                             expert_ffn="model"),
-                            PortTrainConfig())
+        rules = train_rules(DEFAULT_RULES.replace(experts=None, expert_ffn="model"), mesh)
+        for rank in range(2):
+            cut = moe.tp_layout(_TP(rules, rank, 2))["blocks"]["moe"]["w_in"]
+            assert cut.dim == 3 and cut.full == moe.cfg.d_expert
+            assert cut.index.tolist() == list(range(rank * moe.cfg.d_expert // 2,
+                                                    (rank + 1) * moe.cfg.d_expert // 2))
         return
     target = "data" if size.get("data", 1) > 1 else "model"
     rules = DEFAULT_RULES.replace(**{axis: target})

@@ -292,17 +292,32 @@ def test_train_rules_refuse_what_the_step_does_not_run():
     mesh = FakeMesh(model=2, data=2)
     rules = steps.train_rules(steps.rules_for_shape(cfg, SHAPES["train_4k"], mesh), mesh)
     assert rules.lookup("batch") == "data" and rules.lookup("zero") == "data"
-    long = steps.rules_for_shape(cfg, ShapeSpec("l", "train", 16_384, 16), mesh)
-    with pytest.raises(NotImplementedError, match="'seq'.*8c-ii"):
-        steps.train_rules(long, mesh)
+    # sequence-parallel training where the reference runs it: the batch
+    # replicated (global batch 1 < 2 data ranks), "seq" over "data"
+    long = steps.train_rules(
+        steps.rules_for_shape(cfg, ShapeSpec("l", "train", 16_384, 1), mesh), mesh)
+    assert long.lookup("seq") == "data" and long.lookup("batch") is None
+    # the batch and the sequence both over "data": the reference's
+    # DuplicateSpecError, a ValueError here
+    both = steps.rules_for_shape(cfg, ShapeSpec("l", "train", 16_384, 16), mesh)
+    with pytest.raises(ValueError, match="'batch' and 'seq'.*'data'"):
+        steps.train_rules(both, mesh)
     with pytest.raises(NotImplementedError, match="'kv_seq'"):
         steps.train_rules(DEFAULT_RULES.replace(kv_seq="model"), mesh)
-    with pytest.raises(NotImplementedError, match="not split over the 'data'"):
+    with pytest.raises(NotImplementedError, match="neither the batch nor the sequence"):
         steps.train_rules(DEFAULT_RULES.replace(batch=None), mesh)
+    # a pod axis: the batch over pod x data, ZeRO-1 over data
     pod = FakeMesh(model=2, data=2)
     pod.shape = {"pod": 2, "data": 2, "model": 2}
+    on_pod = steps.train_rules(DEFAULT_RULES, pod)
+    assert on_pod.lookup("batch") == ("pod", "data") and on_pod.lookup("zero") == "data"
     with pytest.raises(NotImplementedError, match="'pod'"):
-        steps.train_rules(DEFAULT_RULES, pod)
+        steps.train_rules(DEFAULT_RULES.replace(batch="data"), pod)
+    # TP inside the experts (60 experts over model 8: indivisible)
+    moe = get_config("qwen2-moe-a2.7b")
+    tp8 = FakeMesh(model=8)
+    efn = steps.train_rules(steps.rules_for_shape(moe, SHAPES["train_4k"], tp8), tp8)
+    assert efn.lookup("expert_ffn") == "model" and efn.lookup("experts") is None
     # a 1-wide data axis: nothing to split, nothing refused
     assert steps.train_rules(DEFAULT_RULES, FakeMesh(model=4)).lookup("batch") == "data"
 
