@@ -254,10 +254,13 @@ each with its seconds logged:
      busy share); no hand-written kernel launched; then the dry run's
      cross-check: the same step lowered on the meta device with
      `launch/dryrun.py`'s meters against one real step on the card under
-     FlopCounterMode (the counts must agree within 0.1 %, else the ops
-     that differ are named and the phase fails), the meta argument bytes
-     beside the state the card holds, MemTracker's peak beside the
-     measured one, and MFU from the counted FLOPs beside the 6 N T figure;
+     FlopCounterMode and `launch/costcount.py`'s CostCounter (FLOPs, bytes
+     accessed and transcendentals must each agree within 0.1 %, else the
+     ops that differ are named and the phase fails), the meta argument
+     bytes beside the state the card holds, MemTracker's peak beside the
+     measured one, MFU from the counted FLOPs beside the 6 N T figure, and
+     the step's counted roofline, max(FLOPs / 989 TFLOP/s, bytes / 3.35
+     TB/s), beside the measured step (logged, not gated);
  15. `Trainer` end to end at `examples/train_lm.py`'s configuration (qwen3
      reduced to 4 layers, d_model 256, vocab 4096; seq 128, batch 8, 2
      microbatches, 200 steps, a checkpoint every 25): the loss falls, the
@@ -4500,14 +4503,18 @@ def _profile_step(torch, label, fn):
 
 def _dry_run_cross_check(torch, label, step_fn, state, batch, step_s, peak_gb, smi):
     """Phase 14's step lowered on the meta device with the dry run's meters
-    (`launch/dryrun.py::Meters`: FlopCounterMode, MemTracker) beside one
-    real step on the card under FlopCounterMode: the two FLOP counts must
-    agree within 0.1 % (else the ops that differ are named and the phase
-    fails); the meta argument bytes beside the bytes of the state and
-    batch the card holds, MemTracker's peak beside `peak_gb` (logged
-    only), and MFU from the counted FLOPs at `step_s` beside 6 N T."""
+    (`launch/dryrun.py::Meters`: FlopCounterMode, CostCounter, MemTracker)
+    beside one real step on the card under FlopCounterMode and
+    CostCounter, in the dry run's order: the FLOPs, the bytes accessed and
+    the transcendentals must each agree within 0.1 % (else the ops that
+    differ are named and the phase fails); the meta argument bytes beside
+    the bytes of the state and batch the card holds, MemTracker's peak
+    beside `peak_gb`, MFU from the counted FLOPs at `step_s` beside 6 N T,
+    and the counted roofline max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s)
+    beside `step_s` (logged only)."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from repro_torch.launch.costcount import CostCounter
     from repro_torch.launch.dryrun import Meters, nbytes
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_map
@@ -4524,35 +4531,57 @@ def _dry_run_cross_check(torch, label, step_fn, state, batch, step_s, peak_gb, s
     rec = meters.record(argument)
     t_meta = time.perf_counter() - t0
     t0 = time.perf_counter()
-    counter = FlopCounterMode(display=False)
-    with counter:
+    counter, cost = FlopCounterMode(display=False), CostCounter()
+    with counter, cost:
         step_fn(state["params"], state["opt"], batch)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     meta_flops, card_flops = rec["cost"]["flops"], counter.get_total_flops()
     card_by_op = {str(op): int(n) for op, n in
                   counter.get_flop_counts().get("Global", {}).items()}
+    meta_bytes, card_bytes = rec["cost"]["bytes accessed"], cost.total_bytes()
+    meta_trans = rec["cost"]["transcendentals"]
+    card_trans = cost.total_transcendentals()
     held = nbytes(state) + nbytes(batch)
     peak = rec["memory"]["peak_bytes_per_device"]
     n_mm = _matmul_params(state["params"])
     tokens = TRAIN_SEQ * TRAIN_BATCH
     log(f"[{label} dry run] {smi}: meta step {t_meta:.1f} s, card step under "
-        f"FlopCounterMode {t_card:.1f} s; FLOPs meta {meta_flops:.6e} {rec['flops_by_op']}, "
-        f"card {card_flops:.6e} {card_by_op}, ratio {meta_flops / card_flops:.6f}")
+        f"FlopCounterMode and CostCounter {t_card:.1f} s; FLOPs meta {meta_flops:.6e} "
+        f"{rec['flops_by_op']}, card {card_flops:.6e} {card_by_op}, ratio "
+        f"{meta_flops / card_flops:.6f}")
     log(f"[{label} dry run] {smi}: argument bytes meta {argument:,}, the card's state + "
         f"batch {held:,}; MemTracker peak {peak / 1e9:.2f} GB "
         f"{rec['memory']['peak_by_category']}, measured peak {peak_gb:.2f} GB")
     log(f"[{label} dry run] {smi}: MFU from the counted FLOPs "
         f"{card_flops / step_s / BF16_FLOPS * 100:.2f} % ({card_flops:.4e} / "
         f"{step_s * 1e3:.1f} ms / 989 TFLOP/s), 6 N T {6 * n_mm * tokens / step_s / BF16_FLOPS * 100:.2f} %")
-    if abs(meta_flops / card_flops - 1) > 1e-3:
-        differ = {op: (rec["flops_by_op"].get(op, 0), card_by_op.get(op, 0))
-                  for op in set(rec["flops_by_op"]) | set(card_by_op)
-                  if rec["flops_by_op"].get(op, 0) != card_by_op.get(op, 0)}
-        raise AssertionError(f"[{label} dry run] meta and card FLOPs differ by more "
-                             f"than 0.1 %: (meta, card) by op {differ}")
+    log(f"[{label} dry run] {smi}: bytes accessed meta {meta_bytes:.6e}, card "
+        f"{card_bytes:.6e}, ratio {meta_bytes / card_bytes:.6f}; transcendentals meta "
+        f"{meta_trans:.6e}, card {card_trans:.6e}, ratio {meta_trans / card_trans:.6f}; "
+        f"card bytes by op {cost.by_op(cost.bytes_by_op)}")
+    t_flops, t_bytes = card_flops / BF16_FLOPS, card_bytes / HBM_BPS
+    log(f"[{label} dry run] {smi}: counted roofline max({card_flops:.4e} FLOPs / 989 "
+        f"TFLOP/s = {t_flops * 1e3:.1f} ms, {card_bytes:.4e} B / 3.35 TB/s = "
+        f"{t_bytes * 1e3:.1f} ms) = {max(t_flops, t_bytes) * 1e3:.1f} ms "
+        f"({'bytes' if t_bytes > t_flops else 'FLOPs'}), measured step "
+        f"{step_s * 1e3:.1f} ms: {max(t_flops, t_bytes) / step_s * 100:.2f} % of it")
+    pairs = {"FLOPs": (meta_flops, card_flops, rec["flops_by_op"], card_by_op),
+             "bytes accessed": (meta_bytes, card_bytes, rec["bytes_by_op"],
+                                dict(cost.bytes_by_op)),
+             "transcendentals": (meta_trans, card_trans, rec["transcendentals_by_op"],
+                                 dict(cost.transcendentals_by_op))}
+    for what, (meta_n, card_n, meta_ops, card_ops) in pairs.items():
+        if abs(meta_n / card_n - 1) > 1e-3:
+            differ = {op: (meta_ops.get(op, 0), card_ops.get(op, 0))
+                      for op in set(meta_ops) | set(card_ops)
+                      if meta_ops.get(op, 0) != card_ops.get(op, 0)}
+            raise AssertionError(f"[{label} dry run] meta and card {what} differ by more "
+                                 f"than 0.1 %: (meta, card) by op {differ}")
     return {"meta_flops": meta_flops, "card_flops": card_flops, "meta_argument": argument,
-            "card_held": held, "meta_peak": peak}
+            "card_held": held, "meta_peak": peak, "meta_bytes": meta_bytes,
+            "card_bytes": card_bytes, "meta_transcendentals": meta_trans,
+            "card_transcendentals": card_trans}
 
 
 def phase_train(torch, cfg, counters, smi=""):

@@ -18,9 +18,18 @@ moves between worlds.  Nothing is allocated and no GPU is needed.
 
 Each artifact carries the reference's keys:
   * `cost.flops_per_device` from `torch.utils.flop_counter.FlopCounterMode`
-    (products, convolutions and attention; `flops_by_op` splits it);
-    `transcendentals` and `bytes_accessed_per_device` are null, as it
-    counts neither (XLA counts every op);
+    (products, convolutions and attention; `flops_by_op` splits it).  The
+    reference's count, XLA's, also holds every elementwise op's FLOPs
+    (about 5 % of qwen3-1.7b train_4k's); the port's does not;
+  * `cost.bytes_accessed_per_device` and `cost.transcendentals` from
+    `launch.costcount.CostCounter` (`bytes_by_op`, `transcendentals_by_op`
+    split them): the bytes every aten op of the step reads and writes, each
+    op its own kernel as in the port's eager step, so XLA's "bytes
+    accessed" with no fusion (the reference's count fuses, and is lower),
+    collectives' operands and results under their own op names; and one
+    transcendental per output element of the ops XLA counts as such
+    (exp, log, rsqrt, the softmaxes, ...; the module's docstring has the
+    rules);
   * `memory.argument_bytes` / `output_bytes`: the bytes of the rank's
     state and batch (and cache) going in and of the step's results coming
     out, by group in `argument_bytes_by_group`;
@@ -39,10 +48,10 @@ Each artifact carries the reference's keys:
     seconds), `cost_method: "meta"`, and `kernels: "none"`: the train
     step and the fixed-batch steps reach no hand-written kernel (the
     torch lanes: no plan's matmul table, the dense attention forms), so
-    every product runs as a torch op that FlopCounterMode sees.  A kernel
-    wrapper handed meta tensors raises, as off the CPU it launches or
-    raises, so a path that reached one would fail its cell, not be
-    counted short (a ctypes launch is invisible to FlopCounterMode).
+    every op runs as a torch op that the counters see.  A kernel wrapper
+    handed meta tensors raises, as off the CPU it launches or raises, so a
+    path that reached one would fail its cell, not be counted short (a
+    ctypes launch is invisible to every dispatch mode).
 
 Training runs `mesh_train_step` with `TrainConfig(microbatches=
 REPRO_MICROBATCHES or 4, zero1=True)` and `remat="full"`, as the
@@ -88,6 +97,7 @@ from repro_torch.configs import (REGISTRY, SHAPES, ModelConfig, ShapeSpec, get_c
                                  input_specs, runnable)
 from repro_torch.distributed.collectives import count_collectives
 from repro_torch.distributed.sharding import axis_sizes, local_rows, local_shard
+from repro_torch.launch.costcount import CostCounter
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.launch.steps import (ServeMesh, TrainConfig, cost_dict, fixed_batch_rules,
                                       make_state_shardings, mesh_train_step, prefill_step,
@@ -163,10 +173,10 @@ def placement_bytes(shapes, shardings, mesh) -> int:
 
 
 class Meters:
-    """The counters of one meta run: FLOPs, the collective tally, torch's
-    CommDebugMode and MemTracker, with the state's tensors registered by
-    category (`params` as parameters, `opt` as optimizer state, `other`
-    as other) and the gradients as gradients once `gradients` is called
+    """The counters of one meta run: FLOPs, bytes accessed and
+    transcendentals, the collective tally, torch's CommDebugMode and
+    MemTracker, with the state's tensors registered by category (`params`
+    as parameters, `opt` as optimizer state, `other` as other) and the gradients as gradients once `gradients` is called
     with them (the train step's `on_grads`, after its backward: the port
     allocates each leaf's `.grad` at its first read in the forward, so
     until then MemTracker files them under activations)."""
@@ -175,6 +185,7 @@ class Meters:
         from torch.utils.flop_counter import FlopCounterMode
 
         self.flops = FlopCounterMode(display=False)
+        self.cost = CostCounter()
         self.mem, self.mem_note = None, None
         try:
             from torch.distributed._tools.mem_tracker import MemTracker, _MemRefType
@@ -205,13 +216,20 @@ class Meters:
             self.comm = stack.enter_context(CommDebugMode())
             stack.enter_context(self.flops)
             self.tally = stack.enter_context(count_collectives())
+            # last, so that it sees each op as the step calls it, before
+            # FlopCounterMode decomposes any
+            stack.enter_context(self.cost)
             yield
 
     def record(self, argument_bytes: int) -> Dict[str, Any]:
         by_op = {str(op): int(n) for op, n in
                  self.flops.get_flop_counts().get("Global", {}).items()}
-        out = {"cost": cost_dict({"flops": self.flops.get_total_flops()}),
-               "flops_by_op": by_op, "collectives": self.tally.as_dict(),
+        out = {"cost": cost_dict({"flops": self.flops.get_total_flops(),
+                                  "transcendentals": self.cost.total_transcendentals(),
+                                  "bytes accessed": self.cost.total_bytes()}),
+               "flops_by_op": by_op, "bytes_by_op": self.cost.by_op(self.cost.bytes_by_op),
+               "transcendentals_by_op": self.cost.by_op(self.cost.transcendentals_by_op),
+               "collectives": self.tally.as_dict(),
                "comm_debug_mode_count": int(self.comm.get_total_counts())}
         if self.mem is None:
             out["memory"] = {"temp_bytes": None, "peak_bytes_per_device": None,
@@ -326,7 +344,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "kernels": "none",
         "memory": rec.pop("memory"),
         "cost": {"flops_per_device": float(cost.get("flops", 0.0)),
-                 "transcendentals": None, "bytes_accessed_per_device": None},
+                 "transcendentals": float(cost.get("transcendentals", 0.0)),
+                 "bytes_accessed_per_device": float(cost.get("bytes accessed", 0.0))},
         **rec,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
@@ -355,6 +374,8 @@ def _summary(res: Dict[str, Any]) -> str:
     mem = res["memory"]
     peak = mem["peak_bytes_per_device"]
     lines = [f"  ok: {res['lower_s']}s, {res['cost']['flops_per_device']:.4e} flops/dev, "
+             f"{res['cost']['bytes_accessed_per_device']:.4e} bytes/dev, "
+             f"{res['cost']['transcendentals']:.4e} transcendentals/dev, "
              f"argument {mem['argument_bytes']:,} B, peak "
              f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}/dev, "
              f"{res['collectives']['total_bytes'] / 2**20:.1f} MiB collectives/dev "

@@ -15,10 +15,13 @@ JAX package's, on the CPU.
     placements exactly its argument bytes, the port's own cut less by the
     K / V projections it does not hold, FLOPs within 1 % of an analytic
     count of the step's products and attention and at most 1.05 x the
-    reference's, collectives logged beside the reference's; qwen3-1.7b
-    decode_32k at 16 x 16 lowering with the batch over "data" and the KV
-    cache's positions over "model" (1,879,048,192 bytes of K / V a
-    device); whisper-base decode_32k refused as the reference's placement
+    reference's, transcendentals within [0.8, 1.25] of the reference's,
+    bytes accessed logged beside the reference's and at least the
+    argument and output bytes, collectives logged beside the reference's;
+    qwen3-1.7b decode_32k at 16 x 16 lowering with the batch over "data"
+    and the KV cache's positions over "model" (1,879,048,192 bytes of K / V
+    a device, which with the parameters the step's bytes accessed cover);
+    whisper-base decode_32k refused as the reference's placement
     refuses it (1500 encoder positions do not split over 16); two cells
     the port refused under ROADMAP item 8c-ii lowering at one layer
     (qwen3-1.7b train across pods, qwen2-moe-a2.7b train with TP inside
@@ -29,7 +32,10 @@ JAX package's, on the CPU.
     positions and SSM state columns over "data") whose params, tokens and
     argument bytes equal XLA's `memory_analysis` of the JAX steps compiled
     on 8 forced host devices in a second subprocess (Auto-typed meshes),
-    the FLOP ratio logged and at most 1.05; and every module of
+    the FLOP ratio logged and at most 1.05, the transcendentals within
+    10 % of XLA's `cost_analysis` less the named terms only the port
+    computes, the bytes accessed logged beside XLA's and at least the
+    argument and output bytes; and every module of
     `repro_torch` imported with neither `jax` nor `repro` loaded.
 """
 
@@ -68,6 +74,9 @@ MINI = [("train", "train_4k", (2, 2), 32, 8, "qwen3-1.7b"),
         # the reference's (pod 2, data 2, model 2) miniature
         # (tests/test_distributed.py): the batch over pod x data
         ("train_pod", "train_4k", (2, 2, 2), 32, 8, "qwen3-1.7b")]
+# the miniature's decode cells whose KV positions are split over g ranks
+# ("kv_seq"; zamba2's SSM state columns too, over "data"): key -> g
+KV_SEQ = {"decode_kv_seq": 4, "decode_batch1": 2}
 # cells the port refused until training ran the pod axis and TP inside the
 # experts (ROADMAP item 8c-ii), lowered at one layer (REPRO_LAYERS=1; the
 # production run lowers every layer into artifacts/dryrun_torch/)
@@ -287,7 +296,10 @@ _JAX_CHILD = textwrap.dedent("""
             cost = cost_dict(lower(True).compile().cost_analysis())
         res[key] = {"argument_bytes": int(mem.argument_size_in_bytes),
                      "output_bytes": int(mem.output_size_in_bytes),
-                     "flops": float(cost["flops"]), "params": cfg.param_count(),
+                     "flops": float(cost["flops"]),
+                     "transcendentals": float(cost.get("transcendentals", 0.0)),
+                     "bytes_accessed": float(cost.get("bytes accessed", 0.0)),
+                     "params": cfg.param_count(),
                      "n_params": int(sum(x.size for x in jax.tree.leaves(params)))}
     json.dump(res, open(out, "w"))
 """)
@@ -381,8 +393,20 @@ def test_qwen3_train_4k_meets_the_reference_artifact(runs):
           f"{ref['cost']['flops_per_device']:.6e}, ratio {ratio:.4f}")
     assert abs(flops / want - 1) <= 0.01
     assert ratio <= 1.05
-    assert cell["cost"]["transcendentals"] is None
-    assert cell["cost"]["bytes_accessed_per_device"] is None
+
+    # CostCounter's two counters: the reference's transcendentals within
+    # [0.8, 1.25]; its bytes fuse, the port's count every op's
+    cost, ref_cost = cell["cost"], ref["cost"]
+    assert cost["transcendentals"] == sum(cell["transcendentals_by_op"].values())
+    assert cost["bytes_accessed_per_device"] == sum(cell["bytes_by_op"].values())
+    t_ratio = cost["transcendentals"] / ref_cost["transcendentals"]
+    print(f"transcendentals/device {cost['transcendentals']:.6e}, reference "
+          f"{ref_cost['transcendentals']:.6e}, ratio {t_ratio:.4f}; bytes accessed/device "
+          f"{cost['bytes_accessed_per_device']:.6e}, reference "
+          f"{ref_cost['bytes_accessed_per_device']:.6e}, ratio "
+          f"{cost['bytes_accessed_per_device'] / ref_cost['bytes_accessed_per_device']:.4f}")
+    assert 0.8 <= t_ratio <= 1.25
+    assert cost["bytes_accessed_per_device"] >= mem["argument_bytes"] + mem["output_bytes"]
 
     coll = cell["collectives"]
     print("collectives, port:", coll["counts"], coll["total_bytes"],
@@ -391,6 +415,10 @@ def test_qwen3_train_4k_meets_the_reference_artifact(runs):
     assert set(coll["counts"]) == set(ref["collectives"]["counts"])
     assert coll["counts"]["all-reduce"] > 0 and coll["counts"]["all-gather"] > 0
     assert coll["total_bytes"] == sum(coll["per_kind_bytes"].values()) > 0
+    # every group of the 16 x 16 mesh has 16 ranks, and every collective is
+    # one all-gather: CostCounter's operand and result bytes are the tally's
+    # operand bytes and 16 times them
+    assert cell["bytes_by_op"]["c10d._allgather_base_"] == 17 * coll["total_bytes"]
 
 
 @pytest.mark.parametrize("arch,shape,multi_pod", LOWERED,
@@ -427,6 +455,11 @@ def test_qwen3_decode_32k_lowers_with_the_kv_positions_over_model(runs):
     assert cache["k"] + cache["v"] == kv, cache
     assert cache["tokens"] == 8 * 4 and cache["lengths"] == 8 * 4
     assert cell["tokens"] == 128 and cell["kind"] == "decode"
+    # the step reads at least the rank's parameters and its K / V
+    moved = cell["cost"]["bytes_accessed_per_device"]
+    print(f"decode_32k bytes accessed/device {moved:.6e}, parameters + K / V "
+          f"{cache['params'] + kv:.6e}")
+    assert moved >= cache["params"] + kv
     assert cell["collectives"]["counts"]["all-gather"] > 0
 
 
@@ -442,6 +475,36 @@ def test_whisper_decode_32k_is_refused_as_the_reference_refuses_it(runs):
     assert "1500" in cell["error"] and "16 blocks" in cell["error"]
 
 
+def _port_only_transcendentals(kind, cfg, rows, train):
+    """The transcendentals the port's step computes and XLA's program does
+    not, each derived from the config:
+      * the RoPE frequency table `theta ** (2i / hd)`, hd / 2 elements: the
+        port computes it at every rotation (q and k, each attention layer,
+        in training each microbatch's forward and remat's recompute), XLA
+        folds it into a constant;
+      * where "kv_seq" splits the KV positions over g ranks, the decode's
+        log-sum-exp merge of the ranks' partials: one exp per (attention
+        layer, row, head, rank), where GSPMD's partitioned softmax has none;
+      * zamba2's batch-1 decode, "ssm_state" over the same g ranks: the port
+        runs each mamba layer's elementwise work whole on every rank (silu
+        of the conv output and of z, softplus's exp and log1p, exp(A_log),
+        exp(dt A)), where GSPMD spreads it over the g ranks: (1 - 1/g) of
+        it a rank."""
+    attn_layers = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+    passes = 2 * 2 if train else 1            # the miniature's 2 microbatches x 2
+    rope = 2 * attn_layers * passes * cfg.hd // 2
+    g = KV_SEQ.get(kind, 1)
+    if g == 1:
+        return rope
+    merge = attn_layers * rows * cfg.n_heads * g
+    if cfg.family != "hybrid":
+        return rope + merge
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = d_in // cfg.ssm_head_dim
+    per_layer = (d_in + 2 * cfg.ssm_state) + d_in + 4 * nh
+    return rope + merge + cfg.n_layers * rows * per_layer * (g - 1) // g
+
+
 @pytest.mark.parametrize("kind", [m[0] for m in MINI])
 def test_miniature_matches_xla_memory_analysis(runs, kind):
     got, want = runs["port"]["mini"][kind], runs["jax"][kind]
@@ -453,10 +516,22 @@ def test_miniature_matches_xla_memory_analysis(runs, kind):
     # the port does not
     assert got["memory"]["argument_bytes"] == want["argument_bytes"]
     ratio = got["cost"]["flops_per_device"] / want["flops"]
+    cost = got["cost"]
+    port_only = _port_only_transcendentals(kind, get_config(arch).reduced(), b,
+                                           SHAPES[name].kind == "train")
+    t_ratio = (cost["transcendentals"] - port_only) / want["transcendentals"]
+    b_ratio = cost["bytes_accessed_per_device"] / want["bytes_accessed"]
     print(f"{kind}: flops port {got['cost']['flops_per_device']:.6e}, XLA "
           f"{want['flops']:.6e}, ratio {ratio:.4f}; output bytes port "
-          f"{got['memory']['output_bytes']}, XLA {want['output_bytes']}")
+          f"{got['memory']['output_bytes']}, XLA {want['output_bytes']}; "
+          f"transcendentals port {cost['transcendentals']:.0f} less {port_only} "
+          f"port-only, XLA {want['transcendentals']:.0f}, ratio {t_ratio:.4f}; bytes "
+          f"accessed port {cost['bytes_accessed_per_device']:.6e}, XLA "
+          f"{want['bytes_accessed']:.6e}, ratio {b_ratio:.4f}")
     assert 0 < ratio <= 1.05
+    assert abs(t_ratio - 1) <= 0.1
+    mem = got["memory"]
+    assert cost["bytes_accessed_per_device"] >= mem["argument_bytes"] + mem["output_bytes"]
 
 
 def test_no_module_of_the_port_imports_jax_or_repro(runs):
